@@ -1,0 +1,1 @@
+"""Subpackage of tuplewise_tpu_torch (see the package docstring)."""

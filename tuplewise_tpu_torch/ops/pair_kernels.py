@@ -1,0 +1,211 @@
+"""Complete-U pair sums for score-difference kernels: the CUDA kernels of
+``csrc/pair_sum.cu`` and their plain PyTorch versions.
+
+The counterpart of ``tuplewise_tpu.ops.pallas_pairs`` (``pallas_pair_sum``,
+``pallas_masked_pair_sum``, ``pallas_pair_sum_any``), with the same value
+contracts:
+
+* ``pair_sum(a, b)``: sum of g(a_i - b_j) over the full grid; the count
+  is n1 * n2, which the caller forms as a Python int.
+* ``masked_pair_sum(a, b, ma, mb)``: sum of g(a_i - b_j) * ma_i * mb_j;
+  the caller recovers the count as sum(ma) * sum(mb).
+* ``pair_sum_any``: the any-size unmasked sum. The CUDA kernel masks the
+  ragged edge itself, so this is ``pair_sum``.
+
+Inputs are [n] vectors or [W, n] batches of W independent problems
+(workers of a local round, Monte-Carlo reps); the result is a float64
+tensor of shape [] or [W].
+
+Dispatch. A tensor on the CPU takes the plain version. A CUDA tensor
+launches the kernel, or raises: nothing falls back from a kernel that
+fails to build or launch. ``impl="plain"`` is the one explicit route to
+the plain version on the card (the counterpart of the JAX ``impl="xla"``).
+A diff kernel without a CUDA body (a user-registered kernel) runs the
+plain tiled version on every device.
+
+``LAUNCHES`` counts kernel launches per ``"<wrapper>[<kernel name>]"``:
+a wrapper adds one where it launches its kernel and nowhere else.
+"""
+
+from __future__ import annotations
+
+import collections
+import ctypes
+from typing import Optional
+
+import torch
+
+from tuplewise_tpu_torch.ops.kernels import Kernel
+
+LAUNCHES: collections.Counter = collections.Counter()
+
+_SOURCE = "pair_sum.cu"
+_MAX_GRID_YZ = 65535
+# element budget of one plain tile [W, rows, cols]: bounds the plain
+# version's temporaries (float32) to 4 * budget bytes each
+_PLAIN_TILE_ELEMS = {"cpu": 1 << 22, "cuda": 1 << 26}
+
+
+def reset_launch_counts() -> None:
+    LAUNCHES.clear()
+
+
+def _check_kernel(kernel: Kernel) -> None:
+    if kernel.kind != "diff":
+        raise ValueError(
+            f"pair sums handle diff kernels only, got {kernel.name!r} "
+            f"(kind={kernel.kind})"
+        )
+
+
+# --------------------------------------------------------------------- #
+# plain versions                                                         #
+# --------------------------------------------------------------------- #
+
+def _plain(a, b, ma, mb, kernel: Kernel) -> torch.Tensor:
+    """Tiled sum over [W, n1] x [W, n2]; float32 values, float64 sums."""
+    squeeze = a.dim() == 1
+    if squeeze:
+        a, b = a[None], b[None]
+        ma = None if ma is None else ma[None]
+        mb = None if mb is None else mb[None]
+    W, n1 = a.shape
+    n2 = b.shape[1]
+    budget = _PLAIN_TILE_ELEMS["cuda" if a.is_cuda else "cpu"]
+    cols = max(1, min(n2, budget // W))
+    rows = max(1, min(n1, budget // (W * cols)))
+    total = torch.zeros(W, dtype=torch.float64, device=a.device)
+    for j0 in range(0, n2, cols):
+        bj = b[:, None, j0:j0 + cols]
+        for i0 in range(0, n1, rows):
+            vals = kernel.diff(a[:, i0:i0 + rows, None] - bj)
+            if mb is not None:
+                vals = vals * mb[:, None, j0:j0 + cols]
+            if ma is not None:
+                vals = vals * ma[:, i0:i0 + rows, None]
+            total += vals.sum(dim=(1, 2), dtype=torch.float64)
+    return total[0] if squeeze else total
+
+
+def pair_sum_plain(a, b, kernel: Kernel) -> torch.Tensor:
+    """Plain PyTorch ``pair_sum`` (same shapes and value contract)."""
+    _check_kernel(kernel)
+    return _plain(a, b, None, None, kernel)
+
+
+def masked_pair_sum_plain(a, b, ma, mb, kernel: Kernel) -> torch.Tensor:
+    """Plain PyTorch ``masked_pair_sum`` (same shapes and value contract)."""
+    _check_kernel(kernel)
+    return _plain(a, b, ma, mb, kernel)
+
+
+# --------------------------------------------------------------------- #
+# CUDA launch                                                            #
+# --------------------------------------------------------------------- #
+
+def load_library():
+    """Build (at first use) and load the pair-sum library."""
+    from tuplewise_tpu_torch.ops import _build
+
+    lib = _build.load(_SOURCE)
+    if not getattr(lib, "_tw_typed", False):
+        p, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+        lib.tw_pair_sum.argtypes = [p, p, p, p, p, ll, ll, i, i, i, p]
+        lib.tw_pair_sum.restype = i
+        lib.tw_pair_tile_a.restype = i
+        lib.tw_pair_tile_b.restype = i
+        # compile-time tile sizes, read once
+        lib.tile_a, lib.tile_b = lib.tw_pair_tile_a(), lib.tw_pair_tile_b()
+        lib._tw_typed = True
+    return lib
+
+
+def _check_tensors(*ts) -> None:
+    a = ts[0]
+    for t in ts:
+        if t.device != a.device:
+            raise ValueError(f"tensors on {a.device} and {t.device}")
+        if t.dtype != torch.float32:
+            raise TypeError(f"the CUDA pair kernel takes float32, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError("the CUDA pair kernel takes contiguous tensors")
+
+
+def _launch(name, a, b, ma, mb, kernel: Kernel) -> torch.Tensor:
+    masked = ma is not None
+    squeeze = a.dim() == 1
+    if squeeze:
+        a, b = a[None], b[None]
+        ma = None if ma is None else ma[None]
+        mb = None if mb is None else mb[None]
+    _check_tensors(a, b, *((ma, mb) if masked else ()))
+    if a.dim() != 2 or b.dim() != 2 or a.shape[0] != b.shape[0]:
+        raise ValueError(
+            f"expected a [W, n1] and b [W, n2], got {tuple(a.shape)} and "
+            f"{tuple(b.shape)}"
+        )
+    if masked and (ma.shape != a.shape or mb.shape != b.shape):
+        raise ValueError("masks must have the shapes of their scores")
+    W, n1 = a.shape
+    n2 = b.shape[1]
+    if n1 == 0 or n2 == 0 or W == 0:
+        out = torch.zeros(W, dtype=torch.float64, device=a.device)
+        return out[0] if squeeze else out
+    lib = load_library()
+    gx, gy = -(-n1 // lib.tile_a), -(-n2 // lib.tile_b)
+    if gy > _MAX_GRID_YZ or W > _MAX_GRID_YZ:
+        raise ValueError(
+            f"n2={n2} needs {gy} column tiles and W={W} problems; the CUDA "
+            f"grid takes at most {_MAX_GRID_YZ} of each"
+        )
+    partials = torch.empty((W, gy, gx), dtype=torch.float32, device=a.device)
+    with torch.cuda.device(a.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.tw_pair_sum(
+            a.data_ptr(), b.data_ptr(),
+            ma.data_ptr() if masked else None,
+            mb.data_ptr() if masked else None,
+            partials.data_ptr(), n1, n2, W, kernel.cuda_body, int(masked),
+            stream,
+        )
+    if err != 0:
+        raise RuntimeError(
+            f"{name} CUDA launch failed: cudaError {err} "
+            f"(W={W}, n1={n1}, n2={n2}, kernel={kernel.name})"
+        )
+    LAUNCHES[f"{name}[{kernel.name}]"] += 1
+    out = partials.to(torch.float64).sum(dim=(1, 2))
+    return out[0] if squeeze else out
+
+
+def _dispatch(name, a, b, ma, mb, kernel: Kernel, impl: Optional[str]):
+    _check_kernel(kernel)
+    if impl not in (None, "kernel", "plain"):
+        raise ValueError(f"impl must be 'kernel' or 'plain', got {impl!r}")
+    if a.is_cuda and impl != "plain" and kernel.cuda_body is not None:
+        return _launch(name, a, b, ma, mb, kernel)
+    return _plain(a, b, ma, mb, kernel)
+
+
+def pair_sum(a, b, kernel: Kernel, impl: Optional[str] = None):
+    """Sum of g(a_i - b_j) over the full grid, for [n] or [W, n] inputs
+    (float64 result of shape [] or [W]); count = n1 * n2.
+
+    CUDA tensors launch the CUDA kernel (or raise); CPU tensors take
+    ``pair_sum_plain``; ``impl="plain"`` forces the plain version. A
+    kernel without a CUDA body runs the plain tiled version."""
+    return _dispatch("pair_sum", a, b, None, None, kernel, impl)
+
+
+def masked_pair_sum(a, b, ma, mb, kernel: Kernel,
+                    impl: Optional[str] = None):
+    """Weighted sum of g(a_i - b_j) * ma_i * mb_j for [n] or [W, n]
+    inputs; the caller's count is sum(ma) * sum(mb). Dispatch as in
+    :func:`pair_sum`."""
+    return _dispatch("masked_pair_sum", a, b, ma, mb, kernel, impl)
+
+
+def pair_sum_any(a, b, kernel: Kernel, impl: Optional[str] = None):
+    """Any-size unmasked sum (the ``pallas_pair_sum_any`` contract): the
+    CUDA kernel takes any size, so this is :func:`pair_sum`."""
+    return pair_sum(a, b, kernel, impl)
