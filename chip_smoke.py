@@ -6,9 +6,10 @@ NVIDIA H100:
 
     python3 chip_smoke.py
 
-It builds the CUDA pair kernels from tuplewise_tpu_torch/csrc with nvcc,
-then runs five phases. Each phase asserts what it checks, and nothing is
-caught: any failure exits nonzero.
+It builds the CUDA kernels from tuplewise_tpu_torch/csrc with nvcc (one
+nvcc per source, all started together), then runs the phases below. Each
+phase asserts what it checks, and nothing is caught: any failure exits
+nonzero. Each phase prints its seconds.
 
 1. Build: compile the kernels and print the build seconds.
 2. Kernel vs plain: pair_sum and masked_pair_sum for auc, hinge and
@@ -35,21 +36,56 @@ caught: any failure exits nonzero.
    full-size error of the mean is the row's max_abs_err (phase 2's is
    max_abs_err_small).
 
-The launch counters are set to 0 before phase 3 and read after phase 4:
-every kernel must have been launched on the main path. The script prints
-one JSON line of kernels, the card's name and power limit as nvidia-smi
-reports them, and, last, {"ok": true, "device": {...}}. Without a CUDA
-device, or without the package beside it, it exits nonzero and prints no
-result.
+6. Gradient kernels vs plain (the learner's slice): pair_loss_grad and
+   pair_grad_sums for hinge and logistic at a ragged size (4133 x 8197),
+   batched (W = 8), at the simulated learner's batch (W = 1536, 16 x 16)
+   and at the trainer's headline (W = 1, 5e5 x 5e5), against one plain
+   pair_loss_grad per shape and body. hinge row and col must be equal
+   (integer counts); logistic row and col within rel 1e-4 per element
+   (float32 sums of up to 5e5 same-signed terms in different orders);
+   losses within rel 1e-5 of the plain loss and rel 1e-6 of pair_sum of
+   the same body. The loss+grad and grad-only kernels must give equal row
+   and col. At the headline each kernel is timed against its plain
+   version and its bound.
+7. Training at full width (BASELINE config 2 at the size of
+   scripts/learning_suite.py stage_chip): train_pairwise on the default
+   device, hinge, n = 5e5 per class, dim 5, for repartition_every in
+   {1, 10, never} x loss_every in {1, never}, each warmed once and timed
+   over 20 steps with CUDA events; held-out AUC after 20 steps >= 0.75
+   and above the initial AUC, and the recorded loss falls. One logistic
+   run (loss_every = 2, 4 steps) launches the other body.
+8. Resume is exact: 20 steps in one call equal, bit for bit, 7 steps, a
+   checkpoint and a resumed call (n = 2^16 per class, 4 workers).
+9. Kernel trajectory vs plain: 20 hinge steps with the kernels and with
+   impl="plain" (n = 2^14 per class) agree within rel 1e-6.
+10. Simulated learner: one train_curves cell of learning_suite's gauss
+   sweep (n = 512, dim 10, N = 32, n_r = 5, S = 48, 500 steps), timed;
+   over 20 steps its replica 0 agrees with train_pairwise within rel 1e-4.
+
+The launch counters are set to 0 before phase 3 and read after phase 4,
+and set to 0 again before phase 7 and read after it: every kernel must
+have been launched on its path (pair sums on the estimator's, gradient
+kernels on the trainer's). The script prints one JSON line of kernels,
+the card's name and power limit as nvidia-smi reports them, and, last,
+{"ok": true, "device": {...}}. Without a CUDA device, or without the
+package beside it, it exits nonzero and prints no result.
+
+cuBLAS is made reproducible (CUBLAS_WORKSPACE_CONFIG=:4096:8, set before
+the first CUDA call) so that the scorer's products, and with them the
+resumed run of phase 8, repeat bit for bit; TF32 stays off.
 """
 
+import concurrent.futures
+import dataclasses
 import json
 import math
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
+import numpy as np
 import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -68,11 +104,27 @@ PEAK_BYTES = 3.35e12
 # adds a multiply. exp and log1p count as one operation each, which makes
 # the bound a lower one.
 OPS_PER_PAIR = {"auc": 5, "hinge": 4, "logistic": 7}
+# the gradient kernels, counted the same way: the subtraction, g' (hinge:
+# a compare and a select; logistic: exp, add, reciprocal, negation) and
+# the row and col adds; the loss adds the g body and its add
+GRAD_OPS_PER_PAIR = {
+    "pair_grad_sums": {"hinge": 5, "logistic": 7},
+    "pair_loss_grad": {"hinge": 8, "logistic": 13},
+}
 REPLACES = {
     "pair_sum": "tuplewise_tpu/ops/pallas_pairs.py:134",
     "masked_pair_sum": "tuplewise_tpu/ops/pallas_pairs.py:300",
+    "pair_loss_grad": "tuplewise_tpu/ops/pallas_pairs.py:440",
+    "pair_grad_sums": "tuplewise_tpu/ops/pallas_pairs.py:520",
 }
-SOURCE = "tuplewise_tpu_torch/csrc/pair_sum.cu"
+SOURCES = {
+    "pair_sum": "tuplewise_tpu_torch/csrc/pair_sum.cu",
+    "masked_pair_sum": "tuplewise_tpu_torch/csrc/pair_sum.cu",
+    "pair_loss_grad": "tuplewise_tpu_torch/csrc/pair_grad.cu",
+    "pair_grad_sums": "tuplewise_tpu_torch/csrc/pair_grad.cu",
+}
+GRAD_NAMES = ("hinge", "logistic")
+NEVER = 1 << 30
 
 
 def log(*a):
@@ -101,11 +153,15 @@ def card_line():
 
 
 def phase_build():
-    from tuplewise_tpu_torch.ops import _build, pair_kernels
+    from tuplewise_tpu_torch.ops import _build, pair_grad_kernels, pair_kernels
 
     t0 = time.perf_counter()
+    sources = sorted({os.path.basename(p) for p in SOURCES.values()})
+    with concurrent.futures.ThreadPoolExecutor(len(sources)) as ex:
+        list(ex.map(_build.build, sources))
     pair_kernels.load_library()
-    log(f"[build] {SOURCE} built and loaded in "
+    pair_grad_kernels.load_library()
+    log(f"[build] {', '.join(sources)} built and loaded in "
         f"{time.perf_counter() - t0:.2f} s (nvcc {_build.BUILD_SECONDS})")
 
 
@@ -299,7 +355,7 @@ def phase_timing(errs, launches, i1, i2):
             library_ms, _ = cuda_ms(lambda: rank_auc(a, b), reps=3)
         bms, by = bound_ms(name, float(n * n), False, 2 * n)
         rows.append(dict(
-            name=f"pair_sum[{name}]", route="cuda", source=SOURCE,
+            name=f"pair_sum[{name}]", route="cuda", source=SOURCES["pair_sum"],
             replaces=REPLACES["pair_sum"],
             launches=launches.get(f"pair_sum[{name}]", 0),
             max_abs_err=err, max_abs_err_small=errs[f"pair_sum[{name}]"],
@@ -318,7 +374,8 @@ def phase_timing(errs, launches, i1, i2):
         bms, by = bound_ms(name, masked_pairs, True,
                            2 * (i1.numel() + i2.numel()))
         rows.append(dict(
-            name=f"masked_pair_sum[{name}]", route="cuda", source=SOURCE,
+            name=f"masked_pair_sum[{name}]", route="cuda",
+            source=SOURCES["masked_pair_sum"],
             replaces=REPLACES["masked_pair_sum"],
             launches=launches.get(f"masked_pair_sum[{name}]", 0),
             max_abs_err=err,
@@ -333,41 +390,335 @@ def phase_timing(errs, launches, i1, i2):
     return rows
 
 
+def grad_bound_ms(wrapper, name, pairs, n_scores):
+    """Bound of a gradient kernel: operations at the FP32 peak, or bytes
+    (inputs read once, row and col written once, the loss) at HBM rate."""
+    ops = pairs * GRAD_OPS_PER_PAIR[wrapper][name]
+    byts = 4 * 2 * n_scores + 8
+    by = "operations" if ops / PEAK_FP32_OPS >= byts / PEAK_BYTES else "bytes"
+    return max(ops / PEAK_FP32_OPS, byts / PEAK_BYTES) * 1e3, by
+
+
+def check_grad(name, got, want, what):
+    """Hold row and col of a gradient kernel against the plain version:
+    hinge equal, logistic within rel 1e-4 per element. Returns the
+    largest absolute error over row and col."""
+    torch.cuda.synchronize()
+    err = 0.0
+    for g, w in zip(got, want):
+        if name == "hinge":
+            assert torch.equal(g, w), (name, what)
+        else:
+            rel = float(((g.double() - w.double()).abs()
+                         / w.double().abs()).max())
+            assert rel < 1e-4, (name, what, rel)
+        err = max(err, float((g.double() - w.double()).abs().max()))
+    return err
+
+
+def phase_grad_vs_plain():
+    """Phase 6: both gradient kernels against one plain pair_loss_grad per
+    shape and body; at the headline shape also the timing rows."""
+    from tuplewise_tpu_torch.ops import pair_grad_kernels as pg
+    from tuplewise_tpu_torch.ops import pair_kernels as pk
+    from tuplewise_tpu_torch.ops.kernels import get_kernel
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 4)
+    rows = []
+    headline = (1, 500_000, 500_000)
+    for W, n1, n2 in [(1, 4133, 8197), (8, 4133, 8197), (1536, 16, 16),
+                      headline]:
+        # scores of a scorer early in training: the two classes overlap,
+        # so both sides of the hinge's kink are well populated
+        a = torch.randn(W, n1, generator=g, device="cuda") * 0.5 + 0.3
+        b = torch.randn(W, n2, generator=g, device="cuda") * 0.5
+        timed = (W, n1, n2) == headline
+        for name in GRAD_NAMES:
+            k = get_kernel(name)
+            if timed:
+                cuda_ms(lambda: pg.pair_loss_grad(a, b, k))     # warm-up
+                ms_lg, (loss, row, col) = cuda_ms(
+                    lambda: pg.pair_loss_grad(a, b, k), reps=3)
+                ms_gs, (row2, col2) = cuda_ms(
+                    lambda: pg.pair_grad_sums(a, b, k), reps=3)
+                plain_ms, (lp, rp, cp) = cuda_ms(
+                    lambda: pg.pair_loss_grad(a, b, k, impl="plain"))
+            else:
+                loss, row, col = pg.pair_loss_grad(a, b, k)
+                row2, col2 = pg.pair_grad_sums(a, b, k)
+                lp, rp, cp = pg.pair_loss_grad(a, b, k, impl="plain")
+            what = (name, W, n1, n2)
+            err = check_grad(name, (row, col), (rp, cp), what)
+            err2 = check_grad(name, (row2, col2), (rp, cp), what)
+            assert torch.equal(row, row2) and torch.equal(col, col2), what
+            rel = float(((loss - lp).abs() / lp.abs()).max())
+            assert rel < 1e-5, ("loss vs plain", what, rel)
+            ps = pk.pair_sum(a, b, k)
+            rel_ps = float(((loss - ps).abs() / ps.abs()).max())
+            assert rel_ps < 1e-6, ("loss vs pair_sum", what, rel_ps)
+            log(f"[grad vs plain] W={W} {n1}x{n2} {name:8s}: row/col "
+                f"{'equal' if name == 'hinge' else 'within rel 1e-4'} "
+                f"(max abs err {max(err, err2):.3g}), loss rel err {rel:.2e} "
+                f"vs plain, {rel_ps:.2e} vs pair_sum; loss+grad and "
+                f"grad-only row/col equal")
+            if not timed:
+                continue
+            pairs = float(n1) * n2 * W
+            loss_err = float((loss - lp).abs().max()) / pairs
+            for wrapper, ms, e in [("pair_loss_grad", ms_lg, err),
+                                   ("pair_grad_sums", ms_gs, err2)]:
+                bms, by = grad_bound_ms(wrapper, name, pairs, W * (n1 + n2))
+                rows.append(dict(
+                    name=f"{wrapper}[{name}]", route="cuda",
+                    source=SOURCES[wrapper], replaces=REPLACES[wrapper],
+                    launches=None, max_abs_err=e,
+                    loss_err_of_mean=(loss_err if wrapper == "pair_loss_grad"
+                                      else None),
+                    ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                    library_ms=None, shape=f"W={W} {n1}x{n2}",
+                    scratch_bytes=pg.scratch_bytes(
+                        n1, n2, W, wrapper == "pair_loss_grad")))
+                r = rows[-1]
+                log(f"[timing] {r['name']:24s} {r['shape']:22s} "
+                    f"{ms:9.2f} ms (bound {bms:.2f} ms by {by}, plain "
+                    f"{plain_ms:.1f} ms, library None); max abs err of "
+                    f"row/col vs plain {e:.3g}; scratch "
+                    f"{r['scratch_bytes'] / 1e6:.1f} MB")
+    return rows
+
+
+def train_data():
+    from tuplewise_tpu_torch.data import make_gaussian_splits
+
+    return make_gaussian_splits(500_000, 125_000, dim=5, seed=0)
+
+
+def phase_train(data):
+    """Phase 7: the trainer at full width; the path whose launches count
+    for the gradient kernels."""
+    from tuplewise_tpu_torch.models.pairwise_sgd import (
+        TrainConfig, evaluate_auc, train_pairwise,
+    )
+    from tuplewise_tpu_torch.models.scorers import LinearScorer
+
+    Xp, Xn, Xp_te, Xn_te = data
+    scorer = LinearScorer(dim=5)
+    p0 = scorer.init(0)
+    auc0 = evaluate_auc(scorer, p0, Xp_te, Xn_te)
+    pairs = float(len(Xp)) * len(Xn)
+    rows = []
+    for nr in (1, 10, NEVER):
+        for le in (1, NEVER):
+            cfg = TrainConfig(kernel="hinge", lr=0.3, n_workers=1,
+                              repartition_every=nr, seed=7, tile=2048,
+                              loss_every=le, steps=20)
+            train_pairwise(scorer, p0, Xp, Xn,
+                           dataclasses.replace(cfg, steps=2))  # warm-up
+            ms, (params, hist) = cuda_ms(
+                lambda: train_pairwise(scorer, p0, Xp, Xn, cfg))
+            auc = evaluate_auc(scorer, params, Xp_te, Xn_te)
+            loss = hist["loss"]
+            assert loss.shape == (20,) and np.isfinite(loss[0]), loss
+            if le == NEVER:
+                assert np.isnan(loss[1:]).all(), loss
+            else:
+                assert np.isfinite(loss).all() and loss[-1] < loss[0], loss
+            assert auc >= 0.75 and auc > auc0, (nr, le, auc, auc0)
+            row = dict(repartition_every=None if nr == NEVER else nr,
+                       loss_every=None if le == NEVER else le, ms=ms,
+                       steps_per_s=20 / ms * 1e3,
+                       grad_pairs_per_s=20 * pairs / ms * 1e3,
+                       auc_test_before=auc0, auc_test_after=auc,
+                       loss_first=float(loss[0]),
+                       loss_last=float(loss[-1]) if le == 1 else None)
+            rows.append(row)
+            log(f"[train] hinge n=5e5/class n_r={row['repartition_every']} "
+                f"loss_every={row['loss_every']}: {row['steps_per_s']:.3f} "
+                f"steps/s, {row['grad_pairs_per_s']:.4g} grad-pairs/s "
+                f"({ms:.1f} ms for 20 steps); test AUC {auc0:.5f} -> "
+                f"{auc:.5f}; loss {loss[0]:.5f} -> {row['loss_last']}")
+    cfg = TrainConfig(kernel="logistic", lr=0.3, n_workers=1,
+                      repartition_every=10, seed=7, tile=2048, loss_every=2,
+                      steps=4)
+    ms, (params, hist) = cuda_ms(
+        lambda: train_pairwise(scorer, p0, Xp, Xn, cfg))
+    loss = hist["loss"]
+    assert np.isfinite(loss[::2]).all() and np.isnan(loss[1::2]).all(), loss
+    assert loss[2] < loss[0], loss
+    auc = evaluate_auc(scorer, params, Xp_te, Xn_te)
+    assert auc > auc0, (auc, auc0)
+    log(f"[train] logistic n=5e5/class loss_every=2: 4 steps in {ms:.1f} ms; "
+        f"loss {loss[0]:.5f} -> {loss[2]:.5f}; test AUC {auc:.5f}")
+    return rows
+
+
+def phase_resume():
+    """Phase 8: a chunked, checkpointed and resumed run equals the uncut
+    one bit for bit."""
+    from tuplewise_tpu_torch.data import make_gaussian_splits
+    from tuplewise_tpu_torch.models.pairwise_sgd import (
+        TrainConfig, train_pairwise,
+    )
+    from tuplewise_tpu_torch.models.scorers import LinearScorer
+
+    Xp, Xn, _, _ = make_gaussian_splits(1 << 16, 1000, dim=5, seed=1)
+    scorer = LinearScorer(dim=5)
+    p0 = scorer.init(0)
+    cfg = TrainConfig(kernel="hinge", lr=0.3, steps=20, n_workers=4,
+                      repartition_every=5, seed=7, loss_every=3)
+    p_full, h_full = train_pairwise(scorer, p0, Xp, Xn, cfg)
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "train.npz")
+        train_pairwise(scorer, p0, Xp, Xn, dataclasses.replace(cfg, steps=7),
+                       checkpoint_path=path)
+        p_res, h_res = train_pairwise(scorer, p0, Xp, Xn, cfg,
+                                      checkpoint_path=path)
+    for k in p_full:
+        assert p_full[k].tobytes() == p_res[k].tobytes(), k
+    assert h_full["loss"].tobytes() == h_res["loss"].tobytes()
+    log(f"[resume] 20 steps = 7 steps + checkpoint + 13 resumed, bit for "
+        f"bit (params {sorted(p_full)}, loss history of "
+        f"{len(h_full['loss'])})")
+
+
+def rel_diff(p, q):
+    """Largest parameter difference relative to the largest parameter."""
+    diff = max(float(np.abs(p[k] - q[k]).max()) for k in q)
+    return diff / max(float(np.abs(q[k]).max()) for k in q)
+
+
+def phase_plain_trajectory():
+    """Phase 9: the kernels' trajectory against the plain versions'."""
+    from tuplewise_tpu_torch.data import make_gaussian_splits
+    from tuplewise_tpu_torch.models.pairwise_sgd import (
+        TrainConfig, train_pairwise,
+    )
+    from tuplewise_tpu_torch.models.scorers import LinearScorer
+
+    Xp, Xn, _, _ = make_gaussian_splits(1 << 14, 1000, dim=5, seed=2)
+    scorer = LinearScorer(dim=5)
+    p0 = scorer.init(0)
+    cfg = TrainConfig(kernel="hinge", lr=0.3, steps=20, n_workers=1,
+                      repartition_every=10, seed=7)
+    p_k, h_k = train_pairwise(scorer, p0, Xp, Xn, cfg)
+    p_p, h_p = train_pairwise(scorer, p0, Xp, Xn, cfg, impl="plain")
+    rel = rel_diff(p_k, p_p)
+    assert rel < 1e-6, rel
+    log(f"[kernel vs plain trajectory] 20 hinge steps at n=2^14/class: "
+        f"params rel diff {rel:.3g}, final loss {h_k['loss'][-1]:.6f} / "
+        f"{h_p['loss'][-1]:.6f}")
+
+
+def phase_sim_learner():
+    """Phase 10: one train_curves cell of the gauss sweep."""
+    from tuplewise_tpu_torch.data import make_gaussian_splits
+    from tuplewise_tpu_torch.models.pairwise_sgd import (
+        TrainConfig, train_pairwise,
+    )
+    from tuplewise_tpu_torch.models.scorers import LinearScorer
+    from tuplewise_tpu_torch.models.sim_learner import (
+        curve_record, train_curves,
+    )
+
+    Xp, Xn, Xp_te, Xn_te = make_gaussian_splits(512, 20000, dim=10,
+                                                separation=0.8, seed=0)
+    scorer = LinearScorer(dim=10)
+    p0 = scorer.init(0)
+    cfg = TrainConfig(kernel="hinge", lr=0.3, steps=500, seed=1000,
+                      n_workers=32, repartition_every=5)
+    S = 48
+    t0 = time.perf_counter()
+    out = train_curves(scorer, p0, Xp, Xn, Xp_te, Xn_te, cfg, n_seeds=S,
+                       eval_every=25)
+    wall = time.perf_counter() - t0
+    rec = curve_record(cfg, out, S)
+    assert out["test_auc"].shape == (S, 21) and np.isfinite(out["loss"]).all()
+    assert rec["final_auc_mean"] > out["test_auc"][:, 0].mean()
+    log(f"[sim learner] gauss cell n=512 N=32 n_r=5 S=48 500 steps: "
+        f"{wall:.2f} s wall-clock; test AUC {out['test_auc'][:, 0].mean():.5f}"
+        f" -> {rec['final_auc_mean']:.5f} +- {rec['final_auc_se']:.5f}")
+    short = dataclasses.replace(cfg, steps=20)
+    out = train_curves(scorer, p0, Xp, Xn, Xp_te, Xn_te, short, n_seeds=S,
+                       eval_every=20)
+    p_one, h_one = train_pairwise(scorer, p0, Xp, Xn, short)
+    rel = rel_diff({k: v[0] for k, v in out["final_params"].items()}, p_one)
+    assert rel < 1e-4, rel
+    log(f"[sim learner] 20 steps: replica 0 vs train_pairwise params rel "
+        f"diff {rel:.3g}")
+    return wall
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
-    if not os.path.exists(os.path.join(ROOT, SOURCE)):
+    missing = [p for p in SOURCES.values()
+               if not os.path.exists(os.path.join(ROOT, p))]
+    if missing:
         print("chip_smoke: run it from a checkout of the repository "
-              f"({SOURCE} is missing)", file=sys.stderr)
+              f"({', '.join(sorted(set(missing)))} missing)", file=sys.stderr)
         return 3
     sys.path.insert(0, ROOT)
     from tuplewise_tpu_torch.ops import pair_kernels as pk
 
+    # before the first CUDA call: reproducible cuBLAS for phase 8
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    torch.backends.cuda.matmul.allow_tf32 = False
     t0 = time.perf_counter()
     card = card_line()
-    log(f"[card] {card}; torch {torch.__version__} cuda {torch.version.cuda}")
-    phase_build()
+    log(f"[card] {card}; torch {torch.__version__} cuda {torch.version.cuda}; "
+        f"CUBLAS_WORKSPACE_CONFIG={os.environ['CUBLAS_WORKSPACE_CONFIG']}, "
+        f"TF32 off")
+    seconds = {}
+
+    def timed(label, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        seconds[label] = time.perf_counter() - t
+        log(f"[phase] {label}: {seconds[label]:.1f} s")
+        return out
+
+    timed("1 build", phase_build)
     errs = {}
-    phase_kernel_vs_plain(errs)
+    timed("2 kernel vs plain", phase_kernel_vs_plain, errs)
 
     pk.reset_launch_counts()
     by_phase = {}
-    i1, i2 = phase_main_path(by_phase)
-    phase_harness(by_phase)
+    i1, i2 = timed("3 main path", phase_main_path, by_phase)
+    timed("4 harness", phase_harness, by_phase)
     launches = dict(pk.LAUNCHES)
-    log(f"[launches] main path {json.dumps(launches)}; by phase "
+    log(f"[launches] estimator path {json.dumps(launches)}; by phase "
         f"{json.dumps(by_phase)}")
     for label, delta in by_phase.items():
         assert sum(delta.values()) > 0, f"no kernel launched in {label}"
-    for wrapper in REPLACES:
+    for wrapper in ("pair_sum", "masked_pair_sum"):
         for name in NAMES:
             key = f"{wrapper}[{name}]"
             assert launches.get(key, 0) > 0, f"{key} never launched"
 
-    rows = phase_timing(errs, launches, i1, i2)
+    rows = timed("5 timing", phase_timing, errs, launches, i1, i2)
+    grad_rows = timed("6 grad vs plain", phase_grad_vs_plain)
+    data = train_data()
+
+    pk.reset_launch_counts()
+    train_rows = timed("7 training", phase_train, data)
+    train_launches = dict(pk.LAUNCHES)
+    log(f"[launches] trainer path {json.dumps(train_launches)}")
+    for wrapper in ("pair_loss_grad", "pair_grad_sums"):
+        for name in GRAD_NAMES:
+            key = f"{wrapper}[{name}]"
+            assert train_launches.get(key, 0) > 0, f"{key} never launched"
+    for r in grad_rows:
+        r["launches"] = train_launches[r["name"]]
+    rows += grad_rows
+
+    timed("8 resume", phase_resume)
+    timed("9 plain trajectory", phase_plain_trajectory)
+    sim_wall = timed("10 sim learner", phase_sim_learner)
     log(f"[done] {time.perf_counter() - t0:.1f} s")
-    print(json.dumps({"kernels": rows, "card": card}), flush=True)
+    print(json.dumps({"kernels": rows, "train": train_rows,
+                      "sim_learner_cell_s": sim_wall, "phase_s": seconds,
+                      "card": card}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,0 +1,238 @@
+"""The port's gradient pair sums (ops.pair_grad_kernels) and the
+differentiable pair means (ops.pair_tiles) against the JAX package, on
+the same numpy-made inputs.
+
+The JAX Pallas gradient kernels run in interpret mode at 256 x 256
+tiles, as tests/test_learner.py runs them. Tolerances: hinge row and col
+are integer counts in both packages, so they must be equal; everything
+else within rtol 2e-5 / atol 1e-5, the JAX suite's own tolerance for
+float32 sums taken in different orders. Gradients of the pair means
+against jax.grad: atol 1e-7, as the JAX suite holds its own VJPs.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from tuplewise_tpu.ops import kernels as jk
+from tuplewise_tpu.ops import pair_tiles as jt
+from tuplewise_tpu.ops import pallas_pairs as jp
+from tuplewise_tpu_torch.ops import pair_grad_kernels as pg
+from tuplewise_tpu_torch.ops import pair_kernels as pk
+from tuplewise_tpu_torch.ops import kernels as tk
+from tuplewise_tpu_torch.ops import pair_tiles
+
+GRAD_NAMES = ("hinge", "logistic")
+SHAPES = [(70, 90), (256, 512), (300, 517)]
+
+
+def _scores(n1, n2, seed=7):
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal(n1).astype(np.float32),
+            rng.standard_normal(n2).astype(np.float32))
+
+
+def _check(name, got, want):
+    got, want = np.asarray(got), np.asarray(want)
+    if name == "hinge":
+        np.testing.assert_array_equal(got, want)
+    else:
+        np.testing.assert_allclose(got, want, rtol=2e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("name", GRAD_NAMES)
+@pytest.mark.parametrize("n1,n2", SHAPES)
+def test_pair_loss_grad_plain_matches_pallas(name, n1, n2):
+    s1, s2 = _scores(n1, n2)
+    wl, wr, wc = jp.pallas_pair_loss_grad(
+        jnp.asarray(s1), jnp.asarray(s2), kernel=jk.get_kernel(name),
+        tile_a=256, tile_b=256, interpret=True)
+    gl, gr, gc = pg.pair_loss_grad_plain(
+        torch.from_numpy(s1), torch.from_numpy(s2), tk.get_kernel(name))
+    assert gl.dtype == torch.float64 and gr.dtype == torch.float32
+    assert gr.shape == (n1,) and gc.shape == (n2,)
+    _check(name, gr, wr)
+    _check(name, gc, wc)
+    np.testing.assert_allclose(float(gl), float(wl), rtol=2e-5)
+
+
+@pytest.mark.parametrize("name", GRAD_NAMES)
+@pytest.mark.parametrize("n1,n2", SHAPES)
+def test_pair_grad_sums_plain_matches_pallas(name, n1, n2):
+    s1, s2 = _scores(n1, n2, seed=8)
+    wr, wc = jp.pallas_pair_grad_sums(
+        jnp.asarray(s1), jnp.asarray(s2), kernel=jk.get_kernel(name),
+        tile_a=256, tile_b=256, interpret=True)
+    a, b = torch.from_numpy(s1), torch.from_numpy(s2)
+    gr, gc = pg.pair_grad_sums_plain(a, b, tk.get_kernel(name))
+    _check(name, gr, wr)
+    _check(name, gc, wc)
+    # the loss+grad pass gives the same row and col
+    _, lr, lc = pg.pair_loss_grad(a, b, tk.get_kernel(name))
+    assert torch.equal(lr, gr) and torch.equal(lc, gc)
+    # pair_tiles.pair_grad_sums is the same plain sweep (JAX signature)
+    tr, tc = pair_tiles.pair_grad_sums(tk.get_kernel(name), a, b)
+    assert torch.equal(tr, gr) and torch.equal(tc, gc)
+
+
+@pytest.mark.parametrize("name", GRAD_NAMES)
+def test_batched_form_equals_a_loop_over_problems(name):
+    rng = np.random.default_rng(3)
+    a = torch.from_numpy(rng.standard_normal((5, 130)).astype(np.float32))
+    b = torch.from_numpy(rng.standard_normal((5, 77)).astype(np.float32))
+    k = tk.get_kernel(name)
+    loss, row, col = pg.pair_loss_grad(a, b, k)
+    assert loss.shape == (5,) and row.shape == (5, 130) and col.shape == (5, 77)
+    for w in range(5):
+        lw, rw, cw = pg.pair_loss_grad(a[w], b[w], k)
+        torch.testing.assert_close(loss[w], lw, rtol=1e-12, atol=0)
+        if name == "hinge":
+            assert torch.equal(row[w], rw) and torch.equal(col[w], cw)
+        else:
+            torch.testing.assert_close(row[w], rw, rtol=1e-6, atol=0)
+            torch.testing.assert_close(col[w], cw, rtol=1e-6, atol=0)
+
+
+def test_loss_matches_pair_sum():
+    s1, s2 = _scores(300, 517)
+    a, b = torch.from_numpy(s1), torch.from_numpy(s2)
+    for name in GRAD_NAMES:
+        k = tk.get_kernel(name)
+        loss, _, _ = pg.pair_loss_grad(a, b, k)
+        assert abs(float(loss) - float(pk.pair_sum(a, b, k))) \
+            <= 1e-6 * abs(float(loss))
+
+
+def _jax_grad(fn_name, name, s1, s2):
+    k = jk.get_kernel(name)
+    fn = getattr(jt, fn_name)
+    return jax.value_and_grad(lambda a, b: fn(k, a, b, 32, 32),
+                              argnums=(0, 1))(jnp.asarray(s1), jnp.asarray(s2))
+
+
+@pytest.mark.parametrize("name", GRAD_NAMES)
+def test_diff_pair_mean_gradient_matches_jax(name):
+    s1, s2 = _scores(130, 70, seed=11)
+    wv, (wg1, wg2) = _jax_grad("diff_pair_mean", name, s1, s2)
+    a = torch.from_numpy(s1).requires_grad_()
+    b = torch.from_numpy(s2).requires_grad_()
+    v = pair_tiles.diff_pair_mean(tk.get_kernel(name), a, b)
+    g1, g2 = torch.autograd.grad(v, (a, b))
+    assert abs(float(v.detach()) - float(wv)) < 1e-6
+    np.testing.assert_allclose(g1.numpy(), np.asarray(wg1), atol=1e-7)
+    np.testing.assert_allclose(g2.numpy(), np.asarray(wg2), atol=1e-7)
+
+
+@pytest.mark.parametrize("name", GRAD_NAMES)
+def test_loss_free_mean_gives_nan_and_the_same_gradient(name):
+    s1, s2 = _scores(90, 110, seed=12)
+    wv, (wg1, wg2) = _jax_grad("diff_pair_mean_loss_free", name, s1, s2)
+    assert np.isnan(float(wv))
+    k = tk.get_kernel(name)
+    a = torch.from_numpy(s1).requires_grad_()
+    b = torch.from_numpy(s2).requires_grad_()
+    v = pair_tiles.diff_pair_mean_loss_free(k, a, b)
+    assert torch.isnan(v) and v.shape == ()
+    g1, g2 = torch.autograd.grad(v, (a, b))
+    np.testing.assert_allclose(g1.numpy(), np.asarray(wg1), atol=1e-7)
+    np.testing.assert_allclose(g2.numpy(), np.asarray(wg2), atol=1e-7)
+    f1, f2 = torch.autograd.grad(pair_tiles.diff_pair_mean(k, a, b), (a, b))
+    assert torch.equal(g1, f1) and torch.equal(g2, f2)
+
+
+def test_batched_pair_mean_gradient_matches_dense_autograd():
+    rng = np.random.default_rng(4)
+    a = torch.from_numpy(rng.standard_normal((3, 40)).astype(np.float32))
+    b = torch.from_numpy(rng.standard_normal((3, 25)).astype(np.float32))
+    k = tk.logistic_kernel
+    a.requires_grad_()
+    b.requires_grad_()
+    v = pair_tiles.pair_mean_for_grad(k, a, b)
+    assert v.shape == (3,)
+    g = torch.autograd.grad((v * torch.arange(1.0, 4.0)).sum(), (a, b))
+    dense = k.diff(a[:, :, None] - b[:, None, :]).mean(dim=(1, 2))
+    d = torch.autograd.grad((dense * torch.arange(1.0, 4.0)).sum(), (a, b))
+    torch.testing.assert_close(v, dense, rtol=1e-6, atol=0)
+    for x, y in zip(g, d):
+        torch.testing.assert_close(x, y, rtol=0, atol=1e-7)
+
+
+def test_pair_mean_for_grad_user_kernels_take_the_plain_paths():
+    # a user kernel with g' but no CUDA body: the analytic plain sweep;
+    # one without g': autograd through the plain tiled mean
+    with_gp = tk.Kernel(name="sq", degree=2, two_sample=True, kind="diff",
+                        diff_fn=lambda d: (1.0 - d) ** 2,
+                        diff_grad_fn=lambda d: -2.0 * (1.0 - d))
+    no_gp = tk.Kernel(name="sq2", degree=2, two_sample=True, kind="diff",
+                      diff_fn=lambda d: (1.0 - d) ** 2)
+    s1, s2 = _scores(50, 60, seed=5)
+    grads = []
+    for k in (with_gp, no_gp):
+        a = torch.from_numpy(s1).requires_grad_()
+        b = torch.from_numpy(s2).requires_grad_()
+        v = pair_tiles.pair_mean_for_grad(k, a, b)
+        grads.append((float(v), *torch.autograd.grad(v, (a, b))))
+    assert abs(grads[0][0] - grads[1][0]) < 1e-5
+    for x, y in zip(grads[0][1:], grads[1][1:]):
+        torch.testing.assert_close(x, y, rtol=1e-5, atol=1e-7)
+
+
+def test_dispatch_on_the_cpu_and_errors():
+    s1, s2 = _scores(64, 48)
+    a, b = torch.from_numpy(s1), torch.from_numpy(s2)
+    pk.reset_launch_counts()
+    for name in GRAD_NAMES:
+        k = tk.get_kernel(name)
+        got = pg.pair_loss_grad(a, b, k)
+        want = pg.pair_loss_grad(a, b, k, impl="plain")
+        assert all(torch.equal(x, y) for x, y in zip(got, want))
+    assert sum(pk.LAUNCHES.values()) == 0
+    with pytest.raises(ValueError, match="impl"):
+        pg.pair_grad_sums(a, b, tk.hinge_kernel, impl="xla")
+    with pytest.raises(ValueError, match="diff_grad_fn"):
+        pg.pair_loss_grad(a, b, tk.auc_kernel)
+    with pytest.raises(ValueError, match="diff_grad_fn"):
+        pg.pair_grad_sums(a, b, tk.scatter_kernel)
+    empty = pg.pair_loss_grad(a[:0], b, tk.hinge_kernel)
+    assert float(empty[0]) == 0.0 and empty[1].shape == (0,)
+    assert torch.equal(empty[2], torch.zeros(48))
+
+
+def test_grid_shape_and_scratch():
+    # the trainer's headline: 245 row tiles, column segments up to the
+    # target block count, none empty; ~0.5 GB of partials
+    gx, gs, per_seg = pg.grid_shape(500_000, 500_000, 1, 2048, 1024)
+    assert gx == 245 and gs * per_seg >= 489 and (gs - 1) * per_seg < 489
+    assert gx * gs >= pg._TARGET_BLOCKS
+    assert pg.scratch_bytes(500_000, 500_000) == 508_017_640
+    # a batch of problems fills the grid alone: one segment
+    assert pg.grid_shape(16, 16, 1536, 2048, 1024) == (1, 1, 1)
+    for n1, n2, W in [(1, 1, 1), (4133, 8197, 8), (3000, 70_000, 2)]:
+        gx, gs, per_seg = pg.grid_shape(n1, n2, W, 2048, 1024)
+        gy = -(-n2 // 1024)
+        assert (gs - 1) * per_seg < gy <= gs * per_seg
+
+
+@pytest.mark.cuda
+def test_grad_kernels_match_plain_on_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the CUDA gradient kernels have no "
+                    "CPU mode")
+    g = torch.Generator(device="cuda").manual_seed(0)
+    for W, n1, n2 in [(1, 4133, 8197), (8, 300, 517), (64, 16, 16)]:
+        a = torch.randn(W, n1, generator=g, device="cuda") * 0.5 + 0.3
+        b = torch.randn(W, n2, generator=g, device="cuda") * 0.5
+        for name in GRAD_NAMES:
+            k = tk.get_kernel(name)
+            loss, row, col = pg.pair_loss_grad(a, b, k)
+            row2, col2 = pg.pair_grad_sums(a, b, k)
+            lp, rp, cp = pg.pair_loss_grad(a, b, k, impl="plain")
+            assert torch.equal(row, row2) and torch.equal(col, col2)
+            torch.testing.assert_close(loss, lp, rtol=1e-5, atol=0)
+            if name == "hinge":
+                assert torch.equal(row, rp) and torch.equal(col, cp)
+            else:
+                torch.testing.assert_close(row, rp, rtol=1e-4, atol=0)
+                torch.testing.assert_close(col, cp, rtol=1e-4, atol=0)

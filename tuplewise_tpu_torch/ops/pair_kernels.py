@@ -62,6 +62,15 @@ def _check_kernel(kernel: Kernel) -> None:
 # plain versions                                                         #
 # --------------------------------------------------------------------- #
 
+def plain_tile(a, n2: int):
+    """(rows, cols) of one plain tile [W, rows, cols] over a [W, n1] x
+    [W, n2] grid, within the device's element budget."""
+    W, n1 = a.shape
+    budget = _PLAIN_TILE_ELEMS["cuda" if a.is_cuda else "cpu"]
+    cols = max(1, min(n2, budget // max(W, 1)))
+    return max(1, min(n1, budget // (max(W, 1) * cols))), cols
+
+
 def _plain(a, b, ma, mb, kernel: Kernel) -> torch.Tensor:
     """Tiled sum over [W, n1] x [W, n2]; float32 values, float64 sums."""
     squeeze = a.dim() == 1
@@ -71,9 +80,7 @@ def _plain(a, b, ma, mb, kernel: Kernel) -> torch.Tensor:
         mb = None if mb is None else mb[None]
     W, n1 = a.shape
     n2 = b.shape[1]
-    budget = _PLAIN_TILE_ELEMS["cuda" if a.is_cuda else "cpu"]
-    cols = max(1, min(n2, budget // W))
-    rows = max(1, min(n1, budget // (W * cols)))
+    rows, cols = plain_tile(a, n2)
     total = torch.zeros(W, dtype=torch.float64, device=a.device)
     for j0 in range(0, n2, cols):
         bj = b[:, None, j0:j0 + cols]
@@ -120,15 +127,29 @@ def load_library():
     return lib
 
 
-def _check_tensors(*ts) -> None:
-    a = ts[0]
-    for t in ts:
+def check_tensors(a, b, *more) -> None:
+    """What every CUDA pair kernel takes: a [W, n1] and b [W, n2] (and
+    any more tensors), contiguous float32 on one device."""
+    for t in (a, b, *more):
         if t.device != a.device:
             raise ValueError(f"tensors on {a.device} and {t.device}")
         if t.dtype != torch.float32:
             raise TypeError(f"the CUDA pair kernel takes float32, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError("the CUDA pair kernel takes contiguous tensors")
+    if a.dim() != 2 or b.dim() != 2 or a.shape[0] != b.shape[0]:
+        raise ValueError(
+            f"expected a [W, n1] and b [W, n2], got {tuple(a.shape)} and "
+            f"{tuple(b.shape)}"
+        )
+
+
+def use_kernel(a, kernel: Kernel, impl: Optional[str]) -> bool:
+    """True where a wrapper launches its CUDA kernel: a CUDA tensor, a
+    kernel with a CUDA body, and no ``impl="plain"``."""
+    if impl not in (None, "kernel", "plain"):
+        raise ValueError(f"impl must be 'kernel' or 'plain', got {impl!r}")
+    return a.is_cuda and impl != "plain" and kernel.cuda_body is not None
 
 
 def _launch(name, a, b, ma, mb, kernel: Kernel) -> torch.Tensor:
@@ -138,12 +159,7 @@ def _launch(name, a, b, ma, mb, kernel: Kernel) -> torch.Tensor:
         a, b = a[None], b[None]
         ma = None if ma is None else ma[None]
         mb = None if mb is None else mb[None]
-    _check_tensors(a, b, *((ma, mb) if masked else ()))
-    if a.dim() != 2 or b.dim() != 2 or a.shape[0] != b.shape[0]:
-        raise ValueError(
-            f"expected a [W, n1] and b [W, n2], got {tuple(a.shape)} and "
-            f"{tuple(b.shape)}"
-        )
+    check_tensors(a, b, *((ma, mb) if masked else ()))
     if masked and (ma.shape != a.shape or mb.shape != b.shape):
         raise ValueError("masks must have the shapes of their scores")
     W, n1 = a.shape
@@ -180,9 +196,7 @@ def _launch(name, a, b, ma, mb, kernel: Kernel) -> torch.Tensor:
 
 def _dispatch(name, a, b, ma, mb, kernel: Kernel, impl: Optional[str]):
     _check_kernel(kernel)
-    if impl not in (None, "kernel", "plain"):
-        raise ValueError(f"impl must be 'kernel' or 'plain', got {impl!r}")
-    if a.is_cuda and impl != "plain" and kernel.cuda_body is not None:
+    if use_kernel(a, kernel, impl):
         return _launch(name, a, b, ma, mb, kernel)
     return _plain(a, b, ma, mb, kernel)
 

@@ -1,15 +1,26 @@
-"""Tiled tuplewise reductions in plain PyTorch (the estimation half of
+"""Tiled tuplewise reductions (the counterpart of
 ``tuplewise_tpu.ops.pair_tiles``).
 
-The pair grid is never materialised: ``pair_stats`` walks it in
-(tile_a x tile_b) blocks. Reductions are mask- and id-aware: masks make
-padded packings exact, and ids exclude cells whose original indices
-coincide (the one-sample diagonal and with-replacement duplicates).
+Estimation half, plain PyTorch: the pair grid is never materialised:
+``pair_stats`` walks it in (tile_a x tile_b) blocks. Reductions are
+mask- and id-aware: masks make padded packings exact, and ids exclude
+cells whose original indices coincide (the one-sample diagonal and
+with-replacement duplicates).
 
 Numerics: each tile's kernel values are summed in float64, and the pair
 count is an exact int64. This replaces the JAX package's Kahan float32
 sum and split int32 counter, which exist because the TPU has neither
 type.
+
+Gradient half: the differentiable pair mean of the learner.
+``diff_pair_mean`` is a ``torch.autograd.Function`` whose forward is ONE
+``pair_loss_grad`` pass (CUDA kernel on the card) and whose backward
+only scales the saved row and col sums, so a training step sweeps the
+pair grid once. ``diff_pair_mean_loss_free`` is its gradient-only twin
+for steps whose loss is not recorded. Both take [n] or [W, n] scores.
+The TPU-only gates of the JAX dispatch (the VMEM col bound and the SMEM
+loss-cell budget) have no counterpart: the CUDA kernels take any size up
+to their grid limits and raise beyond them.
 """
 
 from __future__ import annotations
@@ -17,6 +28,8 @@ from __future__ import annotations
 from typing import Optional, Tuple
 
 import torch
+
+from tuplewise_tpu_torch.ops import pair_grad_kernels, pair_kernels
 
 
 def pair_stats(
@@ -96,3 +109,87 @@ def incomplete_pair_mean(kernel, gen, A, B, n_pairs: int,
     i, j = sample_pair_indices(gen, A.shape[0], B.shape[0], n_pairs,
                                one_sample)
     return kernel.pair_elementwise(A[i], B[j]).mean(dtype=torch.float64)
+
+
+# --------------------------------------------------------------------- #
+# Analytic pairwise-loss gradient                                        #
+# --------------------------------------------------------------------- #
+
+def pair_grad_sums(kernel, s1, s2):
+    """(row, col) sums of g'(s1_i - s2_j) over the full grid, streamed
+    in plain PyTorch: row[i] = sum_j g'(d_ij), col[j] = sum_i g'(d_ij)."""
+    return pair_grad_kernels.pair_grad_sums_plain(s1, s2, kernel)
+
+
+def grad_sums_best(kernel, s1, s2, impl: Optional[str] = None):
+    """(row, col) g' sums through the gradient-only CUDA kernel on the
+    card (the plain version on the CPU or with ``impl="plain"``), in the
+    inputs' dtypes."""
+    row, col = pair_grad_kernels.pair_grad_sums(s1, s2, kernel, impl=impl)
+    return row.to(s1.dtype), col.to(s2.dtype)
+
+
+def _grad_inputs(ctx, ct):
+    """d/ds1 = +ct/count * row, d/ds2 = -ct/count * col (the -1 of
+    d = s1 - s2); ct has the value's shape, [] or [W]."""
+    row, col = ctx.saved_tensors
+    inv = (ct / float(row.shape[-1] * col.shape[-1]))[..., None]
+    return inv * row, -inv * col, None, None
+
+
+class DiffPairMean(torch.autograd.Function):
+    """Forward: one ``pair_loss_grad`` pass; its row and col sums are the
+    backward's residuals, so the backward costs O(n)."""
+
+    @staticmethod
+    def forward(ctx, s1, s2, kernel, impl):
+        s, row, col = pair_grad_kernels.pair_loss_grad(s1, s2, kernel,
+                                                       impl=impl)
+        ctx.save_for_backward(row.to(s1.dtype), col.to(s2.dtype))
+        return (s / float(s1.shape[-1] * s2.shape[-1])).to(s1.dtype)
+
+    @staticmethod
+    def backward(ctx, ct):
+        return _grad_inputs(ctx, ct)
+
+
+class DiffPairMeanLossFree(torch.autograd.Function):
+    """Forward: one g'-only pass (``grad_sums_best``); NaN value."""
+
+    @staticmethod
+    def forward(ctx, s1, s2, kernel, impl):
+        ctx.save_for_backward(*grad_sums_best(kernel, s1, s2, impl))
+        return torch.full(s1.shape[:-1], float("nan"), dtype=s1.dtype,
+                          device=s1.device)
+
+    @staticmethod
+    def backward(ctx, ct):
+        return _grad_inputs(ctx, ct)
+
+
+def diff_pair_mean(kernel, s1, s2, impl: Optional[str] = None):
+    """Mean of g(s1_i - s2_j) over the full grid ([n] inputs give a 0-d
+    value, [W, n] inputs a [W] one), differentiable through the analytic
+    g'. Its value and gradient match autograd through the dense mean
+    (hinge: up to the measure-zero kink at d == 1)."""
+    return DiffPairMean.apply(s1, s2, kernel, impl)
+
+
+def diff_pair_mean_loss_free(kernel, s1, s2, impl: Optional[str] = None):
+    """Gradient-only sibling of :func:`diff_pair_mean`: the VALUE is NaN
+    (never computed; for steps whose loss is not recorded), the gradient
+    is identical to diff_pair_mean's."""
+    return DiffPairMeanLossFree.apply(s1, s2, kernel, impl)
+
+
+def pair_mean_for_grad(kernel, s1, s2, impl: Optional[str] = None):
+    """Pair mean with the best gradient path: the analytic g' function
+    when the kernel declares one (CUDA kernels on the card when it also
+    has a CUDA body, the plain sweep otherwise), else autograd through
+    the plain tiled mean (which keeps every tile for the backward)."""
+    if kernel.kind == "diff" and kernel.diff_grad_fn is not None:
+        return diff_pair_mean(kernel, s1, s2, impl)
+    if kernel.kind == "diff":
+        count = float(s1.shape[-1] * s2.shape[-1])
+        return (pair_kernels.pair_sum_plain(s1, s2, kernel) / count).to(s1.dtype)
+    return pair_mean(kernel, s1, s2).to(s1.dtype)

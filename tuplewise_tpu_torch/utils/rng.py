@@ -23,6 +23,12 @@ PURPOSES = (
     "partition",
     "data",
     "pairs",
+    # the learner: worker blocks drawn at repartition boundary t, and the
+    # sampled pairs of step t (the JAX chains (root, "repartition", t),
+    # (root, "step", t) and (kt, "pair_sample", w))
+    "repartition",
+    "step",
+    "pair_sample",
 )
 
 

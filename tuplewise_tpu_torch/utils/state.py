@@ -5,6 +5,11 @@
 ``to_numpy`` brings tensors back. Floating arrays take ``dtype``;
 integer and boolean arrays keep their own type. Other leaves pass
 through unchanged.
+
+``params_to_state`` and ``state_to_params`` carry scorer parameters
+between the JAX package's form (a dict of numpy arrays, as its
+``scorer.init`` and trainers return them) and a port scorer's
+``state_dict``; checkpoints and the parity tests use them.
 """
 
 from __future__ import annotations
@@ -41,3 +46,18 @@ def to_numpy(tree):
         return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else x
 
     return _map(tree, leaf)
+
+
+def params_to_state(params, device="cpu") -> dict:
+    """A JAX-style params dict (numpy arrays, or anything ``np.asarray``
+    takes, or tensors) -> float32 tensors under the same names: a port
+    scorer's state, for ``load_state_dict``, or the learners' params."""
+    return {k: (v.detach() if isinstance(v, torch.Tensor)
+                else torch.as_tensor(np.asarray(v))).to(device, torch.float32)
+            for k, v in params.items()}
+
+
+def state_to_params(state) -> dict:
+    """A port scorer's state (``state_dict()`` or a params dict of
+    tensors) -> a JAX-style params dict of numpy arrays."""
+    return to_numpy(dict(state))
