@@ -11,7 +11,8 @@ nvcc per source, all started together), then runs the phases below. Each
 phase asserts what it checks, and nothing is caught: any failure exits
 nonzero. Each phase prints its seconds.
 
-1. Build: compile the kernels and print the build seconds.
+1. Build: compile the kernels and print the build seconds, and what
+   ptxas reports for the triplet kernel (registers, stack, spills).
 2. Kernel vs plain: pair_sum and masked_pair_sum for auc, hinge and
    logistic at a ragged size (4133 x 8197), batched (W = 8), at
    2^14 x 2^14 and at the harness's local-round batch (W = 512,
@@ -61,11 +62,43 @@ nonzero. Each phase prints its seconds.
 10. Simulated learner: one train_curves cell of learning_suite's gauss
    sweep (n = 512, dim 10, N = 32, n_r = 5, S = 48, 500 steps), timed;
    over 20 steps its replica 0 agrees with train_pairwise within rel 1e-4.
+11. Triplet kernel vs plain (degree 3): batched_masked_pair_sum for the
+   indicator and hinge combines on the JAX test's inputs (45x5 / 37x5,
+   masks, ids, 29 visiting positives with ids 100+, through the
+   factorised statistic, also held against the tiled scan), at a ragged
+   size (1000 anchors x 4133 positives x 8197 negatives) and at a local
+   round's batch (N = 8 workers x 1000 anchors, swr ids). Indicator sums
+   must be equal, hinge sums within rel 1e-5.
+12. Degree-3 main path at full width (the largest single-program cell of
+   the JAX config-4 grid): Estimator(kernel, backend="torch") complete
+   for both kernels at n = 32768 anchors/positives and 32768 negatives,
+   d = 32 (3.5e13 triplets a call), local_average (N = 8),
+   repartitioned (N = 8, T = 4) and incomplete (B = 2e4), after a warm-up
+   at n = 1024, each timed with CUDA events. Then, outside the counted
+   run: the kernel's per-anchor indicator sums for EVERY anchor equal an
+   independent exact sort-count (K - searchsorted(sort(D_an[c]), D_pa[c],
+   right=True)) on the same distances, and their statistic equals the
+   Estimator's; on a slice of 128 anchors the kernel equals its plain
+   version (hinge within rel 1e-5) and is timed against it, the
+   sort-count and the bound.
+13. BASELINE config 4: triplet_mnist_statistic on the MNIST surrogate at
+   n = 2000, incomplete (B = 2e4) and complete; the complete per-class
+   values equal the CPU plain path's within rel 1e-6.
+14. Triplet learner at the full width of scripts/learning_suite.py
+   stage_triplet (N = 8, B = 4096, n_r = 1): the gauss-overlap cell (S = 8
+   seeds, 300 steps) must end within 3 sqrt(se^2 + se_jax^2) of the
+   committed JAX row and above each seed's initial accuracy; the
+   mnist-surrogate cell (S = 1) >= 0.99; on the radial task (800 steps,
+   S = 2) the MLP embedder must beat the linear one by 0.05. Steps/s.
+15. Triplet resume is exact: 60 steps equal 20 steps, a checkpoint and 40
+   resumed ones, bit for bit (params, losses, accuracy curve).
 
 The launch counters are set to 0 before phase 3 and read after phase 4,
-and set to 0 again before phase 7 and read after it: every kernel must
-have been launched on its path (pair sums on the estimator's, gradient
-kernels on the trainer's). The script prints one JSON line of kernels,
+set to 0 again before phase 7 and read after it, before phase 12 and
+after it, and before phase 14 and after it: every kernel must have been
+launched on its path (pair sums on the estimator's, gradient kernels on
+the trainer's, the triplet kernel on the degree-3 estimator's and on the
+triplet learner's evaluations). The script prints one JSON line of kernels,
 the card's name and power limit as nvidia-smi reports them, and, last,
 {"ok": true, "device": {...}}. Without a CUDA device, or without the
 package beside it, it exits nonzero and prints no result.
@@ -111,19 +144,35 @@ GRAD_OPS_PER_PAIR = {
     "pair_grad_sums": {"hinge": 5, "logistic": 7},
     "pair_loss_grad": {"hinge": 8, "logistic": 13},
 }
+# the triplet kernel, counted the same way per triplet: the subtraction,
+# the combine (indicator: a compare and a select; hinge: an add and a
+# max), and the multiply and add of the negative's mask
+OPS_PER_TRIPLET = 5
 REPLACES = {
     "pair_sum": "tuplewise_tpu/ops/pallas_pairs.py:134",
     "masked_pair_sum": "tuplewise_tpu/ops/pallas_pairs.py:300",
     "pair_loss_grad": "tuplewise_tpu/ops/pallas_pairs.py:440",
     "pair_grad_sums": "tuplewise_tpu/ops/pallas_pairs.py:520",
+    "batched_masked_pair_sum": "tuplewise_tpu/ops/pallas_triplets.py:185",
 }
 SOURCES = {
     "pair_sum": "tuplewise_tpu_torch/csrc/pair_sum.cu",
     "masked_pair_sum": "tuplewise_tpu_torch/csrc/pair_sum.cu",
     "pair_loss_grad": "tuplewise_tpu_torch/csrc/pair_grad.cu",
     "pair_grad_sums": "tuplewise_tpu_torch/csrc/pair_grad.cu",
+    "batched_masked_pair_sum": "tuplewise_tpu_torch/csrc/triplet_sum.cu",
 }
 GRAD_NAMES = ("hinge", "logistic")
+TRIPLET_NAMES = ("triplet_indicator", "triplet_hinge")
+# the largest single-program cell of the JAX package's config-4 grid
+# (scripts/config_suite.py): n anchors/positives and n negatives, d = 32
+TRIPLET_N, TRIPLET_D = 32768, 32
+# anchors of the full-width problem on which the kernel is timed against
+# its plain version and the sort-count
+TRIPLET_SLICE = 128
+# the committed JAX row of the gauss-overlap learner cell
+# (results/learning_triplet.jsonl line 1): final test accuracy, its se
+JAX_GAUSS_OVERLAP = (0.569129, 0.003846)
 NEVER = 1 << 30
 
 
@@ -153,16 +202,37 @@ def card_line():
 
 
 def phase_build():
-    from tuplewise_tpu_torch.ops import _build, pair_grad_kernels, pair_kernels
+    from tuplewise_tpu_torch.ops import (
+        _build, pair_grad_kernels, pair_kernels, triplet_kernels,
+    )
 
     t0 = time.perf_counter()
     sources = sorted({os.path.basename(p) for p in SOURCES.values()})
-    with concurrent.futures.ThreadPoolExecutor(len(sources)) as ex:
+    with concurrent.futures.ThreadPoolExecutor(len(sources) + 1) as ex:
+        report = ex.submit(ptxas_report, "triplet_sum.cu")
         list(ex.map(_build.build, sources))
     pair_kernels.load_library()
     pair_grad_kernels.load_library()
+    triplet_kernels.load_library()
     log(f"[build] {', '.join(sources)} built and loaded in "
         f"{time.perf_counter() - t0:.2f} s (nvcc {_build.BUILD_SECONDS})")
+    for line in report.result():
+        log(f"[ptxas] triplet_sum.cu: {line}")
+
+
+def ptxas_report(source):
+    """What ptxas reports for each kernel of csrc/<source>: registers,
+    stack frame, spills (a second nvcc, into a scratch directory)."""
+    from tuplewise_tpu_torch.ops import _build
+
+    with tempfile.TemporaryDirectory() as d:
+        out = subprocess.run(
+            [_build.nvcc_path(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-o",
+             os.path.join(d, "lib.so"), os.path.join(_build.CSRC, source)],
+            capture_output=True, text=True, timeout=600, check=True)
+    keep = ("Compiling entry", "Used", "spill")
+    return [line.strip() for line in (out.stdout + out.stderr).splitlines()
+            if any(k in line for k in keep)]
 
 
 def check_against_plain(name, got, want, count, what):
@@ -648,6 +718,417 @@ def phase_sim_learner():
     return wall
 
 
+# --------------------------------------------------------------------- #
+# degree 3: kernel 5, the triplet statistics and the triplet learner    #
+# --------------------------------------------------------------------- #
+
+def check_triplet(name, got, want, what):
+    """Hold per-anchor triplet sums against the plain version's: the
+    indicator equal (exact integers on both sides), the hinge within rel
+    1e-5 (float32 terms summed in different orders). Returns the largest
+    absolute error."""
+    torch.cuda.synchronize()
+    if name == "triplet_indicator":
+        assert torch.equal(got, want), (name, what)
+    else:
+        rel = float(((got - want).abs() / want.abs().clamp_min(1e-30)).max())
+        assert rel < 1e-5, (name, what, rel)
+    return float((got - want).abs().max())
+
+
+def sort_count(A, B, ip, ia):
+    """Independent exact per-anchor indicator count (margin 0, unmasked
+    negatives): #{(j, k): A[c,j] < B[c,k], ip[j] != ia[c]} as
+    K - searchsorted(sort(B[c]), A[c], right=True), summed over the
+    positives that the id exclusion keeps. int64 [C]."""
+    below = torch.searchsorted(torch.sort(B, dim=1).values, A, right=True)
+    keep = ip[None, :] != ia[:, None]
+    return ((B.shape[1] - below) * keep).sum(1)
+
+
+def phase_triplet_vs_plain(errs):
+    """Phase 11: kernel 5 against its plain version."""
+    from tuplewise_tpu_torch.ops import pair_tiles
+    from tuplewise_tpu_torch.ops import triplet_kernels as tk
+    from tuplewise_tpu_torch.ops.kernels import get_kernel
+
+    def dev(a):
+        return torch.as_tensor(a, device="cuda")
+
+    # the JAX test's inputs (tests/test_pallas_and_rank.py): masks, ids,
+    # and 29 visiting positives with ids 100+, through the statistic
+    rng = np.random.default_rng(0)
+    X = dev(rng.normal(size=(45, 5)).astype(np.float32))
+    Y = dev(rng.normal(size=(37, 5)).astype(np.float32) + np.float32(0.3))
+    mx = dev((rng.random(45) > 0.2).astype(np.float32))
+    my = dev((rng.random(37) > 0.3).astype(np.float32))
+    Pv = dev(rng.normal(size=(29, 5)).astype(np.float32))
+    ids = torch.arange(45, device="cuda")
+    for name in TRIPLET_NAMES:
+        k = get_kernel(name)
+        for kw in (dict(mask_x=mx, mask_y=my, ids_x=ids),
+                   dict(mask_y=my, ids_x=ids, positives=Pv,
+                        ids_p=100 + torch.arange(29, device="cuda"))):
+            s, c = tk.factorized_triplet_stats(k, X, Y, **kw)
+            sp, cp = tk.factorized_triplet_stats(k, X, Y, impl="plain", **kw)
+            st, ct = pair_tiles.triplet_stats(k, X, Y, tile=16, **kw)
+            check_triplet(name, s[None], sp[None], "jax test inputs")
+            assert int(c) == int(cp) == int(ct), (name, c, cp, ct)
+            assert abs(float(s) - float(st)) <= 1e-6 * abs(float(st)), name
+    log("[triplet vs plain] JAX test inputs (45x5 / 37x5, masks, ids, 29 "
+        "visiting positives): statistic equal to plain (indicator) / rel "
+        "1e-5 (hinge), counts equal, tiled scan within rel 1e-6")
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    d = TRIPLET_D
+
+    def rows(m):
+        return torch.randn(m, d, generator=g, device="cuda")
+
+    def mask(*shape):
+        return (torch.rand(*shape, generator=g, device="cuda") > 0.2).float()
+
+    # ragged: 1000 anchors x 4133 positives x 8197 negatives, one group
+    Xa, Xp, Yn = rows(1000), rows(4133), rows(8197) + 0.3
+    d_pa, d_an = tk.sqdist_matrix(Xa, Xp), tk.sqdist_matrix(Xa, Yn)
+    ip = torch.arange(4133, device="cuda")[None]
+    ia = torch.arange(0, 3000, 3, device="cuda")     # some ids collide
+    mp, mk = mask(1, 4133), mask(1, 8197)
+    # a local round's batch: N = 8 workers x 1000 anchors, 1000 positives
+    # (swr global ids, with duplicates) and 1500 negatives each
+    N, m1, m2 = 8, 1000, 1500
+    A8, B8 = rows(N * m1).reshape(N, m1, d), rows(N * m2).reshape(N, m2, d)
+    i8 = torch.randint(0, 4000, (N, m1), generator=g, device="cuda")
+    dl_pa = tk.sqdist_matrix(A8, A8).reshape(N * m1, m1)
+    dl_an = tk.sqdist_matrix(A8, B8).reshape(N * m1, m2)
+    cases = [
+        ("ragged W=1000 4133x8197", (d_pa, d_an, mp, ip, ia, mk), None),
+        ("local round N=8 x 1000 anchors, 1000x1500",
+         (dl_pa, dl_an, mask(N, m1), i8, i8.reshape(-1).contiguous(),
+          mask(N, m2)), m1),
+    ]
+    for name in TRIPLET_NAMES:
+        comb = tk.triplet_combine_kernel(get_kernel(name))
+        for what, args, group in cases:
+            got = tk.batched_masked_pair_sum(*args, comb, group)
+            want = tk.batched_masked_pair_sum(*args, comb, group,
+                                              impl="plain")
+            err = check_triplet(name, got, want, what)
+            key = f"batched_masked_pair_sum[{name}]"
+            errs[key] = max(errs.get(key, 0.0), err)
+            log(f"[triplet vs plain] {what} {name}: per-anchor sums "
+                f"{'equal' if name == 'triplet_indicator' else 'within rel 1e-5'}"
+                f" (max abs err {err:.3g})")
+
+
+def gaussian_clouds(gen, n, d):
+    """Anchors/positives N(0, I) and negatives N(0.3, I) in d dims: the
+    data of the JAX package's config-4 grid."""
+    X = torch.randn(n, d, generator=gen, device="cuda")
+    Y = torch.randn(n, d, generator=gen, device="cuda") + 0.3
+    return X, Y
+
+
+def phase_triplet_main():
+    """Phase 12: the degree-3 estimator at full width; the path whose
+    launches count for kernel 5. Returns (X, Y, rows of results)."""
+    from tuplewise_tpu_torch import Estimator
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 6)
+    n, d = TRIPLET_N, TRIPLET_D
+    Xs, Ys = gaussian_clouds(g, 1024, d)
+    for name in TRIPLET_NAMES:                       # warm-up, small
+        est = Estimator(name, backend="torch", n_workers=8)
+        est.complete(Xs, Ys)
+        est.repartitioned(Xs, Ys, n_rounds=2)
+        est.incomplete(Xs, Ys, n_pairs=20_000)
+    X, Y = gaussian_clouds(g, n, d)
+    triplets = float(n) * (n - 1) * n
+    out = {}
+    for name in TRIPLET_NAMES:
+        est = Estimator(name, backend="torch", n_workers=8)
+        ms, full = cuda_ms(lambda: est.complete(X, Y))
+        ms_l, loc = cuda_ms(lambda: est.local_average(X, Y, seed=SEED))
+        ms_r, rep = cuda_ms(lambda: est.repartitioned(X, Y, n_rounds=4,
+                                                      seed=SEED))
+        ms_i, inc = cuda_ms(lambda: est.incomplete(X, Y, n_pairs=20_000,
+                                                   seed=SEED))
+        scale = 1.0 if name == "triplet_indicator" else abs(full)
+        for v, tol in [(loc, 0.01), (rep, 0.01), (inc, 0.05)]:
+            assert math.isfinite(v) and abs(v - full) < tol * scale, (
+                name, v, full)
+        m = n // 8
+        per_round = 8.0 * m * (m - 1) * m
+        out[name] = dict(complete=full, complete_ms=ms,
+                         triplets_per_s=triplets / ms * 1e3,
+                         local=loc, local_ms=ms_l, repartitioned=rep,
+                         repartitioned_ms=ms_r, incomplete=inc,
+                         incomplete_ms=ms_i)
+        log(f"[triplet main] {name} n={n} d={d}: complete {full:.9f} in "
+            f"{ms:.1f} ms ({triplets / ms * 1e3:.4g} triplets/s); local "
+            f"(N=8) {loc:.6f} ({per_round / ms_l * 1e3:.4g} triplets/s, "
+            f"{ms_l:.1f} ms); repartitioned (N=8, T=4) {rep:.6f} "
+            f"({4 * per_round / ms_r * 1e3:.4g} triplets/s, {ms_r:.1f} ms);"
+            f" incomplete (B=2e4) {inc:.6f} ({ms_i:.3f} ms)")
+    return X, Y, out
+
+
+def phase_triplet_exact(X, Y, errs, launches, main_out):
+    """Phase 12b, outside the counted run: at full width the kernel's
+    per-anchor indicator sums equal the sort-count for EVERY anchor and
+    equal the plain version on a slice of anchors (hinge within rel
+    1e-5); the timing rows of kernel 5."""
+    from tuplewise_tpu_torch.ops import triplet_kernels as tk
+    from tuplewise_tpu_torch.ops.kernels import get_kernel
+
+    n, K = X.shape[0], Y.shape[0]
+    ids = torch.arange(n, device="cuda")
+    ones_p, ones_k = torch.ones(1, n, device="cuda"), torch.ones(1, K,
+                                                                 device="cuda")
+    chunk = tk.anchor_chunk(1, n, n, K, X.device)
+    combs = {name: tk.triplet_combine_kernel(get_kernel(name))
+             for name in TRIPLET_NAMES}
+    ms_full = {name: 0.0 for name in TRIPLET_NAMES}
+    lib_ms_full = 0.0
+    sums = {name: torch.empty(n, dtype=torch.float64, device="cuda")
+            for name in TRIPLET_NAMES}
+    exact = torch.empty(n, dtype=torch.int64, device="cuda")
+    for a0, d_pa, d_an in tk.distance_chunks(X[None], X[None], Y[None],
+                                             chunk):
+        A, B = d_pa[0], d_an[0]
+        ia = ids[a0:a0 + A.shape[0]]
+        for name, comb in combs.items():
+            ms, s = cuda_ms(lambda: tk.batched_masked_pair_sum(
+                A, B, ones_p, ids[None], ia, ones_k, comb))
+            ms_full[name] += ms
+            sums[name][a0:a0 + A.shape[0]] = s
+        ms, cnt = cuda_ms(lambda: sort_count(A, B, ids, ia))
+        lib_ms_full += ms
+        exact[a0:a0 + A.shape[0]] = cnt
+        del d_pa, d_an, A, B
+    torch.cuda.synchronize()
+    assert torch.equal(sums["triplet_indicator"], exact.to(torch.float64))
+    count = float(n) * (n - 1) * K
+    for name in TRIPLET_NAMES:
+        stat = float(sums[name].sum()) / count
+        ref = main_out[name]["complete"]
+        rel = abs(stat - ref) / max(abs(ref), 1.0)
+        assert rel <= 1e-6, (name, stat, ref)
+        log(f"[triplet exact] {name}: sum of the per-anchor sums / count "
+            f"vs Estimator.complete: rel diff {rel:.3g}")
+    log(f"[triplet exact] n={n} d={TRIPLET_D}: the kernel's per-anchor "
+        f"indicator sums equal the sort-count for all {n} anchors "
+        f"(kernel {ms_full['triplet_indicator']:.1f} ms, sort-count "
+        f"{lib_ms_full:.1f} ms over {-(-n // chunk)} chunks of {chunk})")
+
+    # the timing rows: a slice of TRIPLET_SLICE anchors of the same
+    # problem, where the plain version runs in seconds
+    c = TRIPLET_SLICE
+    d_pa, d_an = tk.sqdist_matrix(X[:c], X), tk.sqdist_matrix(X[:c], Y)
+    ia = ids[:c]
+    slice_triplets = float(c) * (n - 1) * K
+    cuda_ms(lambda: sort_count(d_pa, d_an, ids, ia))           # warm-up
+    library_ms, cnt = cuda_ms(lambda: sort_count(d_pa, d_an, ids, ia),
+                              reps=3)
+    rows = []
+    for name, comb in combs.items():
+        args = (d_pa, d_an, ones_p, ids[None], ia, ones_k, comb)
+        cuda_ms(lambda: tk.batched_masked_pair_sum(*args))    # warm-up
+        ms, got = cuda_ms(lambda: tk.batched_masked_pair_sum(*args), reps=3)
+        plain_ms, want = cuda_ms(
+            lambda: tk.batched_masked_pair_sum(*args, impl="plain"))
+        err = check_triplet(name, got, want, ("slice", c, n, K))
+        if name == "triplet_indicator":
+            assert torch.equal(got, cnt.to(torch.float64))
+        ops = OPS_PER_TRIPLET / PEAK_FP32_OPS
+        byts = 4.0 * c * (n + K) + 8.0 * c
+        by = "operations" if slice_triplets * ops >= byts / PEAK_BYTES \
+            else "bytes"
+        key = f"batched_masked_pair_sum[{name}]"
+        rows.append(dict(
+            name=key, route="cuda", source=SOURCES["batched_masked_pair_sum"],
+            replaces=REPLACES["batched_masked_pair_sum"],
+            launches=launches.get(key, 0), max_abs_err=err,
+            max_abs_err_small=errs[key], ms=ms, plain_ms=plain_ms,
+            bound_ms=max(slice_triplets * ops, byts / PEAK_BYTES) * 1e3,
+            bound_by=by,
+            library_ms=library_ms if name == "triplet_indicator" else None,
+            shape=f"W={c} anchors {n}x{K} d={TRIPLET_D}",
+            ms_full=ms_full[name],
+            bound_ms_full=count * ops * 1e3,
+            library_ms_full=(lib_ms_full if name == "triplet_indicator"
+                             else None),
+            shape_full=f"W={n} anchors {n}x{K} d={TRIPLET_D}"))
+        r = rows[-1]
+        log(f"[timing] {key:44s} {r['shape']:30s} {ms:9.2f} ms (bound "
+            f"{r['bound_ms']:.2f} ms by {by}, plain {plain_ms:.1f} ms, "
+            f"sort-count {r['library_ms']}); full width {ms_full[name]:.1f}"
+            f" ms (bound {r['bound_ms_full']:.1f} ms); max abs err vs plain "
+            f"{err:.3g}")
+    return rows
+
+
+def phase_config4():
+    """Phase 13: BASELINE config 4, triplet_mnist_statistic on the
+    surrogate at the JAX config_suite size."""
+    from tuplewise_tpu_torch import triplet_mnist_statistic
+
+    t0 = time.perf_counter()
+    inc = triplet_mnist_statistic(n=2000, n_pairs=20_000, seed=SEED)
+    t1 = time.perf_counter()
+    comp = triplet_mnist_statistic(n=2000, n_pairs=None, seed=SEED)
+    t2 = time.perf_counter()
+    cpu = triplet_mnist_statistic(n=2000, n_pairs=None, seed=SEED,
+                                  device="cpu")
+    assert sorted(comp["per_class"]) == sorted(cpu["per_class"])
+    for c, v in cpu["per_class"].items():
+        assert abs(comp["per_class"][c] - v) <= 1e-6 * abs(v), (c, v)
+        assert abs(inc["per_class"][c] - v) < 0.02, (c, v)
+    log(f"[config 4] mnist surrogate n=2000 ({comp['data_meta']['source']}):"
+        f" complete mean {comp['mean']:.9f} ({t2 - t1:.2f} s) equals the "
+        f"CPU plain path per class within rel 1e-6; incomplete (B=2e4) mean"
+        f" {inc['mean']:.6f} ({t1 - t0:.2f} s)")
+    return dict(complete_mean=comp["mean"], incomplete_mean=inc["mean"],
+                complete_s=t2 - t1, incomplete_s=t1 - t0)
+
+
+def _split(X, frac, rng):
+    p = rng.permutation(len(X))
+    t = int(frac * len(X))
+    return X[p[:t]], X[p[t:]]
+
+
+def triplet_task(task, seed):
+    """The data of scripts/learning_suite.py stage_triplet, uncut:
+    (Xc_tr, Xo_tr, Xc_te, Xo_te) float32."""
+    from tuplewise_tpu_torch.data import load_mnist_embeddings, make_gaussians
+
+    rng = np.random.default_rng(seed)
+    if task == "gauss-overlap":
+        X, Y = make_gaussians(2_000, 6_000, dim=16, separation=1.0,
+                              seed=seed)
+    elif task == "mnist-surrogate":
+        E, labels, _ = load_mnist_embeddings(n=4_000, seed=seed)
+        X, Y = E[labels == 3], E[labels != 3]
+    else:                                          # radial, d = 8
+        def shell(m, r_lo, r_hi):
+            v = rng.standard_normal((m, 8))
+            v /= np.linalg.norm(v, axis=1, keepdims=True)
+            r = rng.uniform(r_lo, r_hi, size=(m, 1))
+            return (v * r).astype(np.float32)
+
+        X, Y = shell(2_000, 0.5, 1.0), shell(6_000, 1.8, 2.6)
+    Xc_tr, Xc_te = _split(np.asarray(X, np.float32), 0.75, rng)
+    Xo_tr, Xo_te = _split(np.asarray(Y, np.float32), 0.75, rng)
+    return Xc_tr, Xo_tr, Xc_te, Xo_te
+
+
+def phase_triplet_learner():
+    """Phase 14: the triplet learner at the full width of
+    scripts/learning_suite.py stage_triplet (N = 8, B = 4096); the path
+    whose evaluations count for kernel 5."""
+    from tuplewise_tpu_torch.models.scorers import LinearEmbed, MLPEmbed
+    from tuplewise_tpu_torch.models.triplet_sgd import (
+        TripletTrainConfig, evaluate_triplet_accuracy, init_embed,
+        train_triplet,
+    )
+
+    out = {}
+
+    def cell(task, S, steps, lr, make_embed=None):
+        accs, acc0s, train_s, total_steps = [], [], 0.0, 0
+        for s in range(S):
+            Xc_tr, Xo_tr, Xc_te, Xo_te = triplet_task(task, s)
+            dim = Xc_tr.shape[1]
+            emb = None if make_embed is None else make_embed(dim)
+            p0 = init_embed(dim, 2, seed=s) if emb is None else emb.init(s)
+            acc0s.append(evaluate_triplet_accuracy(p0, Xc_te, Xo_te,
+                                                   embedder=emb))
+            cfg = TripletTrainConfig(lr=lr, steps=steps, n_workers=8,
+                                     repartition_every=1,
+                                     triplets_per_worker=4_096,
+                                     seed=1_000 + s, embed_dim=2)
+            t0 = time.perf_counter()
+            _, hist = train_triplet(p0, Xc_tr, Xo_tr, cfg,
+                                    eval_every=max(steps // 10, 1),
+                                    eval_data=(Xc_te, Xo_te), embedder=emb)
+            train_s += time.perf_counter() - t0
+            total_steps += steps
+            assert np.isfinite(hist["loss"]).all() and len(
+                hist["test_acc"]) == 10, hist
+            accs.append(float(hist["test_acc"][-1]))
+        accs = np.asarray(accs)
+        se = float(accs.std(ddof=1) / np.sqrt(S)) if S > 1 else None
+        return dict(acc_init=acc0s, final_acc=accs.tolist(),
+                    final_acc_mean=float(accs.mean()), final_acc_se=se,
+                    steps_per_s_with_eval=total_steps / train_s)
+
+    r = cell("gauss-overlap", 8, 300, 0.1)
+    band = 3 * math.sqrt(r["final_acc_se"] ** 2 + JAX_GAUSS_OVERLAP[1] ** 2)
+    assert abs(r["final_acc_mean"] - JAX_GAUSS_OVERLAP[0]) < band, (r, band)
+    assert all(a > a0 for a, a0 in zip(r["final_acc"], r["acc_init"])), r
+    out["gauss-overlap"] = r
+    log(f"[triplet learner] gauss-overlap N=8 B=4096 300 steps S=8: test "
+        f"acc {np.mean(r['acc_init']):.6f} -> {r['final_acc_mean']:.6f} +- "
+        f"{r['final_acc_se']:.6f} (JAX row {JAX_GAUSS_OVERLAP[0]} +- "
+        f"{JAX_GAUSS_OVERLAP[1]}, band +-{band:.6f}); "
+        f"{r['steps_per_s_with_eval']:.2f} steps/s with 10 evaluations")
+    r = cell("mnist-surrogate", 1, 300, 0.1)
+    assert r["final_acc_mean"] >= 0.99, r
+    out["mnist-surrogate"] = r
+    log(f"[triplet learner] mnist-surrogate S=1: test acc "
+        f"{r['acc_init'][0]:.6f} -> {r['final_acc_mean']:.6f}")
+    for name, make in (("linear", lambda d: LinearEmbed(dim=d, embed_dim=2)),
+                       ("mlp", lambda d: MLPEmbed(dim=d, hidden=32,
+                                                  embed_dim=2))):
+        out[f"radial-{name}"] = cell("radial", 2, 800, 0.3, make)
+    lin, mlp = out["radial-linear"], out["radial-mlp"]
+    assert mlp["final_acc_mean"] > lin["final_acc_mean"] + 0.05, (lin, mlp)
+    log(f"[triplet learner] radial 800 steps S=2: linear "
+        f"{lin['final_acc_mean']:.6f}, mlp (hidden 32) "
+        f"{mlp['final_acc_mean']:.6f}")
+
+    # steps/s of the bare step engine: 300 gauss-overlap steps, no eval
+    Xc_tr, Xo_tr, _, _ = triplet_task("gauss-overlap", 0)
+    cfg = TripletTrainConfig(lr=0.1, steps=300, n_workers=8,
+                             repartition_every=1, triplets_per_worker=4_096,
+                             seed=1_000, embed_dim=2)
+    ms, _ = cuda_ms(lambda: train_triplet(init_embed(16, 2), Xc_tr, Xo_tr,
+                                          cfg))
+    out["steps_per_s"] = 300 / ms * 1e3
+    log(f"[triplet learner] gauss-overlap 300 steps without evaluation: "
+        f"{out['steps_per_s']:.2f} steps/s "
+        f"({out['steps_per_s'] * 8 * 4096:.4g} triplets/s)")
+    return out
+
+
+def phase_triplet_resume():
+    """Phase 15: a triplet run cut at a checkpoint equals the uncut run
+    bit for bit (params, losses and the accuracy curve)."""
+    from tuplewise_tpu_torch.models.triplet_sgd import (
+        TripletTrainConfig, init_embed, train_triplet,
+    )
+
+    Xc_tr, Xo_tr, Xc_te, Xo_te = triplet_task("gauss-overlap", 1)
+    cfg = TripletTrainConfig(lr=0.1, steps=60, n_workers=8,
+                             repartition_every=7, triplets_per_worker=4_096,
+                             seed=5, embed_dim=2)
+    kw = dict(eval_every=20, eval_data=(Xc_te, Xo_te))
+    p0 = init_embed(16, 2, seed=3)
+    p_full, h_full = train_triplet(p0, Xc_tr, Xo_tr, cfg, **kw)
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "triplet.npz")
+        train_triplet(p0, Xc_tr, Xo_tr, dataclasses.replace(cfg, steps=20),
+                      checkpoint_path=path, **kw)
+        p_res, h_res = train_triplet(p0, Xc_tr, Xo_tr, cfg,
+                                     checkpoint_path=path, **kw)
+    assert p_full["W"].tobytes() == p_res["W"].tobytes()
+    for k in ("loss", "eval_steps", "test_acc"):
+        assert h_full[k].tobytes() == h_res[k].tobytes(), k
+    log(f"[triplet resume] 60 steps = 20 steps + checkpoint + 40 resumed, "
+        f"bit for bit (params, loss, accuracy curve {h_full['test_acc']})")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -715,9 +1196,34 @@ def main():
     timed("8 resume", phase_resume)
     timed("9 plain trajectory", phase_plain_trajectory)
     sim_wall = timed("10 sim learner", phase_sim_learner)
+
+    timed("11 triplet vs plain", phase_triplet_vs_plain, errs)
+    pk.reset_launch_counts()
+    X3, Y3, triplet_main = timed("12 triplet main path", phase_triplet_main)
+    triplet_launches = dict(pk.LAUNCHES)
+    log(f"[launches] degree-3 estimator path {json.dumps(triplet_launches)}")
+    for name in TRIPLET_NAMES:
+        key = f"batched_masked_pair_sum[{name}]"
+        assert triplet_launches.get(key, 0) > 0, f"{key} never launched"
+    triplet_rows = timed("12b triplet exact", phase_triplet_exact, X3, Y3,
+                         errs, triplet_launches, triplet_main)
+    del X3, Y3
+    config4 = timed("13 config 4", phase_config4)
+    pk.reset_launch_counts()
+    learner = timed("14 triplet learner", phase_triplet_learner)
+    learner_launches = dict(pk.LAUNCHES)
+    log(f"[launches] triplet learner path {json.dumps(learner_launches)}")
+    key = "batched_masked_pair_sum[triplet_indicator]"
+    assert learner_launches.get(key, 0) > 0, f"{key} never launched"
+    for r in triplet_rows:
+        r["launches_learner"] = learner_launches.get(r["name"], 0)
+    rows += triplet_rows
+    timed("15 triplet resume", phase_triplet_resume)
     log(f"[done] {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": rows, "train": train_rows,
-                      "sim_learner_cell_s": sim_wall, "phase_s": seconds,
+                      "sim_learner_cell_s": sim_wall,
+                      "triplet": triplet_main, "config4": config4,
+                      "triplet_learner": learner, "phase_s": seconds,
                       "card": card}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

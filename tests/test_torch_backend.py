@@ -161,8 +161,10 @@ def test_unported_designs_raise(data):
     est = Estimator("auc", device="cpu")
     with pytest.raises(NotImplementedError):
         est.incomplete(X[:, 0], Y[:, 0], n_pairs=10, design="swor")
+    # triplet kernels are ported; their distinct designs are not
     with pytest.raises(NotImplementedError):
-        Estimator("triplet_hinge", device="cpu")
+        Estimator("triplet_hinge", device="cpu").incomplete(
+            X, Y, n_pairs=10, design="bernoulli")
 
 
 def test_state_round_trip():

@@ -27,6 +27,7 @@ from tuplewise_tpu_torch.data import make_gaussian_splits
 from tuplewise_tpu_torch.models import pairwise_sgd as T
 from tuplewise_tpu_torch.models import scorers as TS
 from tuplewise_tpu_torch.models import sim_learner as TSim
+from tuplewise_tpu_torch.ops import kernels as kernels_mod
 from tuplewise_tpu_torch.ops.kernels import Kernel, get_kernel, register_kernel
 from tuplewise_tpu_torch.utils.state import params_to_state, state_to_params
 
@@ -206,7 +207,7 @@ class TestTrainPairwise:
                                  device="cpu")
         assert p1["w"].tobytes() == p2["w"].tobytes()
 
-    def test_value_errors(self, gauss, tmp_path):
+    def test_value_errors(self, gauss, tmp_path, monkeypatch):
         Xp, Xn, _, _ = gauss
         s = TS.LinearScorer(dim=5)
         p0 = s.init(0)
@@ -220,6 +221,9 @@ class TestTrainPairwise:
             run(kernel="auc")
         with pytest.raises(ValueError, match="score-difference"):
             run(kernel="scatter")
+        # registered into a copy of the registry, restored after the test
+        monkeypatch.setattr(kernels_mod, "_REGISTRY",
+                            dict(kernels_mod._REGISTRY))
         register_kernel(Kernel(name="sq_no_grad", degree=2, two_sample=True,
                                kind="diff", diff_fn=lambda d: (1 - d) ** 2))
         with pytest.raises(ValueError, match="analytic gradient"):

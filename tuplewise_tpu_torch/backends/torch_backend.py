@@ -5,8 +5,14 @@
   (ops.pair_kernels), except the built-in AUC, which by default takes the
   exact rank form (ops.rank_auc; ``auc_fast=False`` sends it through the
   kernel too). The built-in scatter takes its O(n d) closed form.
+* Complete statistics of the two built-in triplet kernels factorise
+  through the anchor distances and run the CUDA triplet kernel
+  (ops.triplet_kernels); a custom triplet kernel runs the plain tiled
+  scan (ops.pair_tiles.triplet_stats).
 * The N simulated workers of a local round are a batch axis: one round
-  is ONE batched kernel launch over the [N, m1] x [N, m2] blocks.
+  is ONE batched kernel launch over the [N, m1] x [N, m2] blocks (for
+  triplets, over the N x m1 anchors of all workers, each excluding the
+  positives that share its global row id).
 * Randomness comes from ``torch.Generator``s derived per purpose
   (utils.rng); values agree with the JAX backend statistically, not bit
   for bit.
@@ -23,7 +29,7 @@ import numpy as np
 import torch
 
 from tuplewise_tpu_torch.backends.base import register_backend
-from tuplewise_tpu_torch.ops import pair_kernels, pair_tiles
+from tuplewise_tpu_torch.ops import pair_kernels, pair_tiles, triplet_kernels
 from tuplewise_tpu_torch.ops.kernels import Kernel, auc_kernel, get_kernel
 from tuplewise_tpu_torch.ops.rank_auc import rank_auc
 from tuplewise_tpu_torch.ops.scatter_exact import (
@@ -51,10 +57,6 @@ class TorchBackend:
         if impl not in ("kernel", "plain"):
             raise ValueError(f"impl must be 'kernel' or 'plain', got {impl!r}")
         self.kernel = get_kernel(kernel)
-        if self.kernel.kind == "triplet":
-            raise NotImplementedError(
-                "degree-3 (triplet) estimators are not ported yet"
-            )
         self.device = resolve_device(device)
         self.impl = impl
         self.auc_fast = auc_fast
@@ -76,6 +78,10 @@ class TorchBackend:
     def complete(self, A, B=None) -> float:
         k = self.kernel
         A = self.to_device(A)
+        if k.kind == "triplet":
+            s, c = triplet_kernels.triplet_stats_best(k, A, self.to_device(B),
+                                                      impl=self.impl)
+            return float(s / c)
         if k.two_sample:
             B = self.to_device(B)
             if self.auc_fast and k is auc_kernel:
@@ -96,12 +102,15 @@ class TorchBackend:
         """One local-average round over given worker index blocks.
 
         i1 [N, m1], i2 [N, m2]: row indices of A and B held by each
-        worker (B and i2 are None for one-sample kernels). An entry < 0
-        is an empty slot: workers of unequal size are padded with -1,
-        and such rounds run the masked kernel with count sum(ma) *
-        sum(mb) per worker. alive: optional {0,1} weights [N] (dropped
-        workers 0). Returns the survivors' mean of the per-worker
-        U-statistics as a float64 0-d tensor.
+        worker (B and i2 are None for one-sample kernels). Triplet
+        kernels take anchors and positives from the rows i1 of A and
+        negatives from the rows i2 of B, and exclude by the GLOBAL row
+        ids i1: a row drawn twice into one block never pairs with
+        itself. An entry < 0 is an empty slot: workers of unequal size
+        are padded with -1, and such rounds run the masked kernel with
+        count sum(ma) * sum(mb) per worker. alive: optional {0,1}
+        weights [N] (dropped workers 0). Returns the survivors' mean of
+        the per-worker U-statistics as a float64 0-d tensor.
         """
         i1 = torch.as_tensor(i1, device=self.device, dtype=torch.int64)
         padded = bool((i1 < 0).any())
@@ -114,7 +123,14 @@ class TorchBackend:
     def _round_from_blocks(self, A, B, i1, i2, alive, padded):
         A = self.to_device(A)
         alive = torch.as_tensor(alive, dtype=torch.float64, device=self.device)
-        if self.kernel.two_sample:
+        if self.kernel.kind == "triplet":
+            B = self.to_device(B)
+            sums, counts = triplet_kernels.grouped_triplet_stats(
+                self.kernel, A[i1.clamp_min(0)], B[i2.clamp_min(0)], i1,
+                (i1 >= 0).to(torch.float32), (i2 >= 0).to(torch.float32),
+                impl=self.impl)
+            vals = sums / counts
+        elif self.kernel.two_sample:
             B = self.to_device(B)
             a, b = A[i1.clamp_min(0)], B[i2.clamp_min(0)]
             if padded:
@@ -172,6 +188,9 @@ class TorchBackend:
             )
         A = self.to_device(A)
         gen = generator(seed, "incomplete", device=self.device)
+        if self.kernel.kind == "triplet":
+            return float(pair_tiles.incomplete_triplet_mean(
+                self.kernel, gen, A, self.to_device(B), n_pairs))
         if self.kernel.two_sample:
             B = self.to_device(B)
             return float(pair_tiles.incomplete_pair_mean(

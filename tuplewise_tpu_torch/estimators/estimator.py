@@ -3,9 +3,11 @@
 ``Estimator(kernel=..., backend="torch")``: the four estimator schemes of
 ``tuplewise_tpu.estimators.estimator`` with the same semantics and input
 convention. Score-difference kernels ("auc", "hinge", "logistic") take
-1-D score arrays; feature kernels ("scatter") take [n, d] arrays. Inputs
-may be numpy arrays, lists or tensors; they are moved to the backend's
-device as float32.
+1-D score arrays; feature kernels ("scatter") take [n, d] arrays, and so
+do the triplet kernels ("triplet_indicator", "triplet_hinge"): A holds
+the anchors and positives (one class), B the negatives. Inputs may be
+numpy arrays, lists or tensors; they are moved to the backend's device
+as float32.
 
 It runs on the card unless ``device="cpu"`` is passed; with no card and
 no device it raises.
@@ -65,7 +67,10 @@ class Estimator:
                     f"shapes {shapes}. Apply a scorer first."
                 )
         elif A.dim() != 2 or (B is not None and B.dim() != 2):
-            raise ValueError(f"kernel {k.name!r} expects [n, d] features")
+            what = (" (A: anchors and positives, B: negatives)"
+                    if k.kind == "triplet" else "")
+            raise ValueError(f"kernel {k.name!r} expects [n, d] features"
+                             f"{what}")
         return A, B
 
     # the four estimator schemes

@@ -10,13 +10,19 @@ namespace ``xp``.
   kernels (``csrc/pair_sum.cu``) switch on; a kernel without one (any
   user-registered kernel) runs the plain tiled path on every device.
 * Pair feature kernels (``kind="pair"``): within-sample scatter.
-* Triplet kernels (``kind="triplet"``): registered for parity with the
-  JAX table; their estimators are not ported yet.
+* Triplet kernels (``kind="triplet"``): ``h(anchor, positive, negative)``
+  on [n, d] features. The two built-in ones depend on the points only
+  through d(a,p) - d(a,n), so ``builtin_triplet_spec`` names their
+  distance-difference combine and margin; the combine bodies below
+  carry the ids of the CUDA triplet kernel (``csrc/triplet_sum.cu``). A
+  user-registered triplet kernel has no combine and runs the plain
+  tiled scan (``ops.pair_tiles.triplet_stats``) on every device.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import inspect
 from typing import Callable, Optional
 
 import torch
@@ -185,6 +191,37 @@ triplet_hinge_kernel = Kernel(
     name="triplet_hinge", degree=3, two_sample=True, kind="triplet",
     triplet_fn=_triplet_hinge, higher_is_better=False,
 )
+
+
+# The distance-difference combines g(t), t = d(a,p) - d(a,n), of the two
+# built-in triplet kernels. Body ids match csrc/triplet_sum.cu.
+TRIPLET_INDICATOR_BODY, TRIPLET_HINGE_BODY = 0, 1
+
+
+def triplet_indicator_combine(t, margin):
+    # 1{t < -margin}: d(a,n) > d(a,p) + margin
+    return (t < -margin).to(t.dtype)
+
+
+def triplet_hinge_combine(t, margin):
+    # max(0, margin + t)
+    return torch.clamp_min(margin + t, 0.0)
+
+
+def builtin_triplet_spec(kernel: Kernel):
+    """("indicator" | "hinge", margin) when ``kernel`` IS one of the two
+    built-in triplet kernels (identity of ``triplet_fn``, not the name:
+    a custom kernel registered under a built-in name never matches),
+    else None. The margin is read off the function's own default."""
+    table = {
+        triplet_indicator_kernel.triplet_fn: "indicator",
+        triplet_hinge_kernel.triplet_fn: "hinge",
+    }
+    kind = table.get(kernel.triplet_fn)
+    if kind is None:
+        return None
+    margin = inspect.signature(kernel.triplet_fn).parameters["margin"].default
+    return kind, float(margin)
 
 
 _REGISTRY = {

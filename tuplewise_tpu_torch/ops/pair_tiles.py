@@ -2,7 +2,10 @@
 ``tuplewise_tpu.ops.pair_tiles``).
 
 Estimation half, plain PyTorch: the pair grid is never materialised:
-``pair_stats`` walks it in (tile_a x tile_b) blocks. Reductions are
+``pair_stats`` walks it in (tile_a x tile_b) blocks, ``triplet_stats``
+the triplet grid in [anchor, positive, negative] blocks (the path of
+custom triplet kernels; the built-in ones factorise through
+``ops.triplet_kernels``). Reductions are
 mask- and id-aware: masks make padded packings exact, and ids exclude
 cells whose original indices coincide (the one-sample diagonal and
 with-replacement duplicates).
@@ -109,6 +112,72 @@ def incomplete_pair_mean(kernel, gen, A, B, n_pairs: int,
     i, j = sample_pair_indices(gen, A.shape[0], B.shape[0], n_pairs,
                                one_sample)
     return kernel.pair_elementwise(A[i], B[j]).mean(dtype=torch.float64)
+
+
+def triplet_stats(
+    kernel,
+    X: torch.Tensor,
+    Y: torch.Tensor,
+    mask_x: Optional[torch.Tensor] = None,
+    mask_y: Optional[torch.Tensor] = None,
+    ids_x: Optional[torch.Tensor] = None,
+    *,
+    positives: Optional[torch.Tensor] = None,
+    mask_p: Optional[torch.Tensor] = None,
+    ids_p: Optional[torch.Tensor] = None,
+    tile: int = 128,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(sum, count) of h(x_i, p_j, y_k) over ids_x[i] != ids_p[j], all k,
+    for any triplet kernel: the plain scan over [anchor, positive,
+    negative] blocks of ``tile`` rows each.
+
+    By default positives = X (the within-sample degree-(2,1) statistic);
+    a visiting positives block (``positives``, ``mask_p``, ``ids_p``)
+    serves the cross-shard form. Masks are float weights; ids default
+    to the row index. Returns (float64 0-d sum, int64 0-d count of the
+    cells of nonzero weight).
+    """
+    dev = X.device
+
+    def weights(mask, n):
+        return (torch.ones(n, dtype=X.dtype, device=dev) if mask is None
+                else mask.to(X.dtype))
+
+    def ids(given, n):
+        return torch.arange(n, device=dev) if given is None else given
+
+    mx, my = weights(mask_x, X.shape[0]), weights(mask_y, Y.shape[0])
+    ix = ids(ids_x, X.shape[0])
+    if positives is None:
+        positives, mp, ip = X, mx, ix
+    else:
+        mp = weights(mask_p, positives.shape[0])
+        ip = ids(ids_p, positives.shape[0])
+    total = torch.zeros((), dtype=torch.float64, device=dev)
+    count = torch.zeros((), dtype=torch.int64, device=dev)
+    for a0 in range(0, X.shape[0], tile):
+        a = X[a0:a0 + tile, None, None, :]
+        wa = mx[a0:a0 + tile, None]
+        ia = ix[a0:a0 + tile, None]
+        for p0 in range(0, positives.shape[0], tile):
+            p = positives[None, p0:p0 + tile, None, :]
+            # [ta, tp] anchor-positive weights with the id exclusion
+            wap = wa * mp[None, p0:p0 + tile] * (ia != ip[None, p0:p0 + tile])
+            for k0 in range(0, Y.shape[0], tile):
+                vals = kernel.triplet_values(a, p, Y[None, None, k0:k0 + tile])
+                w = wap[:, :, None] * my[None, None, k0:k0 + tile]
+                total += (vals * w).sum(dtype=torch.float64)
+                count += (w > 0).sum()
+    return total, count
+
+
+def incomplete_triplet_mean(kernel, gen, X, Y, n_pairs: int) -> torch.Tensor:
+    """Mean of h over B triplets drawn with replacement: (i, j) from the
+    off-diagonal of X by the shift trick, k uniform over Y (float64 0-d)."""
+    i, j = sample_pair_indices(gen, X.shape[0], X.shape[0], n_pairs, True)
+    k = torch.randint(0, Y.shape[0], (n_pairs,), generator=gen,
+                      device=gen.device)
+    return kernel.triplet_values(X[i], X[j], Y[k]).mean(dtype=torch.float64)
 
 
 # --------------------------------------------------------------------- #

@@ -23,12 +23,14 @@ PURPOSES = (
     "partition",
     "data",
     "pairs",
-    # the learner: worker blocks drawn at repartition boundary t, and the
-    # sampled pairs of step t (the JAX chains (root, "repartition", t),
-    # (root, "step", t) and (kt, "pair_sample", w))
+    # the learners: worker blocks drawn at repartition boundary t, and the
+    # sampled pairs or triplets of step t (the JAX chains (root,
+    # "repartition", t), (root, "step", t), (kt, "pair_sample", w) and
+    # (kt, "triplet_sample", w))
     "repartition",
     "step",
     "pair_sample",
+    "triplet_sample",
 )
 
 
