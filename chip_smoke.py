@@ -92,13 +92,42 @@ nonzero. Each phase prints its seconds.
    S = 2) the MLP embedder must beat the linear one by 0.05. Steps/s.
 15. Triplet resume is exact: 60 steps equal 20 steps, a checkpoint and 40
    resumed ones, bit for bit (params, losses, accuracy curve).
+16. Count kernel vs plain (serving): kernel 6 (signed_count) against its
+   plain version (comparison counting) and the torch.searchsorted chain,
+   equal as integers: k = 6 runs (a ragged base of 1000003 values with
+   duplicates, a -1 tombstone run of 4097, a +1 delta run | a second
+   base, a -1 run, an empty run) for queries of 1/255, 255/1, 513/4099
+   and 4099/513 with ties at run values; then at the headline (each
+   class's base at cap 2^19, 512 queries a set) the three are timed, by
+   CUDA events a call and by torch.profiler's device time a call. The
+   bound counts the 32-byte run sectors that the kernel's binary searches
+   of these queries read (replayed here), not the whole runs.
+17. Serving index main path at bench.py _serving_kernel_cell's
+   single-device size: 10^6 events of make_stream(seed=0) in float32,
+   window 5e5, compact_every 1024, chunks of 256, through ExactAucIndex
+   with count_kernel on and off, each warmed once on a 65536-event
+   prefix. wins2 must be equal after every batch, the final auc() equal
+   the float32 rank-AUC oracle of the window, and after seeding and
+   compacting one launch of kernel 6 per micro-batch, no fallback.
+   Events/s, insert p50/p99; then, outside the counted run, kernel 6 at
+   the index's own final shape.
+18. Engine through replay at bench.py _streaming_events_per_sec's size:
+   300000 events, budget 64, max_batch 256, policy block, flush 0.5 ms,
+   compact_every 1024, max_inflight 64, count_kernel on, warmup, with
+   bg_compact on and off: auc_abs_err 0, every event applied, kernel 6
+   launched. Events/s, latency p50/p99, insert-stage p99s and the
+   host-tax split.
+19. StreamingEstimator on the card at 10^5 events: its auc() equals the
+   float32 rank-AUC oracle.
 
 The launch counters are set to 0 before phase 3 and read after phase 4,
 set to 0 again before phase 7 and read after it, before phase 12 and
-after it, and before phase 14 and after it: every kernel must have been
-launched on its path (pair sums on the estimator's, gradient kernels on
-the trainer's, the triplet kernel on the degree-3 estimator's and on the
-triplet learner's evaluations). The script prints one JSON line of kernels,
+after it, before phase 14 and after it, before phase 17 and after it,
+and before phase 18 and after it: every kernel must have been launched
+on its path (pair sums on the estimator's, gradient kernels on the
+trainer's, the triplet kernel on the degree-3 estimator's and on the
+triplet learner's evaluations, the count kernel on the serving index's
+and the engine's). The script prints one JSON line of kernels,
 the card's name and power limit as nvidia-smi reports them, and, last,
 {"ok": true, "device": {...}}. Without a CUDA device, or without the
 package beside it, it exits nonzero and prints no result.
@@ -154,8 +183,10 @@ REPLACES = {
     "pair_loss_grad": "tuplewise_tpu/ops/pallas_pairs.py:440",
     "pair_grad_sums": "tuplewise_tpu/ops/pallas_pairs.py:520",
     "batched_masked_pair_sum": "tuplewise_tpu/ops/pallas_triplets.py:185",
+    "signed_count": "tuplewise_tpu/ops/pallas_counts.py:145",
 }
 SOURCES = {
+    "signed_count": "tuplewise_tpu_torch/csrc/signed_count.cu",
     "pair_sum": "tuplewise_tpu_torch/csrc/pair_sum.cu",
     "masked_pair_sum": "tuplewise_tpu_torch/csrc/pair_sum.cu",
     "pair_loss_grad": "tuplewise_tpu_torch/csrc/pair_grad.cu",
@@ -174,6 +205,13 @@ TRIPLET_SLICE = 128
 # (results/learning_triplet.jsonl line 1): final test accuracy, its se
 JAX_GAUSS_OVERLAP = (0.569129, 0.003846)
 NEVER = 1 << 30
+# the serving cells of bench.py: _serving_kernel_cell (single-device) and
+# _streaming_events_per_sec
+INDEX_EVENTS, INDEX_CHUNK, INDEX_COMPACT = 1_000_000, 256, 1024
+INDEX_WARM_EVENTS = 1 << 16
+ENGINE_EVENTS = 300_000
+# kernel 6's headline: each class's base at cap 2^19, 512 queries a set
+COUNT_BASE, COUNT_Q = 500_000, 512
 
 
 def log(*a):
@@ -193,6 +231,25 @@ def cuda_ms(fn, reps=1):
     return start.elapsed_time(end) / reps, out
 
 
+def timed_on_device(fn, reps):
+    """(milliseconds a call by CUDA events, milliseconds of device kernel
+    time a call by torch.profiler, the last result). For a call that
+    launches little work the two differ: the events also see the device
+    wait for the host to enqueue the next call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    call_ms, out = cuda_ms(fn, reps)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    device_us = sum(ev.time_range.end - ev.time_range.start
+                    for ev in prof.events()
+                    if ev.device_type == torch.autograd.DeviceType.CUDA)
+    assert device_us > 0, "the profiler saw no device time"
+    return call_ms, device_us / 1e3 / reps, out
+
+
 def card_line():
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -203,21 +260,25 @@ def card_line():
 
 def phase_build():
     from tuplewise_tpu_torch.ops import (
-        _build, pair_grad_kernels, pair_kernels, triplet_kernels,
+        _build, count_kernels, pair_grad_kernels, pair_kernels,
+        triplet_kernels,
     )
 
     t0 = time.perf_counter()
     sources = sorted({os.path.basename(p) for p in SOURCES.values()})
-    with concurrent.futures.ThreadPoolExecutor(len(sources) + 1) as ex:
-        report = ex.submit(ptxas_report, "triplet_sum.cu")
+    reported = ("triplet_sum.cu", "signed_count.cu")
+    with concurrent.futures.ThreadPoolExecutor(len(sources) + 2) as ex:
+        reports = {s: ex.submit(ptxas_report, s) for s in reported}
         list(ex.map(_build.build, sources))
     pair_kernels.load_library()
     pair_grad_kernels.load_library()
     triplet_kernels.load_library()
+    count_kernels.load_library()
     log(f"[build] {', '.join(sources)} built and loaded in "
         f"{time.perf_counter() - t0:.2f} s (nvcc {_build.BUILD_SECONDS})")
-    for line in report.result():
-        log(f"[ptxas] triplet_sum.cu: {line}")
+    for source, report in reports.items():
+        for line in report.result():
+            log(f"[ptxas] {source}: {line}")
 
 
 def ptxas_report(source):
@@ -1129,6 +1190,310 @@ def phase_triplet_resume():
         f"bit for bit (params, loss, accuracy curve {h_full['test_acc']})")
 
 
+def padded(run, cap):
+    """A sorted run padded with +inf to ``cap``, as the index places it."""
+    pad = torch.full((cap - len(run),), math.inf, device=run.device)
+    return torch.cat([run, pad])
+
+
+def tied_queries(gen, n, run):
+    """n queries, half of them values of ``run`` (ties at run values)."""
+    q = torch.randn(n, generator=gen, device="cuda")
+    at = torch.randint(0, len(run), (n // 2,), generator=gen, device="cuda")
+    q[: n // 2] = run[at]
+    return q
+
+
+def searched(run, q):
+    """Replays kernel 6's lower and upper binary searches of ``run`` for
+    queries ``q`` (the same halving as ``bound`` in signed_count.cu).
+    Returns (distinct 32-byte sectors of the run they read, loads made,
+    the longest chain of dependent loads of one query)."""
+    touched, loads, chain = [], 0, 0
+    for upper in (False, True):
+        lo = torch.zeros(len(q), dtype=torch.int64, device=q.device)
+        n = torch.full_like(lo, run.numel())
+        steps = 0
+        while run.numel() and bool((n > 0).any()):
+            live = n > 0
+            half = n >> 1
+            at = lo + half
+            touched.append(at[live])
+            loads += int(live.sum())
+            steps += 1
+            v = run[at.clamp(max=run.numel() - 1)]
+            right = (v <= q) if upper else (v < q)
+            lo = torch.where(live & right, lo + half + 1, lo)
+            n = torch.where(live, torch.where(right, n - half - 1, half), n)
+        chain += steps
+    sectors = (int(torch.unique(torch.cat(touched) // 8).numel())
+               if touched else 0)
+    return sectors, loads, chain
+
+
+def count_bound_ms(runs, sets, qa, qb):
+    """Bound of a signed count from what these inputs need: the run
+    sectors the binary searches read (each once), the queries read once
+    and the [4, q] int32 block written once, at HBM rate; or one
+    comparison per load at the FP32 peak. Also returns the dependent
+    loads a thread makes one after another (its latency chain)."""
+    lens, qs = (len(qa), len(qb)), (qa, qb)
+    sectors = loads = 0
+    chains = [0, 0]           # a thread searches every run of its set
+    for r, a in zip(runs, sets):
+        s, l, c = searched(r, qs[a])
+        sectors, loads, chains[a] = sectors + s, loads + l, chains[a] + c
+    byts = 32.0 * sectors + 4.0 * sum(lens) + 16.0 * max(lens)
+    by = ("operations" if loads / PEAK_FP32_OPS >= byts / PEAK_BYTES
+          else "bytes")
+    return (max(loads / PEAK_FP32_OPS, byts / PEAK_BYTES) * 1e3, by,
+            max(chains))
+
+
+def phase_count_vs_plain():
+    """Phase 16: kernel 6 against its plain version and the searchsorted
+    chain, as integers; the timing row at the headline shape."""
+    from tuplewise_tpu_torch.ops import count_kernels as ck
+    from tuplewise_tpu_torch.parallel import sharded_counts as sc
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 8)
+
+    def run_of(n, shift=0.0):
+        # values on a 1/64 grid: many duplicates
+        v = torch.round(torch.randn(n, generator=g, device="cuda") * 64) / 64
+        return torch.sort(v + shift).values
+
+    def picked(run, k):
+        at = torch.randperm(len(run), generator=g, device="cuda")[:k]
+        return torch.sort(run[at]).values
+
+    base, pos = run_of(1_000_003), run_of(500_009, 0.5)
+    runs = [padded(base, sc.next_bucket(len(base))), picked(base, 4097),
+            run_of(30_011), padded(pos, sc.next_bucket(len(pos))),
+            picked(pos, 777), torch.empty(0, device="cuda")]
+    signs, sets = [1, -1, 1, 1, -1, 1], [0, 0, 0, 1, 1, 1]
+    err = 0
+
+    def differ(got, want):
+        return int((got.long() - want.long()).abs().max())
+
+    for la, lb in [(1, 255), (255, 1), (513, 4099), (4099, 513)]:
+        qa, qb = tied_queries(g, la, base), tied_queries(g, lb, pos)
+        args = (runs, signs, sets, qa, qb)
+        got = ck.signed_count(*args)
+        err = max(err, differ(got, ck.signed_count_plain(*args)),
+                  differ(got, sc.signed_count_searchsorted(*args)))
+        assert err == 0, (la, lb, err)
+        log(f"[count vs plain] k=6 (base 1000003 +1, tombstones 4097 -1, "
+            f"delta 30011 +1 | 500009 +1, 777 -1, empty) qa={la} qb={lb}: "
+            f"kernel = plain = searchsorted")
+
+    neg_b, pos_b = run_of(COUNT_BASE), run_of(COUNT_BASE, 1.0)
+    cap = sc.next_bucket(COUNT_BASE)
+    runs = [padded(neg_b, cap), padded(pos_b, cap)]
+    qa, qb = tied_queries(g, COUNT_Q, neg_b), tied_queries(g, COUNT_Q, pos_b)
+    args = (runs, [1, 1], [0, 1], qa, qb)
+    times = {}
+    for name, fn, reps in (
+            ("kernel", lambda: ck.signed_count(*args), 1000),
+            ("plain", lambda: ck.signed_count_plain(*args), 5),
+            ("library", lambda: sc.signed_count_searchsorted(*args), 200)):
+        fn()                                                  # warm-up
+        times[name] = timed_on_device(fn, reps)
+    got, want, chain = (times[k][2] for k in ("kernel", "plain", "library"))
+    err = max(err, differ(got, want), differ(got, chain))
+    assert err == 0, err
+    bms, by, loads = count_bound_ms(runs, [0, 1], qa, qb)
+    (call_ms, ms, _), (_, plain_ms, _), (lib_call_ms, lib_ms, _) = (
+        times["kernel"], times["plain"], times["library"])
+    row = dict(
+        name="signed_count[flat]", route="cuda", source=SOURCES["signed_count"],
+        replaces=REPLACES["signed_count"], launches=None, max_abs_err=err,
+        ms=ms, call_ms=call_ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+        dependent_loads=loads, library_ms=lib_ms, library_call_ms=lib_call_ms,
+        library_calls=f"{2 * len(runs)} searchsorted",
+        shape=f"2 runs of {COUNT_BASE} (cap {cap}), qa=qb={COUNT_Q}")
+    log(f"[timing] signed_count[flat] {row['shape']}: {ms * 1e3:.2f} us of "
+        f"device time a launch ({call_ms * 1e3:.2f} us a call by events; "
+        f"bound {bms * 1e3:.3f} us by {by}, from the sectors the searches "
+        f"read; a thread's chain is {loads} dependent loads), plain "
+        f"{plain_ms * 1e3:.1f} us, searchsorted chain "
+        f"({row['library_calls']}) {lib_ms * 1e3:.2f} us "
+        f"({lib_call_ms * 1e3:.2f} us a call); max |kernel - plain|, "
+        f"|kernel - searchsorted| = {err}")
+    return row
+
+
+def drive_index(scores, labels, count_kernel, n, device="cuda"):
+    """bench.py _serving_kernel_cell on one device: n events of the
+    stream through ExactAucIndex (window n/2, compact_every 1024) in
+    micro-batches of 256 after seeding and compacting the first one.
+    Returns (record, wins2 after every batch, the index)."""
+    from tuplewise_tpu_torch import ExactAucIndex
+    from tuplewise_tpu_torch.ops import pair_kernels as pk
+
+    c = INDEX_CHUNK
+    idx = ExactAucIndex(window=n // 2, compact_every=INDEX_COMPACT,
+                        count_kernel=count_kernel, device=device)
+    idx.insert_batch(scores[:c], labels[:c])
+    idx.compact()
+    calls0 = idx.metrics.snapshot()["count_kernel_calls_total"]["value"]
+    launches0 = pk.LAUNCHES["signed_count[flat]"]
+    wins, lats = [], []
+    t_all = time.perf_counter()
+    for i in range(c, n, c):
+        t0 = time.perf_counter()
+        idx.insert_batch(scores[i:i + c], labels[i:i + c])
+        lats.append(time.perf_counter() - t0)
+        wins.append(idx._wins2)
+    wall = time.perf_counter() - t_all
+    snap = idx.metrics.snapshot()
+    lat = np.asarray(lats) * 1e3
+    rec = dict(
+        events_per_s=(n - c) / wall, wall_s=wall,
+        insert_latency_p50_ms=float(np.percentile(lat, 50)),
+        insert_latency_p99_ms=float(np.percentile(lat, 99)),
+        batches=len(lats),
+        kernel_calls=snap["count_kernel_calls_total"]["value"] - calls0,
+        kernel_launches=pk.LAUNCHES["signed_count[flat]"] - launches0,
+        kernel_fallbacks=snap["count_kernel_fallbacks_total"]["value"],
+        compactions=snap["compactions_total"]["value"],
+        bytes_h2d=snap["bytes_h2d"]["value"])
+    return rec, wins, idx
+
+
+def phase_index():
+    """Phase 17: the index at _serving_kernel_cell's single-device size,
+    count_kernel on and off, each warmed once on a prefix; the path whose
+    launches count for kernel 6. Returns (record, the final runs and one
+    batch's queries for the per-launch timing)."""
+    from tuplewise_tpu_torch.models.metrics import auc_score
+    from tuplewise_tpu_torch.serving import make_stream
+
+    n, c = INDEX_EVENTS, INDEX_CHUNK
+    scores, labels = make_stream(n, pos_frac=0.5, separation=1.0, seed=0)
+    scores = scores.astype(np.float32)
+    out, wins = {}, {}
+    for mode, ck in (("kernel", True), ("searchsorted", False)):
+        warm = drive_index(scores, labels, ck, INDEX_WARM_EVENTS)[2]
+        warm.close()
+        rec, wins[mode], idx = drive_index(scores, labels, ck, n)
+        out[mode] = rec
+        tail_s, tail_l = scores[n - n // 2:], labels[n - n // 2:]
+        oracle = auc_score(tail_s[tail_l], tail_s[~tail_l])
+        assert idx.auc() == oracle, (mode, idx.auc(), oracle)
+        rec["auc"] = idx.auc()
+        if ck:
+            assert rec["kernel_calls"] == rec["batches"], rec
+            assert rec["kernel_launches"] == rec["batches"], rec
+            assert rec["kernel_fallbacks"] == 0, rec
+            q_s, q_l = scores[n - 2 * c:], labels[n - 2 * c:]
+            probe = (idx._runs(idx._neg) + idx._runs(idx._pos),
+                     torch.from_numpy(q_s[q_l]).cuda(),
+                     torch.from_numpy(q_s[~q_l]).cuda())
+        idx.close()
+        log(f"[index] {mode:12s} n={n} window={n // 2} chunk={c}: "
+            f"{rec['events_per_s']:.0f} events/s, insert p50 "
+            f"{rec['insert_latency_p50_ms']:.3f} ms p99 "
+            f"{rec['insert_latency_p99_ms']:.3f} ms, {rec['batches']} "
+            f"batches, {rec['kernel_launches']} kernel launches, "
+            f"{rec['compactions']} compactions, {rec['bytes_h2d']} bytes "
+            f"placed; auc {rec['auc']!r} = the float32 rank-AUC oracle")
+    assert wins["kernel"] == wins["searchsorted"], "wins2 diverged"
+    log(f"[index] wins2 equal after each of {len(wins['kernel'])} batches")
+    return out, probe
+
+
+def time_index_kernel(probe, out):
+    """Kernel 6 at the index's own shape (its final base runs, one
+    batch's insert and eviction queries), outside the counted run."""
+    from tuplewise_tpu_torch.ops import count_kernels as ck
+
+    runs, qa, qb = probe
+    args = ([r for r, _, _ in runs], [1, 1], [0, 1], qa, qb)
+    ck.signed_count(*args)                                    # warm-up
+    call_ms, ms, got = timed_on_device(lambda: ck.signed_count(*args), 1000)
+    assert torch.equal(got, ck.signed_count_plain(*args))
+    bms, by, loads = count_bound_ms(args[0], [0, 1], qa, qb)
+    out["kernel_us_per_launch"] = ms * 1e3
+    out["kernel_call_us"] = call_ms * 1e3
+    out["kernel_bound_us"] = bms * 1e3
+    out["kernel_shape"] = (f"caps {[r.numel() for r in args[0]]}, "
+                           f"qa={len(qa)} qb={len(qb)}")
+    log(f"[index] kernel 6 at the index's shape ({out['kernel_shape']}): "
+        f"{ms * 1e3:.2f} us of device time a launch ({call_ms * 1e3:.2f} us "
+        f"a call by events; bound {bms * 1e3:.3f} us by {by}; a thread's "
+        f"chain is {loads} dependent loads)")
+
+
+def phase_engine():
+    """Phase 18: MicroBatchEngine through replay at the size of bench.py
+    _streaming_events_per_sec, bg_compact on and off."""
+    from tuplewise_tpu_torch import ServingConfig, make_stream, replay
+    from tuplewise_tpu_torch.ops import pair_kernels as pk
+
+    scores, labels = make_stream(ENGINE_EVENTS, pos_frac=0.5, separation=1.0,
+                                 seed=0)
+    out = {}
+    for bg in (True, False):
+        cfg = ServingConfig(budget=64, max_batch=256, policy="block",
+                            flush_timeout_s=0.0005, compact_every=1024,
+                            bg_compact=bg, count_kernel=True)
+        before = pk.LAUNCHES["signed_count[flat]"]
+        rec = replay(scores, labels, config=cfg, warmup=True,
+                     max_inflight=64)
+        launched = pk.LAUNCHES["signed_count[flat]"] - before
+        assert rec["events_applied"] == ENGINE_EVENTS, rec["events_applied"]
+        assert rec["auc_abs_err"] == 0, rec["auc_abs_err"]
+        assert launched > 0
+        tax = rec["host_tax"]
+        keep = ("events_per_s", "latency_p50_ms", "latency_p99_ms",
+                "insert_latency_p50_ms", "insert_latency_p99_ms",
+                "insert_stage_p99_ms", "batches", "mean_batch_fill",
+                "compactions", "compaction_pause_p99_ms", "auc_exact",
+                "auc_abs_err", "bytes_h2d")
+        out[f"bg_compact={bg}"] = dict(
+            {k: rec[k] for k in keep}, host_tax=tax, kernel_launches=launched)
+        stages = ", ".join(f"{k} {v:.3f}"
+                           for k, v in rec["insert_stage_p99_ms"].items())
+        buckets = ", ".join(f"{k} {v:.3f}"
+                            for k, v in tax["bucket_p99_ms"].items())
+        log(f"[engine] replay n={ENGINE_EVENTS} bg_compact={bg}: "
+            f"{rec['events_per_s']:.0f} events/s, latency p50 "
+            f"{rec['latency_p50_ms']:.3f} ms p99 {rec['latency_p99_ms']:.3f}"
+            f" ms, {rec['batches']} batches (fill "
+            f"{rec['mean_batch_fill']:.3f}), {launched} kernel launches "
+            f"(warm-up run included), auc_abs_err 0")
+        log(f"[engine]   insert stage p99 ms: {stages}")
+        log(f"[engine]   host tax: host {tax['host_fraction']:.4f} device "
+            f"{tax['device_fraction']:.4f} (coverage {tax['coverage']:.6f}); "
+            f"bucket p99 ms: {buckets}")
+    return out
+
+
+def phase_streaming_estimator():
+    """Phase 19: StreamingEstimator on the card; its exact AUC equals the
+    float32 rank-AUC oracle."""
+    from tuplewise_tpu_torch import StreamingEstimator, make_stream
+    from tuplewise_tpu_torch.models.metrics import auc_score
+
+    n = 100_000
+    scores, labels = make_stream(n, seed=3)
+    est = StreamingEstimator(count_kernel=True, compact_every=1024)
+    t0 = time.perf_counter()
+    for i in range(0, n, 1000):
+        est.extend(scores[i:i + 1000], labels[i:i + 1000])
+    wall = time.perf_counter() - t0
+    s32 = scores.astype(np.float32)
+    oracle = auc_score(s32[labels], s32[~labels])
+    assert est.auc() == oracle, (est.auc(), oracle)
+    log(f"[streaming estimator] n={n} in batches of 1000: auc "
+        f"{est.auc()!r} = oracle, incomplete estimate {est.estimate():.6f}"
+        f" ({n / wall:.0f} events/s)")
+    return dict(auc=est.auc(), estimate=est.estimate(),
+                events_per_s=n / wall)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1219,12 +1584,33 @@ def main():
         r["launches_learner"] = learner_launches.get(r["name"], 0)
     rows += triplet_rows
     timed("15 triplet resume", phase_triplet_resume)
+
+    count_row = timed("16 count kernel vs plain", phase_count_vs_plain)
+    key = "signed_count[flat]"
+    pk.reset_launch_counts()
+    index, probe = timed("17 index main path", phase_index)
+    index_launches = dict(pk.LAUNCHES)
+    log(f"[launches] serving index path {json.dumps(index_launches)}")
+    assert index_launches.get(key, 0) > 0, f"{key} never launched"
+    pk.reset_launch_counts()
+    engine = timed("18 engine replay", phase_engine)
+    engine_launches = dict(pk.LAUNCHES)
+    log(f"[launches] serving engine path {json.dumps(engine_launches)}")
+    assert engine_launches.get(key, 0) > 0, f"{key} never launched"
+    time_index_kernel(probe, index)
+    del probe
+    count_row["launches"] = index_launches[key]
+    count_row["launches_engine"] = engine_launches[key]
+    rows.append(count_row)
+    streaming = timed("19 streaming estimator", phase_streaming_estimator)
     log(f"[done] {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": rows, "train": train_rows,
                       "sim_learner_cell_s": sim_wall,
                       "triplet": triplet_main, "config4": config4,
-                      "triplet_learner": learner, "phase_s": seconds,
-                      "card": card}), flush=True)
+                      "triplet_learner": learner,
+                      "serving": {"index": index, "engine": engine,
+                                  "streaming_estimator": streaming},
+                      "phase_s": seconds, "card": card}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -43,10 +43,17 @@ def test_estimator_without_device_raises_where_cuda_is_absent(monkeypatch):
         VarianceConfig, run_variance_experiment,
     )
 
+    from tuplewise_tpu_torch import ExactAucIndex, MicroBatchEngine
+
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         Estimator("auc", backend="torch")
     with pytest.raises(RuntimeError, match="CUDA"):
         run_variance_experiment(VarianceConfig(n_pos=10, n_neg=10,
                                                n_reps=2))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ExactAucIndex()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        MicroBatchEngine()
     assert Estimator("auc", device="cpu").backend.device.type == "cpu"
+    assert ExactAucIndex(device="cpu").device.type == "cpu"

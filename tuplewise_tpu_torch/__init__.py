@@ -14,11 +14,14 @@ Module names mirror the JAX package so each counterpart is easy to find:
                     harness.triplet_experiment (BASELINE config 4)
   L5 learners    -> tuplewise_tpu_torch.models  (train_pairwise,
                     train_curves, train_triplet)
+  serving        -> tuplewise_tpu_torch.serving  (ExactAucIndex,
+                    MicroBatchEngine, replay), estimators.streaming
 
 Entry points run on the card unless the caller passes device="cpu".
 """
 
 from tuplewise_tpu_torch.estimators.estimator import Estimator
+from tuplewise_tpu_torch.estimators.streaming import StreamingEstimator
 from tuplewise_tpu_torch.harness.triplet_experiment import (
     triplet_mnist_statistic,
 )
@@ -30,8 +33,15 @@ from tuplewise_tpu_torch.models.triplet_sgd import (
     TripletTrainConfig, evaluate_triplet_accuracy, init_embed, train_triplet,
 )
 from tuplewise_tpu_torch.ops.kernels import Kernel, get_kernel, register_kernel
+from tuplewise_tpu_torch.serving import (
+    ExactAucIndex, MicroBatchEngine, ServingConfig, StreamingIncompleteU,
+    make_stream, replay,
+)
 
-__all__ = ["Estimator", "Kernel", "TrainConfig", "TripletTrainConfig",
-           "evaluate_auc", "evaluate_triplet_accuracy", "get_kernel",
-           "init_embed", "register_kernel", "split_by_label", "train_curves",
-           "train_pairwise", "train_triplet", "triplet_mnist_statistic"]
+__all__ = ["Estimator", "ExactAucIndex", "Kernel", "MicroBatchEngine",
+           "ServingConfig", "StreamingEstimator", "StreamingIncompleteU",
+           "TrainConfig", "TripletTrainConfig", "evaluate_auc",
+           "evaluate_triplet_accuracy", "get_kernel", "init_embed",
+           "make_stream", "register_kernel", "replay", "split_by_label",
+           "train_curves", "train_pairwise", "train_triplet",
+           "triplet_mnist_statistic"]

@@ -1,0 +1,145 @@
+"""Fused signed rank counts of the serving index: the CUDA kernel of
+``csrc/signed_count.cu`` and its plain PyTorch version.
+
+The counterpart of the flat half of ``tuplewise_tpu.ops.pallas_counts``
+(``flat_signed_count_fn``), with its value contract: up to 8 sorted
+float32 runs, each with a sign (+1 for a base or delta run, -1 for a
+tombstone multiset) and a query set (0 or 1), and two query vectors;
+the result is one int32 block [4, max(len(qa), len(qb))] with rows
+(less_a, leq_a, less_b, leq_b)::
+
+    out[2 a_r    ][i] += s_r * #{v in run_r : v <  q_{a_r}[i]}
+    out[2 a_r + 1][i] += s_r * #{v in run_r : v <= q_{a_r}[i]}
+
+and 0 in the columns past a query set's length. +inf padding of a run
+counts 0 for finite queries. The queries are not padded to a bucket.
+
+Dispatch. A CPU tensor takes :func:`signed_count_plain`; a CUDA tensor
+launches the kernel, or raises: nothing falls back from a kernel that
+fails to build or launch. The plain version counts by tiled comparison,
+the TPU kernel's own arithmetic, so it does not depend on sortedness;
+the kernel binary-searches. Both give the same integers, and so does the
+``torch.searchsorted`` route of ``parallel.sharded_counts``.
+
+``LAUNCHES["signed_count[flat]"]`` (the counter of ``ops.pair_kernels``)
+counts kernel launches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Sequence
+
+import torch
+
+from tuplewise_tpu_torch.ops.pair_kernels import LAUNCHES
+
+_SOURCE = "signed_count.cu"
+MAX_RUNS = 8
+# int32 counts stay exact while the runs hold fewer values than this
+_COUNT_LIMIT = 1 << 31
+# element budget of one plain comparison tile [run rows, queries]
+_PLAIN_TILE_ELEMS = {"cpu": 1 << 22, "cuda": 1 << 26}
+
+
+def _check(runs, signs, sets, qa, qb) -> None:
+    if not (len(runs) == len(signs) == len(sets)):
+        raise ValueError("runs, signs and sets must have one entry per run")
+    if len(runs) > MAX_RUNS:
+        raise ValueError(f"at most {MAX_RUNS} runs a call, got {len(runs)}")
+    for t in (qa, qb, *runs):
+        if t.device != qa.device:
+            raise ValueError(f"tensors on {qa.device} and {t.device}")
+        if t.dtype != torch.float32 or t.dim() != 1:
+            raise TypeError("runs and queries are 1-D float32 tensors, got "
+                            f"{t.dtype} of shape {tuple(t.shape)}")
+        if not t.is_contiguous():
+            raise ValueError("runs and queries must be contiguous")
+    if any(s not in (1, -1) for s in signs):
+        raise ValueError(f"signs must be +1 or -1, got {list(signs)}")
+    if any(a not in (0, 1) for a in sets):
+        raise ValueError(f"query sets must be 0 or 1, got {list(sets)}")
+    if sum(r.numel() for r in runs) >= _COUNT_LIMIT:
+        raise ValueError("the runs hold 2^31 values or more: int32 counts "
+                         "would overflow")
+
+
+def signed_count_plain(runs: Sequence[torch.Tensor], signs: Sequence[int],
+                       sets: Sequence[int], qa: torch.Tensor,
+                       qb: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch :func:`signed_count`: tiled comparison counting on
+    the runs' device (same shapes and integers)."""
+    _check(runs, signs, sets, qa, qb)
+    qs = (qa, qb)
+    qcols = max(len(qa), len(qb))
+    out = torch.zeros((4, qcols), dtype=torch.int64, device=qa.device)
+    budget = _PLAIN_TILE_ELEMS["cuda" if qa.is_cuda else "cpu"]
+    for run, s, a in zip(runs, signs, sets):
+        q = qs[a]
+        if len(q) == 0:
+            continue
+        rows = max(1, budget // len(q))
+        for r0 in range(0, len(run), rows):
+            col = run[r0:r0 + rows, None]
+            out[2 * a, :len(q)] += s * (col < q[None]).sum(0)
+            out[2 * a + 1, :len(q)] += s * (col <= q[None]).sum(0)
+    return out.to(torch.int32)
+
+
+def load_library():
+    """Build (at first use) and load the signed-count library."""
+    from tuplewise_tpu_torch.ops import _build
+
+    lib = _build.load(_SOURCE)
+    if not getattr(lib, "_tw_typed", False):
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.tw_signed_count.argtypes = [
+            ctypes.POINTER(ctypes.c_ulonglong),
+            ctypes.POINTER(ctypes.c_longlong),
+            ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int),
+            i, p, i, p, i, p, i, p]
+        lib.tw_signed_count.restype = i
+        lib.tw_signed_count_max_runs.restype = i
+        if lib.tw_signed_count_max_runs() != MAX_RUNS:
+            raise RuntimeError("csrc/signed_count.cu and ops/count_kernels.py"
+                               " disagree on the largest number of runs")
+        lib._tw_typed = True
+    return lib
+
+
+def _launch(runs, signs, sets, qa, qb) -> torch.Tensor:
+    qcols = max(len(qa), len(qb))
+    out = torch.empty((4, qcols), dtype=torch.int32, device=qa.device)
+    if qcols == 0:
+        return out
+    lib = load_library()
+    k = len(runs)
+    ptrs = (ctypes.c_ulonglong * k)(*(r.data_ptr() for r in runs))
+    lens = (ctypes.c_longlong * k)(*(r.numel() for r in runs))
+    c_signs = (ctypes.c_int * k)(*signs)
+    c_sets = (ctypes.c_int * k)(*sets)
+    with torch.cuda.device(qa.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.tw_signed_count(ptrs, lens, c_signs, c_sets, k,
+                                  qa.data_ptr(), len(qa), qb.data_ptr(),
+                                  len(qb), out.data_ptr(), qcols, stream)
+    if err != 0:
+        raise RuntimeError(
+            f"signed_count CUDA launch failed: cudaError {err} (k={k}, "
+            f"la={len(qa)}, lb={len(qb)})")
+    LAUNCHES["signed_count[flat]"] += 1
+    return out
+
+
+def signed_count(runs: Sequence[torch.Tensor], signs: Sequence[int],
+                 sets: Sequence[int], qa: torch.Tensor,
+                 qb: torch.Tensor) -> torch.Tensor:
+    """The fused signed counts of the module docstring, as an int32
+    tensor [4, max(len(qa), len(qb))] on the queries' device.
+
+    CUDA tensors launch the kernel (or raise); CPU tensors take
+    :func:`signed_count_plain`."""
+    _check(runs, signs, sets, qa, qb)
+    if qa.is_cuda:
+        return _launch(runs, signs, sets, qa, qb)
+    return signed_count_plain(runs, signs, sets, qa, qb)
