@@ -111,23 +111,60 @@ nonzero. Each phase prints its seconds.
    compacting one launch of kernel 6 per micro-batch, no fallback.
    Events/s, insert p50/p99; then, outside the counted run, kernel 6 at
    the index's own final shape.
-18. Engine through replay at bench.py _streaming_events_per_sec's size:
-   300000 events, budget 64, max_batch 256, policy block, flush 0.5 ms,
+18. Engine through replay at bench.py _streaming_events_per_sec's knobs,
+   cut from its 300000 events to 100000 to leave the fleet phases room
+   in the time limit: budget 64, max_batch 256, policy block, flush 0.5 ms,
    compact_every 1024, max_inflight 64, count_kernel on, warmup, with
    bg_compact on and off: auc_abs_err 0, every event applied, kernel 6
    launched. Events/s, latency p50/p99, insert-stage p99s and the
    host-tax split.
 19. StreamingEstimator on the card at 10^5 events: its auc() equals the
    float32 rank-AUC oracle.
+20. Tenant count kernel vs plain (the fleet): kernel 7 (tenant_count)
+   against its plain version (comparison counting) and the batched
+   torch.searchsorted route, equal as integers, at T_bucket 8 and 64
+   with cap_pos != cap_neg, rows empty, full and with duplicates,
+   queries tied to row values, q_bucket 256 and 1024. Then at the
+   headline (T_bucket 1024, each class's pack filled with the final
+   per-tenant runs of make_tenant_stream(10^6, 1024, skew 1.1, seed 0),
+   caps 2^17, and one 256-event apply's query block) the three are
+   timed, by CUDA events a call and by torch.profiler's device time a
+   call. The bound counts the 32-byte row sectors that the kernel's
+   binary searches of these queries read (replayed here), the query
+   blocks read once and the count block written once.
+21. Fleet index main path at the headline: TenantFleetIndex fed
+   make_tenant_stream(10^6, 1024, skew 1.1, seed 0) in float32,
+   compact_every 128, chunks of 256 events coalesced per tenant (as
+   bench.py's fleet leg), count_kernel on and off driven in lockstep,
+   each warmed once on a 65536-event prefix: the touched tenants' wins2
+   are equal between the routes after every apply, every tenant's auc()
+   equals the float32 rank-AUC oracle of its events, and one launch of
+   kernel 7 per apply, no fallback. Events/s, apply p50/p99,
+   compactions, pack caps, bytes placed, full against dirty-row
+   re-places, query and count bytes per apply.
+21b. The incremental and whale path (bench.py _fleet_incremental_cell's
+   knobs: T = 256, 40000 events, skew 1.1, compact_every 128,
+   whale_threshold 1500, bg_compact on, chunks of 256), with no window
+   and with a per-tenant window of 2048, each with the kernel on and off
+   in lockstep: wins2 equal after every apply, promotions, and kernel 6
+   launched for the whales and kernel 7 for the packs.
+22. Fleet engine through replay_fleet (bench.py _multi_tenant_cell's
+   knobs: budget 16, max_batch 256, policy block, flush 0.5 ms,
+   compact_every 512, max_inflight 64, warmup) with count_kernel on at
+   T = 1024, skew 1.1, 300000 events: tenant_auc_max_abs_err 0, every
+   event applied, kernel 7 launched. Events/s, latency p50/p99, the
+   worst and median tenant p99, and the host-tax split.
 
 The launch counters are set to 0 before phase 3 and read after phase 4,
 set to 0 again before phase 7 and read after it, before phase 12 and
 after it, before phase 14 and after it, before phase 17 and after it,
-and before phase 18 and after it: every kernel must have been launched
-on its path (pair sums on the estimator's, gradient kernels on the
-trainer's, the triplet kernel on the degree-3 estimator's and on the
-triplet learner's evaluations, the count kernel on the serving index's
-and the engine's). The script prints one JSON line of kernels,
+before phase 18 and after it, and before each of phases 21, 21b and 22
+and after it: every kernel must have been launched on its path (pair
+sums on the estimator's, gradient kernels on the trainer's, the triplet
+kernel on the degree-3 estimator's and on the triplet learner's
+evaluations, the count kernel on the serving index's and the engine's,
+the tenant count kernel on the fleet's and the fleet engine's, kernel 6
+on the promoted whales'). The script prints one JSON line of kernels,
 the card's name and power limit as nvidia-smi reports them, and, last,
 {"ok": true, "device": {...}}. Without a CUDA device, or without the
 package beside it, it exits nonzero and prints no result.
@@ -184,9 +221,11 @@ REPLACES = {
     "pair_grad_sums": "tuplewise_tpu/ops/pallas_pairs.py:520",
     "batched_masked_pair_sum": "tuplewise_tpu/ops/pallas_triplets.py:185",
     "signed_count": "tuplewise_tpu/ops/pallas_counts.py:145",
+    "tenant_count": "tuplewise_tpu/ops/pallas_counts.py:258",
 }
 SOURCES = {
     "signed_count": "tuplewise_tpu_torch/csrc/signed_count.cu",
+    "tenant_count": "tuplewise_tpu_torch/csrc/tenant_count.cu",
     "pair_sum": "tuplewise_tpu_torch/csrc/pair_sum.cu",
     "masked_pair_sum": "tuplewise_tpu_torch/csrc/pair_sum.cu",
     "pair_loss_grad": "tuplewise_tpu_torch/csrc/pair_grad.cu",
@@ -209,9 +248,15 @@ NEVER = 1 << 30
 # _streaming_events_per_sec
 INDEX_EVENTS, INDEX_CHUNK, INDEX_COMPACT = 1_000_000, 256, 1024
 INDEX_WARM_EVENTS = 1 << 16
-ENGINE_EVENTS = 300_000
+ENGINE_EVENTS = 100_000     # _streaming_events_per_sec runs 300000
 # kernel 6's headline: each class's base at cap 2^19, 512 queries a set
 COUNT_BASE, COUNT_Q = 500_000, 512
+# the fleet: bench.py _serving_kernel_cell's fleet leg at the fleet's own
+# max_tenants and 10^6 events; _fleet_incremental_cell; _multi_tenant_cell
+FLEET_EVENTS, FLEET_TENANTS, FLEET_SKEW = 1_000_000, 1024, 1.1
+FLEET_CHUNK, FLEET_COMPACT, FLEET_WARM_EVENTS = 256, 128, 1 << 16
+INCR_EVENTS, INCR_TENANTS, INCR_WHALE, INCR_WINDOW = 40_000, 256, 1500, 2048
+FLEET_ENGINE_EVENTS = 300_000
 
 
 def log(*a):
@@ -266,7 +311,7 @@ def phase_build():
 
     t0 = time.perf_counter()
     sources = sorted({os.path.basename(p) for p in SOURCES.values()})
-    reported = ("triplet_sum.cu", "signed_count.cu")
+    reported = ("triplet_sum.cu", "signed_count.cu", "tenant_count.cu")
     with concurrent.futures.ThreadPoolExecutor(len(sources) + 2) as ex:
         reports = {s: ex.submit(ptxas_report, s) for s in reported}
         list(ex.map(_build.build, sources))
@@ -274,6 +319,7 @@ def phase_build():
     pair_grad_kernels.load_library()
     triplet_kernels.load_library()
     count_kernels.load_library()
+    count_kernels.load_tenant_library()
     log(f"[build] {', '.join(sources)} built and loaded in "
         f"{time.perf_counter() - t0:.2f} s (nvcc {_build.BUILD_SECONDS})")
     for source, report in reports.items():
@@ -1494,6 +1540,400 @@ def phase_streaming_estimator():
                 events_per_s=n / wall)
 
 
+def fleet_stream(n, tenants, skew=FLEET_SKEW, seed=0):
+    """make_tenant_stream in float32, as the fleet stores it."""
+    from tuplewise_tpu_torch.serving import make_tenant_stream
+
+    scores, labels, tids = make_tenant_stream(n, tenants, skew=skew,
+                                              seed=seed)
+    return scores.astype(np.float32), labels, tids
+
+
+def tenant_groups(tids):
+    """(tenant id, the indices of its events in arrival order) for each
+    tenant of a stream."""
+    order = np.argsort(tids, kind="stable")
+    bounds = np.flatnonzero(tids[order][1:] != tids[order][:-1]) + 1
+    return [(str(tids[g[0]]), g) for g in np.split(order, bounds)]
+
+
+def fleet_chunks(scores, labels, tids, chunk):
+    """Each chunk of ``chunk`` events coalesced per tenant, as bench.py's
+    fleet legs apply it: a list of (tenant, scores, labels) per chunk."""
+    out = []
+    for i in range(0, len(scores), chunk):
+        s, lab, t = scores[i:i + chunk], labels[i:i + chunk], tids[i:i + chunk]
+        out.append([(str(u), s[t == u], lab[t == u]) for u in np.unique(t)])
+    return out
+
+
+def fleet_packs(scores, labels, tids, t_bucket):
+    """The final per-tenant runs of a stream as the fleet's two packs on
+    the card (slot k = tenant tk, sorted, +inf padded), and the caps."""
+    from tuplewise_tpu_torch.parallel import sharded_counts as sc
+
+    runs = {True: [np.empty(0, np.float32)] * t_bucket,
+            False: [np.empty(0, np.float32)] * t_bucket}
+    for tid, grp in tenant_groups(tids):
+        for pos in (True, False):
+            runs[pos][int(tid[1:])] = np.sort(
+                scores[grp][labels[grp] == pos])
+    packs = [sc.place_tenant_pack(None, runs[pos], t_bucket, device="cuda")
+             for pos in (True, False)]
+    return packs[0][0], packs[1][0], packs[0][1], packs[1][1]
+
+
+def apply_queries(items, t_bucket):
+    """One apply's dense query blocks, as the fleet builds them (no
+    window): slot k's positives against the negatives' pack, its
+    negatives against the positives', zero elsewhere."""
+    from tuplewise_tpu_torch.parallel import sharded_counts as sc
+
+    qb = sc.next_bucket(max(max(int(lab.sum()), int((~lab).sum()))
+                            for _, _, lab in items))
+    qn = np.zeros((t_bucket, qb), np.float32)
+    qp = np.zeros((t_bucket, qb), np.float32)
+    for tid, s, lab in items:
+        k = int(tid[1:])
+        qn[k, :int(lab.sum())] = s[lab]
+        qp[k, :int((~lab).sum())] = s[~lab]
+    return torch.from_numpy(qn).cuda(), torch.from_numpy(qp).cuda()
+
+
+def tenant_searched(pack, q):
+    """Replays kernel 7's lower and upper binary searches of each pack
+    row for the queries of the same row (the halving of ``bound`` in
+    tenant_count.cu). Returns (distinct 32-byte sectors read, loads, the
+    longest chain of dependent loads of one thread)."""
+    T, cap = pack.shape
+    flat = pack.reshape(-1)
+    qf = q.reshape(-1)
+    row0 = torch.arange(T, device=q.device).repeat_interleave(q.shape[1]) * cap
+    touched, loads, chain = [], 0, 0
+    for upper in (False, True):
+        lo = torch.zeros_like(row0)
+        n = torch.full_like(row0, cap)
+        steps = 0
+        while cap and bool((n > 0).any()):
+            live = n > 0
+            half = n >> 1
+            at = lo + half
+            touched.append((row0 + at)[live])
+            loads += int(live.sum())
+            steps += 1
+            v = flat[row0 + at.clamp(max=cap - 1)]
+            right = (v <= qf) if upper else (v < qf)
+            lo = torch.where(live & right, lo + half + 1, lo)
+            n = torch.where(live, torch.where(right, n - half - 1, half), n)
+        chain += steps
+    sectors = (int(torch.unique(torch.cat(touched) // 8).numel())
+               if touched else 0)
+    return sectors, loads, chain
+
+
+def tenant_bound_ms(pos, neg, qn, qp):
+    """Bound of one tenant count from what these inputs need: the row
+    sectors the searches read, the two query blocks read once and the
+    [4, T, q] int32 block written once, at HBM rate; or one comparison a
+    load at the FP32 peak. Also the longest dependent-load chain."""
+    sn, ln, cn = tenant_searched(neg, qn)
+    sp, lp, cp = tenant_searched(pos, qp)
+    byts = (32.0 * (sn + sp) + 4.0 * (qn.numel() + qp.numel())
+            + 16.0 * qn.numel())
+    loads = ln + lp
+    by = ("operations" if loads / PEAK_FP32_OPS >= byts / PEAK_BYTES
+          else "bytes")
+    return (max(loads / PEAK_FP32_OPS, byts / PEAK_BYTES) * 1e3, by,
+            max(cn, cp), byts)
+
+
+def phase_tenant_count_vs_plain():
+    """Phase 20: kernel 7 against its plain version and the batched
+    searchsorted route, as integers; the timing row at the headline."""
+    from tuplewise_tpu_torch.ops import count_kernels as ck
+    from tuplewise_tpu_torch.parallel import sharded_counts as sc
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 9)
+
+    def grid_values(*shape):
+        # values on a 1/8 grid: many duplicates and ties
+        return torch.round(torch.randn(*shape, generator=g,
+                                       device="cuda") * 8) / 8
+
+    def pack(T, cap, lengths):
+        p = torch.full((T, cap), math.inf, device="cuda")
+        for t in range(T):
+            n = lengths[t % len(lengths)]
+            p[t, :n] = torch.sort(grid_values(n)).values
+        return p
+
+    def tied(p, qb):
+        # half of each row's queries are values of its own row (its
+        # first element when the row is empty is +inf: then a grid value)
+        q = grid_values(p.shape[0], qb)
+        at = torch.randint(0, p.shape[1], (p.shape[0], qb // 2),
+                           generator=g, device="cuda")
+        picked = torch.gather(p, 1, at)
+        q[:, : qb // 2] = torch.where(torch.isinf(picked), q[:, : qb // 2],
+                                      picked)
+        return q
+
+    def differ(got, want):
+        return int((got.long() - want.long()).abs().max())
+
+    err = 0
+    for T, cap_p, cap_n, qb in [(8, 256, 1024, 256), (64, 2048, 512, 1024),
+                                (8, 512, 256, 1024), (64, 256, 256, 256)]:
+        pos = pack(T, cap_p, [0, cap_p, 7, cap_p // 2, 1])
+        neg = pack(T, cap_n, [cap_n, 0, 3, 100, cap_n - 1])
+        args = (pos, neg, tied(neg, qb), tied(pos, qb))
+        got = ck.tenant_count(*args)
+        err = max(err, differ(got, ck.tenant_count_plain(*args)),
+                  differ(got, sc.tenant_count_searchsorted(*args)))
+        assert err == 0, (T, cap_p, cap_n, qb, err)
+        log(f"[tenant count vs plain] T={T} cap_pos={cap_p} cap_neg={cap_n} "
+            f"qb={qb} (rows empty, full, partial, duplicates; tied "
+            f"queries): kernel = plain = searchsorted")
+
+    scores, labels, tids = fleet_stream(FLEET_EVENTS, FLEET_TENANTS)
+    pos, neg, cap_p, cap_n = fleet_packs(scores, labels, tids, FLEET_TENANTS)
+    last = fleet_chunks(scores[-FLEET_CHUNK:], labels[-FLEET_CHUNK:],
+                        tids[-FLEET_CHUNK:], FLEET_CHUNK)[0]
+    qn, qp = apply_queries(last, FLEET_TENANTS)
+    args = (pos, neg, qn, qp)
+    times = {}
+    for name, fn, reps in (
+            ("kernel", lambda: ck.tenant_count(*args), 200),
+            ("plain", lambda: ck.tenant_count_plain(*args), 1),
+            ("library", lambda: sc.tenant_count_searchsorted(*args), 200)):
+        fn()                                                  # warm-up
+        times[name] = timed_on_device(fn, reps)
+    got, want, lib = (times[k][2] for k in ("kernel", "plain", "library"))
+    err = max(err, differ(got, want), differ(got, lib))
+    assert err == 0, err
+    bms, by, chain, byts = tenant_bound_ms(pos, neg, qn, qp)
+    (call_ms, ms, _), (_, plain_ms, _), (lib_call_ms, lib_ms, _) = (
+        times["kernel"], times["plain"], times["library"])
+    shape = (f"T_bucket {FLEET_TENANTS}, caps {cap_p}/{cap_n}, qb "
+             f"{qn.shape[1]} ({len(last)} tenants of a 256-event apply)")
+    row = dict(
+        name="tenant_count", route="cuda", source=SOURCES["tenant_count"],
+        replaces=REPLACES["tenant_count"], launches=None, max_abs_err=err,
+        ms=ms, call_ms=call_ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+        bound_bytes=byts, dependent_loads=chain, library_ms=lib_ms,
+        library_call_ms=lib_call_ms, library_calls="4 batched searchsorted",
+        shape=shape)
+    log(f"[timing] tenant_count {shape}: {ms * 1e3:.2f} us of device time "
+        f"a launch ({call_ms * 1e3:.2f} us a call by events; bound "
+        f"{bms * 1e3:.3f} us by {by}: {byts / 1e6:.3f} MB; a thread's chain "
+        f"is {chain} dependent loads), plain {plain_ms:.1f} ms, batched "
+        f"searchsorted {lib_ms * 1e3:.2f} us ({lib_call_ms * 1e3:.2f} us a "
+        f"call); max |kernel - plain|, |kernel - searchsorted| = {err}")
+    return row
+
+
+def drive_fleets(chunks, fleets):
+    """Apply every chunk to each fleet in turn (lockstep); after each
+    apply the touched tenants' wins2 must be equal across the fleets.
+    Returns each fleet's apply latencies (s)."""
+    lats = [[] for _ in fleets]
+    for items in chunks:
+        for lat, fleet in zip(lats, fleets):
+            t0 = time.perf_counter()
+            fleet.apply_inserts(items)
+            lat.append(time.perf_counter() - t0)
+        for tid, _, _ in items:
+            w = {f.wins2(tid) for f in fleets}
+            assert len(w) == 1, (tid, w)
+    return lats
+
+
+def fleet_record(fleet, lat, n_events, chunks, launches, **extra):
+    snap = fleet.metrics.snapshot()
+    v = {k: snap[k]["value"] for k in (
+        "fleet_count_calls_total", "count_kernel_calls_total",
+        "count_kernel_fallbacks_total", "compactions_total", "bytes_h2d",
+        "bytes_h2d_saved", "pack_replaces_total", "pack_full_replaces_total",
+        "fleet_whale_promotions")}
+    lat = np.asarray(lat) * 1e3
+    st = fleet.state()
+    return dict(
+        events_per_s=n_events / (lat.sum() / 1e3), applies=len(chunks),
+        apply_p50_ms=float(np.percentile(lat, 50)),
+        apply_p99_ms=float(np.percentile(lat, 99)),
+        apply_max_ms=float(lat.max()), fleet_count_calls=v[
+            "fleet_count_calls_total"],
+        kernel_calls=v["count_kernel_calls_total"], kernel_launches=launches,
+        kernel_fallbacks=v["count_kernel_fallbacks_total"],
+        compactions=v["compactions_total"], bytes_h2d=v["bytes_h2d"],
+        bytes_h2d_saved=v["bytes_h2d_saved"],
+        pack_replaces=v["pack_replaces_total"],
+        pack_full_replaces=v["pack_full_replaces_total"],
+        whale_promotions=v["fleet_whale_promotions"],
+        pack_caps=st["pack_caps"], t_bucket=st["t_bucket"],
+        whales=st["whales"], **extra)
+
+
+def phase_fleet():
+    """Phase 21: the fleet index at the headline, count_kernel on and off
+    in lockstep, each warmed once on a prefix; the path whose launches
+    count for kernel 7."""
+    from tuplewise_tpu_torch import TenantFleetIndex
+    from tuplewise_tpu_torch.models.metrics import auc_score
+    from tuplewise_tpu_torch.ops import pair_kernels as pk
+    from tuplewise_tpu_torch.parallel import sharded_counts as sc
+
+    n = FLEET_EVENTS
+    scores, labels, tids = fleet_stream(n, FLEET_TENANTS)
+    chunks = fleet_chunks(scores, labels, tids, FLEET_CHUNK)
+    warm = FLEET_WARM_EVENTS // FLEET_CHUNK
+
+    def fleet(ck):
+        return TenantFleetIndex(compact_every=FLEET_COMPACT, count_kernel=ck)
+
+    warm_fleets = [fleet(True), fleet(False)]
+    drive_fleets(chunks[:warm], warm_fleets)
+    for f in warm_fleets:
+        f.close()
+    del warm_fleets
+    fleets = [fleet(True), fleet(False)]
+    before = pk.LAUNCHES["tenant_count"]
+    lats = drive_fleets(chunks, fleets)
+    launched = pk.LAUNCHES["tenant_count"] - before
+    # query and count bytes of each apply's one count (no window: a
+    # tenant's queries are its new events of each class)
+    qbs = np.asarray([sc.next_bucket(max(max(int(l.sum()), int((~l).sum()))
+                                         for _, _, l in items))
+                      for items in chunks], dtype=np.float64)
+    q_bytes = float((8.0 * FLEET_TENANTS * qbs).mean())
+    out = {}
+    for mode, f, lat in zip(("kernel", "searchsorted"), fleets, lats):
+        out[mode] = fleet_record(
+            f, lat, n, chunks, launched if mode == "kernel" else 0,
+            query_bytes_per_apply=q_bytes,
+            count_bytes_per_apply=2.0 * q_bytes)
+    rec = out["kernel"]
+    assert launched == rec["applies"] == rec["fleet_count_calls"], rec
+    assert rec["kernel_calls"] == rec["applies"], rec
+    assert rec["kernel_fallbacks"] == 0, rec
+    assert out["searchsorted"]["kernel_calls"] == 0
+    # every tenant's exact AUC equals the float32 rank-AUC oracle
+    checked = 0
+    for tid, grp in tenant_groups(tids):
+        s, lab = scores[grp], labels[grp]
+        if not lab.any() or lab.all():
+            continue
+        want = auc_score(s[lab], s[~lab])
+        for f in fleets:
+            assert f.auc(tid) == want, (tid, f.auc(tid), want)
+        checked += 1
+    for f in fleets:
+        f.close()
+    for mode, r in out.items():
+        log(f"[fleet] {mode:12s} n={n} T={FLEET_TENANTS} skew={FLEET_SKEW} "
+            f"chunk={FLEET_CHUNK}: {r['events_per_s']:.0f} events/s, apply "
+            f"p50 {r['apply_p50_ms']:.3f} ms p99 {r['apply_p99_ms']:.3f} ms "
+            f"max {r['apply_max_ms']:.1f} ms, {r['applies']} applies, "
+            f"{r['kernel_launches']} kernel launches, {r['compactions']} "
+            f"compactions, caps {r['pack_caps']}, {r['bytes_h2d']} bytes "
+            f"placed ({r['bytes_h2d_saved']} saved), {r['pack_replaces']} "
+            f"re-places of which {r['pack_full_replaces']} full")
+    log(f"[fleet] wins2 equal after each of {len(chunks)} applies; "
+        f"{checked} tenants' auc() = their float32 oracle; query blocks "
+        f"{q_bytes / 1e6:.3f} MB up, counts {2 * q_bytes / 1e6:.3f} MB down "
+        f"an apply (mean)")
+    return out
+
+
+def phase_fleet_incremental():
+    """Phase 21b: _fleet_incremental_cell's knobs (whales, bg_compact),
+    without and with a window, the kernel on and off in lockstep."""
+    from tuplewise_tpu_torch import TenantFleetIndex
+    from tuplewise_tpu_torch.ops import pair_kernels as pk
+
+    scores, labels, tids = fleet_stream(INCR_EVENTS, INCR_TENANTS)
+    chunks = fleet_chunks(scores, labels, tids, FLEET_CHUNK)
+    out = {}
+    for window in (None, INCR_WINDOW):
+        before = dict(pk.LAUNCHES)
+        fleets = [TenantFleetIndex(window=window, compact_every=FLEET_COMPACT,
+                                   whale_threshold=INCR_WHALE,
+                                   bg_compact=True, count_kernel=ck)
+                  for ck in (True, False)]
+        lats = drive_fleets(chunks, fleets)
+        for f in fleets:
+            f.wait_idle()
+        assert ({t: fleets[0].wins2(t) for t in fleets[0].tenants()}
+                == {t: fleets[1].wins2(t) for t in fleets[1].tenants()})
+        delta = {k: pk.LAUNCHES[k] - before.get(k, 0)
+                 for k in ("tenant_count", "signed_count[flat]")}
+        rec = fleet_record(fleets[0], lats[0], INCR_EVENTS, chunks,
+                           delta["tenant_count"],
+                           whale_kernel_launches=delta["signed_count[flat]"],
+                           searchsorted_events_per_s=(INCR_EVENTS
+                                                      / sum(lats[1])))
+        for f in fleets:
+            f.close()
+        assert rec["whale_promotions"] > 0, rec
+        assert delta["tenant_count"] > 0 and delta["signed_count[flat]"] > 0
+        assert rec["kernel_fallbacks"] == 0, rec
+        out[f"window={window}"] = rec
+        log(f"[fleet incremental] window={window} T={INCR_TENANTS} "
+            f"n={INCR_EVENTS} whale_threshold={INCR_WHALE} bg_compact: "
+            f"{rec['events_per_s']:.0f} events/s (searchsorted "
+            f"{rec['searchsorted_events_per_s']:.0f}), apply p50 "
+            f"{rec['apply_p50_ms']:.3f} ms p99 {rec['apply_p99_ms']:.3f} ms, "
+            f"{rec['whale_promotions']} promotions, kernel 7 x "
+            f"{delta['tenant_count']}, kernel 6 x "
+            f"{delta['signed_count[flat]']}, {rec['pack_replaces']} re-places "
+            f"({rec['pack_full_replaces']} full), {rec['bytes_h2d']} bytes "
+            f"placed, {rec['bytes_h2d_saved']} saved; wins2 equal after "
+            f"every apply")
+    return out
+
+
+def phase_fleet_engine():
+    """Phase 22: MultiTenantEngine through replay_fleet at
+    _multi_tenant_cell's knobs, T = 1024."""
+    from tuplewise_tpu_torch import ServingConfig, replay_fleet
+    from tuplewise_tpu_torch.ops import pair_kernels as pk
+
+    scores, labels, tids = fleet_stream(FLEET_ENGINE_EVENTS, FLEET_TENANTS)
+    cfg = ServingConfig(budget=16, max_batch=256, policy="block",
+                        flush_timeout_s=0.0005, compact_every=512,
+                        count_kernel=True)
+    before = pk.LAUNCHES["tenant_count"]
+    rec = replay_fleet(scores, labels, tids, config=cfg, max_inflight=64,
+                       warmup=True)
+    launched = pk.LAUNCHES["tenant_count"] - before
+    assert rec["events_applied"] == FLEET_ENGINE_EVENTS, rec["events_applied"]
+    assert rec["tenant_auc_max_abs_err"] == 0, rec["tenant_auc_max_abs_err"]
+    assert launched > 0
+    m = rec["report"]
+    tax = rec["host_tax"]
+    keep = ("events_per_s", "insert_latency_p50_ms", "insert_latency_p99_ms",
+            "tenant_insert_p99_max_ms", "tenant_insert_p99_median_ms",
+            "batches", "fleet_count_calls", "bytes_h2d", "bytes_h2d_saved",
+            "pack_replaces", "pack_full_replaces", "tenant_auc_max_abs_err",
+            "tenants_live")
+    out = dict({k: rec[k] for k in keep}, host_tax=tax,
+               kernel_launches=launched, compactions=m["compactions_total"])
+    buckets = ", ".join(f"{k} {v:.3f}"
+                        for k, v in tax["bucket_p99_ms"].items())
+    log(f"[fleet engine] replay_fleet n={FLEET_ENGINE_EVENTS} "
+        f"T={FLEET_TENANTS}: {rec['events_per_s']:.0f} events/s, insert p50 "
+        f"{rec['insert_latency_p50_ms']:.3f} ms p99 "
+        f"{rec['insert_latency_p99_ms']:.3f} ms, tenant p99 worst "
+        f"{rec['tenant_insert_p99_max_ms']:.3f} ms median "
+        f"{rec['tenant_insert_p99_median_ms']:.3f} ms, {rec['batches']} "
+        f"batches, {rec['fleet_count_calls']} fleet counts, {launched} kernel "
+        f"launches (warm-up run included), tenant_auc_max_abs_err 0")
+    log(f"[fleet engine]   host tax: host {tax['host_fraction']:.4f} device "
+        f"{tax['device_fraction']:.4f} (coverage {tax['coverage']:.6f}); "
+        f"bucket p99 ms: {buckets}")
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1603,13 +2043,32 @@ def main():
     count_row["launches_engine"] = engine_launches[key]
     rows.append(count_row)
     streaming = timed("19 streaming estimator", phase_streaming_estimator)
+
+    tenant_row = timed("20 tenant count vs plain", phase_tenant_count_vs_plain)
+    key = "tenant_count"
+    fleet_out, fleet_launches = [], []
+    for label, fn in (("21 fleet main path", phase_fleet),
+                      ("21b fleet incremental", phase_fleet_incremental),
+                      ("22 fleet engine replay", phase_fleet_engine)):
+        pk.reset_launch_counts()
+        fleet_out.append(timed(label, fn))
+        fleet_launches.append(dict(pk.LAUNCHES))
+        log(f"[launches] {label} {json.dumps(fleet_launches[-1])}")
+        assert fleet_launches[-1].get(key, 0) > 0, f"{key} never launched"
+    fleet, fleet_incr, fleet_engine = fleet_out
+    tenant_row["launches"] = fleet_launches[0][key]
+    tenant_row["launches_engine"] = fleet_launches[2][key]
+    rows.append(tenant_row)
     log(f"[done] {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": rows, "train": train_rows,
                       "sim_learner_cell_s": sim_wall,
                       "triplet": triplet_main, "config4": config4,
                       "triplet_learner": learner,
                       "serving": {"index": index, "engine": engine,
-                                  "streaming_estimator": streaming},
+                                  "streaming_estimator": streaming,
+                                  "fleet": fleet,
+                                  "fleet_incremental": fleet_incr,
+                                  "fleet_engine": fleet_engine},
                       "phase_s": seconds, "card": card}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -43,7 +43,9 @@ def test_estimator_without_device_raises_where_cuda_is_absent(monkeypatch):
         VarianceConfig, run_variance_experiment,
     )
 
-    from tuplewise_tpu_torch import ExactAucIndex, MicroBatchEngine
+    from tuplewise_tpu_torch import (
+        ExactAucIndex, MicroBatchEngine, MultiTenantEngine, TenantFleetIndex,
+    )
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
@@ -55,5 +57,10 @@ def test_estimator_without_device_raises_where_cuda_is_absent(monkeypatch):
         ExactAucIndex()
     with pytest.raises(RuntimeError, match="CUDA"):
         MicroBatchEngine()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        TenantFleetIndex()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        MultiTenantEngine()
     assert Estimator("auc", device="cpu").backend.device.type == "cpu"
     assert ExactAucIndex(device="cpu").device.type == "cpu"
+    assert TenantFleetIndex(device="cpu").device.type == "cpu"

@@ -15,7 +15,8 @@ Module names mirror the JAX package so each counterpart is easy to find:
   L5 learners    -> tuplewise_tpu_torch.models  (train_pairwise,
                     train_curves, train_triplet)
   serving        -> tuplewise_tpu_torch.serving  (ExactAucIndex,
-                    MicroBatchEngine, replay), estimators.streaming
+                    MicroBatchEngine, replay; the fleet: TenantFleetIndex,
+                    MultiTenantEngine, replay_fleet), estimators.streaming
 
 Entry points run on the card unless the caller passes device="cpu".
 """
@@ -34,14 +35,16 @@ from tuplewise_tpu_torch.models.triplet_sgd import (
 )
 from tuplewise_tpu_torch.ops.kernels import Kernel, get_kernel, register_kernel
 from tuplewise_tpu_torch.serving import (
-    ExactAucIndex, MicroBatchEngine, ServingConfig, StreamingIncompleteU,
-    make_stream, replay,
+    ExactAucIndex, MicroBatchEngine, MultiTenantEngine, ServingConfig,
+    StreamingIncompleteU, TenancyConfig, TenantFleetIndex, make_stream,
+    make_tenant_stream, replay, replay_fleet,
 )
 
 __all__ = ["Estimator", "ExactAucIndex", "Kernel", "MicroBatchEngine",
-           "ServingConfig", "StreamingEstimator", "StreamingIncompleteU",
+           "MultiTenantEngine", "ServingConfig", "StreamingEstimator",
+           "StreamingIncompleteU", "TenancyConfig", "TenantFleetIndex",
            "TrainConfig", "TripletTrainConfig", "evaluate_auc",
            "evaluate_triplet_accuracy", "get_kernel", "init_embed",
-           "make_stream", "register_kernel", "replay", "split_by_label",
-           "train_curves", "train_pairwise", "train_triplet",
-           "triplet_mnist_statistic"]
+           "make_stream", "make_tenant_stream", "register_kernel",
+           "replay", "replay_fleet", "split_by_label", "train_curves",
+           "train_pairwise", "train_triplet", "triplet_mnist_statistic"]

@@ -1,9 +1,9 @@
 """The functions that build the report of ``replay`` records.
 
-A copy of the single-tenant half of ``tuplewise_tpu.obs.report``: every
-input is the plain-dict output of ``MetricsRegistry.snapshot()``, so the
-functions also work on a saved snapshot. The fleet and control-plane
-blocks, and the SLO verdicts, are not ported yet.
+A copy of ``tuplewise_tpu.obs.report`` without the SLO verdicts and the
+control-plane block (not ported yet): every input is the plain-dict
+output of ``MetricsRegistry.snapshot()``, so the functions also work on
+a saved snapshot. A fleet's metrics add the ``tenancy`` block.
 """
 
 from __future__ import annotations
@@ -146,6 +146,26 @@ def service_report(metrics: dict, flight=None) -> dict:
         "major_merges_total": _v(metrics, "major_merges_total"),
     }
     report.update(recovery_counters(metrics))
+    # the fleet block, only when the metrics came from a multi-tenant
+    # engine (single-tenant reports keep their key set)
+    if "fleet_count_calls_total" in metrics:
+        report["tenancy"] = {
+            "tenants_live": _v(metrics, "tenants_live"),
+            "tenants_created_total": _v(metrics, "tenants_created_total"),
+            "tenants_evicted_total": _v(metrics, "tenants_evicted_total"),
+            "tenant_rejected_total": _v(metrics, "tenant_rejected_total"),
+            "fleet_count_calls": _v(metrics, "fleet_count_calls_total"),
+            "fleet_compact_aborts": _v(metrics, "fleet_compact_aborts"),
+            "whale_promotions": _v(metrics, "fleet_whale_promotions"),
+            "whale_demotions": _v(metrics, "fleet_whale_demotions"),
+            "whales_live": _v(metrics, "fleet_whales"),
+            "pack_replaces": _v(metrics, "pack_replaces_total"),
+            "pack_full_replaces": _v(metrics, "pack_full_replaces_total"),
+            "pack_occupancy": _v(metrics, "pack_occupancy"),
+            "pack_stale_rows": _v(metrics, "pack_stale_rows"),
+            "tenant_metric_collapsed": _v(metrics,
+                                          "tenant_metric_collapsed"),
+        }
     if flight is not None:
         report["flight_events"] = flight.counts()
     return report

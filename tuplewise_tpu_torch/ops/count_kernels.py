@@ -1,5 +1,6 @@
-"""Fused signed rank counts of the serving index: the CUDA kernel of
-``csrc/signed_count.cu`` and its plain PyTorch version.
+"""Rank counts of the serving layer: the CUDA kernels of
+``csrc/signed_count.cu`` (kernel 6) and ``csrc/tenant_count.cu`` (kernel
+7), and their plain PyTorch versions.
 
 The counterpart of the flat half of ``tuplewise_tpu.ops.pallas_counts``
 (``flat_signed_count_fn``), with its value contract: up to 8 sorted
@@ -21,8 +22,15 @@ the TPU kernel's own arithmetic, so it does not depend on sortedness;
 the kernel binary-searches. Both give the same integers, and so does the
 ``torch.searchsorted`` route of ``parallel.sharded_counts``.
 
-``LAUNCHES["signed_count[flat]"]`` (the counter of ``ops.pair_kernels``)
-counts kernel launches.
+The fleet's tenant-axis count (:func:`tenant_count`, kernel 7) is the
+counterpart of ``tenant_signed_count_local_fn``: per tenant row t, the
+queries ``qn[t]`` against the sorted row ``neg_pack[t]`` and ``qp[t]``
+against ``pos_pack[t]``, one int32 block [4, T, q] with rows (less_n,
+leq_n, less_p, leq_p). The rows are +inf padded; the two packs may have
+different row lengths. Its dispatch is the same.
+
+``LAUNCHES["signed_count[flat]"]`` and ``LAUNCHES["tenant_count"]`` (the
+counter of ``ops.pair_kernels``) count kernel launches.
 """
 
 from __future__ import annotations
@@ -143,3 +151,104 @@ def signed_count(runs: Sequence[torch.Tensor], signs: Sequence[int],
     if qa.is_cuda:
         return _launch(runs, signs, sets, qa, qb)
     return signed_count_plain(runs, signs, sets, qa, qb)
+
+
+# --------------------------------------------------------------------- #
+# tenant-axis counts of the fleet (kernel 7)                             #
+# --------------------------------------------------------------------- #
+
+_TENANT_SOURCE = "tenant_count.cu"
+
+
+def _check_tenant(pos_pack, neg_pack, qn, qp) -> None:
+    for t in (pos_pack, neg_pack, qn, qp):
+        if t.device != qn.device:
+            raise ValueError(f"tensors on {qn.device} and {t.device}")
+        if t.dtype != torch.float32 or t.dim() != 2:
+            raise TypeError("packs and query blocks are 2-D float32 "
+                            f"tensors, got {t.dtype} of shape "
+                            f"{tuple(t.shape)}")
+        if not t.is_contiguous():
+            raise ValueError("packs and query blocks must be contiguous")
+    rows = {pos_pack.shape[0], neg_pack.shape[0], qn.shape[0], qp.shape[0]}
+    if len(rows) != 1:
+        raise ValueError("packs and query blocks must have one row per "
+                         f"tenant slot, got {sorted(rows)} rows")
+    if qn.shape != qp.shape:
+        raise ValueError(f"query blocks of shapes {tuple(qn.shape)} and "
+                         f"{tuple(qp.shape)}")
+    if max(pos_pack.shape[1], neg_pack.shape[1]) >= _COUNT_LIMIT:
+        raise ValueError("a pack row holds 2^31 values or more: int32 "
+                         "counts would overflow")
+
+
+def tenant_count_plain(pos_pack: torch.Tensor, neg_pack: torch.Tensor,
+                       qn: torch.Tensor, qp: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch :func:`tenant_count`: tiled comparison counting (the
+    TPU kernel's arithmetic) on the packs' device, same shapes and
+    integers."""
+    _check_tenant(pos_pack, neg_pack, qn, qp)
+    T, qb = qn.shape
+    out = torch.zeros((4, T, qb), dtype=torch.int64, device=qn.device)
+    budget = _PLAIN_TILE_ELEMS["cuda" if qn.is_cuda else "cpu"]
+    if qb == 0:
+        return out.to(torch.int32)
+    for row, pack, q in ((0, neg_pack, qn), (2, pos_pack, qp)):
+        cap = pack.shape[1]
+        ctile = max(1, min(cap, budget // qb))
+        trows = max(1, budget // (qb * ctile))
+        for t0 in range(0, T, trows):
+            qq = q[t0:t0 + trows, :, None]
+            for c0 in range(0, cap, ctile):
+                vals = pack[t0:t0 + trows, None, c0:c0 + ctile]
+                out[row, t0:t0 + trows] += (vals < qq).sum(2)
+                out[row + 1, t0:t0 + trows] += (vals <= qq).sum(2)
+    return out.to(torch.int32)
+
+
+def load_tenant_library():
+    """Build (at first use) and load the tenant-count library."""
+    from tuplewise_tpu_torch.ops import _build
+
+    lib = _build.load(_TENANT_SOURCE)
+    if not getattr(lib, "_tw_typed", False):
+        p, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+        lib.tw_tenant_count.argtypes = [p, ll, p, ll, p, p, i, i, p, p]
+        lib.tw_tenant_count.restype = i
+        lib._tw_typed = True
+    return lib
+
+
+def _launch_tenant(pos_pack, neg_pack, qn, qp) -> torch.Tensor:
+    T, qb = qn.shape
+    out = torch.empty((4, T, qb), dtype=torch.int32, device=qn.device)
+    if T * qb == 0:
+        return out
+    lib = load_tenant_library()
+    with torch.cuda.device(qn.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.tw_tenant_count(
+            neg_pack.data_ptr(), neg_pack.shape[1], pos_pack.data_ptr(),
+            pos_pack.shape[1], qn.data_ptr(), qp.data_ptr(), T, qb,
+            out.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(
+            f"tenant_count CUDA launch failed: cudaError {err} (T={T}, "
+            f"qb={qb}, cap_n={neg_pack.shape[1]}, cap_p={pos_pack.shape[1]})")
+    LAUNCHES["tenant_count"] += 1
+    return out
+
+
+def tenant_count(pos_pack: torch.Tensor, neg_pack: torch.Tensor,
+                 qn: torch.Tensor, qp: torch.Tensor) -> torch.Tensor:
+    """The fleet's tenant-axis counts of the module docstring, as an
+    int32 tensor [4, T, q] on the queries' device: rows (less_n, leq_n,
+    less_p, leq_p), row t of each counting slot t's queries against its
+    own pack row.
+
+    CUDA tensors launch the kernel (or raise); CPU tensors take
+    :func:`tenant_count_plain`."""
+    _check_tenant(pos_pack, neg_pack, qn, qp)
+    if qn.is_cuda:
+        return _launch_tenant(pos_pack, neg_pack, qn, qp)
+    return tenant_count_plain(pos_pack, neg_pack, qn, qp)

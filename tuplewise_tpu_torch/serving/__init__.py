@@ -21,9 +21,21 @@ service.
 * ``replay``               — replay a stream through the engine and
                              report events/s, latency and exact-AUC
                              parity.
+* ``tenancy.TenantFleetIndex`` — the multi-tenant fleet: per-tenant
+                             exact AUC with every tenant's base runs as
+                             rows of two shared device packs, one
+                             kernel-7 launch per coalesced batch
+                             (``count_kernel=True``), dirty-row
+                             placement, whale promotion.
+* ``tenancy.MultiTenantEngine`` — the fleet request path: per-tenant
+                             queues, admission control, deficit-round-
+                             robin scheduling, tenant lifecycle.
+* ``replay_fleet``         — replay a tenant-assigned stream
+                             (``make_tenant_stream``) through the fleet
+                             engine; every tenant's AUC against its
+                             oracle.
 
-The multi-tenant fleet, recovery and the control plane are not ported
-yet.
+Recovery and the control plane are not ported yet.
 """
 
 from tuplewise_tpu_torch.serving.engine import (
@@ -35,8 +47,18 @@ from tuplewise_tpu_torch.serving.engine import (
     ServingConfig,
 )
 from tuplewise_tpu_torch.serving.index import ExactAucIndex
-from tuplewise_tpu_torch.serving.replay import make_stream, replay
+from tuplewise_tpu_torch.serving.replay import (
+    make_stream, make_tenant_stream, replay, replay_fleet,
+)
 from tuplewise_tpu_torch.serving.streaming import StreamingIncompleteU
+from tuplewise_tpu_torch.serving.tenancy import (
+    MultiTenantEngine,
+    TenancyConfig,
+    TenantFleetIndex,
+    TenantRejectedError,
+    TenantThrottledError,
+    tenant_seed,
+)
 
 __all__ = [
     "BackpressureError",
@@ -44,9 +66,17 @@ __all__ = [
     "EngineClosedError",
     "ExactAucIndex",
     "MicroBatchEngine",
+    "MultiTenantEngine",
     "PoisonEventError",
     "ServingConfig",
     "StreamingIncompleteU",
+    "TenancyConfig",
+    "TenantFleetIndex",
+    "TenantRejectedError",
+    "TenantThrottledError",
     "make_stream",
+    "make_tenant_stream",
     "replay",
+    "replay_fleet",
+    "tenant_seed",
 ]

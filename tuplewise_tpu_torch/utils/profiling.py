@@ -26,6 +26,24 @@ def labeled_name(name: str, labels: Optional[dict]) -> str:
     return f"{name}{{{inner}}}"
 
 
+def parse_labeled_name(key: str):
+    """Inverse of :func:`labeled_name`: ``name{k=v,k2=v2}`` back to
+    ``(name, labels or None)``. Label values render as ``str(value)``,
+    so keep them simple (ids, short tags): no ``{``, ``}``, ``,`` or
+    ``=`` inside."""
+    i = key.find("{")
+    if i < 0 or not key.endswith("}"):
+        return key, None
+    name, inner = key[:i], key[i + 1:-1]
+    labels = {}
+    for part in inner.split(","):
+        k, sep, v = part.partition("=")
+        if not sep:
+            raise ValueError(f"malformed label in metric key {key!r}")
+        labels[k] = v
+    return name, labels
+
+
 class Counter:
     """Monotonic counter: ``c.inc()`` / ``c.inc(5)``; ``c.value``."""
 
