@@ -12,14 +12,19 @@ phase asserts what it checks, and nothing is caught: any failure exits
 nonzero. Each phase prints its seconds.
 
 1. Build: compile the kernels and print the build seconds, and what
-   ptxas reports for the triplet kernel (registers, stack, spills).
+   ptxas reports for the triplet, sort-and-count and count kernels
+   (registers, stack, spills).
 2. Kernel vs plain: pair_sum and masked_pair_sum for auc, hinge and
    logistic at a ragged size (4133 x 8197), batched (W = 8), at
    2^14 x 2^14 and at the harness's local-round batch (W = 512,
    1250 x 1250), each against its plain PyTorch version on the same card.
-   AUC must be equal exactly (both sum halves exactly: float32 below 2^23
-   per partial, float64 above). hinge and logistic must agree within rel
-   1e-5: both sum float32 values, in different orders.
+   AUC must be equal exactly (the unmasked auc is an int64 sort-and-count
+   of csrc/rank_count.cu; the masked one sums halves exactly: float32
+   below 2^23 per partial, float64 above). hinge and logistic must agree
+   within rel 1e-5: both sum float32 values, in different orders. Then
+   the auc sums alone on edge-case scores (+-inf, NaN of both signs,
+   +-0.0, subnormals, heavy ties) from 1 x 1 to W = 3 x 9000 x 70000:
+   kernel equal to plain.
 3. Main path at full size, through Estimator(kernel, backend="torch") on
    the default device: complete at n = 2^20 and 2^20 + 64 per class (AUC
    with auc_fast=False, which must equal rank_auc exactly), local_average
@@ -32,7 +37,8 @@ nonzero. Each phase prints its seconds.
    the chi-square band of the closed form (see CHI2_BAND). Each scheme
    runs once to warm up before its timed run.
 5. Timing at the main-path shapes: each kernel, its plain version and,
-   for AUC, rank_auc, with CUDA events; and the bound. Each timed kernel
+   for AUC, rank_auc, with CUDA events; and the bound (for the
+   sort-and-count auc route, the bytes of its inputs and partials). Each timed kernel
    result is held against its plain result as in phase 2, and that
    full-size error of the mean is the row's max_abs_err (phase 2's is
    max_abs_err_small).
@@ -68,7 +74,11 @@ nonzero. Each phase prints its seconds.
    factorised statistic, also held against the tiled scan), at a ragged
    size (1000 anchors x 4133 positives x 8197 negatives) and at a local
    round's batch (N = 8 workers x 1000 anchors, swr ids). Indicator sums
-   must be equal, hinge sums within rel 1e-5.
+   must be equal, hinge sums within rel 1e-5. Then the indicator's
+   sort-and-count route (csrc/rank_count.cu) alone on edge-case
+   distances (+-inf, NaN, +-0.0, ties between A and B), margins 0 and
+   0.5, two groups, colliding ids: equal to plain with 0/1 masks, within
+   rel 1e-6 with fractional ones.
 12. Degree-3 main path at full width (the largest single-program cell of
    the JAX config-4 grid): Estimator(kernel, backend="torch") complete
    for both kernels at n = 32768 anchors/positives and 32768 negatives,
@@ -80,7 +90,9 @@ nonzero. Each phase prints its seconds.
    right=True)) on the same distances, and their statistic equals the
    Estimator's; on a slice of 128 anchors the kernel equals its plain
    version (hinge within rel 1e-5) and is timed against it, the
-   sort-count and the bound.
+   sort-count and the bound (for the indicator's sort-and-count route,
+   the bytes of its inputs and partials), and at full width against the
+   sort-count.
 13. BASELINE config 4: triplet_mnist_statistic on the MNIST surrogate at
    n = 2000, incomplete (B = 2e4) and complete; the complete per-class
    values equal the CPU plain path's within rel 1e-6.
@@ -214,6 +226,7 @@ GRAD_OPS_PER_PAIR = {
 # the combine (indicator: a compare and a select; hinge: an add and a
 # max), and the multiply and add of the negative's mask
 OPS_PER_TRIPLET = 5
+# the TPU kernel each timed row replaces, by wrapper
 REPLACES = {
     "pair_sum": "tuplewise_tpu/ops/pallas_pairs.py:134",
     "masked_pair_sum": "tuplewise_tpu/ops/pallas_pairs.py:300",
@@ -223,7 +236,12 @@ REPLACES = {
     "signed_count": "tuplewise_tpu/ops/pallas_counts.py:145",
     "tenant_count": "tuplewise_tpu/ops/pallas_counts.py:258",
 }
+# the CUDA source of each timed row: by row name where a body has its own
+# route, else by wrapper (see source_of)
 SOURCES = {
+    "pair_sum[auc]": "tuplewise_tpu_torch/csrc/rank_count.cu",
+    "batched_masked_pair_sum[triplet_indicator]":
+        "tuplewise_tpu_torch/csrc/rank_count.cu",
     "signed_count": "tuplewise_tpu_torch/csrc/signed_count.cu",
     "tenant_count": "tuplewise_tpu_torch/csrc/tenant_count.cu",
     "pair_sum": "tuplewise_tpu_torch/csrc/pair_sum.cu",
@@ -232,6 +250,8 @@ SOURCES = {
     "pair_grad_sums": "tuplewise_tpu_torch/csrc/pair_grad.cu",
     "batched_masked_pair_sum": "tuplewise_tpu_torch/csrc/triplet_sum.cu",
 }
+EDGE_VALUES = (math.inf, -math.inf, math.nan, -math.nan, 0.0, -0.0, 1.0,
+               -1.0, 1e-45, -1e-45)
 GRAD_NAMES = ("hinge", "logistic")
 TRIPLET_NAMES = ("triplet_indicator", "triplet_hinge")
 # the largest single-program cell of the JAX package's config-4 grid
@@ -261,6 +281,30 @@ FLEET_ENGINE_EVENTS = 300_000
 
 def log(*a):
     print(*a, flush=True)
+
+
+def source_of(row):
+    """The CUDA source of a timed row ("<wrapper>[<body>]")."""
+    return SOURCES.get(row, SOURCES.get(row.split("[")[0]))
+
+
+def edge_values(gen, *shape):
+    """Random normal values with 30 % drawn from EDGE_VALUES (+-inf, NaN
+    of both signs, +-0.0, subnormals) and 20 % rounded to integers (heavy
+    ties, more -0.0)."""
+    x = torch.randn(*shape, generator=gen, device="cuda")
+    pool = torch.tensor(EDGE_VALUES, device="cuda")
+    at = torch.randint(0, len(EDGE_VALUES), shape, generator=gen,
+                       device="cuda")
+    x = torch.where(torch.rand(*shape, generator=gen, device="cuda") < 0.3,
+                    pool[at], x)
+    return torch.where(torch.rand(*shape, generator=gen, device="cuda") < 0.2,
+                       x.round(), x)
+
+
+def bytes_bound_ms(n_bytes):
+    """The least time to move n_bytes at the HBM rate, in ms."""
+    return n_bytes / PEAK_BYTES * 1e3
 
 
 def cuda_ms(fn, reps=1):
@@ -305,19 +349,21 @@ def card_line():
 
 def phase_build():
     from tuplewise_tpu_torch.ops import (
-        _build, count_kernels, pair_grad_kernels, pair_kernels,
+        _build, count_kernels, pair_grad_kernels, pair_kernels, rank_count,
         triplet_kernels,
     )
 
     t0 = time.perf_counter()
     sources = sorted({os.path.basename(p) for p in SOURCES.values()})
-    reported = ("triplet_sum.cu", "signed_count.cu", "tenant_count.cu")
+    reported = ("triplet_sum.cu", "rank_count.cu", "signed_count.cu",
+                "tenant_count.cu")
     with concurrent.futures.ThreadPoolExecutor(len(sources) + 2) as ex:
         reports = {s: ex.submit(ptxas_report, s) for s in reported}
         list(ex.map(_build.build, sources))
     pair_kernels.load_library()
     pair_grad_kernels.load_library()
     triplet_kernels.load_library()
+    rank_count.load_library()
     count_kernels.load_library()
     count_kernels.load_tenant_library()
     log(f"[build] {', '.join(sources)} built and loaded in "
@@ -388,6 +434,27 @@ def phase_kernel_vs_plain(errs):
                 errs[key] = max(errs.get(key, 0.0), err)
         log(f"[kernel vs plain] W={W} {n1}x{n2}: auc exact, hinge/logistic "
             f"within rel 1e-5")
+    # the auc body's edge cases: equal infinities score 0 (their
+    # difference is NaN), NaN scores 0 against anything, -0.0 ties +0.0
+    auc = get_kernel("auc")
+    for W, n1, n2 in [(1, 1, 1), (3, 300, 517), (2, 20000, 17),
+                      (1, 50, 40000), (3, 9000, 70000)]:
+        a, b = edge_values(g, W, n1), edge_values(g, W, n2)
+        ma = (torch.rand(W, n1, generator=g, device="cuda") > 0.3).float()
+        mb = (torch.rand(W, n2, generator=g, device="cuda") > 0.3).float()
+        for wrapper, got, want, count in [
+                ("pair_sum", pk.pair_sum(a, b, auc),
+                 pk.pair_sum(a, b, auc, impl="plain"), float(n1 * n2)),
+                ("masked_pair_sum", pk.masked_pair_sum(a, b, ma, mb, auc),
+                 pk.masked_pair_sum(a, b, ma, mb, auc, impl="plain"),
+                 (ma.sum(1, dtype=torch.float64)
+                  * mb.sum(1, dtype=torch.float64)).clamp_min(1.0))]:
+            err = check_against_plain("auc", got, want, count,
+                                      (wrapper, "edge", W, n1, n2))
+            key = f"{wrapper}[auc]"
+            errs[key] = max(errs[key], err)
+        log(f"[kernel vs plain] edge values W={W} {n1}x{n2}: auc and masked "
+            f"auc equal to plain ({pk.pair_sum(a, b, auc).tolist()})")
 
 
 def ragged_blocks(gen, n, n_workers):
@@ -505,6 +572,7 @@ def bound_ms(name, pairs, masked, n_inputs):
 
 def phase_timing(errs, launches, i1, i2):
     from tuplewise_tpu_torch.ops import pair_kernels as pk
+    from tuplewise_tpu_torch.ops import rank_count
     from tuplewise_tpu_torch.ops.kernels import get_kernel
     from tuplewise_tpu_torch.ops.rank_auc import rank_auc
 
@@ -521,18 +589,26 @@ def phase_timing(errs, launches, i1, i2):
     rows = []
     for name in NAMES:
         k = get_kernel(name)
+        reps = 20 if name == "auc" else 3     # the auc route takes < 1 ms
         cuda_ms(lambda: pk.pair_sum(a, b, k))                 # warm-up
-        ms, got = cuda_ms(lambda: pk.pair_sum(a, b, k), reps=3)
+        ms, got = cuda_ms(lambda: pk.pair_sum(a, b, k), reps=reps)
         plain_ms, want = cuda_ms(lambda: pk.pair_sum(a, b, k, impl="plain"))
         err = check_against_plain(name, got, want, float(n * n),
                                   ("pair_sum", 1, n, n))
         library_ms = None
         if name == "auc":
             cuda_ms(lambda: rank_auc(a, b))
-            library_ms, _ = cuda_ms(lambda: rank_auc(a, b), reps=3)
-        bms, by = bound_ms(name, float(n * n), False, 2 * n)
+            library_ms, _ = cuda_ms(lambda: rank_auc(a, b), reps=reps)
+            # sort-and-count: the scores read once, the int64 partials
+            # (one a tile of b and chunk of a) written once
+            T = rank_count.tile_size(n)
+            partials = -(-n // T) * -(-n // rank_count.COUNT_CHUNK)
+            bms, by = bytes_bound_ms(4 * 2 * n + 8 * partials), "bytes"
+        else:
+            bms, by = bound_ms(name, float(n * n), False, 2 * n)
         rows.append(dict(
-            name=f"pair_sum[{name}]", route="cuda", source=SOURCES["pair_sum"],
+            name=f"pair_sum[{name}]", route="cuda",
+            source=source_of(f"pair_sum[{name}]"),
             replaces=REPLACES["pair_sum"],
             launches=launches.get(f"pair_sum[{name}]", 0),
             max_abs_err=err, max_abs_err_small=errs[f"pair_sum[{name}]"],
@@ -552,7 +628,7 @@ def phase_timing(errs, launches, i1, i2):
                            2 * (i1.numel() + i2.numel()))
         rows.append(dict(
             name=f"masked_pair_sum[{name}]", route="cuda",
-            source=SOURCES["masked_pair_sum"],
+            source=source_of(f"masked_pair_sum[{name}]"),
             replaces=REPLACES["masked_pair_sum"],
             launches=launches.get(f"masked_pair_sum[{name}]", 0),
             max_abs_err=err,
@@ -647,7 +723,7 @@ def phase_grad_vs_plain():
                 bms, by = grad_bound_ms(wrapper, name, pairs, W * (n1 + n2))
                 rows.append(dict(
                     name=f"{wrapper}[{name}]", route="cuda",
-                    source=SOURCES[wrapper], replaces=REPLACES[wrapper],
+                    source=source_of(wrapper), replaces=REPLACES[wrapper],
                     launches=None, max_abs_err=e,
                     loss_err_of_mean=(loss_err if wrapper == "pair_loss_grad"
                                       else None),
@@ -927,6 +1003,38 @@ def phase_triplet_vs_plain(errs):
                 f"{'equal' if name == 'triplet_indicator' else 'within rel 1e-5'}"
                 f" (max abs err {err:.3g})")
 
+    # the indicator's edge cases: distances with +-inf, NaN, +-0.0 and ties
+    # between A and B, two groups with their own masks, colliding ids
+    key = "batched_masked_pair_sum[triplet_indicator]"
+    for margin in (0.0, 0.5):
+        comb = tk.TripletCombine("indicator", margin)
+        for C, G, P, K, frac in [(1, 1, 1, 1, False), (3, 2, 300, 517, False),
+                                 (2, 2, 40, 20000, True),
+                                 (4, 1, 3000, 33000, False)]:
+            W = C * G
+            A, B = edge_values(g, W, P) + 3.0, edge_values(g, W, K) + 3.0
+            B[:, :5] = A[:, :5]
+            mp, mk = mask(G, P), mask(G, K)
+            if frac:
+                mp = mp * torch.rand(G, P, generator=g, device="cuda")
+                mk = mk * torch.rand(G, K, generator=g, device="cuda")
+            ip = (torch.arange(G * P, device="cuda") % 7).reshape(G, P)
+            ia = torch.arange(W, device="cuda") % 5
+            got = tk.batched_masked_pair_sum(A, B, mp, ip, ia, mk, comb, C)
+            want = tk.batched_masked_pair_sum(A, B, mp, ip, ia, mk, comb, C,
+                                              impl="plain")
+            torch.cuda.synchronize()
+            if frac:
+                rel = float(((got - want).abs()
+                             / want.abs().clamp_min(1e-30)).max())
+                assert rel < 1e-6, (margin, W, P, K, rel)
+            else:
+                assert torch.equal(got, want), (margin, W, P, K)
+            errs[key] = max(errs[key], float((got - want).abs().max()))
+            log(f"[triplet vs plain] edge values margin {margin} W={W} "
+                f"({G} groups) {P}x{K} {'fractional' if frac else '0/1'} "
+                f"masks: indicator {'within rel 1e-6' if frac else 'equal'}")
+
 
 def gaussian_clouds(gen, n, d):
     """Anchors/positives N(0, I) and negatives N(0.3, I) in d dims: the
@@ -980,6 +1088,17 @@ def phase_triplet_main():
     return X, Y, out
 
 
+def indicator_bytes(W, P, K):
+    """Bytes the indicator's sort-and-count moves at least, for one group
+    of W anchors (ops.rank_count): A [W, P] and B [W, K] float32, mp
+    float32 and ip int64 [P], ia int64 [W], mk float32 [K] read once, the
+    float64 partials (one a tile of B) written once."""
+    from tuplewise_tpu_torch.ops import rank_count
+
+    tiles = -(-K // rank_count.tile_size(K))
+    return 4.0 * W * (P + K) + 12.0 * P + 8.0 * W + 4.0 * K + 8.0 * W * tiles
+
+
 def phase_triplet_exact(X, Y, errs, launches, main_out):
     """Phase 12b, outside the counted run: at full width the kernel's
     per-anchor indicator sums equal the sort-count for EVERY anchor and
@@ -997,6 +1116,7 @@ def phase_triplet_exact(X, Y, errs, launches, main_out):
              for name in TRIPLET_NAMES}
     ms_full = {name: 0.0 for name in TRIPLET_NAMES}
     lib_ms_full = 0.0
+    bytes_full = 0.0
     sums = {name: torch.empty(n, dtype=torch.float64, device="cuda")
             for name in TRIPLET_NAMES}
     exact = torch.empty(n, dtype=torch.int64, device="cuda")
@@ -1011,6 +1131,7 @@ def phase_triplet_exact(X, Y, errs, launches, main_out):
             sums[name][a0:a0 + A.shape[0]] = s
         ms, cnt = cuda_ms(lambda: sort_count(A, B, ids, ia))
         lib_ms_full += ms
+        bytes_full += indicator_bytes(*A.shape, K)
         exact[a0:a0 + A.shape[0]] = cnt
         del d_pa, d_an, A, B
     torch.cuda.synchronize()
@@ -1036,33 +1157,40 @@ def phase_triplet_exact(X, Y, errs, launches, main_out):
     slice_triplets = float(c) * (n - 1) * K
     cuda_ms(lambda: sort_count(d_pa, d_an, ids, ia))           # warm-up
     library_ms, cnt = cuda_ms(lambda: sort_count(d_pa, d_an, ids, ia),
-                              reps=3)
+                              reps=20)
     rows = []
     for name, comb in combs.items():
         args = (d_pa, d_an, ones_p, ids[None], ia, ones_k, comb)
         cuda_ms(lambda: tk.batched_masked_pair_sum(*args))    # warm-up
-        ms, got = cuda_ms(lambda: tk.batched_masked_pair_sum(*args), reps=3)
+        ms, got = cuda_ms(lambda: tk.batched_masked_pair_sum(*args),
+                          reps=20 if name == "triplet_indicator" else 3)
         plain_ms, want = cuda_ms(
             lambda: tk.batched_masked_pair_sum(*args, impl="plain"))
         err = check_triplet(name, got, want, ("slice", c, n, K))
         if name == "triplet_indicator":
             assert torch.equal(got, cnt.to(torch.float64))
-        ops = OPS_PER_TRIPLET / PEAK_FP32_OPS
-        byts = 4.0 * c * (n + K) + 8.0 * c
-        by = "operations" if slice_triplets * ops >= byts / PEAK_BYTES \
-            else "bytes"
         key = f"batched_masked_pair_sum[{name}]"
+        if name == "triplet_indicator":
+            # sort-and-count: bound by the bytes of its inputs and partials
+            bms, by = bytes_bound_ms(indicator_bytes(c, n, K)), "bytes"
+            bms_full = bytes_bound_ms(bytes_full)
+        else:
+            ops = OPS_PER_TRIPLET / PEAK_FP32_OPS
+            byts = 4.0 * c * (n + K) + 8.0 * c
+            by = ("operations" if slice_triplets * ops >= byts / PEAK_BYTES
+                  else "bytes")
+            bms = max(slice_triplets * ops, byts / PEAK_BYTES) * 1e3
+            bms_full = count * ops * 1e3
         rows.append(dict(
-            name=key, route="cuda", source=SOURCES["batched_masked_pair_sum"],
+            name=key, route="cuda", source=source_of(key),
             replaces=REPLACES["batched_masked_pair_sum"],
             launches=launches.get(key, 0), max_abs_err=err,
             max_abs_err_small=errs[key], ms=ms, plain_ms=plain_ms,
-            bound_ms=max(slice_triplets * ops, byts / PEAK_BYTES) * 1e3,
-            bound_by=by,
+            bound_ms=bms, bound_by=by,
             library_ms=library_ms if name == "triplet_indicator" else None,
             shape=f"W={c} anchors {n}x{K} d={TRIPLET_D}",
             ms_full=ms_full[name],
-            bound_ms_full=count * ops * 1e3,
+            bound_ms_full=bms_full,
             library_ms_full=(lib_ms_full if name == "triplet_indicator"
                              else None),
             shape_full=f"W={n} anchors {n}x{K} d={TRIPLET_D}"))
@@ -1353,7 +1481,8 @@ def phase_count_vs_plain():
     (call_ms, ms, _), (_, plain_ms, _), (lib_call_ms, lib_ms, _) = (
         times["kernel"], times["plain"], times["library"])
     row = dict(
-        name="signed_count[flat]", route="cuda", source=SOURCES["signed_count"],
+        name="signed_count[flat]", route="cuda",
+        source=source_of("signed_count"),
         replaces=REPLACES["signed_count"], launches=None, max_abs_err=err,
         ms=ms, call_ms=call_ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
         dependent_loads=loads, library_ms=lib_ms, library_call_ms=lib_call_ms,
@@ -1717,7 +1846,7 @@ def phase_tenant_count_vs_plain():
     shape = (f"T_bucket {FLEET_TENANTS}, caps {cap_p}/{cap_n}, qb "
              f"{qn.shape[1]} ({len(last)} tenants of a 256-event apply)")
     row = dict(
-        name="tenant_count", route="cuda", source=SOURCES["tenant_count"],
+        name="tenant_count", route="cuda", source=source_of("tenant_count"),
         replaces=REPLACES["tenant_count"], launches=None, max_abs_err=err,
         ms=ms, call_ms=call_ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
         bound_bytes=byts, dependent_loads=chain, library_ms=lib_ms,

@@ -208,6 +208,44 @@ class TestTenantLifecycle:
             st = eng.stats()
             assert st["tenants_live"] == 1 and st["fleet"]["tenants"] == 1
 
+    def test_drop_while_inserts_queued_recreates_stream(self):
+        """Port-only: a tenant dropped while its inserts wait in the queue
+        is re-created when the wave applies (the JAX engine raises
+        KeyError there and fails the wave). The wave resolves, and the
+        tenant's statistic holds only the events after the drop."""
+        eng = _engine(max_batch=64, flush_timeout_s=0.001)
+        try:
+            eng.insert("a", [1.0, 0.0], [1, 0]).result(5.0)
+            old_stream = eng._streams["a"]
+            created = eng.metrics.snapshot()["tenants_created_total"]["value"]
+            apply = eng.fleet.apply_inserts
+            started, release = threading.Event(), threading.Event()
+
+            def gated_apply(items):
+                if not started.is_set():
+                    started.set()
+                    assert release.wait(10.0)
+                return apply(items)
+
+            eng.fleet.apply_inserts = gated_apply
+            f0 = eng.insert("u0", 1.0, 1)
+            assert started.wait(10.0)           # the worker holds u0's wave
+            queued = [eng.insert("a", [2.0, 0.5], [1, 0]),
+                      eng.insert("a", 0.1, 0)]
+            assert eng.pending_by_tenant() == {"a": 2}
+            assert eng.drop_tenant("a") and "a" not in eng._streams
+            release.set()
+            assert f0.result(5.0) == 1
+            assert [f.result(5.0) for f in queued] == [2, 1]
+            eng.flush()
+            assert eng._streams["a"] is not old_stream
+            m = eng.metrics.snapshot()
+            assert m["tenants_created_total"]["value"] == created + 2
+            assert eng.tenant_stats("a")["n_events"] == 3
+            assert eng.tenant_stats("a")["auc_exact"] == 1.0
+        finally:
+            eng.close()
+
     def test_tenant_streams_deterministic_seeds(self):
         assert tenant_seed(3, "t7") == jax_tenant_seed(3, "t7")
         assert tenant_seed(3, "t7") != tenant_seed(3, "t8")

@@ -11,7 +11,8 @@
 // for the Monte-Carlo harness):
 //     S_w = sum_{i < n1, j < n2} g(a[w,i] - b[w,j]) * ma[w,i] * mb[w,j]
 // (the masks are absent when MASKED is false). g is the auc, hinge or
-// logistic body.
+// logistic body; the unmasked auc sum is not built here: it runs the
+// sort-and-count kernels of csrc/rank_count.cu.
 //
 // Design. The grid is (row tiles, column tiles, W). A block of 256 threads
 // owns a row tile of kTileA = 2048 scores of `a`, 8 per thread in
@@ -156,8 +157,9 @@ int tw_pair_tile_b() { return kTileB; }
 // Launches one pair-sum kernel on `stream` and returns cudaGetLastError().
 // a [W, n1], b [W, n2] (and ma, mb when masked) are contiguous float32 on
 // the device; out holds W * ceil(n2/kTileB) * ceil(n1/kTileA) partials.
-// body: 0 auc, 1 hinge, 2 logistic (ops/kernels.py). The wrapper checks
-// every argument; an unknown body returns cudaErrorInvalidValue.
+// body: 0 auc (masked only), 1 hinge, 2 logistic (ops/kernels.py). The
+// wrapper checks every argument; an unknown body, or the unmasked auc body,
+// returns cudaErrorInvalidValue.
 int tw_pair_sum(const void* a, const void* b, const void* ma, const void* mb,
                 void* out, long long n1, long long n2, int w, int body,
                 int masked, void* stream) {
@@ -170,7 +172,11 @@ int tw_pair_sum(const void* a, const void* b, const void* ma, const void* mb,
   auto pmb = static_cast<const float*>(mb);
   auto fo = static_cast<float*>(out);
   switch (body) {
-    case 0: launch<AucBody>(masked, grid, s, fa, fb, pma, pmb, fo, n1, n2); break;
+    case 0:  // the unmasked auc sum is tw_rank_auc (csrc/rank_count.cu)
+      if (!masked) return (int)cudaErrorInvalidValue;
+      pair_sum_kernel<AucBody, true>
+          <<<grid, kThreads, 0, s>>>(fa, fb, pma, pmb, fo, n1, n2);
+      break;
     case 1: launch<HingeBody>(masked, grid, s, fa, fb, pma, pmb, fo, n1, n2); break;
     case 2: launch<LogisticBody>(masked, grid, s, fa, fb, pma, pmb, fo, n1, n2); break;
     default: return (int)cudaErrorInvalidValue;

@@ -1,0 +1,473 @@
+// Sort-and-count kernels on Hopper (sm_90a): the auc body of the unmasked
+// pair sum and the indicator body of the per-anchor triplet sums.
+//
+// Replaces, for these two bodies, the Pallas TPU kernels of
+//   * tuplewise_tpu/ops/pallas_pairs.py:134 pallas_pair_sum (auc body,
+//     also reached through pallas_pair_sum_any)        -> tw_rank_auc
+//   * tuplewise_tpu/ops/pallas_triplets.py:185 _batched_masked_pair_sum
+//     (indicator body, driven by pallas_triplet_stats) -> tw_rank_indicator
+// The other bodies keep csrc/pair_sum.cu and csrc/triplet_sum.cu.
+//
+// What they compute, for each of W independent problems w:
+//   tw_rank_auc:       2 * #{(i,j): fl(a_i - b_j) > 0} + #{(i,j): fl(a_i - b_j) == 0}
+//                      as int64 partials; the wrapper halves the sum in
+//                      float64, which is the auc body's pair sum exactly.
+//   tw_rank_indicator: S_w = sum_{j,k} 1{fl(A[w,j] - B[w,k]) < -margin}
+//                            * mp[q,j] * 1{ip[q,j] != ia[w]} * mk[q,k]
+//                      (q = w / C) as float64 partials, one per block.
+//
+// Design. The TPU kernels compared every pair (or triplet) because the TPU
+// has no fast search. Here the second operand is cut into tiles of T values
+// (T in {2048, 4096, 8192, 16384}; the wrapper picks it). A block sorts one
+// tile with a block-wide radix sort (CUB's BlockRadixSort, a building block
+// inside the kernel) on order-preserving uint32 keys held in registers, and
+// then every value of the first operand counts the tile by a binary search
+// in shared memory: log2(T) + 1 probes a value and tile instead of T
+// compares.
+//   * auc: sort_tiles_kernel sorts each tile of b once into a scratch tensor;
+//     auc_count_kernel loads one sorted tile into shared memory and counts a
+//     chunk of kCountChunk values of a against it (a lower search, and an
+//     upper one only where the value ties the tile). One int64 partial a
+//     block, summed by the wrapper; no atomics on the result.
+//   * indicator: a tile of B[w] is searched by the positives of problem w
+//     alone, so indicator_kernel sorts the tile together with its weights
+//     mk, forms their float64 suffix sums, and searches every A[w,j] in the
+//     same block. One float64 partial a block; the positive weight
+//     mp * 1{ip != ia} is formed in the kernel from the ids.
+// A sorted tile sits in shared memory in Eytzinger (breadth-first) order:
+// sorted positions 0..T-2 form a complete search tree of log2(T) levels,
+// position T-1 sits in slot T-1. A search step is one load, one subtraction,
+// one compare and an index update, and the probes of one level lie side by
+// side, so a warp's probes spread over the banks. Each thread keeps kIlp
+// searches in flight.
+//
+// Exactness rules (a plain rank count does not compute the bodies above: the
+// body scores equal infinities, whose difference is NaN, as 0, not as a tie).
+//   1. Every search uses the body's own predicate on the float32 difference,
+//      never a raw comparison of a and b: wins = #b with fl(a - b) > 0 and
+//      wins + ties = #b with fl(a - b) >= 0 (auc); #B with
+//      fl(A - B) < -margin (indicator). fl(x - s) is non-increasing in s
+//      once NaN s is left out, so each predicate holds on a prefix (auc) or
+//      a suffix (indicator) of a sorted tile and a binary search counts it
+//      exactly, for any finite margin. Equal infinities fall out by
+//      themselves.
+//   2. Keys: -0.0 is made +0.0 first (the body calls them tied; as raw bits
+//      -0.0 would sort below +0.0), and every NaN, of either sign, becomes
+//      the top key kNanKey, so NaN values (and the padding of a short tile)
+//      sort to the end of a tile and are left out of every count: for the
+//      auc they stay NaN, on which neither predicate holds; for the indicator
+//      their weights are zeroed before the suffix sums and their slots hold
+//      +inf, which ends the search of every A that is not +inf or NaN (and
+//      those count no B at all).
+//   3. A NaN value of the first operand satisfies no predicate and adds 0.
+// Built without fast-math (ops/_build.py): fl(x - s) == 0 iff x == s for
+// finite floats only with gradual underflow.
+//
+// Bound. Bytes: each operand is read once and each partial written once
+// (the auc count re-reads a sorted tile from L2 once per chunk of a). The
+// work is log2(T) + 1 shared-memory probes a value and tile plus a radix
+// sort of each tile, far below the all-pairs operation count of the TPU
+// kernels; what sets the time is the instruction issue of the probes and
+// the shared-memory traffic of the sort.
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include <cub/block/block_radix_sort.cuh>
+
+namespace {
+
+constexpr int kMaxTile = 16384;       // values sorted by one block
+constexpr int kMinTile = 2048;
+constexpr int kCountThreads = 512;
+constexpr int kCountChunk = 8192;     // values of a counted by one block
+constexpr int kIlp = 4;               // searches a thread keeps in flight
+constexpr unsigned kNanKey = 0xFFFFFFFFu;
+
+__host__ __device__ constexpr int log2_of(int t) {
+  return t > 1 ? 1 + log2_of(t >> 1) : 0;
+}
+
+// order-preserving key: -0.0 -> +0.0, every NaN -> kNanKey (rule 2)
+__device__ __forceinline__ unsigned float_key(float x) {
+  unsigned u = __float_as_uint(x);
+  if ((u & 0x7FFFFFFFu) > 0x7F800000u) return kNanKey;
+  if (u == 0x80000000u) u = 0u;
+  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+}
+
+__device__ __forceinline__ float key_float(unsigned k) {
+  return __uint_as_float((k & 0x80000000u) ? (k & 0x7FFFFFFFu) : ~k);
+}
+
+// Eytzinger slot of sorted position p in a tile of 2^LOG_T values
+template <int LOG_T>
+__device__ __forceinline__ int eyt_slot(int p) {
+  constexpr int T = 1 << LOG_T;
+  if (p == T - 1) return T - 1;
+  const int j = p + 1;                 // in-order rank in the tree, from 1
+  const int t = __ffs(j) - 1;          // height of its node
+  return (j >> (t + 1)) + (1 << (LOG_T - 1 - t)) - 1;
+}
+
+struct Wins {          // auc: fl(a - b) > 0
+  __device__ __forceinline__ bool holds(float x, float s) const {
+    return x - s > 0.f;
+  }
+};
+
+struct WinsOrTies {    // auc: fl(a - b) >= 0
+  __device__ __forceinline__ bool holds(float x, float s) const {
+    return x - s >= 0.f;
+  }
+};
+
+struct NotBelow {      // indicator: !(fl(A - B) < -margin), a prefix
+  float neg_margin;
+  __device__ __forceinline__ bool holds(float x, float s) const {
+    return !(x - s < neg_margin);
+  }
+};
+
+// c[u] = the length of the prefix of the sorted tile e (Eytzinger order) on
+// which pred(x[u], .) holds: kIlp interleaved searches of log2(T) + 1 probes
+template <int LOG_T, int N, class Pred>
+__device__ __forceinline__ void prefix_counts(const float* e,
+                                              const float (&x)[N],
+                                              int (&c)[N], Pred pred) {
+  constexpr int T = 1 << LOG_T;
+  int i[N];
+#pragma unroll
+  for (int u = 0; u < N; ++u) i[u] = 0;
+#pragma unroll
+  for (int level = 0; level < LOG_T; ++level) {
+#pragma unroll
+    for (int u = 0; u < N; ++u)
+      i[u] = 2 * i[u] + (pred.holds(x[u], e[i[u]]) ? 2 : 1);
+  }
+#pragma unroll
+  for (int u = 0; u < N; ++u) {
+    c[u] = i[u] + 1 - T;               // in [0, T - 1]
+    if (c[u] == T - 1 && pred.holds(x[u], e[T - 1])) c[u] = T;
+  }
+}
+
+template <class V>
+__device__ __forceinline__ V block_sum(V v, V* swarp) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
+  if ((threadIdx.x & 31) == 0) swarp[threadIdx.x >> 5] = v;
+  __syncthreads();
+  v = 0;
+  if (threadIdx.x < 32) {
+    v = threadIdx.x < (blockDim.x >> 5) ? swarp[threadIdx.x] : V(0);
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
+  }
+  return v;  // valid in thread 0
+}
+
+// ------------------------------------------------------------------------ //
+// auc                                                                      //
+// ------------------------------------------------------------------------ //
+
+// grid (tiles, W), THREADS threads, the sort's temporary storage as dynamic
+// shared memory. Writes the tile of b sorted ascending (canonical values,
+// NaN and padding last) in Eytzinger order to sorted[w, tile, 0:T].
+template <int THREADS, int ITEMS>
+__global__ void __launch_bounds__(THREADS)
+sort_tiles_kernel(const float* __restrict__ b, float* __restrict__ sorted,
+                  int64_t n2) {
+  constexpr int T = THREADS * ITEMS;
+  using Sort = cub::BlockRadixSort<unsigned, THREADS, ITEMS>;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int64_t w = blockIdx.y;
+  const int64_t col0 = (int64_t)blockIdx.x * T;
+  const int64_t rem = n2 - col0;
+  const int len = rem < T ? (int)rem : T;
+  const float* bw = b + w * n2 + col0;
+  unsigned keys[ITEMS];
+#pragma unroll
+  for (int r = 0; r < ITEMS; ++r) {
+    const int i = r * THREADS + threadIdx.x;
+    keys[r] = i < len ? float_key(bw[i]) : kNanKey;
+  }
+  // striped result: this thread holds sorted positions r THREADS + t
+  Sort(*reinterpret_cast<typename Sort::TempStorage*>(smem))
+      .SortBlockedToStriped(keys);
+  float* out = sorted + (w * gridDim.x + blockIdx.x) * T;
+#pragma unroll
+  for (int r = 0; r < ITEMS; ++r)
+    out[eyt_slot<log2_of(T)>(r * THREADS + threadIdx.x)] = key_float(keys[r]);
+}
+
+// the length of the prefix of e on which pred(x, .) holds (one search)
+template <int LOG_T, class Pred>
+__device__ __forceinline__ int prefix_count(const float* e, float x,
+                                            Pred pred) {
+  const float xs[1] = {x};
+  int c[1];
+  prefix_counts<LOG_T>(e, xs, c, pred);
+  return c[0];
+}
+
+// grid (chunks of a, tiles, W), kCountThreads threads, 4 T bytes of dynamic
+// shared memory. partials[w, tile, chunk] = sum over the chunk's a of
+// (wins + (wins + ties)) against the sorted tile.
+template <int LOG_T>
+__global__ void __launch_bounds__(kCountThreads)
+auc_count_kernel(const float* __restrict__ a, const float* __restrict__ sorted,
+                 long long* __restrict__ partials, int64_t n1) {
+  constexpr int T = 1 << LOG_T;
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* e = reinterpret_cast<float*>(smem);
+  __shared__ long long swarp[kCountThreads / 32];
+  const int64_t w = blockIdx.z;
+  const int64_t tile = w * gridDim.y + blockIdx.y;
+  const float4* src = reinterpret_cast<const float4*>(sorted + tile * T);
+  for (int i = threadIdx.x; i < T / 4; i += kCountThreads)
+    reinterpret_cast<float4*>(e)[i] = src[i];
+  __syncthreads();
+
+  const float* aw = a + w * n1;
+  const int64_t row0 = (int64_t)blockIdx.x * kCountChunk;
+  const int64_t end = n1 - row0 < kCountChunk ? n1 : row0 + kCountChunk;
+  long long acc = 0;
+  for (int64_t r0 = row0 + threadIdx.x; r0 < end;
+       r0 += (int64_t)kIlp * kCountThreads) {
+    // a slot past the end searches NaN, which counts 0 (rule 3)
+    float x[kIlp];
+    int wins[kIlp];
+#pragma unroll
+    for (int u = 0; u < kIlp; ++u) {
+      const int64_t r = r0 + (int64_t)u * kCountThreads;
+      x[u] = r < end ? aw[r] : __int_as_float(0x7FFFFFFF);
+    }
+    prefix_counts<LOG_T>(e, x, wins, Wins());
+#pragma unroll
+    for (int u = 0; u < kIlp; ++u) {
+      // wins + ties: ties are rare, so probe the next position first
+      int upto = wins[u];
+      if (upto < T && WinsOrTies().holds(x[u], e[eyt_slot<LOG_T>(upto)]))
+        upto = prefix_count<LOG_T>(e, x[u], WinsOrTies());
+      acc += wins[u] + upto;
+    }
+  }
+  acc = block_sum(acc, swarp);
+  if (threadIdx.x == 0) partials[tile * gridDim.x + blockIdx.x] = acc;
+}
+
+// ------------------------------------------------------------------------ //
+// indicator                                                                //
+// ------------------------------------------------------------------------ //
+
+// grid (W, tiles), THREADS threads, dynamic shared memory: the sort's
+// temporary storage, then (aliasing it) the sorted values [T] in Eytzinger
+// order and the float64 suffix sums of their weights [T + 1] in sorted
+// order. partials[w, tile] = the tile's part of S_w.
+template <int THREADS, int ITEMS>
+__global__ void __launch_bounds__(THREADS)
+indicator_kernel(const float* __restrict__ A, const float* __restrict__ B,
+                 const float* __restrict__ mp, const int64_t* __restrict__ ip,
+                 const int64_t* __restrict__ ia, const float* __restrict__ mk,
+                 double* __restrict__ partials, int64_t P, int64_t K,
+                 int64_t C, float margin) {
+  constexpr int T = THREADS * ITEMS;
+  constexpr int LOG_T = log2_of(T);
+  using Sort = cub::BlockRadixSort<unsigned, THREADS, ITEMS, float>;
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* e = reinterpret_cast<float*>(smem);
+  double* suffix = reinterpret_cast<double*>(smem + 4 * (size_t)T);
+  __shared__ double swarp[THREADS / 32];
+
+  const int64_t w = blockIdx.x;
+  const int64_t q = w / C;
+  const int64_t col0 = (int64_t)blockIdx.y * T;
+  const int64_t rem = K - col0;
+  const int len = rem < T ? (int)rem : T;
+  const float* bw = B + w * K + col0;
+  const float* mkq = mk + q * K + col0;
+  unsigned keys[ITEMS];
+  float wts[ITEMS];
+#pragma unroll
+  for (int r = 0; r < ITEMS; ++r) {
+    const int i = r * THREADS + threadIdx.x;
+    const bool in = i < len;
+    keys[r] = in ? float_key(bw[i]) : kNanKey;
+    wts[r] = in ? mkq[i] : 0.f;
+  }
+  // blocked result: this thread holds sorted positions [t ITEMS, t ITEMS + ITEMS)
+  Sort(*reinterpret_cast<typename Sort::TempStorage*>(smem)).Sort(keys, wts);
+
+  // suffix[p] = sum of the weights at sorted positions >= p, NaN keys'
+  // weights zeroed (rule 2)
+  double tot = 0.0;
+#pragma unroll
+  for (int r = ITEMS - 1; r >= 0; --r) {
+    if (keys[r] == kNanKey) wts[r] = 0.f;
+    tot += (double)wts[r];
+  }
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  double incl = tot;  // this lane's and the later lanes' totals
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const double o = __shfl_down_sync(0xffffffffu, incl, off);
+    if (lane + off < 32) incl += o;
+  }
+  if (lane == 0) swarp[warp] = incl;
+  __syncthreads();  // the sort is done with its storage: e, suffix alias it
+  double run = __shfl_down_sync(0xffffffffu, incl, 1);
+  if (lane == 31) run = 0.0;
+  for (int v = warp + 1; v < THREADS / 32; ++v) run += swarp[v];
+  const int base = threadIdx.x * ITEMS;
+#pragma unroll
+  for (int r = ITEMS - 1; r >= 0; --r) {
+    run += (double)wts[r];
+    suffix[base + r] = run;
+    e[eyt_slot<LOG_T>(base + r)] =
+        keys[r] == kNanKey ? __int_as_float(0x7F800000) : key_float(keys[r]);
+  }
+  if (threadIdx.x == 0) suffix[T] = 0.0;
+  __syncthreads();
+
+  // #B with fl(A - B) < -margin is a suffix of the sorted tile: count its
+  // complement, a prefix, and take the suffix sum after it
+  const NotBelow pred{-margin};
+  const float* aw = A + w * P;
+  const float* mpq = mp + q * P;
+  const int64_t* ipq = ip + q * P;
+  const int64_t id = ia[w];
+  double acc = 0.0;
+  for (int64_t j0 = threadIdx.x; j0 < P; j0 += (int64_t)kIlp * THREADS) {
+    float x[kIlp], wj[kIlp];
+    int c[kIlp];
+#pragma unroll
+    for (int u = 0; u < kIlp; ++u) {
+      const int64_t j = j0 + (int64_t)u * THREADS;
+      const bool in = j < P;
+      x[u] = in ? aw[j] : 0.f;
+      wj[u] = in && ipq[j] != id ? mpq[j] : 0.f;
+    }
+    prefix_counts<LOG_T>(e, x, c, pred);
+#pragma unroll
+    for (int u = 0; u < kIlp; ++u)
+      if (wj[u] != 0.f) acc += (double)wj[u] * suffix[c[u]];
+  }
+  acc = block_sum(acc, swarp);
+  if (threadIdx.x == 0) partials[w * gridDim.y + blockIdx.y] = acc;
+}
+
+template <int THREADS, int ITEMS>
+int launch_auc(const float* a, const float* b, float* sorted,
+               long long* partials, long long n1, long long n2, int w,
+               cudaStream_t s) {
+  constexpr int T = THREADS * ITEMS;
+  using Sort = cub::BlockRadixSort<unsigned, THREADS, ITEMS>;
+  const int sort_smem = (int)sizeof(typename Sort::TempStorage);
+  const int count_smem = 4 * T;
+  cudaError_t err = cudaFuncSetAttribute(
+      sort_tiles_kernel<THREADS, ITEMS>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, sort_smem);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(auc_count_kernel<log2_of(T)>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               count_smem);
+  if (err != cudaSuccess) return (int)err;
+  const unsigned tiles = (unsigned)((n2 + T - 1) / T);
+  const unsigned chunks = (unsigned)((n1 + kCountChunk - 1) / kCountChunk);
+  sort_tiles_kernel<THREADS, ITEMS>
+      <<<dim3(tiles, (unsigned)w), THREADS, sort_smem, s>>>(b, sorted, n2);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  auc_count_kernel<log2_of(T)>
+      <<<dim3(chunks, tiles, (unsigned)w), kCountThreads, count_smem, s>>>(
+          a, sorted, partials, n1);
+  return (int)cudaGetLastError();
+}
+
+template <int THREADS, int ITEMS>
+int launch_indicator(const float* A, const float* B, const float* mp,
+                     const int64_t* ip, const int64_t* ia, const float* mk,
+                     double* partials, long long P, long long K, long long W,
+                     long long C, float margin, cudaStream_t s) {
+  constexpr int T = THREADS * ITEMS;
+  using Sort = cub::BlockRadixSort<unsigned, THREADS, ITEMS, float>;
+  const size_t need = 12 * (size_t)T + 8;
+  const int smem = (int)(sizeof(typename Sort::TempStorage) > need
+                             ? sizeof(typename Sort::TempStorage) : need);
+  cudaError_t err = cudaFuncSetAttribute(
+      indicator_kernel<THREADS, ITEMS>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  const unsigned tiles = (unsigned)((K + T - 1) / T);
+  indicator_kernel<THREADS, ITEMS><<<dim3((unsigned)W, tiles), THREADS, smem, s>>>(
+      A, B, mp, ip, ia, mk, partials, P, K, C, margin);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+int tw_rank_max_tile() { return kMaxTile; }
+int tw_rank_min_tile() { return kMinTile; }
+int tw_rank_count_chunk() { return kCountChunk; }
+
+// auc: launches sort_tiles_kernel, then auc_count_kernel, on `stream`, and
+// returns the first nonzero cuda error. a [W, n1] and b [W, n2] are
+// contiguous float32 on the device; sorted holds W * tiles * T float32 and
+// partials W * tiles * ceil(n1 / kCountChunk) int64, with tiles =
+// ceil(n2 / T). T is 2048, 4096, 8192 or 16384 (any other returns
+// cudaErrorInvalidValue); the wrapper checks every argument and the grid
+// limits.
+int tw_rank_auc(const void* a, const void* b, void* sorted, void* partials,
+                long long n1, long long n2, int w, int T, void* stream) {
+  auto fa = static_cast<const float*>(a);
+  auto fb = static_cast<const float*>(b);
+  auto fs = static_cast<float*>(sorted);
+  auto out = static_cast<long long*>(partials);
+  auto s = static_cast<cudaStream_t>(stream);
+  switch (T) {
+    case 2048: return launch_auc<256, 8>(fa, fb, fs, out, n1, n2, w, s);
+    case 4096: return launch_auc<512, 8>(fa, fb, fs, out, n1, n2, w, s);
+    case 8192: return launch_auc<1024, 8>(fa, fb, fs, out, n1, n2, w, s);
+    case 16384: return launch_auc<1024, 16>(fa, fb, fs, out, n1, n2, w, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// indicator: launches indicator_kernel on `stream` and returns
+// cudaGetLastError(). A [W, P], B [W, K] float32; mp [W/C, P] float32,
+// ip [W/C, P] int64, ia [W] int64, mk [W/C, K] float32; all contiguous on
+// the device. partials holds W * ceil(K / T) float64. T as for tw_rank_auc.
+int tw_rank_indicator(const void* A, const void* B, const void* mp,
+                      const void* ip, const void* ia, const void* mk,
+                      void* partials, long long P, long long K, long long W,
+                      long long C, float margin, int T, void* stream) {
+  auto fA = static_cast<const float*>(A);
+  auto fB = static_cast<const float*>(B);
+  auto fmp = static_cast<const float*>(mp);
+  auto iip = static_cast<const int64_t*>(ip);
+  auto iia = static_cast<const int64_t*>(ia);
+  auto fmk = static_cast<const float*>(mk);
+  auto out = static_cast<double*>(partials);
+  auto s = static_cast<cudaStream_t>(stream);
+  switch (T) {
+    case 2048:
+      return launch_indicator<256, 8>(fA, fB, fmp, iip, iia, fmk, out, P, K,
+                                      W, C, margin, s);
+    case 4096:
+      return launch_indicator<512, 8>(fA, fB, fmp, iip, iia, fmk, out, P, K,
+                                      W, C, margin, s);
+    case 8192:
+      return launch_indicator<1024, 8>(fA, fB, fmp, iip, iia, fmk, out, P, K,
+                                       W, C, margin, s);
+    case 16384:
+      return launch_indicator<1024, 16>(fA, fB, fmp, iip, iia, fmk, out, P, K,
+                                        W, C, margin, s);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+}  // extern "C"

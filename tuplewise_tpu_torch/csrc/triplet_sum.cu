@@ -3,7 +3,8 @@
 //
 // Replaces the Pallas TPU kernel of tuplewise_tpu/ops/pallas_triplets.py:
 //   _batched_masked_pair_sum (body _batched_pair_sum_kernel), driven by
-//   pallas_triplet_stats.
+//   pallas_triplet_stats, for the hinge combine. The indicator combine runs
+//   the sort-and-count kernel of csrc/rank_count.cu.
 //
 // What it computes. The built-in triplet kernels depend on the three points
 // only through t = d(a,p) - d(a,n) (squared euclidean distances), so the
@@ -15,8 +16,8 @@
 //                              * mp[q,j] * 1{ip[q,j] != ia[w]} * mk[q,k]
 // Problems come in groups of C that share their positives and negatives
 // (q = w / C): one group for a complete statistic (C = W anchors), one per
-// worker for a local round (C = the worker's anchors). g is the indicator
-// 1{t < -margin} or the hinge max(0, margin + t).
+// worker for a local round (C = the worker's anchors). g is the hinge
+// max(0, margin + t).
 //
 // Design. The grid is (W, row tiles of P, column tiles of K). A block of 256
 // threads holds kTileP = 2048 positive distances of its anchor, 8 per thread
@@ -30,16 +31,10 @@
 // block depends on another, no atomics (the TPU kernel carried a Kahan cell
 // across its sequential grid).
 //
-// Exactness. With 0/1 masks the indicator terms are 0 or 1, and a block
-// covers kTileP * kTileK = 2^22 of them, so every per-thread, per-warp and
-// per-block float32 sum is an exact integer, and so is the float64 sum of
-// the partials: on the same distances the kernel equals its plain version
-// bit for bit.
-//
-// Bound. After the tile loads a triplet costs a subtraction, the body (a
-// compare and a select, or an add and a max) and a multiply-add by the
-// negative mask, all in registers: the kernel is bound by FP32 issue, not
-// by bytes (it reads each distance once per row or column tile).
+// Bound. After the tile loads a triplet costs a subtraction, the body (an
+// add and a max) and a multiply-add by the negative mask, all in registers:
+// the kernel is bound by FP32 issue, not by bytes (it reads each distance
+// once per row or column tile).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -50,15 +45,6 @@ constexpr int kThreads = 256;
 constexpr int kRowsPerThread = 8;
 constexpr int kTileP = kThreads * kRowsPerThread;
 constexpr int kTileK = 2048;
-static_assert((long long)kTileP * kTileK < (1LL << 24),
-              "a block partial must cover fewer than 2^24 triplets");
-
-struct IndicatorBody {  // 1{t < -margin}
-  __device__ __forceinline__ static float g(float t, float margin) {
-    return t < -margin ? 1.f : 0.f;
-  }
-};
-
 struct HingeBody {  // max(0, margin + t)
   __device__ __forceinline__ static float g(float t, float margin) {
     return fmaxf(0.f, margin + t);
@@ -141,8 +127,9 @@ int tw_triplet_tile_k() { return kTileK; }
 // cudaGetLastError(). A [W, P], B [W, K] float32; mp [W/C, P] float32,
 // ip [W/C, P] int64, ia [W] int64, mk [W/C, K] float32; all contiguous on
 // the device. out holds W * ceil(P/kTileP) * ceil(K/kTileK) partials.
-// body: 0 indicator, 1 hinge (ops/kernels.py). The wrapper checks every
-// argument; an unknown body returns cudaErrorInvalidValue.
+// body: 1 hinge (ops/kernels.py; the indicator, 0, is tw_rank_indicator in
+// csrc/rank_count.cu). The wrapper checks every argument; any other body
+// returns cudaErrorInvalidValue.
 int tw_triplet_sum(const void* A, const void* B, const void* mp,
                    const void* ip, const void* ia, const void* mk, void* out,
                    long long P, long long K, long long W, long long C,
@@ -157,18 +144,9 @@ int tw_triplet_sum(const void* A, const void* B, const void* mp,
   auto iia = static_cast<const int64_t*>(ia);
   auto fmk = static_cast<const float*>(mk);
   auto fo = static_cast<float*>(out);
-  switch (body) {
-    case 0:
-      triplet_sum_kernel<IndicatorBody><<<grid, kThreads, 0, s>>>(
-          fa, fb, fmp, iip, iia, fmk, fo, P, K, C, margin);
-      break;
-    case 1:
-      triplet_sum_kernel<HingeBody><<<grid, kThreads, 0, s>>>(
-          fa, fb, fmp, iip, iia, fmk, fo, P, K, C, margin);
-      break;
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+  if (body != 1) return (int)cudaErrorInvalidValue;
+  triplet_sum_kernel<HingeBody><<<grid, kThreads, 0, s>>>(
+      fa, fb, fmp, iip, iia, fmk, fo, P, K, C, margin);
   return (int)cudaGetLastError();
 }
 

@@ -14,7 +14,8 @@ namespace ``xp``.
   on [n, d] features. The two built-in ones depend on the points only
   through d(a,p) - d(a,n), so ``builtin_triplet_spec`` names their
   distance-difference combine and margin; the combine bodies below
-  carry the ids of the CUDA triplet kernel (``csrc/triplet_sum.cu``). A
+  carry the ids of the CUDA triplet kernels (the indicator's runs
+  ``csrc/rank_count.cu``, the hinge's ``csrc/triplet_sum.cu``). A
   user-registered triplet kernel has no combine and runs the plain
   tiled scan (``ops.pair_tiles.triplet_stats``) on every device.
 """
@@ -85,7 +86,8 @@ class Kernel:
 
 
 # ---------------------------------------------------------------------------
-# Score-difference kernels (degree 2). Body ids match csrc/pair_sum.cu.
+# Score-difference kernels (degree 2). Body ids match csrc/pair_sum.cu (the
+# unmasked auc sum runs csrc/rank_count.cu).
 # ---------------------------------------------------------------------------
 
 AUC_BODY, HINGE_BODY, LOGISTIC_BODY = 0, 1, 2
@@ -194,7 +196,8 @@ triplet_hinge_kernel = Kernel(
 
 
 # The distance-difference combines g(t), t = d(a,p) - d(a,n), of the two
-# built-in triplet kernels. Body ids match csrc/triplet_sum.cu.
+# built-in triplet kernels. The hinge id matches csrc/triplet_sum.cu; the
+# indicator runs csrc/rank_count.cu.
 TRIPLET_INDICATOR_BODY, TRIPLET_HINGE_BODY = 0, 1
 
 

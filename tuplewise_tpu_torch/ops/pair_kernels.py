@@ -18,8 +18,12 @@ tensor of shape [] or [W].
 
 Dispatch. A tensor on the CPU takes the plain version. A CUDA tensor
 launches the kernel, or raises: nothing falls back from a kernel that
-fails to build or launch. ``impl="plain"`` is the one explicit route to
-the plain version on the card (the counterpart of the JAX ``impl="xla"``).
+fails to build or launch. The unmasked auc body runs the sort-and-count
+kernels of ``csrc/rank_count.cu`` (``ops.rank_count``): an exact int64
+``2 * wins + ties`` a problem, halved in float64. Every other body, and
+every masked sum, runs ``csrc/pair_sum.cu``. ``impl="plain"`` is the one
+explicit route to the plain version on the card (the counterpart of the
+JAX ``impl="xla"``).
 A diff kernel without a CUDA body (a user-registered kernel) runs the
 plain tiled version on every device.
 
@@ -35,7 +39,8 @@ from typing import Optional
 
 import torch
 
-from tuplewise_tpu_torch.ops.kernels import Kernel
+from tuplewise_tpu_torch.ops import rank_count
+from tuplewise_tpu_torch.ops.kernels import AUC_BODY, Kernel
 
 LAUNCHES: collections.Counter = collections.Counter()
 
@@ -167,6 +172,11 @@ def _launch(name, a, b, ma, mb, kernel: Kernel) -> torch.Tensor:
     if n1 == 0 or n2 == 0 or W == 0:
         out = torch.zeros(W, dtype=torch.float64, device=a.device)
         return out[0] if squeeze else out
+    if not masked and kernel.cuda_body == AUC_BODY:
+        # sort-and-count: an exact int64 2 * wins + ties a problem
+        out = rank_count.auc_twice_counts(a, b).to(torch.float64) * 0.5
+        LAUNCHES[f"{name}[{kernel.name}]"] += 1
+        return out[0] if squeeze else out
     lib = load_library()
     gx, gy = -(-n1 // lib.tile_a), -(-n2 // lib.tile_b)
     if gy > _MAX_GRID_YZ or W > _MAX_GRID_YZ:
@@ -205,9 +215,10 @@ def pair_sum(a, b, kernel: Kernel, impl: Optional[str] = None):
     """Sum of g(a_i - b_j) over the full grid, for [n] or [W, n] inputs
     (float64 result of shape [] or [W]); count = n1 * n2.
 
-    CUDA tensors launch the CUDA kernel (or raise); CPU tensors take
-    ``pair_sum_plain``; ``impl="plain"`` forces the plain version. A
-    kernel without a CUDA body runs the plain tiled version."""
+    CUDA tensors launch the CUDA kernel (or raise): the sort-and-count
+    kernels for the auc body, ``csrc/pair_sum.cu`` for the others; CPU
+    tensors take ``pair_sum_plain``; ``impl="plain"`` forces the plain
+    version. A kernel without a CUDA body runs the plain tiled version."""
     return _dispatch("pair_sum", a, b, None, None, kernel, impl)
 
 

@@ -25,10 +25,14 @@ package's float32 counts lose digits at n = 32768).
 
 Dispatch, as in ``ops.pair_kernels``: a CPU tensor takes the plain
 version; a CUDA tensor launches the kernel or raises; ``impl="plain"``
-is the one explicit route to the plain version on the card. A triplet
-kernel without a combine (a user-registered one) takes the plain tiled
-scan ``ops.pair_tiles.triplet_stats`` in ``triplet_stats_best``: that is
-the JAX contract, not a fallback. Launches count in
+is the one explicit route to the plain version on the card. On the card
+the indicator runs the sort-and-count kernel of ``csrc/rank_count.cu``
+(``ops.rank_count``: each tile of a problem's negatives sorted with its
+weights, every positive counting it by binary search), the hinge the
+tiled kernel of ``csrc/triplet_sum.cu``. A triplet kernel without a
+combine (a user-registered one) takes the plain tiled scan
+``ops.pair_tiles.triplet_stats`` in ``triplet_stats_best``: that is the
+JAX contract, not a fallback. Launches count in
 ``ops.pair_kernels.LAUNCHES`` under
 ``"batched_masked_pair_sum[triplet_<kind>]"``.
 
@@ -48,7 +52,7 @@ from typing import Optional
 
 import torch
 
-from tuplewise_tpu_torch.ops import pair_tiles
+from tuplewise_tpu_torch.ops import pair_tiles, rank_count
 from tuplewise_tpu_torch.ops.kernels import (
     TRIPLET_HINGE_BODY, TRIPLET_INDICATOR_BODY, Kernel, builtin_triplet_spec,
     triplet_hinge_combine, triplet_indicator_combine,
@@ -200,6 +204,11 @@ def _launch(A, B, mp, ip, ia, mk, combine, anchors_per_group):
     K = B.shape[1]
     if W == 0 or P == 0 or K == 0:
         return torch.zeros(W, dtype=torch.float64, device=A.device)
+    if combine.kind == "indicator":
+        out = rank_count.indicator_sums(A, B, mp, ip, ia, mk, combine.margin,
+                                        C)
+        LAUNCHES[f"batched_masked_pair_sum[{combine.name}]"] += 1
+        return out
     lib = load_library()
     gp, gk = -(-P // lib.tile_p), -(-K // lib.tile_k)
     if gp > _MAX_GRID_YZ or gk > _MAX_GRID_YZ or W > _MAX_GRID_X:
@@ -226,8 +235,10 @@ def batched_masked_pair_sum(A, B, mp, ip, ia, mk, combine: TripletCombine,
     and B [W, K] float32 distances; mp, ip [G, P], mk [G, K] and ia [W],
     with G = W / anchors_per_group groups (one group by default).
 
-    CUDA tensors launch the CUDA kernel (or raise); CPU tensors take
-    ``batched_masked_pair_sum_plain``; ``impl="plain"`` forces it."""
+    CUDA tensors launch the CUDA kernel (or raise): the sort-and-count
+    kernel for the indicator, ``csrc/triplet_sum.cu`` for the hinge; CPU
+    tensors take ``batched_masked_pair_sum_plain``; ``impl="plain"``
+    forces it."""
     if use_kernel(A, combine, impl):
         return _launch(A, B, mp, ip, ia, mk, combine, anchors_per_group)
     return batched_masked_pair_sum_plain(A, B, mp, ip, ia, mk, combine,
