@@ -11,9 +11,10 @@ nvcc per source, all started together), then runs the phases below. Each
 phase asserts what it checks, and nothing is caught: any failure exits
 nonzero. Each phase prints its seconds.
 
-1. Build: compile the kernels and print the build seconds, and what
-   ptxas reports for the triplet, sort-and-count and count kernels
-   (registers, stack, spills).
+1. Build: compile the kernels and print the build seconds, what ptxas
+   reports for the pair-sum, sort-and-count and count kernels
+   (registers, stack, spills), and, from the SASS of the logistic
+   kernel (cuobjdump), the instructions a pair of each branch's hot loop.
 2. Kernel vs plain: pair_sum and masked_pair_sum for auc, hinge and
    logistic at a ragged size (4133 x 8197), batched (W = 8), at
    2^14 x 2^14 and at the harness's local-round batch (W = 512,
@@ -22,9 +23,14 @@ nonzero. Each phase prints its seconds.
    of csrc/rank_count.cu; the masked one sums halves exactly: float32
    below 2^23 per partial, float64 above). hinge and logistic must agree
    within rel 1e-5: both sum float32 values, in different orders. Then
-   the auc sums alone on edge-case scores (+-inf, NaN of both signs,
-   +-0.0, subnormals, heavy ties) from 1 x 1 to W = 3 x 9000 x 70000:
-   kernel equal to plain.
+   every body on edge-case scores (+-inf, NaN of both signs, +-0.0,
+   subnormals, heavy ties) from 1 x 1 to W = 3 x 9000 x 70000: auc
+   kernel equal to plain; hinge and logistic NaN where plain is NaN, inf
+   where it is inf, finite sums within rel 1e-5. Then the logistic
+   kernel's two branches in one launch (blocks with a non-finite score,
+   or a score range wider than LOGISTIC_SPAN, beside narrow finite ones,
+   scores about 0 and about 300, |d| up to 100), within rel 1e-5 of plain
+   and both branches counted.
 3. Main path at full size, through Estimator(kernel, backend="torch") on
    the default device: complete at n = 2^20 and 2^20 + 64 per class (AUC
    with auc_fast=False, which must equal rank_auc exactly), local_average
@@ -38,10 +44,13 @@ nonzero. Each phase prints its seconds.
    runs once to warm up before its timed run.
 5. Timing at the main-path shapes: each kernel, its plain version and,
    for AUC, rank_auc, with CUDA events; and the bound (for the
-   sort-and-count auc route, the bytes of its inputs and partials). Each timed kernel
-   result is held against its plain result as in phase 2, and that
-   full-size error of the mean is the row's max_abs_err (phase 2's is
-   max_abs_err_small).
+   sort-and-count auc route, the bytes of its inputs and partials). Each
+   timed kernel result is held against its plain result as in phase 2,
+   and that full-size error of the mean is the row's max_abs_err (phase
+   2's is max_abs_err_small). The logistic rows also give the blocks of
+   each branch at their shape, the SASS instructions a pair and the time
+   they take at the card's issue rate (PEAK_ISSUE), and the log prints the
+   parent commit's time of the replaced routes (EARLIER_MS).
 
 6. Gradient kernels vs plain (the learner's slice): pair_loss_grad and
    pair_grad_sums for hinge and logistic at a ragged size (4133 x 8197),
@@ -74,11 +83,12 @@ nonzero. Each phase prints its seconds.
    factorised statistic, also held against the tiled scan), at a ragged
    size (1000 anchors x 4133 positives x 8197 negatives) and at a local
    round's batch (N = 8 workers x 1000 anchors, swr ids). Indicator sums
-   must be equal, hinge sums within rel 1e-5. Then the indicator's
-   sort-and-count route (csrc/rank_count.cu) alone on edge-case
-   distances (+-inf, NaN, +-0.0, ties between A and B), margins 0 and
-   0.5, two groups, colliding ids: equal to plain with 0/1 masks, within
-   rel 1e-6 with fractional ones.
+   must be equal, hinge sums within rel 1e-5. Then both sort-and-count
+   routes (csrc/rank_count.cu) on edge-case distances (+-inf, NaN,
+   +-0.0, ties between A and B), two groups, colliding ids: the
+   indicator at margins 0 and 0.5, equal to plain with 0/1 masks, within
+   rel 1e-6 with fractional ones; the hinge at margins 0, 0.5 and 1, NaN
+   and inf where plain has them, finite sums within rel 1e-5.
 12. Degree-3 main path at full width (the largest single-program cell of
    the JAX config-4 grid): Estimator(kernel, backend="torch") complete
    for both kernels at n = 32768 anchors/positives and 32768 negatives,
@@ -87,12 +97,12 @@ nonzero. Each phase prints its seconds.
    at n = 1024, each timed with CUDA events. Then, outside the counted
    run: the kernel's per-anchor indicator sums for EVERY anchor equal an
    independent exact sort-count (K - searchsorted(sort(D_an[c]), D_pa[c],
-   right=True)) on the same distances, and their statistic equals the
-   Estimator's; on a slice of 128 anchors the kernel equals its plain
-   version (hinge within rel 1e-5) and is timed against it, the
-   sort-count and the bound (for the indicator's sort-and-count route,
-   the bytes of its inputs and partials), and at full width against the
-   sort-count.
+   right=True)) on the same distances, and both statistics (indicator
+   and hinge) equal the Estimator's within rel 1e-6; on a slice of 128
+   anchors the kernel equals its plain version (hinge within rel 1e-5)
+   and is timed against it, the sort-count and the bound (both routes
+   sort and count: the bytes of their inputs and partials), and at full
+   width against the sort-count.
 13. BASELINE config 4: triplet_mnist_statistic on the MNIST surrogate at
    n = 2000, incomplete (B = 2e4) and complete; the complete per-class
    values equal the CPU plain path's within rel 1e-6.
@@ -215,6 +225,10 @@ PEAK_BYTES = 3.35e12
 # adds a multiply. exp and log1p count as one operation each, which makes
 # the bound a lower one.
 OPS_PER_PAIR = {"auc": 5, "hinge": 4, "logistic": 7}
+# the instruction issue rate of the card: 132 SMs x 4 schedulers x 32
+# threads, one warp instruction a clock each, at the 1.98 GHz of the
+# 67 TFLOP/s peak (thread instructions a second)
+PEAK_ISSUE = 132 * 4 * 32 * 1.98e9
 # the gradient kernels, counted the same way: the subtraction, g' (hinge:
 # a compare and a select; logistic: exp, add, reciprocal, negation) and
 # the row and col adds; the loss adds the g body and its add
@@ -222,10 +236,6 @@ GRAD_OPS_PER_PAIR = {
     "pair_grad_sums": {"hinge": 5, "logistic": 7},
     "pair_loss_grad": {"hinge": 8, "logistic": 13},
 }
-# the triplet kernel, counted the same way per triplet: the subtraction,
-# the combine (indicator: a compare and a select; hinge: an add and a
-# max), and the multiply and add of the negative's mask
-OPS_PER_TRIPLET = 5
 # the TPU kernel each timed row replaces, by wrapper
 REPLACES = {
     "pair_sum": "tuplewise_tpu/ops/pallas_pairs.py:134",
@@ -240,15 +250,22 @@ REPLACES = {
 # route, else by wrapper (see source_of)
 SOURCES = {
     "pair_sum[auc]": "tuplewise_tpu_torch/csrc/rank_count.cu",
-    "batched_masked_pair_sum[triplet_indicator]":
-        "tuplewise_tpu_torch/csrc/rank_count.cu",
+    "batched_masked_pair_sum": "tuplewise_tpu_torch/csrc/rank_count.cu",
     "signed_count": "tuplewise_tpu_torch/csrc/signed_count.cu",
     "tenant_count": "tuplewise_tpu_torch/csrc/tenant_count.cu",
     "pair_sum": "tuplewise_tpu_torch/csrc/pair_sum.cu",
     "masked_pair_sum": "tuplewise_tpu_torch/csrc/pair_sum.cu",
     "pair_loss_grad": "tuplewise_tpu_torch/csrc/pair_grad.cu",
     "pair_grad_sums": "tuplewise_tpu_torch/csrc/pair_grad.cu",
-    "batched_masked_pair_sum": "tuplewise_tpu_torch/csrc/triplet_sum.cu",
+}
+# kernel times of the routes this PR replaced, from the parent commit's
+# run of this script on an NVIDIA H100 80GB HBM3 at 700 W (ms): printed
+# beside this run's times, never written into the kernels line
+EARLIER_MS = {
+    "pair_sum[logistic]": 1219.23,
+    "masked_pair_sum[logistic]": 162.91,
+    "batched_masked_pair_sum[triplet_hinge]": 19.83,
+    "batched_masked_pair_sum[triplet_hinge] full": 5033.1,
 }
 EDGE_VALUES = (math.inf, -math.inf, math.nan, -math.nan, 0.0, -0.0, 1.0,
                -1.0, 1e-45, -1e-45)
@@ -355,14 +372,13 @@ def phase_build():
 
     t0 = time.perf_counter()
     sources = sorted({os.path.basename(p) for p in SOURCES.values()})
-    reported = ("triplet_sum.cu", "rank_count.cu", "signed_count.cu",
+    reported = ("pair_sum.cu", "rank_count.cu", "signed_count.cu",
                 "tenant_count.cu")
     with concurrent.futures.ThreadPoolExecutor(len(sources) + 2) as ex:
         reports = {s: ex.submit(ptxas_report, s) for s in reported}
         list(ex.map(_build.build, sources))
     pair_kernels.load_library()
     pair_grad_kernels.load_library()
-    triplet_kernels.load_library()
     rank_count.load_library()
     count_kernels.load_library()
     count_kernels.load_tenant_library()
@@ -371,6 +387,12 @@ def phase_build():
     for source, report in reports.items():
         for line in report.result():
             log(f"[ptxas] {source}: {line}")
+    sass = logistic_sass_per_pair(_build.build("pair_sum.cu"))
+    for (wrapper, branch), (n_instr, n_pairs) in sass.items():
+        log(f"[sass] logistic_sum_kernel ({wrapper}) {branch} loop: "
+            f"{n_instr} instructions for {n_pairs} pairs, "
+            f"{n_instr / n_pairs:.3f} a pair")
+    return {k: n / m for k, (n, m) in sass.items()}
 
 
 def ptxas_report(source):
@@ -386,6 +408,84 @@ def ptxas_report(source):
     keep = ("Compiling entry", "Used", "spill")
     return [line.strip() for line in (out.stdout + out.stderr).splitlines()
             if any(k in line for k in keep)]
+
+
+def sass_loops(lines):
+    """The loops of one kernel's SASS listing (cuobjdump -sass, branch
+    targets as addresses): for each backward branch, the instructions
+    from its target to it."""
+    import re
+
+    instr, loops = [], []
+    for line in lines:
+        m = re.search(r"/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;", line)
+        if m:
+            instr.append((int(m.group(1), 16), m.group(2)))
+    for i, (addr, text) in enumerate(instr):
+        m = re.search(r"\bBRA(\.\S+)?\s.*?0x([0-9a-f]+)", text)
+        if m and int(m.group(2), 16) <= addr:
+            top = int(m.group(2), 16)
+            loops.append([t for a, t in instr[:i + 1] if a >= top])
+    return loops
+
+
+def count_ops(loop, op):
+    """Instructions of a SASS loop whose opcode starts with op (an
+    instruction may carry a predicate: "@P0 MUFU.RCP R1, R2")."""
+    return sum(1 for t in loop
+               if t.split()[1 if t.startswith("@") else 0].startswith(op))
+
+
+def logistic_sass_per_pair(lib_path):
+    """{(wrapper, branch): (instructions, pairs)} of the hot loop of each
+    branch of the logistic kernel, unmasked (pair_sum) and masked, from
+    its SASS: the factored loop is the loop with the most MUFU.RCP (one a
+    pair, the log1p's reciprocal) and no MUFU.EX2; the per-pair loop the
+    one with the most MUFU.EX2 (one a pair, expf)."""
+    from tuplewise_tpu_torch.ops import _build
+
+    cuobjdump = os.path.join(os.path.dirname(_build.nvcc_path()),
+                             "cuobjdump")
+    out = subprocess.run([cuobjdump, "-sass", lib_path], capture_output=True,
+                         text=True, timeout=300, check=True).stdout
+    return logistic_loops(out)
+
+
+def logistic_loops(sass):
+    """logistic_sass_per_pair's count on the text of a SASS listing."""
+    funcs = sass.split("Function : ")[1:]
+    res = {}
+    for wrapper, mangled in (("pair_sum", "ILb0E"),
+                             ("masked_pair_sum", "ILb1E")):
+        body = [f for f in funcs if "logistic_sum_kernel" in f.split("\n")[0]
+                and mangled in f.split("\n")[0]]
+        assert len(body) == 1, [f.split("\n")[0] for f in funcs]
+        loops = sass_loops(body[0].splitlines())
+        fact = max((lp for lp in loops if count_ops(lp, "MUFU.EX2") == 0),
+                   key=lambda lp: count_ops(lp, "MUFU.RCP"))
+        per = max(loops, key=lambda lp: count_ops(lp, "MUFU.EX2"))
+        res[wrapper, "factored"] = (len(fact), count_ops(fact, "MUFU.RCP"))
+        res[wrapper, "per-pair"] = (len(per), count_ops(per, "MUFU.EX2"))
+    assert all(n > 0 and m > 0 for n, m in res.values()), res
+    return res
+
+
+def check_nonfinite(got, want, what, rtol=1e-5):
+    """Hold a kernel result with NaN and infinities against its plain
+    version: NaN positions equal, infinities equal, finite values within
+    rel rtol. Returns the largest absolute error of the finite values."""
+    torch.cuda.synchronize()
+    assert torch.equal(got.isnan(), want.isnan()), what
+    inf = want.isinf()
+    assert torch.equal(got.isinf(), inf), what
+    assert torch.equal(got[inf], want[inf]), what
+    fin = want.isfinite()
+    if not fin.any():
+        return 0.0
+    err = (got[fin] - want[fin]).abs()
+    rel = float((err / want[fin].abs().clamp_min(1e-30)).max())
+    assert rel < rtol, (what, rel)
+    return float(err.max())
 
 
 def check_against_plain(name, got, want, count, what):
@@ -455,6 +555,85 @@ def phase_kernel_vs_plain(errs):
             errs[key] = max(errs[key], err)
         log(f"[kernel vs plain] edge values W={W} {n1}x{n2}: auc and masked "
             f"auc equal to plain ({pk.pair_sum(a, b, auc).tolist()})")
+        # hinge and logistic: a NaN difference gives NaN, d = -inf gives
+        # +inf (and +inf times a zero mask NaN), d = +inf gives 0
+        outcomes = []
+        for name in ("hinge", "logistic"):
+            k = get_kernel(name)
+            for wrapper, got, want in [
+                    ("pair_sum", pk.pair_sum(a, b, k),
+                     pk.pair_sum(a, b, k, impl="plain")),
+                    ("masked_pair_sum", pk.masked_pair_sum(a, b, ma, mb, k),
+                     pk.masked_pair_sum(a, b, ma, mb, k, impl="plain"))]:
+                check_nonfinite(got, want, (wrapper, name, "edge", W, n1, n2))
+                outcomes += want.tolist()
+        log(f"[kernel vs plain] edge values W={W} {n1}x{n2}: hinge and "
+            f"logistic, masked and not, NaN and infinities where plain has "
+            f"them, finite sums within rel 1e-5 ({sum(map(math.isnan, outcomes))}"
+            f" NaN, {sum(map(math.isinf, outcomes))} inf of {len(outcomes)})")
+    # infinities without NaN, one kind a problem: none, -inf in a and +inf
+    # in b (d = -inf: +inf), +inf in a (d = +inf: 0): finite, +inf, +inf,
+    # finite; with the infinities' masks 0, +inf * 0 makes problems 1-2 NaN
+    a = torch.randn(4, 3000, generator=g, device="cuda")
+    b = torch.randn(4, 5000, generator=g, device="cuda")
+    a[1, 17], b[2, 4321], a[3, 2999] = -math.inf, math.inf, math.inf
+    ones_a, ones_b = torch.ones_like(a), torch.ones_like(b)
+    zero_a, zero_b = ones_a.clone(), ones_b.clone()
+    zero_a[1, 17], zero_b[2, 4321] = 0.0, 0.0
+    for name in ("hinge", "logistic"):
+        k = get_kernel(name)
+        for masks, want_inf, want_nan in [
+                (None, [False, True, True, False], [False] * 4),
+                ((ones_a, ones_b), [False, True, True, False], [False] * 4),
+                ((zero_a, zero_b), [False] * 4, [False, True, True, False])]:
+            if masks is None:
+                got = pk.pair_sum(a, b, k)
+                want = pk.pair_sum(a, b, k, impl="plain")
+            else:
+                got = pk.masked_pair_sum(a, b, *masks, k)
+                want = pk.masked_pair_sum(a, b, *masks, k, impl="plain")
+            check_nonfinite(got, want, ("infinities", name, masks is None))
+            assert want.isinf().tolist() == want_inf, (name, want)
+            assert want.isnan().tolist() == want_nan, (name, want)
+    log("[kernel vs plain] infinities without NaN: hinge and logistic sums "
+        "+inf where plain is +inf, NaN where a zero mask meets +inf")
+    # blocks with a few non-finite scores beside all-finite ones, so that
+    # the logistic kernel's two branches meet in one launch
+    for W, n1, n2 in [(8, 3000, 5000), (1, 1 << 14, 1 << 14)]:
+        a = torch.randn(W, n1, generator=g, device="cuda")
+        b = torch.randn(W, n2, generator=g, device="cuda")
+        a[0, n1 // 3], a[W - 1, n1 - 1] = math.nan, math.inf
+        b[W // 2, n2 // 2], b[0, 7] = -math.inf, -0.0
+        for name in ("hinge", "logistic"):
+            k = get_kernel(name)
+            check_nonfinite(pk.pair_sum(a, b, k),
+                            pk.pair_sum(a, b, k, impl="plain"),
+                            ("pair_sum", name, "sparse edge", W, n1, n2))
+        fac, per, _ = pk.logistic_branch_blocks(a, b)
+        log(f"[kernel vs plain] sparse edge values W={W} {n1}x{n2}: hinge "
+            f"and logistic as plain; logistic blocks factored {fac}, "
+            f"per-pair {per}")
+        assert fac > 0 and per > 0, (fac, per)
+    # the logistic kernel's two branches on finite scores up to |d| = 100:
+    # a narrow cluster far from 0 (factored about c != 0) beside a spread
+    # of [-50, 50] (per-pair)
+    n = 1 << 14
+    for c0 in (0.0, 300.0):
+        a = torch.cat([torch.randn(n, generator=g, device="cuda") + c0 + 1,
+                       torch.rand(n, generator=g, device="cuda") * 100 - 50])
+        b = torch.cat([torch.randn(n, generator=g, device="cuda") + c0,
+                       torch.rand(n, generator=g, device="cuda") * 100 - 50])
+        b[:97] = a[:97]
+        fac, per, got = pk.logistic_branch_blocks(a[None], b[None])
+        want = pk.pair_sum(a[None], b[None], get_kernel("logistic"),
+                           impl="plain")
+        err = check_against_plain("logistic", got, want, float(4 * n * n),
+                                  ("pair_sum", "wide", c0))
+        errs["pair_sum[logistic]"] = max(errs["pair_sum[logistic]"], err)
+        log(f"[kernel vs plain] logistic 2 x {n} scores about {c0} and over "
+            f"[-50, 50]: within rel 1e-5 of plain; blocks factored {fac}, "
+            f"per-pair {per}")
+        assert fac > 0 and per > 0, (fac, per)
 
 
 def ragged_blocks(gen, n, n_workers):
@@ -570,7 +749,18 @@ def bound_ms(name, pairs, masked, n_inputs):
         "operations" if ops / PEAK_FP32_OPS >= byts / PEAK_BYTES else "bytes")
 
 
-def phase_timing(errs, launches, i1, i2):
+def logistic_fields(sass, wrapper, pairs, fac, per):
+    """The logistic row's extra keys: the blocks of each branch in one
+    launch at the row's shape, the SASS instructions a pair of the hot
+    loops (weighted by the blocks of each branch) and the time they take
+    at the card's issue rate."""
+    ipp = ((fac * sass[wrapper, "factored"] + per * sass[wrapper, "per-pair"])
+           / (fac + per))
+    return dict(blocks_factored=fac, blocks_per_pair=per,
+                sass_per_pair=ipp, issue_bound_ms=pairs * ipp / PEAK_ISSUE * 1e3)
+
+
+def phase_timing(errs, launches, i1, i2, sass):
     from tuplewise_tpu_torch.ops import pair_kernels as pk
     from tuplewise_tpu_torch.ops import rank_count
     from tuplewise_tpu_torch.ops.kernels import get_kernel
@@ -606,6 +796,10 @@ def phase_timing(errs, launches, i1, i2):
             bms, by = bytes_bound_ms(4 * 2 * n + 8 * partials), "bytes"
         else:
             bms, by = bound_ms(name, float(n * n), False, 2 * n)
+        extra = {}
+        if name == "logistic":
+            fac, per, _ = pk.logistic_branch_blocks(a[None], b[None])
+            extra = logistic_fields(sass, "pair_sum", float(n * n), fac, per)
         rows.append(dict(
             name=f"pair_sum[{name}]", route="cuda",
             source=source_of(f"pair_sum[{name}]"),
@@ -614,7 +808,7 @@ def phase_timing(errs, launches, i1, i2):
             max_abs_err=err, max_abs_err_small=errs[f"pair_sum[{name}]"],
             ms=ms, plain_ms=plain_ms,
             bound_ms=bms, bound_by=by, library_ms=library_ms,
-            shape=f"W=1 {n}x{n}"))
+            shape=f"W=1 {n}x{n}", **extra))
         cuda_ms(lambda: pk.masked_pair_sum(ab, bb, ma, mb, k))
         ms, got = cuda_ms(lambda: pk.masked_pair_sum(ab, bb, ma, mb, k),
                           reps=3)
@@ -626,6 +820,11 @@ def phase_timing(errs, launches, i1, i2):
             ("masked_pair_sum", *i1.shape, i2.shape[1]))
         bms, by = bound_ms(name, masked_pairs, True,
                            2 * (i1.numel() + i2.numel()))
+        extra = {}
+        if name == "logistic":
+            fac, per, _ = pk.logistic_branch_blocks(ab, bb, ma, mb)
+            extra = logistic_fields(sass, "masked_pair_sum",
+                                    float(i1.numel()) * i2.shape[1], fac, per)
         rows.append(dict(
             name=f"masked_pair_sum[{name}]", route="cuda",
             source=source_of(f"masked_pair_sum[{name}]"),
@@ -634,12 +833,18 @@ def phase_timing(errs, launches, i1, i2):
             max_abs_err=err,
             max_abs_err_small=errs[f"masked_pair_sum[{name}]"], ms=ms,
             plain_ms=plain_ms, bound_ms=bms, bound_by=by, library_ms=None,
-            shape=f"W={i1.shape[0]} {i1.shape[1]}x{i2.shape[1]}"))
+            shape=f"W={i1.shape[0]} {i1.shape[1]}x{i2.shape[1]}", **extra))
         for r in rows[-2:]:
             log(f"[timing] {r['name']:24s} {r['shape']:22s} {r['ms']:9.2f} ms "
                 f"(bound {r['bound_ms']:.2f} ms by {r['bound_by']}, plain "
-                f"{r['plain_ms']:.1f} ms, library {r['library_ms']}); "
-                f"error of the mean vs plain {r['max_abs_err']:.3g}")
+                f"{r['plain_ms']:.1f} ms, library {r['library_ms']}, parent "
+                f"commit {EARLIER_MS.get(r['name'])} ms); error of the mean "
+                f"vs plain {r['max_abs_err']:.3g}")
+            if "sass_per_pair" in r:
+                log(f"[timing] {r['name']}: blocks factored "
+                    f"{r['blocks_factored']}, per-pair {r['blocks_per_pair']};"
+                    f" {r['sass_per_pair']:.3f} SASS instructions a pair, "
+                    f"issue bound {r['issue_bound_ms']:.2f} ms")
     return rows
 
 
@@ -1035,6 +1240,71 @@ def phase_triplet_vs_plain(errs):
                 f"({G} groups) {P}x{K} {'fractional' if frac else '0/1'} "
                 f"masks: indicator {'within rel 1e-6' if frac else 'equal'}")
 
+    # the hinge's edge cases (rule 4 of csrc/rank_count.cu's note): a NaN
+    # distance anywhere in an anchor's rows, or an equal infinity, makes
+    # its sum NaN, +inf in A or -inf in B +inf (NaN against a zero weight)
+    key = "batched_masked_pair_sum[triplet_hinge]"
+    for margin in (0.0, 0.5, 1.0):
+        comb = tk.TripletCombine("hinge", margin)
+        nan = inf = fin = 0
+        for C, G, P, K, frac, p_edge in [
+                (1, 1, 1, 1, False, 0.3), (3, 2, 300, 517, False, 0.3),
+                (2, 2, 40, 20000, True, 0.3), (4, 1, 3000, 33000, False, 0.3),
+                (64, 1, 2000, 9000, True, 2e-4)]:
+            W = C * G
+            A = edge_values(g, W, P) + 3.0
+            B = edge_values(g, W, K) + 3.0
+            B[:, :5] = A[:, :5]
+            if p_edge < 0.3:   # a few edge values: most sums finite
+                A = torch.where(torch.rand(W, P, generator=g, device="cuda")
+                                < p_edge, A, A.nan_to_num(3.0, 3.0, 3.0))
+                B = torch.where(torch.rand(W, K, generator=g, device="cuda")
+                                < p_edge, B, B.nan_to_num(3.0, 3.0, 3.0))
+            mp, mk = mask(G, P), mask(G, K)
+            if frac:
+                mp = mp * torch.rand(G, P, generator=g, device="cuda")
+                mk = mk * torch.rand(G, K, generator=g, device="cuda")
+            ip = (torch.arange(G * P, device="cuda") % 7).reshape(G, P)
+            ia = torch.arange(W, device="cuda") % 5
+            got = tk.batched_masked_pair_sum(A, B, mp, ip, ia, mk, comb, C)
+            want = tk.batched_masked_pair_sum(A, B, mp, ip, ia, mk, comb, C,
+                                              impl="plain")
+            err = check_nonfinite(got, want, ("hinge edge", margin, W, P, K))
+            errs[key] = max(errs[key], err)
+            nan += int(want.isnan().sum())
+            inf += int(want.isinf().sum())
+            fin += int(want.isfinite().sum())
+        log(f"[triplet vs plain] edge values margin {margin}: hinge sums NaN "
+            f"and inf where plain has them ({nan} NaN, {inf} inf, {fin} "
+            f"finite within rel 1e-5)")
+    # infinities one kind an anchor (margin 1): none; +inf in A (+inf);
+    # -inf in B (+inf); -inf in A (a term of 0); then the same with a zero
+    # weight meeting each infinity, which makes anchors 1 and 2 NaN
+    W, P, K = 4, 300, 517
+    A = torch.rand(W, P, generator=g, device="cuda") * 20
+    B = torch.rand(W, K, generator=g, device="cuda") * 20
+    A[1, 7], B[2, 9], A[3, 5] = math.inf, -math.inf, -math.inf
+    # no positive shares an anchor's id: a weight 0 times the +inf of a
+    # positive's terms would make the sum NaN
+    ip = 1000 + torch.arange(P, device="cuda")[None]
+    ia = torch.arange(W, device="cuda")
+    comb = tk.TripletCombine("hinge", 1.0)
+    ones_p, ones_k = torch.ones(1, P, device="cuda"), torch.ones(1, K,
+                                                                 device="cuda")
+    zero_k = ones_k.clone()
+    zero_k[0, 9] = 0.0       # -inf of anchor 2 (and a finite B of anchor 1)
+    for mk, want_inf, want_nan in [
+            (ones_k, [False, True, True, False], [False] * 4),
+            (zero_k, [False] * 4, [False, True, True, False])]:
+        got = tk.batched_masked_pair_sum(A, B, ones_p, ip, ia, mk, comb)
+        want = tk.batched_masked_pair_sum(A, B, ones_p, ip, ia, mk, comb,
+                                          impl="plain")
+        check_nonfinite(got, want, ("hinge infinities", want_nan))
+        assert want.isinf().tolist() == want_inf, want
+        assert want.isnan().tolist() == want_nan, want
+    log("[triplet vs plain] infinities without NaN: hinge sums +inf where "
+        "plain is +inf, NaN where a zero weight meets +inf")
+
 
 def gaussian_clouds(gen, n, d):
     """Anchors/positives N(0, I) and negatives N(0.3, I) in d dims: the
@@ -1088,14 +1358,17 @@ def phase_triplet_main():
     return X, Y, out
 
 
-def indicator_bytes(W, P, K):
-    """Bytes the indicator's sort-and-count moves at least, for one group
-    of W anchors (ops.rank_count): A [W, P] and B [W, K] float32, mp
+def sort_count_bytes(name, W, P, K):
+    """Bytes a sort-and-count route of kernel 5 moves at least, for one
+    group of W anchors (ops.rank_count): A [W, P] and B [W, K] float32, mp
     float32 and ip int64 [P], ia int64 [W], mk float32 [K] read once, the
-    float64 partials (one a tile of B) written once."""
+    float64 partials (one a tile of B, whose size is the route's)
+    written once."""
     from tuplewise_tpu_torch.ops import rank_count
 
-    tiles = -(-K // rank_count.tile_size(K))
+    max_tile = (rank_count.MAX_TILE if name == "triplet_indicator"
+                else rank_count.HINGE_MAX_TILE)
+    tiles = -(-K // rank_count.tile_size(K, max_tile))
     return 4.0 * W * (P + K) + 12.0 * P + 8.0 * W + 4.0 * K + 8.0 * W * tiles
 
 
@@ -1116,7 +1389,7 @@ def phase_triplet_exact(X, Y, errs, launches, main_out):
              for name in TRIPLET_NAMES}
     ms_full = {name: 0.0 for name in TRIPLET_NAMES}
     lib_ms_full = 0.0
-    bytes_full = 0.0
+    bytes_full = {name: 0.0 for name in TRIPLET_NAMES}
     sums = {name: torch.empty(n, dtype=torch.float64, device="cuda")
             for name in TRIPLET_NAMES}
     exact = torch.empty(n, dtype=torch.int64, device="cuda")
@@ -1128,10 +1401,10 @@ def phase_triplet_exact(X, Y, errs, launches, main_out):
             ms, s = cuda_ms(lambda: tk.batched_masked_pair_sum(
                 A, B, ones_p, ids[None], ia, ones_k, comb))
             ms_full[name] += ms
+            bytes_full[name] += sort_count_bytes(name, *A.shape, K)
             sums[name][a0:a0 + A.shape[0]] = s
         ms, cnt = cuda_ms(lambda: sort_count(A, B, ids, ia))
         lib_ms_full += ms
-        bytes_full += indicator_bytes(*A.shape, K)
         exact[a0:a0 + A.shape[0]] = cnt
         del d_pa, d_an, A, B
     torch.cuda.synchronize()
@@ -1154,7 +1427,6 @@ def phase_triplet_exact(X, Y, errs, launches, main_out):
     c = TRIPLET_SLICE
     d_pa, d_an = tk.sqdist_matrix(X[:c], X), tk.sqdist_matrix(X[:c], Y)
     ia = ids[:c]
-    slice_triplets = float(c) * (n - 1) * K
     cuda_ms(lambda: sort_count(d_pa, d_an, ids, ia))           # warm-up
     library_ms, cnt = cuda_ms(lambda: sort_count(d_pa, d_an, ids, ia),
                               reps=20)
@@ -1162,25 +1434,16 @@ def phase_triplet_exact(X, Y, errs, launches, main_out):
     for name, comb in combs.items():
         args = (d_pa, d_an, ones_p, ids[None], ia, ones_k, comb)
         cuda_ms(lambda: tk.batched_masked_pair_sum(*args))    # warm-up
-        ms, got = cuda_ms(lambda: tk.batched_masked_pair_sum(*args),
-                          reps=20 if name == "triplet_indicator" else 3)
+        ms, got = cuda_ms(lambda: tk.batched_masked_pair_sum(*args), reps=20)
         plain_ms, want = cuda_ms(
             lambda: tk.batched_masked_pair_sum(*args, impl="plain"))
         err = check_triplet(name, got, want, ("slice", c, n, K))
         if name == "triplet_indicator":
             assert torch.equal(got, cnt.to(torch.float64))
         key = f"batched_masked_pair_sum[{name}]"
-        if name == "triplet_indicator":
-            # sort-and-count: bound by the bytes of its inputs and partials
-            bms, by = bytes_bound_ms(indicator_bytes(c, n, K)), "bytes"
-            bms_full = bytes_bound_ms(bytes_full)
-        else:
-            ops = OPS_PER_TRIPLET / PEAK_FP32_OPS
-            byts = 4.0 * c * (n + K) + 8.0 * c
-            by = ("operations" if slice_triplets * ops >= byts / PEAK_BYTES
-                  else "bytes")
-            bms = max(slice_triplets * ops, byts / PEAK_BYTES) * 1e3
-            bms_full = count * ops * 1e3
+        # sort-and-count: bound by the bytes of its inputs and partials
+        bms, by = bytes_bound_ms(sort_count_bytes(name, c, n, K)), "bytes"
+        bms_full = bytes_bound_ms(bytes_full[name])
         rows.append(dict(
             name=key, route="cuda", source=source_of(key),
             replaces=REPLACES["batched_masked_pair_sum"],
@@ -1195,10 +1458,12 @@ def phase_triplet_exact(X, Y, errs, launches, main_out):
                              else None),
             shape_full=f"W={n} anchors {n}x{K} d={TRIPLET_D}"))
         r = rows[-1]
-        log(f"[timing] {key:44s} {r['shape']:30s} {ms:9.2f} ms (bound "
-            f"{r['bound_ms']:.2f} ms by {by}, plain {plain_ms:.1f} ms, "
-            f"sort-count {r['library_ms']}); full width {ms_full[name]:.1f}"
-            f" ms (bound {r['bound_ms_full']:.1f} ms); max abs err vs plain "
+        log(f"[timing] {key:44s} {r['shape']:30s} {ms:9.3f} ms (bound "
+            f"{r['bound_ms']:.4f} ms by {by}, plain {plain_ms:.1f} ms, "
+            f"sort-count {r['library_ms']}, parent commit "
+            f"{EARLIER_MS.get(key)} ms); full width {ms_full[name]:.1f} ms "
+            f"(bound {r['bound_ms_full']:.2f} ms, parent commit "
+            f"{EARLIER_MS.get(key + ' full')} ms); max abs err vs plain "
             f"{err:.3g}")
     return rows
 
@@ -2093,7 +2358,7 @@ def main():
         log(f"[phase] {label}: {seconds[label]:.1f} s")
         return out
 
-    timed("1 build", phase_build)
+    sass = timed("1 build", phase_build)
     errs = {}
     timed("2 kernel vs plain", phase_kernel_vs_plain, errs)
 
@@ -2111,7 +2376,7 @@ def main():
             key = f"{wrapper}[{name}]"
             assert launches.get(key, 0) > 0, f"{key} never launched"
 
-    rows = timed("5 timing", phase_timing, errs, launches, i1, i2)
+    rows = timed("5 timing", phase_timing, errs, launches, i1, i2, sass)
     grad_rows = timed("6 grad vs plain", phase_grad_vs_plain)
     data = train_data()
 

@@ -32,14 +32,18 @@ def _oracle(scores, labels):
     return auc_score(pos.astype(np.float64), neg.astype(np.float64))
 
 
-@pytest.mark.parametrize("bg_compact", [False, True])
-@pytest.mark.parametrize("count_kernel", [True, False])
-@pytest.mark.parametrize("window", [None, 120])
-def test_bit_identical_to_jax_index(window, count_kernel, bg_compact):
+def _check_parity(window, count_kernel, bg_compact, gate=None):
+    """Drive the port's index and the JAX index through the same stream
+    and hold wins2, auc() and score_batch equal at every step. ``gate``
+    (bg_compact only) holds every background build of the port's index
+    until the stream is in, so every insert and score runs against the
+    buffer alone, as it does when the compactor thread is starved."""
     scores, labels = _stream(500, seed=3)
     kw = dict(compact_every=48, window=window, bg_compact=bg_compact)
     ref = JaxIndex(engine="jax", count_kernel=count_kernel, **kw)
     idx = ExactAucIndex(device="cpu", count_kernel=count_kernel, **kw)
+    if gate is not None:
+        idx._bg_test_hook = lambda side: gate.wait(timeout=30.0)
     sizes = [67, 1, 33, 0, 128, 97, 174]
     i = 0
     for step, sz in enumerate(sizes * 2):
@@ -52,16 +56,40 @@ def test_bit_identical_to_jax_index(window, count_kernel, bg_compact):
         q = scores[max(0, j - 9):j]
         assert np.array_equal(np.nan_to_num(idx.score_batch(q)),
                               np.nan_to_num(ref.score_batch(q)))
+    if gate is not None:
+        gate.set()
     idx.wait_idle(timeout=30.0)
     ref.wait_idle(timeout=30.0)
     for a, b in zip(idx.oracle_values(), ref.oracle_values()):
         np.testing.assert_array_equal(a, b)
     assert idx.n_compactions > 0
+    # Once both are idle, every side has a base run, so this score is one
+    # count on the device. Before it, a count may never have run: a count
+    # with no base run has nothing to search and is no call, and with
+    # bg_compact the first base lands whenever the compactor thread runs.
+    q = scores[::7]
+    assert np.array_equal(idx.score_batch(q), ref.score_batch(q))
     snap = idx.metrics.snapshot()
     assert (snap["count_kernel_calls_total"]["value"] > 0) == count_kernel
     assert snap["count_kernel_fallbacks_total"]["value"] == 0
     idx.close()
     ref.close()
+
+
+@pytest.mark.parametrize("bg_compact", [False, True])
+@pytest.mark.parametrize("count_kernel", [True, False])
+@pytest.mark.parametrize("window", [None, 120])
+def test_bit_identical_to_jax_index(window, count_kernel, bg_compact):
+    _check_parity(window, count_kernel, bg_compact)
+
+
+@pytest.mark.parametrize("count_kernel", [True, False])
+@pytest.mark.parametrize("window", [None, 120])
+def test_bit_identical_with_a_stalled_compactor(window, count_kernel):
+    """No background build lands before the last insert (the timing of
+    a loaded machine, made certain): the index stays equal to the JAX
+    index, and the count witness still sees the kernel."""
+    _check_parity(window, count_kernel, True, gate=threading.Event())
 
 
 def test_one_count_call_per_insert_batch():

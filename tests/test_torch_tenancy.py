@@ -381,10 +381,16 @@ class TestOffBatcherBuilds:
             return merged(*a)
 
         monkeypatch.setattr(fleet, "_merged", crash_once)
-        s, lab = _stream(120, seed=14)
+        s, lab = _stream(130, seed=14)
         for i in range(0, 120, 10):
             fleet.apply_inserts([("t", s[i:i + 10], lab[i:i + 10])])
             ref.insert_batch(s[i:i + 10], lab[i:i + 10])
+        fleet.wait_idle()
+        # The crashed build may have run only after the last apply (the
+        # compactor thread's timing on a loaded machine); it rolled its
+        # claim back, so the next trigger compacts what it had claimed.
+        fleet.apply_inserts([("t", s[120:], lab[120:])])
+        ref.insert_batch(s[120:], lab[120:])
         fleet.wait_idle()
         assert _v(fleet, "fleet_compact_aborts") == 1
         assert "injected build crash" in fleet.state()["last_compactor_error"]

@@ -32,11 +32,52 @@
 // exact, and the float64 sum of the partials is exact too: the kernel's
 // AUC equals the integer rank AUC (ops/rank_auc.py) bit for bit.
 //
+// Logistic body: g(d) = max(-d, 0) + log1p(e^{-|d|}). The full-precision
+// expf and log1pf sequences cost about 40 instructions a pair, so the
+// logistic kernel (logistic_sum_kernel) is built for the instruction
+// issue rate instead:
+//   * Factored exponential. With a centre c per block,
+//         e^{-|a_i - b_j|} = min(e^{c - a_i} e^{b_j - c}, e^{a_i - c} e^{c - b_j}),
+//     the smaller of two products of per-score exponentials (the other is
+//     >= 1). A block forms e^{+-(a_i - c)} once for its 8 rows a thread, in
+//     registers, and e^{+-(b_j - c)} once for its column tile, staged with
+//     b_j (and its mask) in shared memory as one float4 a column: two
+//     multiplies and a min a pair where expf was. The products must stay
+//     normal floats: a block takes this branch only when its scores (the
+//     row tile's and the column tile's, padding left out) are all finite
+//     and span at most kLogisticSpan = 80, so |a - c|, |b - c| <= 40.5 and
+//     both products lie in [e^-81, e^81]. c is 0 when every score lies in
+//     [-40, 40] (then a - c is exact), else the midpoint rounded to an
+//     integer. Any other block (a wider span, or an inf or NaN anywhere in
+//     its tiles) takes the per-pair branch: x = expf(-|d|). The branch is a
+//     per-block decision on the block's own data; both branches give the
+//     body within float32 rounding, and the masked and unmasked kernels
+//     share them. A caller may pass a counter of the blocks of each branch.
+//   * log1p on [0, 1] in a few FMAs: log1p(x) = 2 atanh(s) with s = x / (2
+//     + x) in [0, 1/3], taken as s * P(s^2), P of degree 4 (coefficients
+//     kLog1p*, a fit of 2 atanh(sqrt z) / sqrt z on [0, 1/9] in relative
+//     error, 4e-9 before rounding); the division is rcp.approx (one MUFU
+//     reciprocal, within an ulp) and a multiply. In float32 the whole
+//     log1p is within 4 units in 2^-24 of log1p(x) on [0, 1] with an exact
+//     division, also for small x.
+//   A pair is then a subtraction, two multiplies and a min, the log1p (an
+//   add, the reciprocal, 3 multiplies, 4 FMAs), a max and an FMA, and the
+//   accumulating add: 15.3 SASS instructions a pair in the factored loop,
+//   where the expf/log1pf loop holds 41 (chip_smoke.py counts them). NaN and
+//   infinities (the per-pair branch) give what max(-d, 0) + log1p(exp(-|d|))
+//   gives in IEEE float32: NaN for a NaN difference, 0 for d = +inf, +inf
+//   for d = -inf.
+//
+// NaN. The hinge body takes max.NaN: a NaN difference gives a NaN term, as
+// jnp.maximum and torch.clamp_min give (fmaxf would return the other
+// operand, and a NaN score would add 0).
+//
 // Bound. After the tile loads, a pair costs a subtraction, the body and
 // an add (a multiply more when MASKED), all in registers, with no memory
-// traffic: the kernel is bound by the FP32/ALU issue rate (and for the
-// logistic body by the expf/log1pf sequence), not by bytes. It is built
-// without fast-math, so expf and log1pf keep their full precision.
+// traffic: the kernel is bound by the FP32/ALU issue rate (for the
+// logistic body by its instruction count a pair), not by bytes. It is
+// built without fast-math: expf keeps its full precision, and the
+// subtractions keep gradual underflow.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -56,17 +97,42 @@ struct AucBody {  // 1{d > 0} + 0.5 * 1{d == 0}
   }
 };
 
-struct HingeBody {  // max(0, 1 - d)
+// max(x, y), NaN when either is NaN (PTX max.NaN, sm_80 and later)
+__device__ __forceinline__ float max_nan(float x, float y) {
+  float r;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(x), "f"(y));
+  return r;
+}
+
+struct HingeBody {  // max(0, 1 - d), NaN for NaN d
   __device__ __forceinline__ static float g(float d) {
-    return fmaxf(0.f, 1.f - d);
+    return max_nan(1.f - d, 0.f);
   }
 };
 
-struct LogisticBody {  // log(1 + e^{-d}), stable form
-  __device__ __forceinline__ static float g(float d) {
-    return fmaxf(-d, 0.f) + log1pf(expf(-fabsf(d)));
-  }
-};
+// the logistic kernel's constants (see the note; ops/pair_kernels.py
+// checks them against the built library)
+constexpr float kLogisticSpan = 80.f;
+constexpr float kLog1p0 = 2.0f;
+constexpr float kLog1p1 = 0.6666631698608398f;
+constexpr float kLog1p2 = 0.4002491533756256f;
+constexpr float kLog1p3 = 0.27960577607154846f;
+constexpr float kLog1p4 = 0.2817831039428711f;
+
+// log1p(x) for x in [0, 1] (NaN for NaN): s P(s^2), s = x / (2 + x), the
+// division a one-ulp reciprocal (2 + x is a normal float, so flushing
+// subnormals in the reciprocal changes nothing) and a multiply
+__device__ __forceinline__ float log1p_unit(float x) {
+  float r;
+  asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(2.f + x));
+  const float s = x * r;
+  const float z = s * s;
+  float p = fmaf(kLog1p4, z, kLog1p3);
+  p = fmaf(p, z, kLog1p2);
+  p = fmaf(p, z, kLog1p1);
+  p = fmaf(p, z, kLog1p0);
+  return s * p;
+}
 
 template <class Body, bool MASKED>
 __global__ void __launch_bounds__(kThreads)
@@ -135,6 +201,134 @@ pair_sum_kernel(const float* __restrict__ a, const float* __restrict__ b,
   }
 }
 
+// The logistic body's kernel: pair_sum_kernel's grid, tiles and reduction,
+// with the factored exponential or the per-pair expf chosen per block (see
+// the note). branches, when not null, counts the blocks of each branch:
+// [0] factored, [1] per-pair.
+template <bool MASKED>
+__global__ void __launch_bounds__(kThreads)
+logistic_sum_kernel(const float* __restrict__ a, const float* __restrict__ b,
+                    const float* __restrict__ ma, const float* __restrict__ mb,
+                    float* __restrict__ partials, int64_t n1, int64_t n2,
+                    unsigned long long* __restrict__ branches) {
+  __shared__ float4 sbm[kTileB];  // (b, e^{b - c}, e^{c - b}, mask)
+  __shared__ float smin[kThreads / 32], smax[kThreads / 32];
+  __shared__ float swarp[kThreads / 32];
+
+  const int64_t w = blockIdx.z;
+  const int64_t row0 = (int64_t)blockIdx.x * kTileA;
+  const int64_t col0 = (int64_t)blockIdx.y * kTileB;
+  const int64_t rem = n2 - col0;
+  const int ncols = rem < kTileB ? (int)rem : kTileB;
+  const float* aw = a + w * n1;
+  const float* bw = b + w * n2 + col0;
+  const float kInf = __int_as_float(0x7F800000);
+
+  // the block's scores: their range, and whether all are finite
+  float lo = kInf, hi = -kInf;
+  bool finite = true;
+  for (int j = threadIdx.x; j < ncols; j += kThreads) {
+    const float bj = bw[j];
+    sbm[j] = make_float4(bj, 0.f, 0.f, MASKED ? mb[w * n2 + col0 + j] : 1.f);
+    finite = finite && fabsf(bj) < kInf;
+    lo = fminf(lo, bj);
+    hi = fmaxf(hi, bj);
+  }
+  float av[kRowsPerThread];
+  float acc[kRowsPerThread];
+#pragma unroll
+  for (int k = 0; k < kRowsPerThread; ++k) {
+    const int64_t r = row0 + k * kThreads + threadIdx.x;
+    av[k] = r < n1 ? aw[r] : 0.f;  // rows past n1 are dropped below
+    acc[k] = 0.f;
+    if (r < n1) {
+      finite = finite && fabsf(av[k]) < kInf;
+      lo = fminf(lo, av[k]);
+      hi = fmaxf(hi, av[k]);
+    }
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    lo = fminf(lo, __shfl_xor_sync(0xffffffffu, lo, off));
+    hi = fmaxf(hi, __shfl_xor_sync(0xffffffffu, hi, off));
+  }
+  if ((threadIdx.x & 31) == 0) {
+    smin[threadIdx.x >> 5] = lo;
+    smax[threadIdx.x >> 5] = hi;
+  }
+  const bool all_finite = !__syncthreads_or(!finite);
+#pragma unroll
+  for (int v = 0; v < kThreads / 32; ++v) {
+    lo = fminf(lo, smin[v]);
+    hi = fmaxf(hi, smax[v]);
+  }
+  const bool factored = all_finite && hi - lo <= kLogisticSpan;
+  if (branches != nullptr && threadIdx.x == 0)
+    atomicAdd(&branches[factored ? 0 : 1], 1ull);
+
+  if (factored) {
+    const float c = fmaxf(fabsf(lo), fabsf(hi)) <= 0.5f * kLogisticSpan
+                        ? 0.f : rintf(0.5f * (lo + hi));
+    // this thread's own columns: no other thread reads them before the
+    // barrier below
+    for (int j = threadIdx.x; j < ncols; j += kThreads) {
+      const float bc = sbm[j].x - c;
+      sbm[j].y = expf(bc);
+      sbm[j].z = expf(-bc);
+    }
+    float up[kRowsPerThread], dn[kRowsPerThread];  // e^{a - c}, e^{c - a}
+#pragma unroll
+    for (int k = 0; k < kRowsPerThread; ++k) {
+      up[k] = expf(av[k] - c);
+      dn[k] = expf(c - av[k]);
+    }
+    __syncthreads();
+#pragma unroll 4
+    for (int j = 0; j < ncols; ++j) {
+      const float4 t = sbm[j];
+#pragma unroll
+      for (int k = 0; k < kRowsPerThread; ++k) {
+        const float d = av[k] - t.x;
+        const float x = fminf(dn[k] * t.y, up[k] * t.z);
+        const float g = fmaxf(-d, 0.f) + log1p_unit(x);
+        acc[k] += MASKED ? g * t.w : g;
+      }
+    }
+  } else {
+    __syncthreads();
+#pragma unroll 4
+    for (int j = 0; j < ncols; ++j) {
+      const float4 t = sbm[j];
+#pragma unroll
+      for (int k = 0; k < kRowsPerThread; ++k) {
+        const float d = av[k] - t.x;
+        const float g = fmaxf(-d, 0.f) + log1p_unit(expf(-fabsf(d)));
+        acc[k] += MASKED ? g * t.w : g;
+      }
+    }
+  }
+
+  float t = 0.f;
+#pragma unroll
+  for (int k = 0; k < kRowsPerThread; ++k) {
+    const int64_t r = row0 + k * kThreads + threadIdx.x;
+    if (r < n1) t += MASKED ? acc[k] * ma[w * n1 + r] : acc[k];
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    t += __shfl_down_sync(0xffffffffu, t, off);
+  if ((threadIdx.x & 31) == 0) swarp[threadIdx.x >> 5] = t;
+  __syncthreads();
+  if (threadIdx.x < 32) {
+    t = threadIdx.x < kThreads / 32 ? swarp[threadIdx.x] : 0.f;
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      t += __shfl_down_sync(0xffffffffu, t, off);
+    if (threadIdx.x == 0)
+      partials[(w * gridDim.y + blockIdx.y) * gridDim.x + blockIdx.x] = t;
+  }
+}
+
 template <class Body>
 void launch(bool masked, dim3 grid, cudaStream_t stream, const float* a,
             const float* b, const float* ma, const float* mb, float* out,
@@ -153,16 +347,24 @@ extern "C" {
 
 int tw_pair_tile_a() { return kTileA; }
 int tw_pair_tile_b() { return kTileB; }
+float tw_pair_logistic_span() { return kLogisticSpan; }
+// the log1p coefficients kLog1p0..kLog1p4 (any other i: 0)
+float tw_pair_log1p_coef(int i) {
+  const float c[5] = {kLog1p0, kLog1p1, kLog1p2, kLog1p3, kLog1p4};
+  return i >= 0 && i < 5 ? c[i] : 0.f;
+}
 
 // Launches one pair-sum kernel on `stream` and returns cudaGetLastError().
 // a [W, n1], b [W, n2] (and ma, mb when masked) are contiguous float32 on
 // the device; out holds W * ceil(n2/kTileB) * ceil(n1/kTileA) partials.
-// body: 0 auc (masked only), 1 hinge, 2 logistic (ops/kernels.py). The
-// wrapper checks every argument; an unknown body, or the unmasked auc body,
-// returns cudaErrorInvalidValue.
+// body: 0 auc (masked only), 1 hinge, 2 logistic (ops/kernels.py).
+// branches: null, or 2 uint64 on the device to which the logistic kernel
+// adds its blocks of each branch (factored, per-pair). The wrapper checks
+// every argument; an unknown body, or the unmasked auc body, returns
+// cudaErrorInvalidValue.
 int tw_pair_sum(const void* a, const void* b, const void* ma, const void* mb,
                 void* out, long long n1, long long n2, int w, int body,
-                int masked, void* stream) {
+                int masked, void* branches, void* stream) {
   const dim3 grid((unsigned)((n1 + kTileA - 1) / kTileA),
                   (unsigned)((n2 + kTileB - 1) / kTileB), (unsigned)w);
   auto s = static_cast<cudaStream_t>(stream);
@@ -178,7 +380,16 @@ int tw_pair_sum(const void* a, const void* b, const void* ma, const void* mb,
           <<<grid, kThreads, 0, s>>>(fa, fb, pma, pmb, fo, n1, n2);
       break;
     case 1: launch<HingeBody>(masked, grid, s, fa, fb, pma, pmb, fo, n1, n2); break;
-    case 2: launch<LogisticBody>(masked, grid, s, fa, fb, pma, pmb, fo, n1, n2); break;
+    case 2: {
+      auto nb = static_cast<unsigned long long*>(branches);
+      if (masked)
+        logistic_sum_kernel<true>
+            <<<grid, kThreads, 0, s>>>(fa, fb, pma, pmb, fo, n1, n2, nb);
+      else
+        logistic_sum_kernel<false>
+            <<<grid, kThreads, 0, s>>>(fa, fb, pma, pmb, fo, n1, n2, nb);
+      break;
+    }
     default: return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();

@@ -1,12 +1,14 @@
 // Sort-and-count kernels on Hopper (sm_90a): the auc body of the unmasked
-// pair sum and the indicator body of the per-anchor triplet sums.
+// pair sum, and the indicator and hinge bodies of the per-anchor triplet sums.
 //
-// Replaces, for these two bodies, the Pallas TPU kernels of
+// Replaces, for these bodies, the Pallas TPU kernels of
 //   * tuplewise_tpu/ops/pallas_pairs.py:134 pallas_pair_sum (auc body,
 //     also reached through pallas_pair_sum_any)        -> tw_rank_auc
 //   * tuplewise_tpu/ops/pallas_triplets.py:185 _batched_masked_pair_sum
-//     (indicator body, driven by pallas_triplet_stats) -> tw_rank_indicator
-// The other bodies keep csrc/pair_sum.cu and csrc/triplet_sum.cu.
+//     (indicator and hinge combines, driven by pallas_triplet_stats)
+//                                                      -> tw_rank_indicator,
+//                                                         tw_rank_hinge
+// The other pair bodies keep csrc/pair_sum.cu.
 //
 // What they compute, for each of W independent problems w:
 //   tw_rank_auc:       2 * #{(i,j): fl(a_i - b_j) > 0} + #{(i,j): fl(a_i - b_j) == 0}
@@ -15,6 +17,9 @@
 //   tw_rank_indicator: S_w = sum_{j,k} 1{fl(A[w,j] - B[w,k]) < -margin}
 //                            * mp[q,j] * 1{ip[q,j] != ia[w]} * mk[q,k]
 //                      (q = w / C) as float64 partials, one per block.
+//   tw_rank_hinge:     S_w = sum_{j,k} max(0, margin + A[w,j] - B[w,k])
+//                            * mp[q,j] * 1{ip[q,j] != ia[w]} * mk[q,k]
+//                      as float64 partials, one per block.
 //
 // Design. The TPU kernels compared every pair (or triplet) because the TPU
 // has no fast search. Here the second operand is cut into tiles of T values
@@ -34,6 +39,21 @@
 //     mk, forms their float64 suffix sums, and searches every A[w,j] in the
 //     same block. One float64 partial a block; the positive weight
 //     mp * 1{ip != ia} is formed in the kernel from the ids.
+//   * hinge: the body is piecewise linear in B. For one positive x = A[w,j]
+//     the terms that are not 0 are those with fl(margin + fl(x - B_k)) > 0,
+//     a prefix pre(x) of the sorted tile, and their sum is
+//         (margin + x) * sum_{pre(x)} mk_k  -  sum_{pre(x)} mk_k * B_k.
+//     hinge_kernel sorts (key, mk) pairs as the indicator does, forms the
+//     two float64 prefix sums (W[c], S[c]) side by side in shared memory
+//     (one 16-byte load a positive), and each positive searches its prefix
+//     with the body's predicate and takes (margin + x) * W - S in float64:
+//     O((P + K) log K) work an anchor and tile instead of O(P K). The tile
+//     is at most kHingeMaxTile = 8192: 4 T bytes of values and 16 (T + 1)
+//     of prefix sums, 160 KB at T = 8192, fit a block's 227 KB; T = 16384
+//     (320 KB) does not. One tile per row with the prefix sums in global
+//     memory was the other choice: it would save the searches of 3 tiles of
+//     a 32768-wide row but sort 32768 values a block, out of a block's
+//     registers, and read its prefix sums from L2.
 // A sorted tile sits in shared memory in Eytzinger (breadth-first) order:
 // sorted positions 0..T-2 form a complete search tree of log2(T) levels,
 // position T-1 sits in slot T-1. A search step is one load, one subtraction,
@@ -46,20 +66,45 @@
 //   1. Every search uses the body's own predicate on the float32 difference,
 //      never a raw comparison of a and b: wins = #b with fl(a - b) > 0 and
 //      wins + ties = #b with fl(a - b) >= 0 (auc); #B with
-//      fl(A - B) < -margin (indicator). fl(x - s) is non-increasing in s
-//      once NaN s is left out, so each predicate holds on a prefix (auc) or
-//      a suffix (indicator) of a sorted tile and a binary search counts it
-//      exactly, for any finite margin. Equal infinities fall out by
-//      themselves.
+//      fl(A - B) < -margin (indicator); fl(margin + fl(A - B)) > 0 (hinge).
+//      fl(x - s) is non-increasing in s once NaN s is left out, so each
+//      predicate holds on a prefix (auc, hinge) or a suffix (indicator) of a
+//      sorted tile and a binary search counts it exactly, for any finite
+//      margin. Equal infinities fall out by themselves.
 //   2. Keys: -0.0 is made +0.0 first (the body calls them tied; as raw bits
 //      -0.0 would sort below +0.0), and every NaN, of either sign, becomes
 //      the top key kNanKey, so NaN values (and the padding of a short tile)
 //      sort to the end of a tile and are left out of every count: for the
 //      auc they stay NaN, on which neither predicate holds; for the indicator
-//      their weights are zeroed before the suffix sums and their slots hold
-//      +inf, which ends the search of every A that is not +inf or NaN (and
-//      those count no B at all).
-//   3. A NaN value of the first operand satisfies no predicate and adds 0.
+//      and the hinge their weights are zeroed before the prefix sums and
+//      their slots hold +inf, which ends the search of every A.
+//   3. A NaN value of the first operand satisfies no predicate and adds 0
+//      to the auc and the indicator.
+//   4. The hinge propagates NaN and infinity as max(0, margin + t) * mk * wp
+//      summed in IEEE arithmetic does (jnp.maximum and torch.clamp_min both
+//      return NaN for NaN), with non-negative weights mk and wp:
+//        * a NaN in A[w, :] or in B[w, :] makes S_w NaN, whatever the
+//          weights (a NaN term times a zero weight is NaN): a NaN in the
+//          tile makes the block's partial NaN, a NaN positive its term;
+//        * x = -inf: t = -inf - B is -inf (a term of 0) unless B = -inf,
+//          where t is NaN; so NaN if the tile holds a -inf, else 0;
+//        * x = +inf: t = +inf for every finite or -inf B, and NaN for B =
+//          +inf; the term is +inf * mk_k, NaN where mk_k = 0; so NaN if the
+//          tile holds a +inf, or a finite or -inf B of weight 0, else +inf;
+//        * finite x: B = +inf gives t = -inf, a term of 0, and stays out of
+//          every prefix; B = -inf gives t = +inf and lies in every prefix, so
+//          mk_k * B_k = -inf (or NaN for mk_k = 0) in S makes the term +inf
+//          (or NaN), as in the plain sum;
+//        * a term of +inf times wp = 0 is NaN, so every positive of the row
+//          enters the sum, whatever its weight.
+//      A finite difference that overflows float32 (|A - B| > 3.4e38) is out
+//      of this contract: the plain sum gives +inf there, this form a finite
+//      float64.
+//   5. Hinge numerics: the plain version sums float32 terms fl(margin +
+//      fl(A - B)) * mk in float64; this form sums exact float64 products and
+//      differences of the float32 inputs, so the two differ by the float32
+//      rounding of each term (a few units in 2^-24 of a term), and a term
+//      whose float32 predicate and exact sign disagree is at most an ulp.
 // Built without fast-math (ops/_build.py): fl(x - s) == 0 iff x == s for
 // finite floats only with gradual underflow.
 //
@@ -79,6 +124,7 @@ namespace {
 
 constexpr int kMaxTile = 16384;       // values sorted by one block
 constexpr int kMinTile = 2048;
+constexpr int kHingeMaxTile = 8192;   // the hinge's tile (see the note)
 constexpr int kCountThreads = 512;
 constexpr int kCountChunk = 8192;     // values of a counted by one block
 constexpr int kIlp = 4;               // searches a thread keeps in flight
@@ -126,6 +172,13 @@ struct NotBelow {      // indicator: !(fl(A - B) < -margin), a prefix
   float neg_margin;
   __device__ __forceinline__ bool holds(float x, float s) const {
     return !(x - s < neg_margin);
+  }
+};
+
+struct HingePositive {  // hinge: fl(margin + fl(A - B)) > 0, a prefix
+  float margin;
+  __device__ __forceinline__ bool holds(float x, float s) const {
+    return margin + (x - s) > 0.f;
   }
 };
 
@@ -357,6 +410,161 @@ indicator_kernel(const float* __restrict__ A, const float* __restrict__ B,
   if (threadIdx.x == 0) partials[w * gridDim.y + blockIdx.y] = acc;
 }
 
+// ------------------------------------------------------------------------ //
+// hinge                                                                    //
+// ------------------------------------------------------------------------ //
+
+// flags of a tile of B (rule 4), over its values, not its padding
+constexpr unsigned kTileNan = 1u;       // a NaN
+constexpr unsigned kTilePosInf = 2u;    // a +inf
+constexpr unsigned kTileNegInf = 4u;    // a -inf
+constexpr unsigned kTileZeroW = 8u;     // a finite or -inf value of weight 0
+
+// a sorted slot's term of the sum mk * B: NaN and +inf slots hold +inf with
+// weight 0 and add nothing (they lie in no prefix); a -inf slot adds
+// mk * -inf, which is -inf, or NaN for mk = 0 (rule 4)
+__device__ __forceinline__ double hinge_term(float wt, float v) {
+  return wt == 0.f && v != -__int_as_float(0x7F800000)
+             ? 0.0 : (double)wt * (double)v;
+}
+
+// grid (W, tiles), THREADS threads, dynamic shared memory: the sort's
+// temporary storage, then (aliasing it) the sorted values [T] in Eytzinger
+// order and the float64 prefix sums (sum mk, sum mk * B) [T + 1] over the
+// sorted order. partials[w, tile] = the tile's part of S_w.
+template <int THREADS, int ITEMS>
+__global__ void __launch_bounds__(THREADS)
+hinge_kernel(const float* __restrict__ A, const float* __restrict__ B,
+             const float* __restrict__ mp, const int64_t* __restrict__ ip,
+             const int64_t* __restrict__ ia, const float* __restrict__ mk,
+             double* __restrict__ partials, int64_t P, int64_t K, int64_t C,
+             float margin) {
+  constexpr int T = THREADS * ITEMS;
+  constexpr int LOG_T = log2_of(T);
+  const float kInf = __int_as_float(0x7F800000);
+  using Sort = cub::BlockRadixSort<unsigned, THREADS, ITEMS, float>;
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* e = reinterpret_cast<float*>(smem);
+  double2* pre = reinterpret_cast<double2*>(smem + 4 * (size_t)T);
+  __shared__ double2 swarp[THREADS / 32];
+  __shared__ double sred[THREADS / 32];
+
+  const int64_t w = blockIdx.x;
+  const int64_t q = w / C;
+  const int64_t col0 = (int64_t)blockIdx.y * T;
+  const int64_t rem = K - col0;
+  const int len = rem < T ? (int)rem : T;
+  const float* bw = B + w * K + col0;
+  const float* mkq = mk + q * K + col0;
+  unsigned keys[ITEMS];
+  float wts[ITEMS];
+  unsigned flags = 0;
+#pragma unroll
+  for (int r = 0; r < ITEMS; ++r) {
+    const int i = r * THREADS + threadIdx.x;
+    const bool in = i < len;
+    const float v = in ? bw[i] : 0.f;
+    keys[r] = in ? float_key(v) : kNanKey;
+    wts[r] = in ? mkq[i] : 0.f;
+    if (in) {
+      if (v != v) flags |= kTileNan;
+      else if (v == kInf) flags |= kTilePosInf;
+      else {
+        if (v == -kInf) flags |= kTileNegInf;
+        if (wts[r] == 0.f) flags |= kTileZeroW;
+      }
+    }
+  }
+  const bool nan_b = __syncthreads_or(flags & kTileNan);
+  const bool posinf_b = __syncthreads_or(flags & kTilePosInf);
+  const bool neginf_b = __syncthreads_or(flags & kTileNegInf);
+  const bool zero_w = __syncthreads_or(flags & kTileZeroW);
+  // blocked result: this thread holds sorted positions [t ITEMS, t ITEMS + ITEMS)
+  Sort(*reinterpret_cast<typename Sort::TempStorage*>(smem)).Sort(keys, wts);
+
+  // NaN keys (NaN values and the padding) become +inf slots; +inf slots
+  // carry no weight
+  float vals[ITEMS];
+  double tw = 0.0, ts = 0.0;
+#pragma unroll
+  for (int r = 0; r < ITEMS; ++r) {
+    vals[r] = keys[r] == kNanKey ? kInf : key_float(keys[r]);
+    if (vals[r] == kInf) wts[r] = 0.f;
+    tw += (double)wts[r];
+    ts += hinge_term(wts[r], vals[r]);
+  }
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  double iw = tw, is = ts;  // inclusive over this warp's lanes up to this one
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const double ow = __shfl_up_sync(0xffffffffu, iw, off);
+    const double os = __shfl_up_sync(0xffffffffu, is, off);
+    if (lane >= off) {
+      iw += ow;
+      is += os;
+    }
+  }
+  if (lane == 31) swarp[warp] = make_double2(iw, is);
+  __syncthreads();  // the sort is done with its storage: e, pre alias it
+  double rw = __shfl_up_sync(0xffffffffu, iw, 1);
+  double rs = __shfl_up_sync(0xffffffffu, is, 1);
+  if (lane == 0) rw = rs = 0.0;
+  for (int v = 0; v < warp; ++v) {
+    rw += swarp[v].x;
+    rs += swarp[v].y;
+  }
+  const int base = threadIdx.x * ITEMS;
+#pragma unroll
+  for (int r = 0; r < ITEMS; ++r) {
+    pre[base + r] = make_double2(rw, rs);
+    rw += (double)wts[r];
+    rs += hinge_term(wts[r], vals[r]);
+    e[eyt_slot<LOG_T>(base + r)] = vals[r];
+  }
+  if (threadIdx.x == THREADS - 1) pre[T] = make_double2(rw, rs);
+  __syncthreads();
+
+  const HingePositive pred{margin};
+  const double dm = (double)margin;
+  const float* aw = A + w * P;
+  const float* mpq = mp + q * P;
+  const int64_t* ipq = ip + q * P;
+  const int64_t id = ia[w];
+  const double dnan = __longlong_as_double(0x7FF8000000000000LL);
+  const double dinf = __longlong_as_double(0x7FF0000000000000LL);
+  double acc = 0.0;
+  for (int64_t j0 = threadIdx.x; j0 < P; j0 += (int64_t)kIlp * THREADS) {
+    float x[kIlp], wj[kIlp];
+    int c[kIlp];
+#pragma unroll
+    for (int u = 0; u < kIlp; ++u) {
+      const int64_t j = j0 + (int64_t)u * THREADS;
+      const bool in = j < P;
+      x[u] = in ? aw[j] : 0.f;
+      wj[u] = in && ipq[j] != id ? mpq[j] : 0.f;
+    }
+    prefix_counts<LOG_T>(e, x, c, pred);
+#pragma unroll
+    for (int u = 0; u < kIlp; ++u) {
+      if (j0 + (int64_t)u * THREADS >= P) continue;
+      double inner;
+      if (fabsf(x[u]) < kInf) {
+        const double2 s = pre[c[u]];
+        inner = (dm + (double)x[u]) * s.x - s.y;
+      } else if (x[u] == kInf) {
+        inner = posinf_b || zero_w ? dnan : dinf;
+      } else if (x[u] == -kInf) {
+        inner = neginf_b ? dnan : 0.0;
+      } else {
+        inner = dnan;
+      }
+      acc += (double)wj[u] * inner;
+    }
+  }
+  acc = block_sum(acc, sred);
+  if (threadIdx.x == 0) partials[w * gridDim.y + blockIdx.y] = nan_b ? dnan : acc;
+}
+
 template <int THREADS, int ITEMS>
 int launch_auc(const float* a, const float* b, float* sorted,
                long long* partials, long long n1, long long n2, int w,
@@ -405,12 +613,34 @@ int launch_indicator(const float* A, const float* B, const float* mp,
   return (int)cudaGetLastError();
 }
 
+template <int THREADS, int ITEMS>
+int launch_hinge(const float* A, const float* B, const float* mp,
+                 const int64_t* ip, const int64_t* ia, const float* mk,
+                 double* partials, long long P, long long K, long long W,
+                 long long C, float margin, cudaStream_t s) {
+  constexpr int T = THREADS * ITEMS;
+  static_assert(T <= kHingeMaxTile, "the hinge tile must fit shared memory");
+  using Sort = cub::BlockRadixSort<unsigned, THREADS, ITEMS, float>;
+  const size_t need = 4 * (size_t)T + 16 * ((size_t)T + 1);
+  const int smem = (int)(sizeof(typename Sort::TempStorage) > need
+                             ? sizeof(typename Sort::TempStorage) : need);
+  cudaError_t err = cudaFuncSetAttribute(
+      hinge_kernel<THREADS, ITEMS>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  const unsigned tiles = (unsigned)((K + T - 1) / T);
+  hinge_kernel<THREADS, ITEMS><<<dim3((unsigned)W, tiles), THREADS, smem, s>>>(
+      A, B, mp, ip, ia, mk, partials, P, K, C, margin);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
 int tw_rank_max_tile() { return kMaxTile; }
 int tw_rank_min_tile() { return kMinTile; }
+int tw_rank_hinge_max_tile() { return kHingeMaxTile; }
 int tw_rank_count_chunk() { return kCountChunk; }
 
 // auc: launches sort_tiles_kernel, then auc_count_kernel, on `stream`, and
@@ -465,6 +695,36 @@ int tw_rank_indicator(const void* A, const void* B, const void* mp,
     case 16384:
       return launch_indicator<1024, 16>(fA, fB, fmp, iip, iia, fmk, out, P, K,
                                         W, C, margin, s);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+// hinge: launches hinge_kernel on `stream` and returns cudaGetLastError().
+// Arguments as for tw_rank_indicator; T is 2048, 4096 or 8192
+// (kHingeMaxTile).
+int tw_rank_hinge(const void* A, const void* B, const void* mp,
+                  const void* ip, const void* ia, const void* mk,
+                  void* partials, long long P, long long K, long long W,
+                  long long C, float margin, int T, void* stream) {
+  auto fA = static_cast<const float*>(A);
+  auto fB = static_cast<const float*>(B);
+  auto fmp = static_cast<const float*>(mp);
+  auto iip = static_cast<const int64_t*>(ip);
+  auto iia = static_cast<const int64_t*>(ia);
+  auto fmk = static_cast<const float*>(mk);
+  auto out = static_cast<double*>(partials);
+  auto s = static_cast<cudaStream_t>(stream);
+  switch (T) {
+    case 2048:
+      return launch_hinge<256, 8>(fA, fB, fmp, iip, iia, fmk, out, P, K, W,
+                                  C, margin, s);
+    case 4096:
+      return launch_hinge<512, 8>(fA, fB, fmp, iip, iia, fmk, out, P, K, W,
+                                  C, margin, s);
+    case 8192:
+      return launch_hinge<1024, 8>(fA, fB, fmp, iip, iia, fmk, out, P, K, W,
+                                   C, margin, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -13,9 +13,8 @@ namespace ``xp``.
 * Triplet kernels (``kind="triplet"``): ``h(anchor, positive, negative)``
   on [n, d] features. The two built-in ones depend on the points only
   through d(a,p) - d(a,n), so ``builtin_triplet_spec`` names their
-  distance-difference combine and margin; the combine bodies below
-  carry the ids of the CUDA triplet kernels (the indicator's runs
-  ``csrc/rank_count.cu``, the hinge's ``csrc/triplet_sum.cu``). A
+  distance-difference combine and margin; both combines have a CUDA
+  route (the sort-and-count kernels of ``csrc/rank_count.cu``). A
   user-registered triplet kernel has no combine and runs the plain
   tiled scan (``ops.pair_tiles.triplet_stats``) on every device.
 """
@@ -196,9 +195,8 @@ triplet_hinge_kernel = Kernel(
 
 
 # The distance-difference combines g(t), t = d(a,p) - d(a,n), of the two
-# built-in triplet kernels. The hinge id matches csrc/triplet_sum.cu; the
-# indicator runs csrc/rank_count.cu.
-TRIPLET_INDICATOR_BODY, TRIPLET_HINGE_BODY = 0, 1
+# built-in triplet kernels. Both run the sort-and-count kernels of
+# csrc/rank_count.cu on the card.
 
 
 def triplet_indicator_combine(t, margin):

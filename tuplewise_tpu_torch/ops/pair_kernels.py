@@ -21,7 +21,11 @@ launches the kernel, or raises: nothing falls back from a kernel that
 fails to build or launch. The unmasked auc body runs the sort-and-count
 kernels of ``csrc/rank_count.cu`` (``ops.rank_count``): an exact int64
 ``2 * wins + ties`` a problem, halved in float64. Every other body, and
-every masked sum, runs ``csrc/pair_sum.cu``. ``impl="plain"`` is the one
+every masked sum, runs ``csrc/pair_sum.cu``; the logistic body there
+factors e^{-|d|} into per-score exponentials where a block's scores span
+at most ``LOGISTIC_SPAN`` and takes log1p as a polynomial
+(``LOG1P_COEFFS``; :func:`logistic_branch_blocks` counts the blocks of
+each branch). ``impl="plain"`` is the one
 explicit route to the plain version on the card (the counterpart of the
 JAX ``impl="xla"``).
 A diff kernel without a CUDA body (a user-registered kernel) runs the
@@ -46,6 +50,13 @@ LAUNCHES: collections.Counter = collections.Counter()
 
 _SOURCE = "pair_sum.cu"
 _MAX_GRID_YZ = 65535
+# the logistic kernel's compile-time constants (csrc/pair_sum.cu, checked
+# against the built library in load_library): the widest score range of a
+# block that takes the factored exponential, and the coefficients of
+# log1p(x) = s * P(s^2), s = x / (2 + x), P(z) = sum_i c_i z^i
+LOGISTIC_SPAN = 80.0
+LOG1P_COEFFS = (2.0, 0.6666631698608398, 0.4002491533756256,
+                0.27960577607154846, 0.2817831039428711)
 # element budget of one plain tile [W, rows, cols]: bounds the plain
 # version's temporaries (float32) to 4 * budget bytes each
 _PLAIN_TILE_ELEMS = {"cpu": 1 << 22, "cuda": 1 << 26}
@@ -122,12 +133,24 @@ def load_library():
     lib = _build.load(_SOURCE)
     if not getattr(lib, "_tw_typed", False):
         p, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-        lib.tw_pair_sum.argtypes = [p, p, p, p, p, ll, ll, i, i, i, p]
+        lib.tw_pair_sum.argtypes = [p, p, p, p, p, ll, ll, i, i, i, p, p]
         lib.tw_pair_sum.restype = i
         lib.tw_pair_tile_a.restype = i
         lib.tw_pair_tile_b.restype = i
+        lib.tw_pair_logistic_span.restype = ctypes.c_float
+        lib.tw_pair_log1p_coef.argtypes = [i]
+        lib.tw_pair_log1p_coef.restype = ctypes.c_float
         # compile-time tile sizes, read once
         lib.tile_a, lib.tile_b = lib.tw_pair_tile_a(), lib.tw_pair_tile_b()
+        built = (lib.tw_pair_logistic_span(),
+                 tuple(lib.tw_pair_log1p_coef(j)
+                       for j in range(len(LOG1P_COEFFS))))
+        want = (LOGISTIC_SPAN,
+                tuple(ctypes.c_float(c).value for c in LOG1P_COEFFS))
+        if built != want:
+            raise RuntimeError(f"{_SOURCE} was built with logistic "
+                               f"constants {built}, the launcher expects "
+                               f"{want}")
         lib._tw_typed = True
     return lib
 
@@ -157,7 +180,8 @@ def use_kernel(a, kernel: Kernel, impl: Optional[str]) -> bool:
     return a.is_cuda and impl != "plain" and kernel.cuda_body is not None
 
 
-def _launch(name, a, b, ma, mb, kernel: Kernel) -> torch.Tensor:
+def _launch(name, a, b, ma, mb, kernel: Kernel,
+            branches: Optional[torch.Tensor] = None) -> torch.Tensor:
     masked = ma is not None
     squeeze = a.dim() == 1
     if squeeze:
@@ -192,7 +216,7 @@ def _launch(name, a, b, ma, mb, kernel: Kernel) -> torch.Tensor:
             ma.data_ptr() if masked else None,
             mb.data_ptr() if masked else None,
             partials.data_ptr(), n1, n2, W, kernel.cuda_body, int(masked),
-            stream,
+            None if branches is None else branches.data_ptr(), stream,
         )
     if err != 0:
         raise RuntimeError(
@@ -228,6 +252,24 @@ def masked_pair_sum(a, b, ma, mb, kernel: Kernel,
     inputs; the caller's count is sum(ma) * sum(mb). Dispatch as in
     :func:`pair_sum`."""
     return _dispatch("masked_pair_sum", a, b, ma, mb, kernel, impl)
+
+
+def logistic_branch_blocks(a, b, ma=None, mb=None):
+    """(blocks that took the factored exponential, blocks that took the
+    per-pair expf) in one launch of the logistic pair sum (masked when ma
+    and mb are given) on CUDA tensors, with its result: ``(factored,
+    per_pair, sum)``. The launch counts in ``LAUNCHES`` like any other."""
+    from tuplewise_tpu_torch.ops.kernels import get_kernel
+
+    if not a.is_cuda:
+        raise ValueError("the logistic kernel's branches exist on the card "
+                         "only")
+    kernel = get_kernel("logistic")
+    counts = torch.zeros(2, dtype=torch.int64, device=a.device)
+    name = "pair_sum" if ma is None else "masked_pair_sum"
+    out = _launch(name, a, b, ma, mb, kernel, branches=counts)
+    factored, per_pair = counts.tolist()
+    return factored, per_pair, out
 
 
 def pair_sum_any(a, b, kernel: Kernel, impl: Optional[str] = None):

@@ -1,20 +1,23 @@
 """Launchers of the sort-and-count kernels of ``csrc/rank_count.cu``.
 
-Two bodies have a sort-and-count route on the card, behind their usual
-wrappers (which check the tensors and count the launches):
+Three bodies have a sort-and-count route on the card, behind their
+usual wrappers (which check the tensors and count the launches):
 
 * ``pair_kernels.pair_sum`` with the auc body (kernel 1, unmasked):
   :func:`auc_twice_counts` returns the int64 ``2 * wins + ties`` of each
   problem, which the wrapper halves in float64.
-* ``triplet_kernels.batched_masked_pair_sum`` with the indicator combine
-  (kernel 5): :func:`indicator_sums` returns the float64 per-problem sums.
+* ``triplet_kernels.batched_masked_pair_sum`` with the indicator or the
+  hinge combine (kernel 5): :func:`triplet_sums` returns the float64
+  per-problem sums; the hinge's as (margin + A) * sum(mk) - sum(mk * B)
+  over the prefix of the sorted tile where the body is positive.
 
 The second operand (b, or B's rows) is cut into tiles of
-:func:`tile_size` values; a block sorts a tile (a block-wide radix sort)
-and the first operand's values count it by binary search in shared
-memory (the tile in Eytzinger order) with the body's own predicate on
-the float32 difference (the source's header note gives the exactness
-rules). Nothing here falls
+:func:`tile_size` values (at most ``HINGE_MAX_TILE`` for the hinge, whose
+two float64 prefix sums must fit shared memory beside the tile); a block
+sorts a tile (a block-wide radix sort) and the first operand's values
+count it by binary search in shared memory (the tile in Eytzinger order)
+with the body's own predicate on the float32 difference (the source's
+header note gives the exactness and NaN rules). Nothing here falls
 back: a failed build or launch raises. Nothing is built when the module
 is imported.
 """
@@ -28,15 +31,15 @@ import torch
 _SOURCE = "rank_count.cu"
 # the compile-time constants of csrc/rank_count.cu (checked against the
 # built library in load_library)
-MAX_TILE, MIN_TILE, COUNT_CHUNK = 16384, 2048, 8192
+MAX_TILE, MIN_TILE, COUNT_CHUNK, HINGE_MAX_TILE = 16384, 2048, 8192, 8192
 _MAX_GRID_YZ = 65535
 _MAX_GRID_X = (1 << 31) - 1
 
 
-def tile_size(n: int) -> int:
+def tile_size(n: int, max_tile: int = MAX_TILE) -> int:
     """Values of the second operand sorted by one block: n rounded up to
-    a power of two, within [MIN_TILE, MAX_TILE]."""
-    return min(MAX_TILE, max(MIN_TILE, 1 << max(0, int(n) - 1).bit_length()))
+    a power of two, within [MIN_TILE, max_tile]."""
+    return min(max_tile, max(MIN_TILE, 1 << max(0, int(n) - 1).bit_length()))
 
 
 def load_library():
@@ -51,12 +54,14 @@ def load_library():
         lib.tw_rank_indicator.argtypes = [p, p, p, p, p, p, p, ll, ll, ll, ll,
                                           ctypes.c_float, i, p]
         lib.tw_rank_indicator.restype = i
+        lib.tw_rank_hinge.argtypes = lib.tw_rank_indicator.argtypes
+        lib.tw_rank_hinge.restype = i
         built = (lib.tw_rank_max_tile(), lib.tw_rank_min_tile(),
-                 lib.tw_rank_count_chunk())
-        if built != (MAX_TILE, MIN_TILE, COUNT_CHUNK):
+                 lib.tw_rank_count_chunk(), lib.tw_rank_hinge_max_tile())
+        want = (MAX_TILE, MIN_TILE, COUNT_CHUNK, HINGE_MAX_TILE)
+        if built != want:
             raise RuntimeError(f"{_SOURCE} was built with tiles {built}, "
-                               f"the launcher expects "
-                               f"{(MAX_TILE, MIN_TILE, COUNT_CHUNK)}")
+                               f"the launcher expects {want}")
         lib._tw_typed = True
     return lib
 
@@ -92,25 +97,29 @@ def auc_twice_counts(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return partials.sum(dim=(1, 2))
 
 
-def indicator_sums(A, B, mp, ip, ia, mk, margin: float, C: int):
-    """[W] float64 per-problem indicator sums (the contract of
-    ``triplet_kernels.batched_masked_pair_sum``) for checked CUDA tensors
-    with W, P, K > 0: one launch, one block a (problem, tile of B)."""
+def triplet_sums(kind: str, A, B, mp, ip, ia, mk, margin: float, C: int):
+    """[W] float64 per-problem sums of the ``kind`` ("indicator" or
+    "hinge") combine (the contract of
+    ``triplet_kernels.batched_masked_pair_sum``, NaN and infinities as the
+    plain version gives them) for checked CUDA tensors with W, P, K > 0:
+    one launch, one block a (problem, tile of B), the float64 partials of
+    a problem summed in a fixed order."""
     W, P = A.shape
     K = B.shape[1]
-    T = tile_size(K)
+    T = tile_size(K, MAX_TILE if kind == "indicator" else HINGE_MAX_TILE)
     tiles = -(-K // T)
     if W > _MAX_GRID_X or tiles > _MAX_GRID_YZ:
         raise ValueError(f"W={W}, P={P}, K={K} is beyond the CUDA grid of "
-                         f"the indicator count ({tiles} tiles of {T})")
+                         f"the {kind} count ({tiles} tiles of {T})")
     lib = load_library()
+    launch = lib.tw_rank_indicator if kind == "indicator" else lib.tw_rank_hinge
     partials = torch.empty((W, tiles), dtype=torch.float64, device=A.device)
     with torch.cuda.device(A.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.tw_rank_indicator(
+        err = launch(
             A.data_ptr(), B.data_ptr(), mp.data_ptr(), ip.data_ptr(),
             ia.data_ptr(), mk.data_ptr(), partials.data_ptr(), P, K, W, C,
             margin, T, stream)
-    _raise_on(err, f"batched_masked_pair_sum[triplet_indicator] "
+    _raise_on(err, f"batched_masked_pair_sum[triplet_{kind}] "
                    f"sort-and-count (W={W}, P={P}, K={K}, tile {T})")
     return partials.sum(dim=1)

@@ -1,5 +1,6 @@
-"""Degree-3 (triplet) statistics by distance factorisation: the CUDA kernel
-of ``csrc/triplet_sum.cu`` and its plain PyTorch version.
+"""Degree-3 (triplet) statistics by distance factorisation: kernel 5 (the
+sort-and-count kernels of ``csrc/rank_count.cu``) and its plain PyTorch
+version.
 
 The counterpart of ``tuplewise_tpu.ops.pallas_triplets``. The built-in
 triplet kernels depend on the three points only through the two anchor
@@ -26,10 +27,12 @@ package's float32 counts lose digits at n = 32768).
 Dispatch, as in ``ops.pair_kernels``: a CPU tensor takes the plain
 version; a CUDA tensor launches the kernel or raises; ``impl="plain"``
 is the one explicit route to the plain version on the card. On the card
-the indicator runs the sort-and-count kernel of ``csrc/rank_count.cu``
+both combines run the sort-and-count kernels of ``csrc/rank_count.cu``
 (``ops.rank_count``: each tile of a problem's negatives sorted with its
-weights, every positive counting it by binary search), the hinge the
-tiled kernel of ``csrc/triplet_sum.cu``. A triplet kernel without a
+weights, every positive searching it by binary search): the indicator
+takes the weight of the suffix below -margin, the hinge the two prefix
+sums of the weights and of weight times distance where the body is
+positive, so its sum is (margin + A) * W - S. A triplet kernel without a
 combine (a user-registered one) takes the plain tiled scan
 ``ops.pair_tiles.triplet_stats`` in ``triplet_stats_best``: that is the
 JAX contract, not a fallback. Launches count in
@@ -46,7 +49,6 @@ card (5 % of an H100's 80 GB) and 64 MiB on the CPU.
 from __future__ import annotations
 
 import contextlib
-import ctypes
 import dataclasses
 from typing import Optional
 
@@ -54,14 +56,11 @@ import torch
 
 from tuplewise_tpu_torch.ops import pair_tiles, rank_count
 from tuplewise_tpu_torch.ops.kernels import (
-    TRIPLET_HINGE_BODY, TRIPLET_INDICATOR_BODY, Kernel, builtin_triplet_spec,
-    triplet_hinge_combine, triplet_indicator_combine,
+    Kernel, builtin_triplet_spec, triplet_hinge_combine,
+    triplet_indicator_combine,
 )
 from tuplewise_tpu_torch.ops.pair_kernels import LAUNCHES, plain_tile, use_kernel
 
-_SOURCE = "triplet_sum.cu"
-_MAX_GRID_YZ = 65535
-_MAX_GRID_X = (1 << 31) - 1
 CHUNK_BYTES = {"cuda": 4 << 30, "cpu": 64 << 20}
 
 
@@ -77,9 +76,11 @@ class TripletCombine:
         return f"triplet_{self.kind}"
 
     @property
-    def cuda_body(self) -> int:
-        return (TRIPLET_INDICATOR_BODY if self.kind == "indicator"
-                else TRIPLET_HINGE_BODY)
+    def cuda_body(self) -> str:
+        """The combine's CUDA route (``use_kernel`` reads it): both
+        combines have one, a sort-and-count kernel of
+        ``csrc/rank_count.cu``."""
+        return self.kind
 
     def g(self, t: torch.Tensor) -> torch.Tensor:
         if self.kind == "indicator":
@@ -181,51 +182,16 @@ def batched_masked_pair_sum_plain(A, B, mp, ip, ia, mk,
     return total
 
 
-def load_library():
-    """Build (at first use) and load the triplet-sum library."""
-    from tuplewise_tpu_torch.ops import _build
-
-    lib = _build.load(_SOURCE)
-    if not getattr(lib, "_tw_typed", False):
-        p, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-        lib.tw_triplet_sum.argtypes = [p, p, p, p, p, p, p, ll, ll, ll, ll,
-                                       i, ctypes.c_float, p]
-        lib.tw_triplet_sum.restype = i
-        lib.tw_triplet_tile_p.restype = i
-        lib.tw_triplet_tile_k.restype = i
-        lib.tile_p, lib.tile_k = lib.tw_triplet_tile_p(), lib.tw_triplet_tile_k()
-        lib._tw_typed = True
-    return lib
-
-
 def _launch(A, B, mp, ip, ia, mk, combine, anchors_per_group):
     C, _ = _check(A, B, mp, ip, ia, mk, anchors_per_group)
     W, P = A.shape
     K = B.shape[1]
     if W == 0 or P == 0 or K == 0:
         return torch.zeros(W, dtype=torch.float64, device=A.device)
-    if combine.kind == "indicator":
-        out = rank_count.indicator_sums(A, B, mp, ip, ia, mk, combine.margin,
-                                        C)
-        LAUNCHES[f"batched_masked_pair_sum[{combine.name}]"] += 1
-        return out
-    lib = load_library()
-    gp, gk = -(-P // lib.tile_p), -(-K // lib.tile_k)
-    if gp > _MAX_GRID_YZ or gk > _MAX_GRID_YZ or W > _MAX_GRID_X:
-        raise ValueError(f"W={W}, P={P}, K={K} is beyond the CUDA grid")
-    partials = torch.empty((W, gp, gk), dtype=torch.float32, device=A.device)
-    with torch.cuda.device(A.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.tw_triplet_sum(
-            A.data_ptr(), B.data_ptr(), mp.data_ptr(), ip.data_ptr(),
-            ia.data_ptr(), mk.data_ptr(), partials.data_ptr(), P, K, W, C,
-            combine.cuda_body, combine.margin, stream)
-    if err != 0:
-        raise RuntimeError(
-            f"batched_masked_pair_sum CUDA launch failed: cudaError {err} "
-            f"(W={W}, P={P}, K={K}, combine={combine.name})")
+    out = rank_count.triplet_sums(combine.kind, A, B, mp, ip, ia, mk,
+                                  combine.margin, C)
     LAUNCHES[f"batched_masked_pair_sum[{combine.name}]"] += 1
-    return partials.to(torch.float64).sum(dim=(1, 2))
+    return out
 
 
 def batched_masked_pair_sum(A, B, mp, ip, ia, mk, combine: TripletCombine,
@@ -235,10 +201,9 @@ def batched_masked_pair_sum(A, B, mp, ip, ia, mk, combine: TripletCombine,
     and B [W, K] float32 distances; mp, ip [G, P], mk [G, K] and ia [W],
     with G = W / anchors_per_group groups (one group by default).
 
-    CUDA tensors launch the CUDA kernel (or raise): the sort-and-count
-    kernel for the indicator, ``csrc/triplet_sum.cu`` for the hinge; CPU
-    tensors take ``batched_masked_pair_sum_plain``; ``impl="plain"``
-    forces it."""
+    CUDA tensors launch the sort-and-count kernel of the combine (or
+    raise); CPU tensors take ``batched_masked_pair_sum_plain``;
+    ``impl="plain"`` forces it."""
     if use_kernel(A, combine, impl):
         return _launch(A, B, mp, ip, ia, mk, combine, anchors_per_group)
     return batched_masked_pair_sum_plain(A, B, mp, ip, ia, mk, combine,
