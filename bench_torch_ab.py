@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Times the logistic pair sums and the triplet hinge sums of two or more
-checkouts of the PyTorch port in one run, on one GPU, in turns.
+"""Times the logistic pair sums, the triplet hinge sums and the gradient
+pair sums of two or more checkouts of the PyTorch port in one run, on one
+GPU, in turns.
 
 Run from the root of a checkout, on a machine with one CUDA card:
 
@@ -21,7 +22,16 @@ from one seed on the card, at the shapes of chip_smoke.py's main path:
 * ``batched_masked_pair_sum`` with the hinge combine (margin 1) on the
   distances of 128 anchors and of all 32768 anchors to 32768 positives
   and 32768 negatives, d = 32 (N(0, I) against N(0.3, I)), phase 12b's
-  rows; the full width in the chunks of ``triplet_kernels.anchor_chunk``.
+  rows; the full width in the chunks of ``triplet_kernels.anchor_chunk``;
+* ``pair_loss_grad`` and ``pair_grad_sums`` (kernels 3-4) with the hinge
+  and the logistic body at W = 1, 5e5 x 5e5 (N(0.3, 0.5) against
+  N(0, 0.5) scores, phase 6's rows) and at the simulated learner's batch,
+  W = 1536 problems of 16 x 16;
+* the learner around them: 20 hinge steps of ``train_pairwise`` at
+  n = 5e5 per class (loss_every 1, chip_smoke.py phase 7's first run)
+  and one 500-step ``train_curves`` cell of the gauss sweep (S = 48
+  seeds x N = 32 workers, phase 10), wall-clock by CUDA events around
+  calls that end on the host.
 
 A kernel time is the mean of several calls by CUDA events after a
 warm-up. After the turns it reads each checkout's built
@@ -29,8 +39,12 @@ warm-up. After the turns it reads each checkout's built
 logistic kernel, the SASS instructions a pair of the loop that calls
 expf once a pair (the loop with the most MUFU.EX2; in a kernel that
 factors the exponential, its per-pair branch) and, where there is one,
-of the loop with no expf (the factored branch, one MUFU.RCP a pair). It
-prints one line a turn, then one JSON object with every turn's times and
+of the loop with no expf (the factored branch, one MUFU.RCP a pair); and
+in each logistic gradient kernel (``csrc/pair_grad.cu``, with and
+without the loss) the instructions a pair of the loop that calls expf
+once a pair or, where the kernel has several forms of a chunk's pairs,
+of each form's straight-line body (chip_smoke.grad_loops). It prints one
+line a turn, then one JSON object with every turn's times and
 sums and each checkout's counts, the card's name and power limit as
 nvidia-smi gives them. Without a CUDA device it exits nonzero.
 """
@@ -110,6 +124,46 @@ def _turn():
         total += float(s.sum())
         del d_pa, d_an
     out["batched_masked_pair_sum[triplet_hinge] full"] = (total_ms, total)
+    del X, Y, ids, ones
+
+    from tuplewise_tpu_torch.ops import pair_grad_kernels as pg
+    for W, n1, n2, tag in [(1, 500_000, 500_000, ""),
+                           (1536, 16, 16, " 1536x16x16")]:
+        a = torch.randn(W, n1, generator=g, device="cuda") * 0.5 + 0.3
+        b = torch.randn(W, n2, generator=g, device="cuda") * 0.5
+        for name in ("hinge", "logistic"):
+            k = get_kernel(name)
+            reps = 2 if name == "logistic" and W == 1 else 20
+            t, (s, _, _) = ms(lambda: pg.pair_loss_grad(a, b, k), reps)
+            out[f"pair_loss_grad[{name}]{tag}"] = (t, float(s.sum()))
+            t, (r, _) = ms(lambda: pg.pair_grad_sums(a, b, k), reps)
+            out[f"pair_grad_sums[{name}]{tag}"] = (t, float(r.sum()))
+    del a, b
+
+    from tuplewise_tpu_torch.data import make_gaussian_splits
+    from tuplewise_tpu_torch.models.pairwise_sgd import (
+        TrainConfig, train_pairwise,
+    )
+    from tuplewise_tpu_torch.models.scorers import LinearScorer
+    from tuplewise_tpu_torch.models.sim_learner import train_curves
+
+    Xp, Xn, _, _ = make_gaussian_splits(500_000, 1000, dim=5, seed=0)
+    scorer = LinearScorer(dim=5)
+    cfg = TrainConfig(kernel="hinge", lr=0.3, n_workers=1,
+                      repartition_every=1, seed=7, tile=2048, loss_every=1,
+                      steps=20)
+    t, (_, hist) = ms(lambda: train_pairwise(scorer, scorer.init(0), Xp, Xn,
+                                             cfg), 1)
+    out["train_pairwise[hinge] 20 steps"] = (t, float(hist["loss"][-1]))
+    Xp, Xn, Xp_te, Xn_te = make_gaussian_splits(512, 20000, dim=10,
+                                                separation=0.8, seed=0)
+    scorer = LinearScorer(dim=10)
+    cfg = TrainConfig(kernel="hinge", lr=0.3, steps=500, seed=1000,
+                      n_workers=32, repartition_every=5)
+    t, res = ms(lambda: train_curves(scorer, scorer.init(0), Xp, Xn, Xp_te,
+                                     Xn_te, cfg, n_seeds=48, eval_every=25),
+                1)
+    out["train_curves[hinge] cell"] = (t, float(res["loss"].mean()))
     print(json.dumps(out), flush=True)
 
 
@@ -135,6 +189,32 @@ def logistic_sass(root):
     if fact:
         best = max(fact, key=lambda lp: count_ops(lp, "MUFU.RCP"))
         out["factored loop"] = len(best) / count_ops(best, "MUFU.RCP")
+    return out
+
+
+def grad_sass(root):
+    """{"<wrapper> <form>": instructions a pair} of the logistic gradient
+    kernels in root's built pair_grad library (see the module note)."""
+    from chip_smoke import count_ops, cuobjdump_sass, grad_loops, sass_loops
+
+    lib, = glob.glob(os.path.join(root, "tuplewise_tpu_torch", "_build",
+                                  "libpair_grad_*.so"))
+    sass = cuobjdump_sass(lib)
+    if "logistic_grad_kernel" in sass:
+        return {f"{w} {form}": n / m
+                for (w, form), (n, m) in grad_loops(sass).items()}
+    out = {}
+    # a kernel that calls expf for g' and for g: one MUFU.EX2 a pair
+    # without the loss, two with it
+    for wrapper, mangled, ex2 in (("pair_grad_sums", "Lb0E", 1),
+                                  ("pair_loss_grad", "Lb1E", 2)):
+        func, = [f for f in sass.split("Function : ")[1:]
+                 if "LogisticBody" in f.split("\n")[0]
+                 and mangled in f.split("\n")[0]]
+        loop = max(sass_loops(func.splitlines()),
+                   key=lambda lp: count_ops(lp, "MUFU.EX2"))
+        out[f"{wrapper} expf loop"] = (len(loop) * ex2
+                                       / count_ops(loop, "MUFU.EX2"))
     return out
 
 
@@ -169,9 +249,10 @@ def main():
         turns.append({"root": root, "times": times})
         print(f"[turn] {root}: " + "; ".join(
             f"{k} {v[0]:.3f} ms" for k, v in times.items()), flush=True)
-    sass = {root: logistic_sass(root) for root in roots}
+    sass = {root: {**logistic_sass(root), **grad_sass(root)}
+            for root in roots}
     for root, counts in sass.items():
-        print(f"[sass] {root}: logistic kernel, SASS instructions a pair: "
+        print(f"[sass] {root}: logistic kernels, SASS instructions a pair: "
               + "; ".join(f"{k} {v:.3f}" for k, v in counts.items()),
               flush=True)
     print(json.dumps({"turns": turns, "sass_per_pair": sass, "card": card}),

@@ -18,7 +18,9 @@ two runs of the port's learner after a warm-up run:
 For each it prints the wall-clock per step, the device busy share (the
 union of all kernel intervals over the traced window), and the device
 time per kernel name, largest first. It also prints what ptxas reports
-for csrc/pair_grad.cu (registers, spills, shared memory per kernel) and
+for the gradient kernels (registers, spills, shared memory per kernel:
+csrc/pair_grad.cu, and the hinge route's grad_* kernels of
+csrc/rank_count.cu) and
 the card's name and power limit. It prints "not measured" where the
 trace holds no device events. Without a CUDA device it exits nonzero.
 """
@@ -99,15 +101,20 @@ def main():
         capture_output=True, text=True, check=True, timeout=60)
     print(f"[card] {card.stdout.strip()}; torch {torch.__version__}",
           flush=True)
-    with tempfile.TemporaryDirectory() as d:
-        ptx = subprocess.run(
-            [_build.nvcc_path(), *_build.NVCC_FLAGS, "-Xptxas", "-v",
-             "-o", os.path.join(d, "lib.so"),
-             os.path.join(_build.CSRC, "pair_grad.cu")],
-            capture_output=True, text=True, timeout=600)
-    for line in (ptx.stdout + ptx.stderr).splitlines():
-        if "Compiling entry" in line or "Used" in line or "spill" in line:
-            print(f"[ptxas] {line.strip()}", flush=True)
+    for source, only in (("pair_grad.cu", ""), ("rank_count.cu", "grad_")):
+        with tempfile.TemporaryDirectory() as d:
+            ptx = subprocess.run(
+                [_build.nvcc_path(), *_build.NVCC_FLAGS, "-Xptxas", "-v",
+                 "-o", os.path.join(d, "lib.so"),
+                 os.path.join(_build.CSRC, source)],
+                capture_output=True, text=True, timeout=600)
+        keep = False
+        for line in (ptx.stdout + ptx.stderr).splitlines():
+            if "Compiling entry" in line:
+                keep = only in line
+            if keep and ("Compiling entry" in line or "Used" in line
+                         or "spill" in line):
+                print(f"[ptxas] {source}: {line.strip()}", flush=True)
 
     Xp, Xn, _, _ = make_gaussian_splits(500_000, 1000, dim=5, seed=0)
     scorer = LinearScorer(dim=5)

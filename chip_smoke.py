@@ -12,9 +12,11 @@ phase asserts what it checks, and nothing is caught: any failure exits
 nonzero. Each phase prints its seconds.
 
 1. Build: compile the kernels and print the build seconds, what ptxas
-   reports for the pair-sum, sort-and-count and count kernels
+   reports for the pair-sum, gradient, sort-and-count and count kernels
    (registers, stack, spills), and, from the SASS of the logistic
-   kernel (cuobjdump), the instructions a pair of each branch's hot loop.
+   kernels (cuobjdump), the instructions a pair of each branch's hot
+   loop: the pair sum's, and the straight-line body of a 256-pair chunk
+   of each gradient kernel.
 2. Kernel vs plain: pair_sum and masked_pair_sum for auc, hinge and
    logistic at a ragged size (4133 x 8197), batched (W = 8), at
    2^14 x 2^14 and at the harness's local-round batch (W = 512,
@@ -49,20 +51,31 @@ nonzero. Each phase prints its seconds.
    and that full-size error of the mean is the row's max_abs_err (phase
    2's is max_abs_err_small). The logistic rows also give the blocks of
    each branch at their shape, the SASS instructions a pair and the time
-   they take at the card's issue rate (PEAK_ISSUE), and the log prints the
-   parent commit's time of the replaced routes (EARLIER_MS).
+   they take at the card's issue rate (PEAK_ISSUE). Phases 5, 6 and 12b
+   print beside each row the parent commit's time of a route this commit
+   replaced (EARLIER_MS; None for the others).
 
 6. Gradient kernels vs plain (the learner's slice): pair_loss_grad and
-   pair_grad_sums for hinge and logistic at a ragged size (4133 x 8197),
-   batched (W = 8), at the simulated learner's batch (W = 1536, 16 x 16)
-   and at the trainer's headline (W = 1, 5e5 x 5e5), against one plain
-   pair_loss_grad per shape and body. hinge row and col must be equal
-   (integer counts); logistic row and col within rel 1e-4 per element
-   (float32 sums of up to 5e5 same-signed terms in different orders);
-   losses within rel 1e-5 of the plain loss and rel 1e-6 of pair_sum of
-   the same body. The loss+grad and grad-only kernels must give equal row
-   and col. At the headline each kernel is timed against its plain
-   version and its bound.
+   pair_grad_sums for hinge (the sort-and-search route of
+   csrc/rank_count.cu) and logistic (csrc/pair_grad.cu) at a ragged size
+   (4133 x 8197), batched (W = 8), at the simulated learner's batch
+   (W = 1536, 16 x 16) and at the trainer's headline (W = 1, 5e5 x 5e5),
+   against one plain pair_loss_grad per shape and body. hinge row and col
+   must be equal (integer counts); logistic row and col within rel 1e-4
+   per element (float32 sums of up to 5e5 same-signed terms in different
+   orders); losses within rel 1e-5 of the plain loss and rel 1e-6 of
+   pair_sum of the same body. The loss+grad and grad-only kernels must
+   give bit-equal row and col. Then both bodies on edge-case scores
+   (+-inf, NaN of both signs, +-0.0, subnormals, ties, d == 1) at ragged
+   shapes that leave padding in the last tile of each side, a -inf score
+   beside ragged columns, and single infinities: hinge row and col equal
+   to plain, logistic row and col and both losses NaN and inf where plain
+   has them and finite values within the same tolerances, kernel 3's row
+   and col bit-equal to kernel 4's. At the headline each kernel is timed
+   against its plain version and its bound; the hinge rows also against
+   their yardstick, torch.sort + torch.searchsorted (+ torch.cumsum for
+   the loss) on the same scores (library_ms), and the logistic rows give
+   the SASS instructions a pair and their time at the issue rate.
 7. Training at full width (BASELINE config 2 at the size of
    scripts/learning_suite.py stage_chip): train_pairwise on the default
    device, hinge, n = 5e5 per class, dim 5, for repartition_every in
@@ -229,13 +242,13 @@ OPS_PER_PAIR = {"auc": 5, "hinge": 4, "logistic": 7}
 # threads, one warp instruction a clock each, at the 1.98 GHz of the
 # 67 TFLOP/s peak (thread instructions a second)
 PEAK_ISSUE = 132 * 4 * 32 * 1.98e9
-# the gradient kernels, counted the same way: the subtraction, g' (hinge:
-# a compare and a select; logistic: exp, add, reciprocal, negation) and
-# the row and col adds; the loss adds the g body and its add
-GRAD_OPS_PER_PAIR = {
-    "pair_grad_sums": {"hinge": 5, "logistic": 7},
-    "pair_loss_grad": {"hinge": 8, "logistic": 13},
-}
+# the logistic gradient kernels, counted the same way: the subtraction,
+# g' (exp, add, reciprocal, negation) and the row and col adds; the loss
+# adds the g body (5, as above) and its add
+GRAD_OPS_PER_PAIR = {"pair_grad_sums": 7, "pair_loss_grad": 13}
+# the hinge gradient's operations: the radix sorts of both sides' 32-bit
+# keys, 4 passes of 8 bits, each a digit extract and a scatter of each key
+SORT_OPS_PER_KEY = 8
 # the TPU kernel each timed row replaces, by wrapper
 REPLACES = {
     "pair_sum": "tuplewise_tpu/ops/pallas_pairs.py:134",
@@ -255,6 +268,8 @@ SOURCES = {
     "tenant_count": "tuplewise_tpu_torch/csrc/tenant_count.cu",
     "pair_sum": "tuplewise_tpu_torch/csrc/pair_sum.cu",
     "masked_pair_sum": "tuplewise_tpu_torch/csrc/pair_sum.cu",
+    "pair_loss_grad[hinge]": "tuplewise_tpu_torch/csrc/rank_count.cu",
+    "pair_grad_sums[hinge]": "tuplewise_tpu_torch/csrc/rank_count.cu",
     "pair_loss_grad": "tuplewise_tpu_torch/csrc/pair_grad.cu",
     "pair_grad_sums": "tuplewise_tpu_torch/csrc/pair_grad.cu",
 }
@@ -262,10 +277,10 @@ SOURCES = {
 # run of this script on an NVIDIA H100 80GB HBM3 at 700 W (ms): printed
 # beside this run's times, never written into the kernels line
 EARLIER_MS = {
-    "pair_sum[logistic]": 1219.23,
-    "masked_pair_sum[logistic]": 162.91,
-    "batched_masked_pair_sum[triplet_hinge]": 19.83,
-    "batched_masked_pair_sum[triplet_hinge] full": 5033.1,
+    "pair_loss_grad[hinge]": 78.30,
+    "pair_grad_sums[hinge]": 55.87,
+    "pair_loss_grad[logistic]": 830.16,
+    "pair_grad_sums[logistic]": 374.45,
 }
 EDGE_VALUES = (math.inf, -math.inf, math.nan, -math.nan, 0.0, -0.0, 1.0,
                -1.0, 1e-45, -1e-45)
@@ -372,8 +387,8 @@ def phase_build():
 
     t0 = time.perf_counter()
     sources = sorted({os.path.basename(p) for p in SOURCES.values()})
-    reported = ("pair_sum.cu", "rank_count.cu", "signed_count.cu",
-                "tenant_count.cu")
+    reported = ("pair_sum.cu", "pair_grad.cu", "rank_count.cu",
+                "signed_count.cu", "tenant_count.cu")
     with concurrent.futures.ThreadPoolExecutor(len(sources) + 2) as ex:
         reports = {s: ex.submit(ptxas_report, s) for s in reported}
         list(ex.map(_build.build, sources))
@@ -388,8 +403,9 @@ def phase_build():
         for line in report.result():
             log(f"[ptxas] {source}: {line}")
     sass = logistic_sass_per_pair(_build.build("pair_sum.cu"))
+    sass.update(grad_sass_per_pair(_build.build("pair_grad.cu")))
     for (wrapper, branch), (n_instr, n_pairs) in sass.items():
-        log(f"[sass] logistic_sum_kernel ({wrapper}) {branch} loop: "
+        log(f"[sass] logistic {wrapper} {branch} loop: "
             f"{n_instr} instructions for {n_pairs} pairs, "
             f"{n_instr / n_pairs:.3f} a pair")
     return {k: n / m for k, (n, m) in sass.items()}
@@ -442,13 +458,72 @@ def logistic_sass_per_pair(lib_path):
     its SASS: the factored loop is the loop with the most MUFU.RCP (one a
     pair, the log1p's reciprocal) and no MUFU.EX2; the per-pair loop the
     one with the most MUFU.EX2 (one a pair, expf)."""
+    return logistic_loops(cuobjdump_sass(lib_path))
+
+
+def cuobjdump_sass(lib_path):
     from tuplewise_tpu_torch.ops import _build
 
     cuobjdump = os.path.join(os.path.dirname(_build.nvcc_path()),
                              "cuobjdump")
-    out = subprocess.run([cuobjdump, "-sass", lib_path], capture_output=True,
-                         text=True, timeout=300, check=True).stdout
-    return logistic_loops(out)
+    return subprocess.run([cuobjdump, "-sass", lib_path], capture_output=True,
+                          text=True, timeout=300, check=True).stdout
+
+
+def straight_segments(lines):
+    """The straight-line runs of one kernel's SASS listing: cut before
+    every branch target and after every branch."""
+    import re
+
+    instr, targets = [], set()
+    for line in lines:
+        m = re.search(r"/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;", line)
+        if m:
+            instr.append((int(m.group(1), 16), m.group(2)))
+            t = re.search(r"\bBRA(\.\S+)?\s.*?0x([0-9a-f]+)", m.group(2))
+            if t:
+                targets.add(int(t.group(2), 16))
+    segs, cur = [], []
+    for addr, text in instr:
+        if addr in targets and cur:
+            segs.append(cur)
+            cur = []
+        cur.append(text)
+        if re.search(r"\b(BRA|EXIT)\b", text):
+            segs.append(cur)
+            cur = []
+    return segs + ([cur] if cur else [])
+
+
+def grad_sass_per_pair(lib_path):
+    """{(wrapper, branch): (instructions, pairs)} of the logistic
+    gradient kernels' 256-pair chunk bodies, from their SASS: the
+    factored body is the straight-line run with the most MUFU.RCP and no
+    MUFU.EX2 (one RCP a pair for g', two with the loss), the per-pair
+    body the run with the most MUFU.EX2 (one a pair). The reduce-scatter
+    of each chunk's column sums (about 0.5 instructions a pair) is not in
+    them."""
+    return grad_loops(cuobjdump_sass(lib_path))
+
+
+def grad_loops(sass):
+    """grad_sass_per_pair's count on the text of a SASS listing."""
+    funcs = sass.split("Function : ")[1:]
+    res = {}
+    for wrapper, mangled, rcp_per_pair in (("pair_grad_sums", "ILb0E", 1),
+                                           ("pair_loss_grad", "ILb1E", 2)):
+        body = [f for f in funcs if "logistic_grad_kernel" in f.split("\n")[0]
+                and mangled in f.split("\n")[0]]
+        assert len(body) == 1, [f.split("\n")[0] for f in funcs]
+        segs = straight_segments(body[0].splitlines())
+        fact = max((sg for sg in segs if count_ops(sg, "MUFU.EX2") == 0),
+                   key=lambda sg: count_ops(sg, "MUFU.RCP"))
+        per = max(segs, key=lambda sg: count_ops(sg, "MUFU.EX2"))
+        res[wrapper, "factored"] = (len(fact), count_ops(fact, "MUFU.RCP")
+                                    // rcp_per_pair)
+        res[wrapper, "per-pair"] = (len(per), count_ops(per, "MUFU.EX2"))
+    assert all(n > 0 and m > 0 for n, m in res.values()), res
+    return res
 
 
 def logistic_loops(sass):
@@ -848,35 +923,98 @@ def phase_timing(errs, launches, i1, i2, sass):
     return rows
 
 
-def grad_bound_ms(wrapper, name, pairs, n_scores):
-    """Bound of a gradient kernel: operations at the FP32 peak, or bytes
-    (inputs read once, row and col written once, the loss) at HBM rate."""
-    ops = pairs * GRAD_OPS_PER_PAIR[wrapper][name]
-    byts = 4 * 2 * n_scores + 8
+def grad_bound_ms(wrapper, name, n1, n2, W):
+    """Bound of a gradient kernel. Bytes: the scores read once, row and
+    col written once, the loss. Operations: the logistic sweep's pairs at
+    the FP32 peak; the hinge route's sorts of both sides' keys (its
+    searches are this design's choice, not work the function needs)."""
+    byts = 4 * 2 * W * (n1 + n2) + 8 * W
+    if name == "hinge":
+        ops = SORT_OPS_PER_KEY * W * (n1 + n2)
+    else:
+        ops = float(n1) * n2 * W * GRAD_OPS_PER_PAIR[wrapper]
     by = "operations" if ops / PEAK_FP32_OPS >= byts / PEAK_BYTES else "bytes"
     return max(ops / PEAK_FP32_OPS, byts / PEAK_BYTES) * 1e3, by
 
 
+def hinge_grad_library(a, b, with_loss):
+    """The hinge rows' yardstick: PyTorch's sort and searchsorted (and a
+    cumsum for the loss) on the same [W, n1] x [W, n2] scores: row_i =
+    -#{b > a_i - 1}, col_j = -#{a < b_j + 1}, loss = sum_i c_i (1 - a_i)
+    + the sum of the b past a_i - 1 (raw comparisons: equal to the body
+    on finite scores away from rounding at d == 1)."""
+    sb = torch.sort(b, dim=1).values
+    sa = torch.sort(a, dim=1).values
+    p = torch.searchsorted(sb, a - 1.0, right=True)
+    row = (p - b.shape[1]).to(torch.float32)
+    col = (-torch.searchsorted(sa, b + 1.0)).to(torch.float32)
+    if not with_loss:
+        return row, col
+    tail = torch.cat([torch.flip(torch.cumsum(torch.flip(
+        sb.double(), [1]), dim=1), [1]),
+        torch.zeros(b.shape[0], 1, dtype=torch.float64, device=b.device)], 1)
+    c = (b.shape[1] - p).double()
+    loss = (c * (1.0 - a.double()) + tail.gather(1, p)).sum(1)
+    return loss, row, col
+
+
+def sparse_edge(gen, frac, *shape):
+    """Normal scores with a fraction frac drawn from EDGE_VALUES."""
+    x = torch.randn(*shape, generator=gen, device="cuda")
+    pool = torch.tensor(EDGE_VALUES, device="cuda")
+    at = torch.randint(0, len(pool), shape, generator=gen, device="cuda")
+    return torch.where(torch.rand(*shape, generator=gen, device="cuda") < frac,
+                       pool[at], x)
+
+
+def same_bits(x, y):
+    """Bit equality of two float32 tensors (NaN included)."""
+    return torch.equal(x.view(torch.int32), y.view(torch.int32))
+
+
 def check_grad(name, got, want, what):
     """Hold row and col of a gradient kernel against the plain version:
-    hinge equal, logistic within rel 1e-4 per element. Returns the
-    largest absolute error over row and col."""
+    hinge equal, logistic within rel 1e-4 per element (NaN and infinities
+    where plain has them). Returns the largest absolute error over the
+    finite entries of row and col."""
     torch.cuda.synchronize()
     err = 0.0
     for g, w in zip(got, want):
         if name == "hinge":
             assert torch.equal(g, w), (name, what)
+            err = max(err, float((g.double() - w.double()).abs().max()))
         else:
-            rel = float(((g.double() - w.double()).abs()
-                         / w.double().abs()).max())
-            assert rel < 1e-4, (name, what, rel)
-        err = max(err, float((g.double() - w.double()).abs().max()))
+            err = max(err, check_nonfinite(g.double(), w.double(), what,
+                                           rtol=1e-4))
     return err
 
 
-def phase_grad_vs_plain():
+def check_grad_case(name, a, b, what):
+    """Both gradient kernels on a and b against one plain pair_loss_grad:
+    row and col (check_grad), kernel 3's row and col bit-equal to kernel
+    4's, the loss within rel 1e-5 of plain and rel 1e-6 of pair_sum, NaN
+    and inf where they have them. Returns (row/col error, plain loss)."""
+    from tuplewise_tpu_torch.ops import pair_grad_kernels as pg
+    from tuplewise_tpu_torch.ops import pair_kernels as pk
+    from tuplewise_tpu_torch.ops.kernels import get_kernel
+
+    k = get_kernel(name)
+    loss, row, col = pg.pair_loss_grad(a, b, k)
+    row2, col2 = pg.pair_grad_sums(a, b, k)
+    lp, rp, cp = pg.pair_loss_grad(a, b, k, impl="plain")
+    err = check_grad(name, (row, col), (rp, cp), what)
+    check_grad(name, (row2, col2), (rp, cp), what)
+    assert same_bits(row, row2) and same_bits(col, col2), what
+    check_nonfinite(loss, lp, ("loss vs plain", what), rtol=1e-5)
+    check_nonfinite(loss, pk.pair_sum(a, b, k), ("loss vs pair_sum", what),
+                    rtol=1e-6)
+    return err, lp
+
+
+def phase_grad_vs_plain(sass):
     """Phase 6: both gradient kernels against one plain pair_loss_grad per
-    shape and body; at the headline shape also the timing rows."""
+    shape and body, then on edge-case scores at ragged shapes; at the
+    headline shape also the timing rows."""
     from tuplewise_tpu_torch.ops import pair_grad_kernels as pg
     from tuplewise_tpu_torch.ops import pair_kernels as pk
     from tuplewise_tpu_torch.ops.kernels import get_kernel
@@ -884,64 +1022,116 @@ def phase_grad_vs_plain():
     g = torch.Generator(device="cuda").manual_seed(SEED + 4)
     rows = []
     headline = (1, 500_000, 500_000)
-    for W, n1, n2 in [(1, 4133, 8197), (8, 4133, 8197), (1536, 16, 16),
-                      headline]:
+    for W, n1, n2 in [(1, 4133, 8197), (8, 4133, 8197), (1536, 16, 16)]:
         # scores of a scorer early in training: the two classes overlap,
         # so both sides of the hinge's kink are well populated
         a = torch.randn(W, n1, generator=g, device="cuda") * 0.5 + 0.3
         b = torch.randn(W, n2, generator=g, device="cuda") * 0.5
-        timed = (W, n1, n2) == headline
+        b[:, :5] = a[:, :5] - 1.0                       # d == 1
         for name in GRAD_NAMES:
-            k = get_kernel(name)
-            if timed:
-                cuda_ms(lambda: pg.pair_loss_grad(a, b, k))     # warm-up
-                ms_lg, (loss, row, col) = cuda_ms(
-                    lambda: pg.pair_loss_grad(a, b, k), reps=3)
-                ms_gs, (row2, col2) = cuda_ms(
-                    lambda: pg.pair_grad_sums(a, b, k), reps=3)
-                plain_ms, (lp, rp, cp) = cuda_ms(
-                    lambda: pg.pair_loss_grad(a, b, k, impl="plain"))
-            else:
-                loss, row, col = pg.pair_loss_grad(a, b, k)
-                row2, col2 = pg.pair_grad_sums(a, b, k)
-                lp, rp, cp = pg.pair_loss_grad(a, b, k, impl="plain")
-            what = (name, W, n1, n2)
-            err = check_grad(name, (row, col), (rp, cp), what)
-            err2 = check_grad(name, (row2, col2), (rp, cp), what)
-            assert torch.equal(row, row2) and torch.equal(col, col2), what
-            rel = float(((loss - lp).abs() / lp.abs()).max())
-            assert rel < 1e-5, ("loss vs plain", what, rel)
-            ps = pk.pair_sum(a, b, k)
-            rel_ps = float(((loss - ps).abs() / ps.abs()).max())
-            assert rel_ps < 1e-6, ("loss vs pair_sum", what, rel_ps)
+            err, _ = check_grad_case(name, a, b, (name, W, n1, n2))
             log(f"[grad vs plain] W={W} {n1}x{n2} {name:8s}: row/col "
                 f"{'equal' if name == 'hinge' else 'within rel 1e-4'} "
-                f"(max abs err {max(err, err2):.3g}), loss rel err {rel:.2e} "
-                f"vs plain, {rel_ps:.2e} vs pair_sum; loss+grad and "
-                f"grad-only row/col equal")
-            if not timed:
-                continue
-            pairs = float(n1) * n2 * W
-            loss_err = float((loss - lp).abs().max()) / pairs
-            for wrapper, ms, e in [("pair_loss_grad", ms_lg, err),
-                                   ("pair_grad_sums", ms_gs, err2)]:
-                bms, by = grad_bound_ms(wrapper, name, pairs, W * (n1 + n2))
-                rows.append(dict(
-                    name=f"{wrapper}[{name}]", route="cuda",
-                    source=source_of(wrapper), replaces=REPLACES[wrapper],
-                    launches=None, max_abs_err=e,
-                    loss_err_of_mean=(loss_err if wrapper == "pair_loss_grad"
-                                      else None),
-                    ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
-                    library_ms=None, shape=f"W={W} {n1}x{n2}",
-                    scratch_bytes=pg.scratch_bytes(
-                        n1, n2, W, wrapper == "pair_loss_grad")))
-                r = rows[-1]
-                log(f"[timing] {r['name']:24s} {r['shape']:22s} "
-                    f"{ms:9.2f} ms (bound {bms:.2f} ms by {by}, plain "
-                    f"{plain_ms:.1f} ms, library None); max abs err of "
-                    f"row/col vs plain {e:.3g}; scratch "
-                    f"{r['scratch_bytes'] / 1e6:.1f} MB")
+                f"(max abs err {err:.3g}), loss within rel 1e-5 of plain "
+                f"and 1e-6 of pair_sum; kernel 3 and 4 row/col bit-equal")
+    # edge values at ragged shapes (the last tile of each side padded): a
+    # NaN difference gives g' 0 (hinge) or NaN (logistic) and a NaN loss,
+    # -inf and +inf scores the plain version's infinities
+    cases = [(3, 300, 517, 0.3), (2, 4133, 20000, 1e-3),
+             (1, 17, 70000, 0.3), (4, 3000, 5000, 2e-4)]
+    for W, n1, n2, frac in cases:
+        a, b = sparse_edge(g, frac, W, n1), sparse_edge(g, frac, W, n2)
+        b[:, :7] = a[:, :7] - 1.0
+        outcomes = []
+        for name in GRAD_NAMES:
+            _, lp = check_grad_case(name, a, b, (name, "edge", W, n1, n2))
+            outcomes += lp.tolist()
+        log(f"[grad vs plain] edge values W={W} {n1}x{n2} ({frac:g} "
+            f"non-finite or signed zeros): hinge and logistic as plain "
+            f"({sum(map(math.isnan, outcomes))} NaN, "
+            f"{sum(map(math.isinf, outcomes))} inf of {len(outcomes)} losses)")
+    # single infinities beside ragged tiles: a -inf score of a met -inf
+    # padding columns in the sentinel design (NaN, where plain is +inf)
+    a = torch.randn(3, 300, generator=g, device="cuda")
+    b = torch.randn(3, 1500, generator=g, device="cuda")
+    a[0, 3], b[1, 7], a[2, 299] = -math.inf, math.inf, math.inf
+    for name in GRAD_NAMES:
+        _, lp = check_grad_case(name, a, b, (name, "infinities"))
+        assert lp.isinf().tolist() == [True, True, False], (name, lp)
+    log("[grad vs plain] single infinities beside ragged tiles: losses +inf "
+        "where plain is +inf, row/col as plain")
+
+    W, n1, n2 = headline
+    a = torch.randn(W, n1, generator=g, device="cuda") * 0.5 + 0.3
+    b = torch.randn(W, n2, generator=g, device="cuda") * 0.5
+    for name in GRAD_NAMES:
+        k = get_kernel(name)
+        reps = 20 if name == "hinge" else 3
+        cuda_ms(lambda: pg.pair_loss_grad(a, b, k))     # warm-up
+        ms_lg, (loss, row, col) = cuda_ms(
+            lambda: pg.pair_loss_grad(a, b, k), reps=reps)
+        cuda_ms(lambda: pg.pair_grad_sums(a, b, k))
+        ms_gs, (row2, col2) = cuda_ms(
+            lambda: pg.pair_grad_sums(a, b, k), reps=reps)
+        plain_ms, (lp, rp, cp) = cuda_ms(
+            lambda: pg.pair_loss_grad(a, b, k, impl="plain"))
+        what = (name, W, n1, n2)
+        err = check_grad(name, (row, col), (rp, cp), what)
+        err2 = check_grad(name, (row2, col2), (rp, cp), what)
+        assert same_bits(row, row2) and same_bits(col, col2), what
+        check_nonfinite(loss, lp, ("loss vs plain", what), rtol=1e-5)
+        check_nonfinite(loss, pk.pair_sum(a, b, k), ("loss vs pair_sum", what),
+                        rtol=1e-6)
+        pairs = float(n1) * n2 * W
+        loss_err = float((loss - lp).abs().max()) / pairs
+        for wrapper, ms, e in [("pair_loss_grad", ms_lg, err),
+                               ("pair_grad_sums", ms_gs, err2)]:
+            with_loss = wrapper == "pair_loss_grad"
+            bms, by = grad_bound_ms(wrapper, name, n1, n2, W)
+            library_ms, extra = None, {}
+            if name == "hinge":
+                hinge_grad_library(a, b, with_loss)
+                library_ms, _ = cuda_ms(
+                    lambda: hinge_grad_library(a, b, with_loss), reps=reps)
+            else:
+                ipp = sass[wrapper, "factored"]
+                extra = dict(sass_per_pair=ipp,
+                             sass_per_pair_per_pair_form=sass[wrapper,
+                                                              "per-pair"],
+                             issue_bound_ms=pairs * ipp / PEAK_ISSUE * 1e3,
+                             scratch_bytes=pg.scratch_bytes(n1, n2, W,
+                                                            with_loss))
+            rows.append(dict(
+                name=f"{wrapper}[{name}]", route="cuda",
+                source=source_of(f"{wrapper}[{name}]"),
+                replaces=REPLACES[wrapper], launches=None, max_abs_err=e,
+                loss_err_of_mean=loss_err if with_loss else None,
+                ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                library_ms=library_ms, shape=f"W={W} {n1}x{n2}", **extra))
+            r = rows[-1]
+            log(f"[timing] {r['name']:24s} {r['shape']:22s} "
+                f"{ms:9.3f} ms (bound {bms:.4f} ms by {by}, plain "
+                f"{plain_ms:.1f} ms, library {library_ms}, parent commit "
+                f"{EARLIER_MS.get(r['name'])} ms); max abs err of row/col "
+                f"vs plain {e:.3g}" + (
+                    f"; {r['sass_per_pair']:.3f} SASS a pair (factored), "
+                    f"issue bound {r['issue_bound_ms']:.2f} ms"
+                    if "sass_per_pair" in r else ""))
+    # the sim learner's problem shape, timed (phase 10's calls)
+    W, n1, n2 = 1536, 16, 16
+    a = torch.randn(W, n1, generator=g, device="cuda") * 0.5 + 0.3
+    b = torch.randn(W, n2, generator=g, device="cuda") * 0.5
+    for name in GRAD_NAMES:
+        k = get_kernel(name)
+        for wrapper in ("pair_loss_grad", "pair_grad_sums"):
+            fn = getattr(pg, wrapper)
+            fn(a, b, k)
+            ms, _ = cuda_ms(lambda: fn(a, b, k), reps=50)
+            for r in rows:
+                if r["name"] == f"{wrapper}[{name}]":
+                    r["ms_sim_shape"] = ms
+            log(f"[timing] {wrapper}[{name}] W={W} {n1}x{n2}: {ms:.4f} ms "
+                f"a call")
     return rows
 
 
@@ -2377,7 +2567,7 @@ def main():
             assert launches.get(key, 0) > 0, f"{key} never launched"
 
     rows = timed("5 timing", phase_timing, errs, launches, i1, i2, sass)
-    grad_rows = timed("6 grad vs plain", phase_grad_vs_plain)
+    grad_rows = timed("6 grad vs plain", phase_grad_vs_plain, sass)
     data = train_data()
 
     pk.reset_launch_counts()

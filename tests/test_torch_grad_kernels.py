@@ -22,6 +22,8 @@ Gradients of the pair means against jax.grad: atol 1e-7, as the JAX suite
 holds its own VJPs.
 """
 
+import math
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -292,24 +294,135 @@ def test_grid_shape_and_scratch():
         assert (gs - 1) * per_seg < gy <= gs * per_seg
 
 
+def test_hinge_routes_to_the_sort_and_search_kernel(monkeypatch):
+    """The dispatch of a CUDA tensor, with the launchers stubbed so that
+    it runs here: the hinge body goes to rank_count.hinge_grad and never
+    to the pair sweep of pair_grad.cu, the logistic body the other way;
+    each call counts one launch under its wrapper's key."""
+    from tuplewise_tpu_torch.ops import rank_count
+
+    calls = []
+
+    def outputs(a, b, with_loss):
+        W, n1, n2 = a.shape[0], a.shape[1], b.shape[1]
+        return (torch.zeros(W, dtype=torch.float64) if with_loss else None,
+                torch.zeros(W, n1), torch.zeros(W, n2))
+
+    def hinge_grad(a, b, with_loss):
+        calls.append(("sort-and-search", with_loss))
+        return outputs(a, b, with_loss)
+
+    def sweep(name, a, b, kernel, with_loss):
+        calls.append(("sweep", kernel.name))
+        return outputs(a, b, with_loss)
+
+    monkeypatch.setattr(rank_count, "hinge_grad", hinge_grad)
+    monkeypatch.setattr(pg, "_launch_sweep", sweep)
+    a, b = torch.zeros(2, 5), torch.zeros(2, 3)
+    pk.reset_launch_counts()
+    loss, row, col = pg._launch("pair_loss_grad", a, b, tk.hinge_kernel, True)
+    assert loss.shape == (2,) and row.shape == (2, 5) and col.shape == (2, 3)
+    row, col = pg._launch("pair_grad_sums", a[0], b[0], tk.hinge_kernel,
+                          False)
+    assert row.shape == (5,) and col.shape == (3,)
+    pg._launch("pair_grad_sums", a, b, tk.logistic_kernel, False)
+    assert calls == [("sort-and-search", True), ("sort-and-search", False),
+                     ("sweep", "logistic")]
+    assert pk.LAUNCHES["pair_loss_grad[hinge]"] == 1
+    assert pk.LAUNCHES["pair_grad_sums[hinge]"] == 1
+    pk.reset_launch_counts()
+
+
+def _bits(t):
+    return t.contiguous().view(torch.int32)
+
+
+def _nonfinite_close(got, want, rtol):
+    """NaN positions equal, infinities equal, finite values within rtol."""
+    assert torch.equal(got.isnan(), want.isnan())
+    inf = want.isinf()
+    assert torch.equal(got.isinf(), inf) and torch.equal(got[inf], want[inf])
+    fin = want.isfinite()
+    if fin.any():
+        torch.testing.assert_close(got[fin], want[fin], rtol=rtol, atol=0)
+
+
+def _edge_on_card(gen, frac, *shape):
+    """Normal scores with a fraction frac drawn from +-inf, NaN of both
+    signs, +-0.0, subnormals and +-1, and a fifth rounded (ties)."""
+    x = torch.randn(*shape, generator=gen, device="cuda")
+    pool = torch.tensor([math.inf, -math.inf, math.nan, -math.nan, 0.0, -0.0,
+                         1.0, -1.0, 1e-45, -1e-45], device="cuda")
+    at = torch.randint(0, len(pool), shape, generator=gen, device="cuda")
+    x = torch.where(torch.rand(*shape, generator=gen, device="cuda") < frac,
+                    pool[at], x)
+    return torch.where(torch.rand(*shape, generator=gen, device="cuda") < 0.2,
+                       x.round(), x)
+
+
 @pytest.mark.cuda
 def test_grad_kernels_match_plain_on_card():
+    """Both bodies against plain: scores of early training, then edge
+    values at ragged shapes (the last tile of each side holds padding:
+    the hinge route's tiles are 256, 2048, 8192 or 16384 values, the
+    logistic sweep's 2048 x 1024) and a -inf score beside ragged columns.
+    hinge row and col equal, logistic within rel 1e-4; the loss within
+    rel 1e-5; NaN and infinities where plain has them."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the CUDA gradient kernels have no "
                     "CPU mode")
     g = torch.Generator(device="cuda").manual_seed(0)
-    for W, n1, n2 in [(1, 4133, 8197), (8, 300, 517), (64, 16, 16)]:
-        a = torch.randn(W, n1, generator=g, device="cuda") * 0.5 + 0.3
-        b = torch.randn(W, n2, generator=g, device="cuda") * 0.5
+    cases = [(1, 4133, 8197, None), (8, 300, 517, None), (64, 16, 16, None),
+             (3, 300, 517, 0.3), (2, 2100, 17000, 1e-3),
+             (1, 17, 20000, 0.3), (5, 16, 16, 0.2), (2, 300, 1500, "-inf")]
+    for W, n1, n2, frac in cases:
+        if frac is None or frac == "-inf":
+            a = torch.randn(W, n1, generator=g, device="cuda") * 0.5 + 0.3
+            b = torch.randn(W, n2, generator=g, device="cuda") * 0.5
+            if frac == "-inf":
+                a[0, 3], b[1, 7] = -math.inf, math.inf
+        else:
+            a, b = _edge_on_card(g, frac, W, n1), _edge_on_card(g, frac, W, n2)
+        b[:, :3] = a[:, :3] - 1.0                       # d == 1
         for name in GRAD_NAMES:
             k = tk.get_kernel(name)
             loss, row, col = pg.pair_loss_grad(a, b, k)
             row2, col2 = pg.pair_grad_sums(a, b, k)
             lp, rp, cp = pg.pair_loss_grad(a, b, k, impl="plain")
-            assert torch.equal(row, row2) and torch.equal(col, col2)
-            torch.testing.assert_close(loss, lp, rtol=1e-5, atol=0)
+            assert torch.equal(_bits(row), _bits(row2))
+            assert torch.equal(_bits(col), _bits(col2))
+            _nonfinite_close(loss, lp, 1e-5)
             if name == "hinge":
                 assert torch.equal(row, rp) and torch.equal(col, cp)
             else:
-                torch.testing.assert_close(row, rp, rtol=1e-4, atol=0)
-                torch.testing.assert_close(col, cp, rtol=1e-4, atol=0)
+                _nonfinite_close(row, rp, 1e-4)
+                _nonfinite_close(col, cp, 1e-4)
+        if frac == "-inf":
+            assert lp.isinf().all(), lp
+
+
+@pytest.mark.cuda
+def test_loss_and_loss_free_kernels_agree_bitwise_on_card():
+    """Kernel 3's row and col equal kernel 4's bit for bit, with a NaN
+    score (the logistic row and col are NaN there, the hinge's 0 terms)
+    and with an infinite one, for both bodies; the hinge counts also
+    repeat from call to call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the CUDA gradient kernels have no "
+                    "CPU mode")
+    g = torch.Generator(device="cuda").manual_seed(1)
+    for special in (math.nan, math.inf, -math.inf):
+        a = torch.randn(3, 5000, generator=g, device="cuda")
+        b = torch.randn(3, 3001, generator=g, device="cuda")
+        a[0, 17], b[1, 3000], a[2, 0] = special, special, special
+        for name in GRAD_NAMES:
+            k = tk.get_kernel(name)
+            _, row, col = pg.pair_loss_grad(a, b, k)
+            row2, col2 = pg.pair_grad_sums(a, b, k)
+            assert torch.equal(_bits(row), _bits(row2)), (name, special)
+            assert torch.equal(_bits(col), _bits(col2)), (name, special)
+            _, row3, col3 = pg.pair_loss_grad(a, b, k)
+            assert torch.equal(_bits(row), _bits(row3)), (name, special)
+            assert torch.equal(_bits(col), _bits(col3)), (name, special)
+            if name == "logistic" and math.isnan(special):
+                assert row[0, 17].isnan() and col[1, 3000].isnan()

@@ -8,7 +8,9 @@
 //     (indicator and hinge combines, driven by pallas_triplet_stats)
 //                                                      -> tw_rank_indicator,
 //                                                         tw_rank_hinge
-// The other pair bodies keep csrc/pair_sum.cu.
+//   * tuplewise_tpu/ops/pallas_pairs.py:440 pallas_pair_loss_grad and :520
+//     pallas_pair_grad_sums (hinge body)                -> tw_rank_hinge_grad
+// The other pair bodies keep csrc/pair_sum.cu and csrc/pair_grad.cu.
 //
 // What they compute, for each of W independent problems w:
 //   tw_rank_auc:       2 * #{(i,j): fl(a_i - b_j) > 0} + #{(i,j): fl(a_i - b_j) == 0}
@@ -20,6 +22,10 @@
 //   tw_rank_hinge:     S_w = sum_{j,k} max(0, margin + A[w,j] - B[w,k])
 //                            * mp[q,j] * 1{ip[q,j] != ia[w]} * mk[q,k]
 //                      as float64 partials, one per block.
+//   tw_rank_hinge_grad: row[w,i] = -#{j : fl(a_i - b_j) < 1},
+//                      col[w,j] = -#{i : fl(a_i - b_j) < 1} (float32 of
+//                      int32 counts), loss[w] = sum_ij max(0, 1 - fl(a_i -
+//                      b_j)) in float64: the hinge's g' and g summed.
 //
 // Design. The TPU kernels compared every pair (or triplet) because the TPU
 // has no fast search. Here the second operand is cut into tiles of T values
@@ -54,6 +60,28 @@
 //     memory was the other choice: it would save the searches of 3 tiles of
 //     a 32768-wide row but sort 32768 values a block, out of a block's
 //     registers, and read its prefix sums from L2.
+//   * hinge gradient (kernels 3-4): g' is -1 or 0, so row and col are
+//     counts, and the predicate fl(a - b) < 1 holds on a suffix of the sorted
+//     b (row pass) and on a prefix of the sorted a (col pass). The weights
+//     are all 1, so one float64 suffix sum of b gives the loss of a row:
+//     c (1 - a_i) + sum of the suffix, c its length (hinge_kernel's identity
+//     with margin 1). That is 12 bytes a value, so tiles of up to 16384
+//     (196 KB) fit a block. grad_sort_kernel sorts every tile of a and of b
+//     once into scratch (Eytzinger values, the suffix sums, and per tile the
+//     count of values that are not NaN, of +inf and of -inf values, and a NaN
+//     flag); grad_count_kernel loads one sorted tile and searches a chunk of
+//     the other side against it with the body's float32 predicate (rule 1),
+//     adds each count to an int32 per score with an integer atomic (order-
+//     free, so the bits repeat) and, in the row pass, sums the loss of its
+//     chunk into one float64 partial; grad_finish_kernel writes -count as
+//     float32 and sums the partials of a problem in a fixed order. Padding
+//     never enters a count or a sum: it is left out by the count of a tile's
+//     values (a search past them is clamped) and by index. Non-finite scores
+//     follow rule 4 with margin 1 and unit weights (hinge_grad_loss); g' is
+//     0 for a NaN difference, as -1{d < 1} is. Rows and cols equal the plain
+//     version at any size (one rounding of an exact integer each), and the
+//     loss-free call runs the same counts, so its row and col are those of
+//     the loss call bit for bit.
 // A sorted tile sits in shared memory in Eytzinger (breadth-first) order:
 // sorted positions 0..T-2 form a complete search tree of log2(T) levels,
 // position T-1 sits in slot T-1. A search step is one load, one subtraction,
@@ -565,6 +593,248 @@ hinge_kernel(const float* __restrict__ A, const float* __restrict__ B,
   if (threadIdx.x == 0) partials[w * gridDim.y + blockIdx.y] = nan_b ? dnan : acc;
 }
 
+// ------------------------------------------------------------------------ //
+// hinge gradient pair sums (kernels 3-4)                                   //
+// ------------------------------------------------------------------------ //
+
+// the threads of a gradient count block, by tile size, and the values of
+// the searching side one block counts (kIlp in flight, kGradSweeps rounds)
+constexpr int kGradSweeps = 4;
+__host__ __device__ constexpr int grad_threads(int T) {
+  return T <= 2048 ? 128 : 512;
+}
+__host__ __device__ constexpr int grad_chunk(int T) {
+  return grad_threads(T) * kIlp * kGradSweeps;
+}
+
+// row pass, !(fl(a - b) < 1) with a tile of b: a prefix (rule 1), whose
+// complement among the tile's values is the row's count
+struct GradRowPrefix {
+  __device__ __forceinline__ bool holds(float x, float s) const {
+    return !(x - s < 1.f);
+  }
+};
+
+// col pass, fl(a - b) < 1 with a tile of a (x = b): a prefix
+struct GradColPrefix {
+  __device__ __forceinline__ bool holds(float x, float s) const {
+    return s - x < 1.f;
+  }
+};
+
+// grid (tiles, W), THREADS threads, the sort's temporary storage as dynamic
+// shared memory. Sorts a tile of v[w] and writes: its values in Eytzinger
+// order (NaN values and padding as +inf slots after the others) to
+// sorted[w, tile, 0:T]; info[w, tile] = (values that are not NaN, +inf
+// values, kTileNan if a NaN, -inf values); with SUFFIX, suffix[w, tile, p]
+// = the float64 sum of the finite values at sorted positions >= p (p <= T).
+// It zeroes the counts of the tile's own values, counts[w, col0 + i], to
+// which the other side's count launch (later on the stream) adds.
+template <int THREADS, int ITEMS, bool SUFFIX>
+__global__ void __launch_bounds__(THREADS)
+grad_sort_kernel(const float* __restrict__ v, float* __restrict__ sorted,
+                 double* __restrict__ suffix, int4* __restrict__ info,
+                 int* __restrict__ counts, int64_t n) {
+  constexpr int T = THREADS * ITEMS;
+  constexpr int LOG_T = log2_of(T);
+  const float kInf = __int_as_float(0x7F800000);
+  using Sort = cub::BlockRadixSort<unsigned, THREADS, ITEMS>;
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ double swarp[THREADS / 32];
+  __shared__ int scount[3];  // NaN, +inf, -inf values of the tile
+
+  const int64_t tile = (int64_t)blockIdx.y * gridDim.x + blockIdx.x;
+  const int64_t col0 = (int64_t)blockIdx.x * T;
+  const int64_t rem = n - col0;
+  const int len = rem < T ? (int)rem : T;
+  const float* src = v + (int64_t)blockIdx.y * n + col0;
+  int* cnt = counts + (int64_t)blockIdx.y * n + col0;
+  if (threadIdx.x < 3) scount[threadIdx.x] = 0;
+  unsigned keys[ITEMS];
+  int nnan = 0, npos = 0, nneg = 0;
+#pragma unroll
+  for (int r = 0; r < ITEMS; ++r) {
+    const int i = r * THREADS + threadIdx.x;
+    const bool in = i < len;
+    const float x = in ? src[i] : 0.f;
+    keys[r] = in ? float_key(x) : kNanKey;
+    if (in) cnt[i] = 0;
+    nnan += in && x != x;
+    npos += in && x == kInf;
+    nneg += in && x == -kInf;
+  }
+  __syncthreads();  // scount is zeroed
+  // integer counts: the order of the adds does not matter
+  if (nnan) atomicAdd(&scount[0], nnan);
+  if (npos) atomicAdd(&scount[1], npos);
+  if (nneg) atomicAdd(&scount[2], nneg);
+  // blocked result: this thread holds sorted positions [t ITEMS, t ITEMS + ITEMS)
+  Sort(*reinterpret_cast<typename Sort::TempStorage*>(smem)).Sort(keys);
+
+  const int base = threadIdx.x * ITEMS;
+  float* out = sorted + tile * T;
+  float vals[ITEMS];
+#pragma unroll
+  for (int r = 0; r < ITEMS; ++r) {
+    vals[r] = keys[r] == kNanKey ? kInf : key_float(keys[r]);
+    out[eyt_slot<LOG_T>(base + r)] = vals[r];
+  }
+  if (SUFFIX) {
+    // NaN keys (NaN values, padding) are +inf slots and add 0, as do the
+    // +inf and -inf values (the count kernel takes them by their counts)
+    double tot = 0.0;
+#pragma unroll
+    for (int r = ITEMS - 1; r >= 0; --r)
+      if (fabsf(vals[r]) < kInf) tot += (double)vals[r];
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    double incl = tot;  // this lane's and the later lanes' totals
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const double o = __shfl_down_sync(0xffffffffu, incl, off);
+      if (lane + off < 32) incl += o;
+    }
+    if (lane == 0) swarp[warp] = incl;
+    __syncthreads();
+    double run = __shfl_down_sync(0xffffffffu, incl, 1);
+    if (lane == 31) run = 0.0;
+    for (int q = warp + 1; q < THREADS / 32; ++q) run += swarp[q];
+    double* sp = suffix + tile * (T + 1);
+#pragma unroll
+    for (int r = ITEMS - 1; r >= 0; --r) {
+      if (fabsf(vals[r]) < kInf) run += (double)vals[r];
+      sp[base + r] = run;
+    }
+    if (threadIdx.x == 0) sp[T] = 0.0;
+  }
+  __syncthreads();  // scount is complete
+  if (threadIdx.x == 0)
+    info[tile] = make_int4(len - scount[0], scount[1],
+                           scount[0] ? (int)kTileNan : 0, scount[2]);
+}
+
+// the loss of one value x of a against a sorted tile of b: the sum over the
+// tile of max(0, 1 - fl(x - b)) as the plain float32 terms summed in IEEE
+// arithmetic give it (the hinge's rule 4 with margin 1 and unit weights):
+//   * finite x: the terms that are not 0 are the suffix of the sorted tile
+//     past p (the row pass's prefix), c (1 - x) + sum of that suffix, c its
+//     length; a +inf in the tile gives d = -inf, a term of +inf; a -inf
+//     gives d = +inf, a term of 0, and lies in the prefix;
+//   * x = +inf: d = +inf (a term of 0) but NaN against a +inf;
+//   * x = -inf: d = -inf (+inf) but NaN against a -inf;
+//   * x NaN: NaN. A NaN in the tile makes the block's partial NaN.
+__device__ __forceinline__ double hinge_grad_loss(float x, int p,
+                                                  const int4& ti,
+                                                  const double* suf) {
+  const float kInf = __int_as_float(0x7F800000);
+  const double dnan = __longlong_as_double(0x7FF8000000000000LL);
+  const double dinf = __longlong_as_double(0x7FF0000000000000LL);
+  if (fabsf(x) < kInf) {
+    if (ti.y > 0) return dinf;
+    return (double)(ti.x - p) * (1.0 - (double)x) + suf[p];
+  }
+  if (x == kInf) return ti.y > 0 ? dnan : 0.0;
+  if (x == -kInf) return ti.w > 0 ? dnan : (ti.x > 0 ? dinf : 0.0);
+  return dnan;
+}
+
+// grid (chunks of the searching side x, tiles of the other side, W),
+// grad_threads(T) threads, dynamic shared memory: the sorted tile [T] and,
+// for the row pass with the loss, its suffix sums [T + 1]. Adds each value's
+// count over the tile to counts[w, i] (integer atomics, order-free): ROW,
+// #{b : fl(x - b) < 1}; else #{a : fl(a - x) < 1}. The row pass with the
+// loss writes one float64 partial a block: losspart[w, tile, chunk].
+template <int LOG_T, bool ROW, bool WITH_LOSS>
+__global__ void __launch_bounds__(grad_threads(1 << LOG_T))
+grad_count_kernel(const float* __restrict__ x, const float* __restrict__ sorted,
+                  const double* __restrict__ suffix,
+                  const int4* __restrict__ info, int* __restrict__ counts,
+                  double* __restrict__ losspart, int64_t n) {
+  constexpr int T = 1 << LOG_T;
+  constexpr int THREADS = grad_threads(T);
+  constexpr int CHUNK = grad_chunk(T);
+  constexpr bool LOSS = ROW && WITH_LOSS;
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* e = reinterpret_cast<float*>(smem);
+  double* suf = reinterpret_cast<double*>(smem + 4 * (size_t)T);
+  __shared__ double swarp[THREADS / 32];
+
+  const int64_t w = blockIdx.z;
+  const int64_t tile = w * gridDim.y + blockIdx.y;
+  const float4* src = reinterpret_cast<const float4*>(sorted + tile * T);
+  for (int i = threadIdx.x; i < T / 4; i += THREADS)
+    reinterpret_cast<float4*>(e)[i] = src[i];
+  if (LOSS) {
+    const double* sp = suffix + tile * (T + 1);
+    for (int i = threadIdx.x; i <= T; i += THREADS) suf[i] = sp[i];
+  }
+  const int4 ti = info[tile];
+  __syncthreads();
+
+  const int nv = ti.x;
+  const float* xw = x + w * n;
+  int* cw = counts + w * n;
+  const int64_t row0 = (int64_t)blockIdx.x * CHUNK;
+  const int64_t end = n - row0 < CHUNK ? n : row0 + CHUNK;
+  double acc = 0.0;
+  for (int64_t r0 = row0 + threadIdx.x; r0 < end;
+       r0 += (int64_t)kIlp * THREADS) {
+    float xv[kIlp];
+    int c[kIlp];
+#pragma unroll
+    for (int u = 0; u < kIlp; ++u) {
+      const int64_t r = r0 + (int64_t)u * THREADS;
+      xv[u] = r < end ? xw[r] : 0.f;
+    }
+    if (ROW)
+      prefix_counts<LOG_T>(e, xv, c, GradRowPrefix());
+    else
+      prefix_counts<LOG_T>(e, xv, c, GradColPrefix());
+#pragma unroll
+    for (int u = 0; u < kIlp; ++u) {
+      const int64_t r = r0 + (int64_t)u * THREADS;
+      if (r >= end) continue;
+      // the prefix never reaches past the tile's values into its +inf
+      // slots except for x = +inf or NaN (row pass), whose count is 0
+      const int p = c[u] < nv ? c[u] : nv;
+      const int cnt = ROW ? nv - p : p;
+      if (cnt) atomicAdd(cw + r, cnt);
+      if (LOSS) acc += hinge_grad_loss(xv[u], p, ti, suf);
+    }
+  }
+  if (LOSS) {
+    acc = block_sum(acc, swarp);
+    if (threadIdx.x == 0)
+      losspart[tile * gridDim.x + blockIdx.x] =
+          (ti.z & kTileNan) ? __longlong_as_double(0x7FF8000000000000LL)
+                            : acc;
+  }
+}
+
+// grid (ceil(max(n1, n2) / 256), W), 256 threads: row = -rowcnt, col =
+// -colcnt as float32 (one rounding of an exact integer, as the plain
+// version rounds its float64 sum of -1s), loss[w] = the sum of the nparts
+// partials of problem w in a fixed order (loss null: no loss).
+__global__ void __launch_bounds__(256)
+grad_finish_kernel(const int* __restrict__ rowcnt,
+                   const int* __restrict__ colcnt,
+                   const double* __restrict__ losspart,
+                   float* __restrict__ row, float* __restrict__ col,
+                   double* __restrict__ loss, int64_t n1, int64_t n2,
+                   int nparts) {
+  __shared__ double swarp[256 / 32];
+  const int64_t w = blockIdx.y;
+  const int64_t i = (int64_t)blockIdx.x * 256 + threadIdx.x;
+  if (i < n1) row[w * n1 + i] = (float)(-rowcnt[w * n1 + i]);
+  if (i < n2) col[w * n2 + i] = (float)(-colcnt[w * n2 + i]);
+  if (loss != nullptr && blockIdx.x == 0) {
+    const double* p = losspart + w * nparts;
+    double s = 0.0;
+    for (int q = threadIdx.x; q < nparts; q += 256) s += p[q];
+    s = block_sum(s, swarp);
+    if (threadIdx.x == 0) loss[w] = s;
+  }
+}
+
 template <int THREADS, int ITEMS>
 int launch_auc(const float* a, const float* b, float* sorted,
                long long* partials, long long n1, long long n2, int w,
@@ -632,6 +902,72 @@ int launch_hinge(const float* A, const float* B, const float* mp,
   hinge_kernel<THREADS, ITEMS><<<dim3((unsigned)W, tiles), THREADS, smem, s>>>(
       A, B, mp, ip, ia, mk, partials, P, K, C, margin);
   return (int)cudaGetLastError();
+}
+
+// sorts the tiles of v [W, n] (tiles of T = THREADS * ITEMS values)
+template <int THREADS, int ITEMS>
+int launch_grad_sort(bool with_suffix, const float* v, float* sorted,
+                     double* suffix, int4* info, int* counts, long long n,
+                     int w, cudaStream_t s) {
+  using Sort = cub::BlockRadixSort<unsigned, THREADS, ITEMS>;
+  const int smem = (int)sizeof(typename Sort::TempStorage);
+  auto kern = with_suffix ? &grad_sort_kernel<THREADS, ITEMS, true>
+                          : &grad_sort_kernel<THREADS, ITEMS, false>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  const unsigned tiles = (unsigned)((n + THREADS * ITEMS - 1) / (THREADS * ITEMS));
+  kern<<<dim3(tiles, (unsigned)w), THREADS, smem, s>>>(v, sorted, suffix,
+                                                        info, counts, n);
+  return (int)cudaGetLastError();
+}
+
+// counts the n values of x [W, n] against the sorted tiles of the other
+// side (tiles of T values)
+template <int LOG_T>
+int launch_grad_count(bool row, bool with_loss, const float* x,
+                      const float* sorted, const double* suffix,
+                      const int4* info, int* counts, double* losspart,
+                      long long n, long long n_other, int w, cudaStream_t s) {
+  constexpr int T = 1 << LOG_T;
+  const bool loss = row && with_loss;
+  const int smem = 4 * T + (loss ? 8 * (T + 1) : 0);
+  auto kern = loss ? &grad_count_kernel<LOG_T, true, true>
+                   : (row ? &grad_count_kernel<LOG_T, true, false>
+                          : &grad_count_kernel<LOG_T, false, false>);
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  const unsigned chunks = (unsigned)((n + grad_chunk(T) - 1) / grad_chunk(T));
+  const unsigned tiles = (unsigned)((n_other + T - 1) / T);
+  kern<<<dim3(chunks, tiles, (unsigned)w), grad_threads(T), smem, s>>>(
+      x, sorted, suffix, info, counts, losspart, n);
+  return (int)cudaGetLastError();
+}
+
+int grad_sort(int T, bool with_suffix, const float* v, float* sorted,
+              double* suffix, int4* info, int* counts, long long n, int w,
+              cudaStream_t s) {
+  switch (T) {
+    case 256: return launch_grad_sort<128, 2>(with_suffix, v, sorted, suffix, info, counts, n, w, s);
+    case 2048: return launch_grad_sort<256, 8>(with_suffix, v, sorted, suffix, info, counts, n, w, s);
+    case 8192: return launch_grad_sort<1024, 8>(with_suffix, v, sorted, suffix, info, counts, n, w, s);
+    case 16384: return launch_grad_sort<1024, 16>(with_suffix, v, sorted, suffix, info, counts, n, w, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+int grad_count(int T, bool row, bool with_loss, const float* x,
+               const float* sorted, const double* suffix, const int4* info,
+               int* counts, double* losspart, long long n, long long n_other,
+               int w, cudaStream_t s) {
+  switch (T) {
+    case 256: return launch_grad_count<8>(row, with_loss, x, sorted, suffix, info, counts, losspart, n, n_other, w, s);
+    case 2048: return launch_grad_count<11>(row, with_loss, x, sorted, suffix, info, counts, losspart, n, n_other, w, s);
+    case 8192: return launch_grad_count<13>(row, with_loss, x, sorted, suffix, info, counts, losspart, n, n_other, w, s);
+    case 16384: return launch_grad_count<14>(row, with_loss, x, sorted, suffix, info, counts, losspart, n, n_other, w, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -728,6 +1064,61 @@ int tw_rank_hinge(const void* A, const void* B, const void* mp,
     default:
       return (int)cudaErrorInvalidValue;
   }
+}
+
+// the values of the searching side one gradient count block takes, for a
+// tile of T values of the other side (0 for a T the route does not build)
+int tw_rank_grad_chunk(int T) {
+  return T == 256 || T == 2048 || T == 8192 || T == 16384 ? grad_chunk(T) : 0;
+}
+
+// hinge gradient sums: sorts the tiles of a (Ta values each) and of b (Tb,
+// with float64 suffix sums when with_loss), zeroing the counts as it goes,
+// counts each a against b's tiles (and sums the loss) and each b against
+// a's tiles, then writes row, col (and loss) on `stream`: five launches;
+// returns the first nonzero cuda error. a [W, n1], b [W, n2] contiguous float32 on the device.
+// Scratch, from the wrapper: sorted_a [W, ta, Ta] and sorted_b [W, tb, Tb]
+// float32, suffix_b [W, tb, Tb + 1] float64 (with_loss only), info_a
+// [W, ta] and info_b [W, tb] int4, rowcnt [W, n1] and colcnt [W, n2] int32,
+// losspart [W, tb, ceil(n1 / tw_rank_grad_chunk(Tb))] float64 (with_loss
+// only), where ta = ceil(n1 / Ta) and tb = ceil(n2 / Tb). Outputs: row
+// [W, n1], col [W, n2] float32, loss [W] float64 (with_loss only; null
+// otherwise). Ta and Tb are 256, 2048, 8192 or 16384.
+int tw_rank_hinge_grad(const void* a, const void* b, void* sorted_a,
+                       void* sorted_b, void* suffix_b, void* info_a,
+                       void* info_b, void* rowcnt, void* colcnt,
+                       void* losspart, void* row, void* col, void* loss,
+                       long long n1, long long n2, int w, int Ta, int Tb,
+                       int with_loss, void* stream) {
+  if (!tw_rank_grad_chunk(Ta) || !tw_rank_grad_chunk(Tb))
+    return (int)cudaErrorInvalidValue;
+  auto s = static_cast<cudaStream_t>(stream);
+  auto fa = static_cast<const float*>(a);
+  auto fb = static_cast<const float*>(b);
+  auto sa = static_cast<float*>(sorted_a);
+  auto sb = static_cast<float*>(sorted_b);
+  auto suf = static_cast<double*>(suffix_b);
+  auto ia = static_cast<int4*>(info_a);
+  auto ib = static_cast<int4*>(info_b);
+  auto rc = static_cast<int*>(rowcnt);
+  auto cc = static_cast<int*>(colcnt);
+  auto lp = static_cast<double*>(losspart);
+  const bool wl = with_loss != 0;
+  int err = grad_sort(Ta, false, fa, sa, nullptr, ia, rc, n1, w, s);
+  if (!err) err = grad_sort(Tb, wl, fb, sb, suf, ib, cc, n2, w, s);
+  if (!err) err = grad_count(Tb, true, wl, fa, sb, suf, ib, rc, lp, n1, n2, w, s);
+  if (!err) err = grad_count(Ta, false, false, fb, sa, nullptr, ia, cc, nullptr, n2, n1, w, s);
+  if (err) return err;
+  const long long nmax = n1 > n2 ? n1 : n2;
+  const int nparts = (int)(((n2 + Tb - 1) / Tb) *
+                           ((n1 + grad_chunk(Tb) - 1) / grad_chunk(Tb)));
+  grad_finish_kernel<<<dim3((unsigned)((nmax + 255) / 256), (unsigned)w), 256,
+                       0, s>>>(rc, cc, wl ? lp : nullptr,
+                               static_cast<float*>(row),
+                               static_cast<float*>(col),
+                               wl ? static_cast<double*>(loss) : nullptr, n1,
+                               n2, nparts);
+  return (int)cudaGetLastError();
 }
 
 }  // extern "C"

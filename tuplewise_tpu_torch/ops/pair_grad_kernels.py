@@ -1,5 +1,7 @@
 """Pairwise-loss gradient sums for score-difference kernels: the CUDA
-kernels of ``csrc/pair_grad.cu`` and their plain PyTorch versions.
+kernels (the hinge body's sort-and-search route in ``csrc/rank_count.cu``,
+the logistic body's pair sweep in ``csrc/pair_grad.cu``) and their plain
+PyTorch versions.
 
 The counterpart of ``tuplewise_tpu.ops.pallas_pairs``'s gradient kernels
 (``pallas_pair_loss_grad``, ``pallas_pair_grad_sums``), with the same
@@ -18,7 +20,13 @@ step's gradient.
 
 Dispatch, as in ``ops.pair_kernels``: a tensor on the CPU takes the
 plain version, a CUDA tensor launches the kernel or raises (nothing falls
-back), and ``impl="plain"`` is the one explicit route to the plain
+back): the hinge body's g' is -1 or 0, so its row and col are counts,
+which ``rank_count.hinge_grad`` takes by sorting tiles of each side and
+searching them with the body's float32 predicate, and its loss a float64
+suffix sum; the logistic body sweeps every pair in ``pair_grad.cu``,
+with the factored exponential and polynomial log1p of ``pair_kernels``'s
+logistic sum (``LOGISTIC_SPAN``, ``LOG1P_COEFFS``) and one reciprocal
+for g' (g' = -(d >= 0 ? u : 1) / (1 + u), u = e^{-|d|}). And ``impl="plain"`` is the one explicit route to the plain
 version on the card. A diff kernel with a ``diff_grad_fn`` but no CUDA
 body (a user-registered kernel) runs the plain version on every device;
 a kernel without ``diff_grad_fn`` (auc) raises ``ValueError``. Launches
@@ -33,9 +41,11 @@ from typing import Optional
 
 import torch
 
-from tuplewise_tpu_torch.ops.kernels import Kernel
+from tuplewise_tpu_torch.ops import rank_count
+from tuplewise_tpu_torch.ops.kernels import HINGE_BODY, Kernel
 from tuplewise_tpu_torch.ops.pair_kernels import (
-    LAUNCHES, _MAX_GRID_YZ, check_tensors, plain_tile, use_kernel,
+    LAUNCHES, LOG1P_COEFFS, LOGISTIC_SPAN, _MAX_GRID_YZ, check_tensors,
+    plain_tile, use_kernel,
 )
 
 _SOURCE = "pair_grad.cu"
@@ -112,7 +122,19 @@ def load_library():
         lib.tw_pair_grad.restype = i
         lib.tw_grad_tile_a.restype = i
         lib.tw_grad_tile_b.restype = i
+        lib.tw_grad_logistic_span.restype = ctypes.c_float
+        lib.tw_grad_log1p_coef.argtypes = [i]
+        lib.tw_grad_log1p_coef.restype = ctypes.c_float
         lib.tile_a, lib.tile_b = lib.tw_grad_tile_a(), lib.tw_grad_tile_b()
+        built = (lib.tw_grad_logistic_span(),
+                 tuple(lib.tw_grad_log1p_coef(j)
+                       for j in range(len(LOG1P_COEFFS))))
+        want = (LOGISTIC_SPAN,
+                tuple(ctypes.c_float(c).value for c in LOG1P_COEFFS))
+        if built != want:
+            raise RuntimeError(f"{_SOURCE} was built with logistic "
+                               f"constants {built}, the launcher expects "
+                               f"{want}")
         lib._tw_typed = True
     return lib
 
@@ -142,12 +164,28 @@ def _launch(name, a, b, kernel: Kernel, with_loss: bool):
     check_tensors(a, b)
     W, n1 = a.shape
     n2 = b.shape[1]
+    if n1 and n2 and W and kernel.cuda_body == HINGE_BODY:
+        loss, row, col = rank_count.hinge_grad(a, b, with_loss)
+        LAUNCHES[f"{name}[{kernel.name}]"] += 1
+    else:
+        loss, row, col = _launch_sweep(name, a, b, kernel, with_loss)
+    if squeeze:
+        row, col = row[0], col[0]
+        loss = None if loss is None else loss[0]
+    return (loss, row, col) if with_loss else (row, col)
+
+
+def _launch_sweep(name, a, b, kernel: Kernel, with_loss: bool):
+    """The pair sweep of ``csrc/pair_grad.cu`` (the logistic body): (loss
+    or None, row, col) for [W, n1] x [W, n2]."""
+    W, n1 = a.shape
+    n2 = b.shape[1]
     dev = a.device
     # an empty side sums nothing; otherwise the reduction writes every entry
     alloc = torch.empty if n1 and n2 and W else torch.zeros
     row = alloc(W, n1, dtype=torch.float32, device=dev)
     col = alloc(W, n2, dtype=torch.float32, device=dev)
-    loss = alloc(W, dtype=torch.float64, device=dev)
+    loss = alloc(W, dtype=torch.float64, device=dev) if with_loss else None
     if n1 and n2 and W:
         lib = load_library()
         gx, gs, per_seg = grid_shape(n1, n2, W, lib.tile_a, lib.tile_b)
@@ -178,9 +216,7 @@ def _launch(name, a, b, kernel: Kernel, with_loss: bool):
                 f"(W={W}, n1={n1}, n2={n2}, kernel={kernel.name})"
             )
         LAUNCHES[f"{name}[{kernel.name}]"] += 1
-    if squeeze:
-        row, col, loss = row[0], col[0], loss[0]
-    return (loss, row, col) if with_loss else (row, col)
+    return loss, row, col
 
 
 def _dispatch(name, a, b, kernel: Kernel, impl: Optional[str],

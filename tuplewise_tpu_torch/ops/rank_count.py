@@ -10,6 +10,13 @@ usual wrappers (which check the tensors and count the launches):
   hinge combine (kernel 5): :func:`triplet_sums` returns the float64
   per-problem sums; the hinge's as (margin + A) * sum(mk) - sum(mk * B)
   over the prefix of the sorted tile where the body is positive.
+* ``pair_grad_kernels.pair_loss_grad`` / ``pair_grad_sums`` with the
+  hinge body (kernels 3-4): :func:`hinge_grad` returns the row and col
+  sums of g' = -1{d < 1} as float32 of exact int32 counts, and the loss
+  sum c (1 - a_i) + (sum of the suffix of the sorted b where fl(a_i - b)
+  < 1) in float64. Both sides are cut into tiles of
+  :func:`grad_tile_size` values (``GRAD_TILES``), sorted once; each
+  value of one side searches every tile of the other.
 
 The second operand (b, or B's rows) is cut into tiles of
 :func:`tile_size` values (at most ``HINGE_MAX_TILE`` for the hinge, whose
@@ -32,6 +39,9 @@ _SOURCE = "rank_count.cu"
 # the compile-time constants of csrc/rank_count.cu (checked against the
 # built library in load_library)
 MAX_TILE, MIN_TILE, COUNT_CHUNK, HINGE_MAX_TILE = 16384, 2048, 8192, 8192
+# the hinge gradient's tiles (csrc/rank_count.cu grad_sort_kernel): the
+# smallest that holds a side, or the largest
+GRAD_TILES = (256, 2048, 8192, 16384)
 _MAX_GRID_YZ = 65535
 _MAX_GRID_X = (1 << 31) - 1
 
@@ -40,6 +50,12 @@ def tile_size(n: int, max_tile: int = MAX_TILE) -> int:
     """Values of the second operand sorted by one block: n rounded up to
     a power of two, within [MIN_TILE, max_tile]."""
     return min(max_tile, max(MIN_TILE, 1 << max(0, int(n) - 1).bit_length()))
+
+
+def grad_tile_size(n: int) -> int:
+    """Values of one side of the hinge gradient sorted by one block: the
+    smallest of ``GRAD_TILES`` that holds n, else the largest."""
+    return next((t for t in GRAD_TILES if t >= n), GRAD_TILES[-1])
 
 
 def load_library():
@@ -56,12 +72,18 @@ def load_library():
         lib.tw_rank_indicator.restype = i
         lib.tw_rank_hinge.argtypes = lib.tw_rank_indicator.argtypes
         lib.tw_rank_hinge.restype = i
+        lib.tw_rank_hinge_grad.argtypes = [p] * 13 + [ll, ll, i, i, i, i, p]
+        lib.tw_rank_hinge_grad.restype = i
+        lib.tw_rank_grad_chunk.argtypes = [i]
+        lib.tw_rank_grad_chunk.restype = i
         built = (lib.tw_rank_max_tile(), lib.tw_rank_min_tile(),
                  lib.tw_rank_count_chunk(), lib.tw_rank_hinge_max_tile())
         want = (MAX_TILE, MIN_TILE, COUNT_CHUNK, HINGE_MAX_TILE)
-        if built != want:
+        if built != want or not all(map(lib.tw_rank_grad_chunk,
+                                        GRAD_TILES)):
             raise RuntimeError(f"{_SOURCE} was built with tiles {built}, "
-                               f"the launcher expects {want}")
+                               f"the launcher expects {want} and gradient "
+                               f"tiles {GRAD_TILES}")
         lib._tw_typed = True
     return lib
 
@@ -123,3 +145,56 @@ def triplet_sums(kind: str, A, B, mp, ip, ia, mk, margin: float, C: int):
     _raise_on(err, f"batched_masked_pair_sum[triplet_{kind}] "
                    f"sort-and-count (W={W}, P={P}, K={K}, tile {T})")
     return partials.sum(dim=1)
+
+
+def hinge_grad(a: torch.Tensor, b: torch.Tensor, with_loss: bool):
+    """(loss [W] float64 or None, row [W, n1], col [W, n2] float32) of the
+    hinge body for checked contiguous float32 CUDA tensors a [W, n1] and
+    b [W, n2] (n1, n2, W > 0): row_i = -#{j : fl(a_i - b_j) < 1}, col_j =
+    -#{i : fl(a_i - b_j) < 1}, loss = sum of max(0, 1 - fl(a_i - b_j)),
+    NaN and infinities as the plain version gives them. Two sorts, two
+    count launches and one finishing launch, and two scratch buffers; the
+    counts are integers, so row and col are the same with and without the
+    loss, and repeat."""
+    W, n1 = a.shape
+    n2 = b.shape[1]
+    Ta, Tb = grad_tile_size(n1), grad_tile_size(n2)
+    ta, tb = -(-n1 // Ta), -(-n2 // Tb)
+    if W > _MAX_GRID_YZ or max(ta, tb) > _MAX_GRID_YZ \
+            or max(n1, n2) >= 1 << 31:
+        raise ValueError(f"W={W}, n1={n1}, n2={n2} is beyond the CUDA grid "
+                         f"of the hinge gradient ({ta} tiles of {Ta}, {tb} "
+                         f"of {Tb})")
+    lib = load_library()
+    chunks = -(-n1 // lib.tw_rank_grad_chunk(Tb))
+    dev = a.device
+    # one int32 scratch carved in 4-byte words: the sorted tiles (float32)
+    # and the tile infos first (16-byte aligned: tiles and infos are
+    # multiples of 4 words), the counts last; one float64 scratch for the
+    # suffix sums and the loss partials
+    sizes = (W * ta * Ta, W * tb * Tb, W * ta * 4, W * tb * 4, W * n1, W * n2)
+    words = torch.empty(sum(sizes), dtype=torch.int32, device=dev)
+    at = [words.data_ptr()]
+    for size in sizes[:-1]:
+        at.append(at[-1] + 4 * size)
+    wide = (torch.empty(W * tb * (Tb + 1 + chunks), dtype=torch.float64,
+                        device=dev) if with_loss else None)
+    row = torch.empty(W, n1, dtype=torch.float32, device=dev)
+    col = torch.empty(W, n2, dtype=torch.float32, device=dev)
+    loss = torch.empty(W, dtype=torch.float64, device=dev) if with_loss \
+        else None
+    suffix = losspart = None
+    if with_loss:
+        suffix = wide.data_ptr()
+        losspart = suffix + 8 * W * tb * (Tb + 1)
+    sorted_a, sorted_b, info_a, info_b, counts_a, counts_b = at
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.tw_rank_hinge_grad(
+            a.data_ptr(), b.data_ptr(), sorted_a, sorted_b, suffix, info_a,
+            info_b, counts_a, counts_b, losspart, row.data_ptr(),
+            col.data_ptr(), None if loss is None else loss.data_ptr(), n1,
+            n2, W, Ta, Tb, int(with_loss), stream)
+    _raise_on(err, f"hinge gradient sort-and-search (W={W}, n1={n1}, "
+                   f"n2={n2}, tiles {Ta} / {Tb})")
+    return loss, row, col
