@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Times the logistic pair sums, the triplet hinge sums and the gradient
-pair sums of two or more checkouts of the PyTorch port in one run, on one
-GPU, in turns.
+"""Times the logistic and hinge pair sums, the triplet hinge sums, the
+gradient pair sums and the fleet's tenant counts of two or more checkouts
+of the PyTorch port in one run, on one GPU, in turns.
 
 Run from the root of a checkout, on a machine with one CUDA card:
 
@@ -14,8 +14,8 @@ a drift of the card's clock over the run shows as a difference between
 the two turns of one checkout. Every turn runs the same inputs, made
 from one seed on the card, at the shapes of chip_smoke.py's main path:
 
-* ``pair_sum`` with the logistic body at 2^20 x 2^20 (N(1, 1) against
-  N(0, 1) scores), phase 5's row;
+* ``pair_sum`` with the logistic and the hinge body at 2^20 x 2^20
+  (N(1, 1) against N(0, 1) scores), phase 5's rows;
 * ``masked_pair_sum`` with the logistic body at W = 8, 125001 x 125000
   (ragged worker blocks: the last row of 3 workers masked out), phase 5's
   masked row;
@@ -31,7 +31,12 @@ from one seed on the card, at the shapes of chip_smoke.py's main path:
   n = 5e5 per class (loss_every 1, chip_smoke.py phase 7's first run)
   and one 500-step ``train_curves`` cell of the gauss sweep (S = 48
   seeds x N = 32 workers, phase 10), wall-clock by CUDA events around
-  calls that end on the host.
+  calls that end on the host;
+* ``tenant_count`` (kernel 7) at phase 20's headline: T_bucket 1024,
+  the packs of make_tenant_stream(10^6, 1024, skew 1.1, seed 0) at caps
+  2^17 and the last 256-event apply's query block (chip_smoke.py's own
+  helpers), timed by torch.profiler's device time a launch (its "ms";
+  CUDA events a call beside it).
 
 A kernel time is the mean of several calls by CUDA events after a
 warm-up. After the turns it reads each checkout's built
@@ -90,6 +95,8 @@ def _turn():
     b = torch.randn(n, generator=g, device="cuda")
     t, s = ms(lambda: pk.pair_sum(a, b, logistic), 3)
     out["pair_sum[logistic]"] = (t, float(s))
+    t, s = ms(lambda: pk.pair_sum(a, b, get_kernel("hinge")), 20)
+    out["pair_sum[hinge]"] = (t, float(s))
     ab = torch.randn(8, 125001, generator=g, device="cuda")
     bb = torch.randn(8, 125000, generator=g, device="cuda")
     ma, mb = torch.ones_like(ab), torch.ones_like(bb)
@@ -164,6 +171,19 @@ def _turn():
                                      Xn_te, cfg, n_seeds=48, eval_every=25),
                 1)
     out["train_curves[hinge] cell"] = (t, float(res["loss"].mean()))
+
+    import chip_smoke as cs
+    from tuplewise_tpu_torch.ops import count_kernels as ck
+    scores, labels, tids = cs.fleet_stream(cs.FLEET_EVENTS, cs.FLEET_TENANTS)
+    pos, neg, _, _ = cs.fleet_packs(scores, labels, tids, cs.FLEET_TENANTS)
+    last = cs.fleet_chunks(scores[-cs.FLEET_CHUNK:], labels[-cs.FLEET_CHUNK:],
+                           tids[-cs.FLEET_CHUNK:], cs.FLEET_CHUNK)[0]
+    qn, qp = cs.apply_queries(last, cs.FLEET_TENANTS)
+    ck.tenant_count(pos, neg, qn, qp)                     # warm-up
+    call_ms, t, got = cs.timed_on_device(
+        lambda: ck.tenant_count(pos, neg, qn, qp), 200)
+    out["tenant_count"] = (t, int(got.long().sum()))
+    out["tenant_count call"] = (call_ms, int(got.long().sum()))
     print(json.dumps(out), flush=True)
 
 

@@ -32,7 +32,12 @@ nonzero. Each phase prints its seconds.
    kernel's two branches in one launch (blocks with a non-finite score,
    or a score range wider than LOGISTIC_SPAN, beside narrow finite ones,
    scores about 0 and about 300, |d| up to 100), within rel 1e-5 of plain
-   and both branches counted.
+   and both branches counted. Then the unmasked hinge's sort-and-search
+   route (csrc/rank_count.cu) on scores on a 1/4 lattice with pairs at
+   d == 1, a -inf score of a and a +inf of b, b past one 16384-value
+   tile with a short last tile, and W = 512 x 1250: finite sums equal to
+   plain (exact differences), +inf where plain is +inf, two calls bit
+   for bit. The edge-value cases also run at W = 512 x 1250.
 3. Main path at full size, through Estimator(kernel, backend="torch") on
    the default device: complete at n = 2^20 and 2^20 + 64 per class (AUC
    with auc_fast=False, which must equal rank_auc exactly), local_average
@@ -44,9 +49,13 @@ nonzero. Each phase prints its seconds.
    incomplete (B = 10^4) schemes; the Monte-Carlo variance must sit in
    the chi-square band of the closed form (see CHI2_BAND). Each scheme
    runs once to warm up before its timed run.
-5. Timing at the main-path shapes: each kernel, its plain version and,
-   for AUC, rank_auc, with CUDA events; and the bound (for the
-   sort-and-count auc route, the bytes of its inputs and partials). Each
+5. Timing at the main-path shapes: each kernel, its plain version and
+   a PyTorch yardstick (library_ms) with CUDA events: for the auc,
+   rank_auc; for the hinge, torch.sort + torch.cumsum +
+   torch.searchsorted on the same scores; for the masked auc and hinge
+   the same composition with the masks' weights; none computes the
+   logistic. The bound: for the sort-and-count routes (auc, hinge) the
+   bytes of their inputs and partials, or the sort of b's keys. Each
    timed kernel result is held against its plain result as in phase 2,
    and that full-size error of the mean is the row's max_abs_err (phase
    2's is max_abs_err_small). The logistic rows also give the blocks of
@@ -113,9 +122,11 @@ nonzero. Each phase prints its seconds.
    right=True)) on the same distances, and both statistics (indicator
    and hinge) equal the Estimator's within rel 1e-6; on a slice of 128
    anchors the kernel equals its plain version (hinge within rel 1e-5)
-   and is timed against it, the sort-count and the bound (both routes
-   sort and count: the bytes of their inputs and partials), and at full
-   width against the sort-count.
+   and is timed against it, its yardstick (the indicator: the
+   sort-count; the hinge: torch.sort + torch.cumsum + torch.searchsorted
+   of A + margin) and the bound (both routes sort and count: the bytes
+   of their inputs and partials), and at full width against the same
+   yardsticks.
 13. BASELINE config 4: triplet_mnist_statistic on the MNIST surrogate at
    n = 2000, incomplete (B = 2e4) and complete; the complete per-class
    values equal the CPU plain path's within rel 1e-6.
@@ -164,9 +175,18 @@ nonzero. Each phase prints its seconds.
    per-tenant runs of make_tenant_stream(10^6, 1024, skew 1.1, seed 0),
    caps 2^17, and one 256-event apply's query block) the three are
    timed, by CUDA events a call and by torch.profiler's device time a
-   call. The bound counts the 32-byte row sectors that the kernel's
-   binary searches of these queries read (replayed here), the query
-   blocks read once and the count block written once.
+   call. The bound counts the 32-byte row sectors that a lower and an
+   upper binary search of these queries read (replayed here; the
+   searches of the kernel before its redesign), the query blocks read
+   once and the count block written once. The row prints the kernel's
+   dependent rounds (count_kernels.tenant_rounds) beside the replayed
+   chain of the earlier searches. Then the search's edge cases: NaN,
+   +-inf and +-0.0 queries, ties on a run that spans the first
+   halvings' probes, empty rows, caps 1, 3 and 2^17 + 5 and caps that
+   differ between the sides: kernel = plain, and = searchsorted at every
+   query that is not NaN (torch.searchsorted sorts NaN last, as the
+   reference's jnp.searchsorted route does; the kernel and the JAX
+   Pallas kernel count 0 there).
 21. Fleet index main path at the headline: TenantFleetIndex fed
    make_tenant_stream(10^6, 1024, skew 1.1, seed 0) in float32,
    compact_every 128, chunks of 256 events coalesced per tenant (as
@@ -263,6 +283,7 @@ REPLACES = {
 # route, else by wrapper (see source_of)
 SOURCES = {
     "pair_sum[auc]": "tuplewise_tpu_torch/csrc/rank_count.cu",
+    "pair_sum[hinge]": "tuplewise_tpu_torch/csrc/rank_count.cu",
     "batched_masked_pair_sum": "tuplewise_tpu_torch/csrc/rank_count.cu",
     "signed_count": "tuplewise_tpu_torch/csrc/signed_count.cu",
     "tenant_count": "tuplewise_tpu_torch/csrc/tenant_count.cu",
@@ -277,10 +298,8 @@ SOURCES = {
 # run of this script on an NVIDIA H100 80GB HBM3 at 700 W (ms): printed
 # beside this run's times, never written into the kernels line
 EARLIER_MS = {
-    "pair_loss_grad[hinge]": 78.30,
-    "pair_grad_sums[hinge]": 55.87,
-    "pair_loss_grad[logistic]": 830.16,
-    "pair_grad_sums[logistic]": 374.45,
+    "pair_sum[hinge]": 144.74,
+    "tenant_count": 0.02315,
 }
 EDGE_VALUES = (math.inf, -math.inf, math.nan, -math.nan, 0.0, -0.0, 1.0,
                -1.0, 1e-45, -1e-45)
@@ -613,7 +632,7 @@ def phase_kernel_vs_plain(errs):
     # difference is NaN), NaN scores 0 against anything, -0.0 ties +0.0
     auc = get_kernel("auc")
     for W, n1, n2 in [(1, 1, 1), (3, 300, 517), (2, 20000, 17),
-                      (1, 50, 40000), (3, 9000, 70000)]:
+                      (1, 50, 40000), (3, 9000, 70000), (512, 1250, 1250)]:
         a, b = edge_values(g, W, n1), edge_values(g, W, n2)
         ma = (torch.rand(W, n1, generator=g, device="cuda") > 0.3).float()
         mb = (torch.rand(W, n2, generator=g, device="cuda") > 0.3).float()
@@ -672,6 +691,30 @@ def phase_kernel_vs_plain(errs):
             assert want.isnan().tolist() == want_nan, (name, want)
     log("[kernel vs plain] infinities without NaN: hinge and logistic sums "
         "+inf where plain is +inf, NaN where a zero mask meets +inf")
+    # the unmasked hinge's sort-and-search route: b past one tile with a
+    # short last tile, a -inf score of a and a +inf of b, pairs at d == 1
+    # exactly (scores on a 1/4 lattice: every difference and term exact,
+    # so finite sums equal plain), the harness's W = 512 x 1250; a second
+    # call repeats the first bit for bit
+    hinge = get_kernel("hinge")
+    for W, n1, n2 in [(3, 4133, (1 << 14) + 97), (512, 1250, 1250),
+                      (2, 70000, 2049), (4, 1, (1 << 14) + 1)]:
+        a = torch.round((torch.randn(W, n1, generator=g, device="cuda")
+                         + 1.0) * 4) / 4
+        b = torch.round(torch.randn(W, n2, generator=g, device="cuda") * 4) / 4
+        k = min(97, n1, n2)
+        b[:, :k] = a[:, :k] - 1.0
+        a[W - 1, n1 // 2], b[W // 2, n2 - 1] = -math.inf, math.inf
+        got = pk.pair_sum(a, b, hinge)
+        want = pk.pair_sum(a, b, hinge, impl="plain")
+        again = pk.pair_sum(a, b, hinge)
+        assert torch.equal(got.view(torch.int64), again.view(torch.int64))
+        check_nonfinite(got, want, ("hinge route", W, n1, n2))
+        fin = want.isfinite()
+        assert torch.equal(got[fin], want[fin]), ("hinge route", W, n1, n2)
+        log(f"[kernel vs plain] hinge route W={W} {n1}x{n2} (d == 1 ties, "
+            f"-inf in a, +inf in b, ragged tiles): {int(fin.sum())} finite "
+            f"sums equal to plain, {int((~fin).sum())} +inf as plain")
     # blocks with a few non-finite scores beside all-finite ones, so that
     # the logistic kernel's two branches meet in one launch
     for W, n1, n2 in [(8, 3000, 5000), (1, 1 << 14, 1 << 14)]:
@@ -854,7 +897,7 @@ def phase_timing(errs, launches, i1, i2, sass):
     rows = []
     for name in NAMES:
         k = get_kernel(name)
-        reps = 20 if name == "auc" else 3     # the auc route takes < 1 ms
+        reps = 3 if name == "logistic" else 20  # the sort routes: < 1 ms
         cuda_ms(lambda: pk.pair_sum(a, b, k))                 # warm-up
         ms, got = cuda_ms(lambda: pk.pair_sum(a, b, k), reps=reps)
         plain_ms, want = cuda_ms(lambda: pk.pair_sum(a, b, k, impl="plain"))
@@ -869,6 +912,14 @@ def phase_timing(errs, launches, i1, i2, sass):
             T = rank_count.tile_size(n)
             partials = -(-n // T) * -(-n // rank_count.COUNT_CHUNK)
             bms, by = bytes_bound_ms(4 * 2 * n + 8 * partials), "bytes"
+        elif name == "hinge":
+            cuda_ms(lambda: hinge_sum_library(a[None], b[None]))
+            library_ms, lib = cuda_ms(
+                lambda: hinge_sum_library(a[None], b[None]), reps=reps)
+            log(f"[timing] pair_sum[hinge] yardstick (sort + cumsum + "
+                f"searchsorted, raw comparisons): rel diff to the kernel "
+                f"{float((lib[0] - got).abs() / got.abs()):.3g}")
+            bms, by = hinge_sum_bound_ms(n, n, 1)
         else:
             bms, by = bound_ms(name, float(n * n), False, 2 * n)
         extra = {}
@@ -895,6 +946,14 @@ def phase_timing(errs, launches, i1, i2, sass):
             ("masked_pair_sum", *i1.shape, i2.shape[1]))
         bms, by = bound_ms(name, masked_pairs, True,
                            2 * (i1.numel() + i2.numel()))
+        library_ms = None
+        if name != "logistic":
+            cuda_ms(lambda: masked_pair_library(name, ab, bb, ma, mb))
+            library_ms, lib = cuda_ms(
+                lambda: masked_pair_library(name, ab, bb, ma, mb), reps=3)
+            log(f"[timing] masked_pair_sum[{name}] yardstick (sort + cumsum "
+                f"+ searchsorted with the mask weights): largest rel diff to "
+                f"the kernel {float(((lib - got).abs() / got.abs()).max()):.3g}")
         extra = {}
         if name == "logistic":
             fac, per, _ = pk.logistic_branch_blocks(ab, bb, ma, mb)
@@ -907,7 +966,8 @@ def phase_timing(errs, launches, i1, i2, sass):
             launches=launches.get(f"masked_pair_sum[{name}]", 0),
             max_abs_err=err,
             max_abs_err_small=errs[f"masked_pair_sum[{name}]"], ms=ms,
-            plain_ms=plain_ms, bound_ms=bms, bound_by=by, library_ms=None,
+            plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+            library_ms=library_ms,
             shape=f"W={i1.shape[0]} {i1.shape[1]}x{i2.shape[1]}", **extra))
         for r in rows[-2:]:
             log(f"[timing] {r['name']:24s} {r['shape']:22s} {r['ms']:9.2f} ms "
@@ -950,12 +1010,63 @@ def hinge_grad_library(a, b, with_loss):
     col = (-torch.searchsorted(sa, b + 1.0)).to(torch.float32)
     if not with_loss:
         return row, col
-    tail = torch.cat([torch.flip(torch.cumsum(torch.flip(
-        sb.double(), [1]), dim=1), [1]),
-        torch.zeros(b.shape[0], 1, dtype=torch.float64, device=b.device)], 1)
-    c = (b.shape[1] - p).double()
-    loss = (c * (1.0 - a.double()) + tail.gather(1, p)).sum(1)
-    return loss, row, col
+    return hinge_tail_loss(sb, torch.ones_like(sb), a, p), row, col
+
+
+def hinge_tail_loss(sb, wb, a, p, wa=None):
+    """sum_i wa_i (W_i (1 - a_i) + S_i), W_i and S_i the float64 sums of
+    wb and wb * sb past position p_i of the sorted rows sb."""
+    def tail(v):
+        return torch.cat([torch.flip(torch.cumsum(torch.flip(v, [1]), dim=1),
+                                     [1]),
+                          torch.zeros(v.shape[0], 1, dtype=torch.float64,
+                                      device=v.device)], 1)
+    w = wb.double()
+    terms = (tail(w).gather(1, p) * (1.0 - a.double())
+             + tail(w * sb.double()).gather(1, p))
+    return (terms if wa is None else terms * wa.double()).sum(1)
+
+
+def hinge_sum_library(a, b):
+    """Kernel 1 hinge's yardstick: the loss of hinge_grad_library alone,
+    torch.sort of b, torch.searchsorted of a - 1 and the cumsums."""
+    sb = torch.sort(b, dim=1).values
+    p = torch.searchsorted(sb, a - 1.0, right=True)
+    return hinge_tail_loss(sb, torch.ones_like(sb), a, p)
+
+
+def masked_pair_library(name, a, b, ma, mb):
+    """Kernel 2's yardstick for the auc and hinge bodies: torch.sort of b
+    with its mask, cumsums of the sorted weights (and weighted scores),
+    torch.searchsorted of a (auc: wins + ties / 2, weighted) or a - 1
+    (hinge), each row weighted by ma. Raw comparisons: equal to the body
+    on finite scores away from rounding at d == 0 or d == 1."""
+    sb, order = torch.sort(b, dim=1)
+    wb = mb.gather(1, order)
+    if name == "hinge":
+        p = torch.searchsorted(sb, a - 1.0, right=True)
+        return hinge_tail_loss(sb, wb, a, p, wa=ma)
+    cw = torch.cat([torch.zeros(b.shape[0], 1, dtype=torch.float64,
+                                device=b.device),
+                    torch.cumsum(wb.double(), dim=1)], 1)
+    lo = cw.gather(1, torch.searchsorted(sb, a))
+    hi = cw.gather(1, torch.searchsorted(sb, a, right=True))
+    return (ma.double() * (lo + 0.5 * (hi - lo))).sum(1)
+
+
+def hinge_sum_bound_ms(n1, n2, W):
+    """Bound of kernel 1's hinge route: bytes, the scores read once and
+    the float64 partials (one a tile of b and chunk of a) and the sums
+    written once; operations, the radix sort of b's keys."""
+    from tuplewise_tpu_torch.ops import rank_count
+
+    T = rank_count.grad_tile_size(n2)
+    chunk = rank_count.load_library().tw_rank_sum_chunk(T)
+    parts = W * -(-n2 // T) * -(-n1 // chunk)
+    byts = 4 * W * (n1 + n2) + 8 * parts + 8 * W
+    ops = SORT_OPS_PER_KEY * W * n2
+    by = "operations" if ops / PEAK_FP32_OPS >= byts / PEAK_BYTES else "bytes"
+    return max(ops / PEAK_FP32_OPS, byts / PEAK_BYTES) * 1e3, by
 
 
 def sparse_edge(gen, frac, *shape):
@@ -1314,6 +1425,22 @@ def check_triplet(name, got, want, what):
     return float((got - want).abs().max())
 
 
+def triplet_hinge_library(A, B, ip, ia, margin=1.0):
+    """Kernel 5 hinge's yardstick: torch.sort of B's rows, the float64
+    prefix sums of the sorted B, torch.searchsorted of A + margin: per
+    anchor, the sum over the positives that the id exclusion keeps of
+    (margin + A) c - (the sum of the c smallest B), c = #{B < A + margin}
+    (raw comparisons: equal to the body away from rounding at the
+    margin). float64 [C]."""
+    sb = torch.sort(B, dim=1).values
+    pre = torch.cat([torch.zeros(B.shape[0], 1, dtype=torch.float64,
+                                 device=B.device),
+                     torch.cumsum(sb.double(), dim=1)], 1)
+    c = torch.searchsorted(sb, A + margin)
+    keep = ip[None, :] != ia[:, None]
+    return (((margin + A.double()) * c - pre.gather(1, c)) * keep).sum(1)
+
+
 def sort_count(A, B, ip, ia):
     """Independent exact per-anchor indicator count (margin 0, unmasked
     negatives): #{(j, k): A[c,j] < B[c,k], ip[j] != ia[c]} as
@@ -1578,7 +1705,7 @@ def phase_triplet_exact(X, Y, errs, launches, main_out):
     combs = {name: tk.triplet_combine_kernel(get_kernel(name))
              for name in TRIPLET_NAMES}
     ms_full = {name: 0.0 for name in TRIPLET_NAMES}
-    lib_ms_full = 0.0
+    lib_ms_full = {name: 0.0 for name in TRIPLET_NAMES}
     bytes_full = {name: 0.0 for name in TRIPLET_NAMES}
     sums = {name: torch.empty(n, dtype=torch.float64, device="cuda")
             for name in TRIPLET_NAMES}
@@ -1594,8 +1721,10 @@ def phase_triplet_exact(X, Y, errs, launches, main_out):
             bytes_full[name] += sort_count_bytes(name, *A.shape, K)
             sums[name][a0:a0 + A.shape[0]] = s
         ms, cnt = cuda_ms(lambda: sort_count(A, B, ids, ia))
-        lib_ms_full += ms
+        lib_ms_full["triplet_indicator"] += ms
         exact[a0:a0 + A.shape[0]] = cnt
+        ms, _ = cuda_ms(lambda: triplet_hinge_library(A, B, ids, ia))
+        lib_ms_full["triplet_hinge"] += ms
         del d_pa, d_an, A, B
     torch.cuda.synchronize()
     assert torch.equal(sums["triplet_indicator"], exact.to(torch.float64))
@@ -1610,7 +1739,8 @@ def phase_triplet_exact(X, Y, errs, launches, main_out):
     log(f"[triplet exact] n={n} d={TRIPLET_D}: the kernel's per-anchor "
         f"indicator sums equal the sort-count for all {n} anchors "
         f"(kernel {ms_full['triplet_indicator']:.1f} ms, sort-count "
-        f"{lib_ms_full:.1f} ms over {-(-n // chunk)} chunks of {chunk})")
+        f"{lib_ms_full['triplet_indicator']:.1f} ms over {-(-n // chunk)} "
+        f"chunks of {chunk})")
 
     # the timing rows: a slice of TRIPLET_SLICE anchors of the same
     # problem, where the plain version runs in seconds
@@ -1620,6 +1750,10 @@ def phase_triplet_exact(X, Y, errs, launches, main_out):
     cuda_ms(lambda: sort_count(d_pa, d_an, ids, ia))           # warm-up
     library_ms, cnt = cuda_ms(lambda: sort_count(d_pa, d_an, ids, ia),
                               reps=20)
+    cuda_ms(lambda: triplet_hinge_library(d_pa, d_an, ids, ia))
+    hinge_lib_ms, hinge_lib = cuda_ms(
+        lambda: triplet_hinge_library(d_pa, d_an, ids, ia), reps=20)
+    library = {"triplet_indicator": library_ms, "triplet_hinge": hinge_lib_ms}
     rows = []
     for name, comb in combs.items():
         args = (d_pa, d_an, ones_p, ids[None], ia, ones_k, comb)
@@ -1630,6 +1764,10 @@ def phase_triplet_exact(X, Y, errs, launches, main_out):
         err = check_triplet(name, got, want, ("slice", c, n, K))
         if name == "triplet_indicator":
             assert torch.equal(got, cnt.to(torch.float64))
+        else:
+            log(f"[timing] triplet_hinge yardstick (sort + cumsum + "
+                f"searchsorted): largest rel diff to the kernel "
+                f"{float(((hinge_lib - got).abs() / got.abs()).max()):.3g}")
         key = f"batched_masked_pair_sum[{name}]"
         # sort-and-count: bound by the bytes of its inputs and partials
         bms, by = bytes_bound_ms(sort_count_bytes(name, c, n, K)), "bytes"
@@ -1640,17 +1778,17 @@ def phase_triplet_exact(X, Y, errs, launches, main_out):
             launches=launches.get(key, 0), max_abs_err=err,
             max_abs_err_small=errs[key], ms=ms, plain_ms=plain_ms,
             bound_ms=bms, bound_by=by,
-            library_ms=library_ms if name == "triplet_indicator" else None,
+            library_ms=library[name],
             shape=f"W={c} anchors {n}x{K} d={TRIPLET_D}",
             ms_full=ms_full[name],
             bound_ms_full=bms_full,
-            library_ms_full=(lib_ms_full if name == "triplet_indicator"
-                             else None),
+            library_ms_full=lib_ms_full[name],
             shape_full=f"W={n} anchors {n}x{K} d={TRIPLET_D}"))
         r = rows[-1]
         log(f"[timing] {key:44s} {r['shape']:30s} {ms:9.3f} ms (bound "
             f"{r['bound_ms']:.4f} ms by {by}, plain {plain_ms:.1f} ms, "
-            f"sort-count {r['library_ms']}, parent commit "
+            f"library {r['library_ms']:.3f} ms (full width "
+            f"{r['library_ms_full']:.1f}), parent commit "
             f"{EARLIER_MS.get(key)} ms); full width {ms_full[name]:.1f} ms "
             f"(bound {r['bound_ms_full']:.2f} ms, parent commit "
             f"{EARLIER_MS.get(key + ' full')} ms); max abs err vs plain "
@@ -2185,10 +2323,11 @@ def apply_queries(items, t_bucket):
 
 
 def tenant_searched(pack, q):
-    """Replays kernel 7's lower and upper binary searches of each pack
-    row for the queries of the same row (the halving of ``bound`` in
-    tenant_count.cu). Returns (distinct 32-byte sectors read, loads, the
-    longest chain of dependent loads of one thread)."""
+    """Replays a lower and an upper binary search of each pack row for
+    the queries of the same row, one halving a load (the searches of
+    kernel 7 before its redesign, whose paths define its bound). Returns
+    (distinct 32-byte sectors read, loads, the longest chain of dependent
+    loads of one thread)."""
     T, cap = pack.shape
     flat = pack.reshape(-1)
     qf = q.reshape(-1)
@@ -2279,6 +2418,50 @@ def phase_tenant_count_vs_plain():
             f"qb={qb} (rows empty, full, partial, duplicates; tied "
             f"queries): kernel = plain = searchsorted")
 
+    # the search's edge cases: NaN, +-inf, +-0.0 and 0.5 queries, a run
+    # of 0.5 from n/8 to n/2 + 2 of a row (ties across the first halvings'
+    # probes, which split the lower and upper bounds), empty rows, caps 1,
+    # 3 and 2^17 + 5, caps that differ between the sides. A NaN query
+    # counts 0 (comparisons); the searchsorted route sorts NaN last, as
+    # the reference's jnp.searchsorted route does, so it is held to the
+    # kernel at the other queries only
+    def edge_pack(T, cap):
+        p = torch.full((T, cap), math.inf, device="cuda")
+        for t in range(T):
+            n = (0, cap, 1, cap // 2 + 1, cap - 1)[t % 5]
+            v = torch.sort(grid_values(n)).values
+            if n > 8:
+                v[n // 8 - 1:n // 2 + 2] = 0.5
+                v = torch.sort(v).values
+            p[t, :n] = v
+        return p
+
+    def edge_queries(p, qb):
+        q = tied(p, qb)
+        q[:, :5] = torch.tensor([math.nan, math.inf, -math.inf, -0.0, 0.5],
+                                device="cuda")
+        return q
+
+    for T, cap_p, cap_n, qb in [(5, 1, 3, 256), (10, 3, 1, 1024),
+                                (5, (1 << 17) + 5, 7, 256),
+                                (10, 513, 40, 256),
+                                (5, 4096, (1 << 17) + 5, 512)]:
+        pos, neg = edge_pack(T, cap_p), edge_pack(T, cap_n)
+        qn, qp = edge_queries(neg, qb), edge_queries(pos, qb)
+        args = (pos, neg, qn, qp)
+        got = ck.tenant_count(*args)
+        lib = sc.tenant_count_searchsorted(*args)
+        num = ~torch.stack([qn, qn, qp, qp]).isnan()
+        err = max(err, differ(got, ck.tenant_count_plain(*args)),
+                  differ(got[num], lib[num]))
+        assert err == 0, (T, cap_p, cap_n, qb, err)
+        assert not got[:, :, 0].any(), "a NaN query counts 0"
+        log(f"[tenant count vs plain] T={T} cap_pos={cap_p} cap_neg={cap_n} "
+            f"qb={qb} (NaN, +-inf, +-0.0 queries; tie runs across probes; "
+            f"empty rows): kernel = plain, = searchsorted but at NaN; "
+            f"{max(ck.tenant_rounds(cap_p), ck.tenant_rounds(cap_n))} "
+            f"dependent rounds")
+
     scores, labels, tids = fleet_stream(FLEET_EVENTS, FLEET_TENANTS)
     pos, neg, cap_p, cap_n = fleet_packs(scores, labels, tids, FLEET_TENANTS)
     last = fleet_chunks(scores[-FLEET_CHUNK:], labels[-FLEET_CHUNK:],
@@ -2296,6 +2479,7 @@ def phase_tenant_count_vs_plain():
     err = max(err, differ(got, want), differ(got, lib))
     assert err == 0, err
     bms, by, chain, byts = tenant_bound_ms(pos, neg, qn, qp)
+    rounds = max(ck.tenant_rounds(cap_p), ck.tenant_rounds(cap_n))
     (call_ms, ms, _), (_, plain_ms, _), (lib_call_ms, lib_ms, _) = (
         times["kernel"], times["plain"], times["library"])
     shape = (f"T_bucket {FLEET_TENANTS}, caps {cap_p}/{cap_n}, qb "
@@ -2304,15 +2488,18 @@ def phase_tenant_count_vs_plain():
         name="tenant_count", route="cuda", source=source_of("tenant_count"),
         replaces=REPLACES["tenant_count"], launches=None, max_abs_err=err,
         ms=ms, call_ms=call_ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
-        bound_bytes=byts, dependent_loads=chain, library_ms=lib_ms,
+        bound_bytes=byts, dependent_rounds=rounds,
+        dependent_loads_earlier=chain, library_ms=lib_ms,
         library_call_ms=lib_call_ms, library_calls="4 batched searchsorted",
         shape=shape)
     log(f"[timing] tenant_count {shape}: {ms * 1e3:.2f} us of device time "
         f"a launch ({call_ms * 1e3:.2f} us a call by events; bound "
         f"{bms * 1e3:.3f} us by {by}: {byts / 1e6:.3f} MB; a thread's chain "
-        f"is {chain} dependent loads), plain {plain_ms:.1f} ms, batched "
-        f"searchsorted {lib_ms * 1e3:.2f} us ({lib_call_ms * 1e3:.2f} us a "
-        f"call); max |kernel - plain|, |kernel - searchsorted| = {err}")
+        f"is {rounds} dependent rounds, the parent's {chain} dependent loads"
+        f" in {EARLIER_MS['tenant_count'] * 1e3:.2f} us), plain "
+        f"{plain_ms:.1f} ms, batched searchsorted {lib_ms * 1e3:.2f} us "
+        f"({lib_call_ms * 1e3:.2f} us a call); max |kernel - plain|, "
+        f"|kernel - searchsorted| = {err}")
     return row
 
 

@@ -6,8 +6,14 @@ layout) as integers, on the same numpy inputs: ragged caps per side,
 empty and full rows, duplicates, queries tied to row values.
 ``tenant_pack_counts`` equals JAX ``tenant_pack_counts`` on both JAX
 routes, and the dirty-row placement equals a full re-ship. The CUDA
-kernel is held against the plain version on the card by the
-``cuda``-marked test."""
+kernel's search (rounds of ``TENANT_LEVELS`` halvings whose probes load
+together, the lower and upper bounds in one descent) is emulated here
+probe for probe and held against JAX, the plain version and the
+searchsorted route on the edge cases of chip_smoke.py phase 20, and its
+round count is pinned. The CUDA kernel is held against the plain version
+on the card by the ``cuda``-marked test."""
+
+import math
 
 import numpy as np
 import pytest
@@ -232,6 +238,200 @@ def test_argument_checks():
             == [jax_sc.tenant_bucket(n) for n in (0, 9, 37)])
 
 
+def _search(pack, q):
+    """Emulation of tenant_count_kernel's search of one side, in its
+    order: the lower bound by the top's ``TENANT_TOP_LEVELS`` halvings
+    (one round: the block loads every candidate probe, at base + the sizes
+    chosen before it + its own size), then rounds of ``TENANT_LEVELS``
+    halvings (the same rule), a last round of row[base] and row[base + 1],
+    then, for a query equal to the value at the bound only, a plain
+    halving of the rest of the row (upper_bound).
+    Returns (less, leq) int64 [T, qb], the dependent rounds of the lower
+    bound (with its last round) and the most rounds of a tie."""
+    T, cap = pack.shape
+    flat = torch.cat([pack.reshape(-1), torch.tensor([math.inf])])
+    row0 = (torch.arange(T) * cap)[:, None].expand(q.shape).reshape(-1)
+    qf = q.reshape(-1)
+    if cap == 0:
+        zero = torch.zeros(q.shape, dtype=torch.int64)
+        return zero, zero.clone(), 0, 0
+    base = torch.zeros(qf.shape, dtype=torch.int64)
+    n, rounds, levels = cap, 0, ck.TENANT_TOP_LEVELS
+    while rounds == 0 or n > 1:
+        # the top (read by the block once, then from shared memory), then
+        # rounds of TENANT_LEVELS halvings
+        rounds += 1
+        h = []
+        for _ in range(levels):
+            h.append(n >> 1)
+            n -= h[-1]
+        v = {}
+        for lev in range(levels):
+            for c in range(1 << lev):
+                off = h[lev] + sum(h[b] for b in range(lev)
+                                   if (c >> (lev - 1 - b)) & 1)
+                assert (base + off < cap).all()
+                v[lev, c] = flat[row0 + base + off]
+        c = torch.zeros_like(base)
+        for lev in range(levels):
+            x = torch.stack([v[lev, k] for k in range(1 << lev)])
+            x = x.gather(0, c[None]).squeeze(0)
+            up = x < qf
+            base = torch.where(up, base + h[lev], base)
+            c = 2 * c + up.long()
+        levels = ck.TENANT_LEVELS
+    rounds += 1
+    v = flat[row0 + base]
+    w = torch.where(base + 1 < cap, flat[row0 + base + 1], math.inf)
+    at = torch.where(v < qf, w, v)
+    less = base + (v < qf).long()
+    tie = (less < cap) & (at == qf)
+    lo = torch.where(tie, less + 1, less)
+    m = torch.where(tie, cap - less - 1, 0)
+    tie_rounds = 0
+    while bool((m > 0).any()):
+        tie_rounds += 1
+        live = m > 0
+        half = m >> 1
+        x = flat[row0 + torch.where(live, lo + half, 0)]
+        right = live & (x <= qf)
+        lo = torch.where(right, lo + half + 1, lo)
+        m = torch.where(live, torch.where(right, m - half - 1, half), m)
+    return less.reshape(q.shape), lo.reshape(q.shape), rounds, tie_rounds
+
+
+def search_route(pos, neg, qn, qp):
+    """Kernel 7's int32 [4, T, qb] block by the emulated search, with the
+    rounds of each side."""
+    ln, en, rn, _ = _search(neg, qn)
+    lp, ep, rp, _ = _search(pos, qp)
+    return torch.stack([ln, en, lp, ep]).to(torch.int32), rn, rp
+
+
+def _edge_problem(seed, T, cap_p, cap_n, qb):
+    """Packs of ragged rows (empty, full, one value, a long tie run across
+    the first halvings' probes) with NaN, +-inf, +-0.0 and row values as
+    queries."""
+    rng = np.random.default_rng(seed)
+
+    def pack(cap):
+        out = np.full((T, cap), np.inf, np.float32)
+        for t in range(T):
+            n = [0, cap, 1, cap // 2 + 1, cap - 1][t % 5]
+            v = np.sort(np.round(rng.standard_normal(n) * 4) / 4)
+            if n > 8:
+                # a run of one value around n / 2, n / 4 and n / 8
+                lo, hi = n // 8 - 1, n // 2 + 2
+                v[lo:hi] = 0.5
+                v = np.sort(v)
+            if t % 5 == 4:
+                v[v == 0] = -0.0          # -0.0 ties +0.0 queries
+            out[t, :n] = v
+        return out
+
+    def queries(p):
+        q = np.round(rng.standard_normal((T, qb)) * 4).astype(np.float32) / 4
+        special = np.array([np.nan, np.inf, -np.inf, 0.0, -0.0, 0.5],
+                           np.float32)
+        q[:, :len(special)] = special[:qb]
+        for t in range(T):
+            vals = p[t][np.isfinite(p[t])]
+            if len(vals) and qb > 8:
+                q[t, 6:qb // 2] = vals[rng.integers(0, len(vals),
+                                                    qb // 2 - 6)]
+        return q
+
+    pos, neg = pack(cap_p), pack(cap_n)
+    return pos, neg, queries(neg), queries(pos)
+
+
+EDGE_CASES = [(0, 5, 1, 3, 8), (1, 5, 3, 1, 16), (2, 5, 256, 1024, 64),
+              (3, 10, 513, 40, 32), (4, 5, (1 << 17) + 5, 7, 16)]
+
+
+@pytest.mark.parametrize("seed,T,cap_p,cap_n,qb", EDGE_CASES)
+def test_search_route_equals_plain_and_searchsorted(seed, T, cap_p, cap_n,
+                                                    qb):
+    """The emulated search on phase 20's edge cases (caps 1, 3 and
+    2^17 + 5, caps that differ between the sides, empty rows, NaN and
+    +-inf queries, ties across probe boundaries): the plain version's
+    integers, and the searchsorted route's at every query that is not NaN
+    (see test_nan_queries_split_the_reference_routes)."""
+    args = _torch(*_edge_problem(seed, T, cap_p, cap_n, qb))
+    got, rn, rp = search_route(*args)
+    assert torch.equal(got, ck.tenant_count_plain(*args))
+    num = ~torch.stack([args[2], args[2], args[3], args[3]]).isnan()
+    assert torch.equal(got[num], sc.tenant_count_searchsorted(*args)[num])
+    assert (rn, rp) == (ck.tenant_rounds(cap_n), ck.tenant_rounds(cap_p))
+    # NaN counts 0; +inf counts the whole row (padding included) as leq
+    assert (got[:, :, 0] == 0).all()
+    assert (got[1, :, 1] == cap_n).all() and (got[3, :, 1] == cap_p).all()
+
+
+@pytest.mark.parametrize("seed,cap_p,cap_n", [(10, 256, 1024), (11, 512, 512),
+                                              (12, 2048, 256)])
+def test_search_route_equals_jax_kernel(seed, cap_p, cap_n):
+    """Against JAX tenant_signed_count_local_fn (interpret mode) on the
+    edge problems at the caps it takes (powers of two, at least 256)."""
+    pos, neg, qn, qp = _edge_problem(seed, 8, cap_p, cap_n, 32)
+    got, _, _ = search_route(*_torch(pos, neg, qn, qp))
+    np.testing.assert_array_equal(got.numpy(), _jax_block(pos, neg, qn, qp))
+    for s in range(3):
+        pos, neg, qn, qp = _problem(s)
+        got, _, _ = search_route(*_torch(pos, neg, qn, qp))
+        np.testing.assert_array_equal(got.numpy(),
+                                      _jax_block(pos, neg, qn, qp))
+
+
+def test_nan_queries_split_the_reference_routes():
+    """A NaN query counts 0 in the kernel route (the JAX Pallas kernel's
+    comparisons, the plain version, kernel 7) and the whole row in the
+    searchsorted route (jnp.searchsorted and torch.searchsorted sort NaN
+    last): the reference's two routes differ there, and each port route
+    equals its reference route."""
+    pos, neg, qn, qp = _edge_problem(13, 8, 256, 512, 16)
+    t_bucket = qn.shape[0]
+    for kernel in (None, True):
+        got = sc.tenant_pack_counts(
+            None, torch.from_numpy(pos), pos.shape[1], torch.from_numpy(neg),
+            neg.shape[1], t_bucket, qn, qp, np.float32, kernel=kernel)
+        want = jax_sc.tenant_pack_counts(
+            None, pos, pos.shape[1], neg, neg.shape[1], t_bucket, qn, qp,
+            np.float32, kernel=kernel)
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g, np.asarray(w))
+        caps = (neg.shape[1], neg.shape[1], pos.shape[1], pos.shape[1])
+        nan_col = [g[:, 0].tolist() for g in got]
+        assert nan_col == [[0 if kernel else c] * t_bucket for c in caps]
+
+
+@pytest.mark.parametrize("cap,rounds", [(0, 0), (1, 2), (2, 2), (32, 2),
+                                        (33, 3), (256, 4), (1024, 5),
+                                        (1 << 17, 8), ((1 << 17) + 5, 9)])
+def test_search_rounds_are_pinned(cap, rounds):
+    """Dependent rounds of the lower bound: one for the top 5 halvings
+    (the block's 31 probes), one for each two halvings below them (3
+    loads) and a last one (2 loads): 8 at cap 2^17, where a lower and then
+    an upper binary search took 2 x 18 dependent loads. The upper bound
+    costs no round unless the query equals the value at the lower bound;
+    then a plain halving of the rest of the row, one load a round."""
+    assert (ck.TENANT_TOP_LEVELS, ck.TENANT_LEVELS) == (5, 2)
+    assert ck.tenant_rounds(cap) == rounds
+    row = torch.full((1, cap), 0.5)
+    row[0, : cap // 3] = -1.0
+    q = torch.tensor([[-2.0, 0.75, math.nan, 2.0]])
+    less, leq, got, tie_rounds = _search(row, q)
+    assert got == rounds and tie_rounds == 0
+    assert less.tolist() == leq.tolist() == [[0, cap, 0, cap]]
+    # a tie at the bound: the rest of the row by halvings
+    less, leq, _, tie_rounds = _search(row, torch.tensor([[0.5, -1.0]]))
+    assert less.tolist() == [[cap // 3, 0]]
+    assert leq.tolist() == [[cap, cap // 3]]
+    # the longest rest: past the first 0.5, or past the first -1.0
+    rest = max(cap - cap // 3 - 1, cap - 1 if cap // 3 else 0, 0)
+    assert (rest > 0) <= tie_rounds <= rest.bit_length()
+
+
 @pytest.mark.cuda
 def test_kernel_matches_plain_on_card():
     if not torch.cuda.is_available():
@@ -245,3 +445,9 @@ def test_kernel_matches_plain_on_card():
         assert torch.equal(got, sc.tenant_count_searchsorted(*args))
         np.testing.assert_array_equal(got.cpu().numpy(),
                                       _jax_block(pos, neg, qn, qp))
+    for case in EDGE_CASES:
+        args = tuple(t.cuda() for t in _torch(*_edge_problem(*case)))
+        got = ck.tenant_count(*args)
+        assert torch.equal(got, ck.tenant_count_plain(*args))
+        assert torch.equal(got.cpu(), search_route(
+            *(t.cpu() for t in args))[0])

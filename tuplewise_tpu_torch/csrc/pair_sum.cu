@@ -11,8 +11,8 @@
 // for the Monte-Carlo harness):
 //     S_w = sum_{i < n1, j < n2} g(a[w,i] - b[w,j]) * ma[w,i] * mb[w,j]
 // (the masks are absent when MASKED is false). g is the auc, hinge or
-// logistic body; the unmasked auc sum is not built here: it runs the
-// sort-and-count kernels of csrc/rank_count.cu.
+// logistic body; the unmasked auc and hinge sums are not built here: they
+// run the sort-and-count kernels of csrc/rank_count.cu.
 //
 // Design. The grid is (row tiles, column tiles, W). A block of 256 threads
 // owns a row tile of kTileA = 2048 scores of `a`, 8 per thread in
@@ -329,18 +329,6 @@ logistic_sum_kernel(const float* __restrict__ a, const float* __restrict__ b,
   }
 }
 
-template <class Body>
-void launch(bool masked, dim3 grid, cudaStream_t stream, const float* a,
-            const float* b, const float* ma, const float* mb, float* out,
-            int64_t n1, int64_t n2) {
-  if (masked)
-    pair_sum_kernel<Body, true>
-        <<<grid, kThreads, 0, stream>>>(a, b, ma, mb, out, n1, n2);
-  else
-    pair_sum_kernel<Body, false>
-        <<<grid, kThreads, 0, stream>>>(a, b, ma, mb, out, n1, n2);
-}
-
 }  // namespace
 
 extern "C" {
@@ -357,11 +345,12 @@ float tw_pair_log1p_coef(int i) {
 // Launches one pair-sum kernel on `stream` and returns cudaGetLastError().
 // a [W, n1], b [W, n2] (and ma, mb when masked) are contiguous float32 on
 // the device; out holds W * ceil(n2/kTileB) * ceil(n1/kTileA) partials.
-// body: 0 auc (masked only), 1 hinge, 2 logistic (ops/kernels.py).
+// body: 0 auc (masked only), 1 hinge (masked only), 2 logistic
+// (ops/kernels.py).
 // branches: null, or 2 uint64 on the device to which the logistic kernel
 // adds its blocks of each branch (factored, per-pair). The wrapper checks
-// every argument; an unknown body, or the unmasked auc body, returns
-// cudaErrorInvalidValue.
+// every argument; an unknown body, or the unmasked auc or hinge body,
+// returns cudaErrorInvalidValue.
 int tw_pair_sum(const void* a, const void* b, const void* ma, const void* mb,
                 void* out, long long n1, long long n2, int w, int body,
                 int masked, void* branches, void* stream) {
@@ -379,7 +368,11 @@ int tw_pair_sum(const void* a, const void* b, const void* ma, const void* mb,
       pair_sum_kernel<AucBody, true>
           <<<grid, kThreads, 0, s>>>(fa, fb, pma, pmb, fo, n1, n2);
       break;
-    case 1: launch<HingeBody>(masked, grid, s, fa, fb, pma, pmb, fo, n1, n2); break;
+    case 1:  // the unmasked hinge sum is tw_rank_hinge_sum (csrc/rank_count.cu)
+      if (!masked) return (int)cudaErrorInvalidValue;
+      pair_sum_kernel<HingeBody, true>
+          <<<grid, kThreads, 0, s>>>(fa, fb, pma, pmb, fo, n1, n2);
+      break;
     case 2: {
       auto nb = static_cast<unsigned long long*>(branches);
       if (masked)

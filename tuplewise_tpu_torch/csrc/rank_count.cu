@@ -1,16 +1,19 @@
-// Sort-and-count kernels on Hopper (sm_90a): the auc body of the unmasked
-// pair sum, and the indicator and hinge bodies of the per-anchor triplet sums.
+// Sort-and-count kernels on Hopper (sm_90a): the auc and hinge bodies of the
+// unmasked pair sum, the indicator and hinge bodies of the per-anchor triplet
+// sums, and the hinge body of the gradient pair sums.
 //
 // Replaces, for these bodies, the Pallas TPU kernels of
-//   * tuplewise_tpu/ops/pallas_pairs.py:134 pallas_pair_sum (auc body,
-//     also reached through pallas_pair_sum_any)        -> tw_rank_auc
+//   * tuplewise_tpu/ops/pallas_pairs.py:134 pallas_pair_sum (auc and hinge
+//     bodies, also reached through pallas_pair_sum_any) -> tw_rank_auc,
+//                                                         tw_rank_hinge_sum
 //   * tuplewise_tpu/ops/pallas_triplets.py:185 _batched_masked_pair_sum
 //     (indicator and hinge combines, driven by pallas_triplet_stats)
 //                                                      -> tw_rank_indicator,
 //                                                         tw_rank_hinge
 //   * tuplewise_tpu/ops/pallas_pairs.py:440 pallas_pair_loss_grad and :520
 //     pallas_pair_grad_sums (hinge body)                -> tw_rank_hinge_grad
-// The other pair bodies keep csrc/pair_sum.cu and csrc/pair_grad.cu.
+// The other pair bodies, and every masked pair sum, keep csrc/pair_sum.cu
+// and csrc/pair_grad.cu.
 //
 // What they compute, for each of W independent problems w:
 //   tw_rank_auc:       2 * #{(i,j): fl(a_i - b_j) > 0} + #{(i,j): fl(a_i - b_j) == 0}
@@ -26,6 +29,9 @@
 //                      col[w,j] = -#{i : fl(a_i - b_j) < 1} (float32 of
 //                      int32 counts), loss[w] = sum_ij max(0, 1 - fl(a_i -
 //                      b_j)) in float64: the hinge's g' and g summed.
+//   tw_rank_hinge_sum: loss[w] = sum_ij max(0, 1 - fl(a_i - b_j)) in float64,
+//                      the hinge body's pair sum (the gradient route's loss
+//                      alone).
 //
 // Design. The TPU kernels compared every pair (or triplet) because the TPU
 // has no fast search. Here the second operand is cut into tiles of T values
@@ -82,6 +88,18 @@
 //     version at any size (one rounding of an exact integer each), and the
 //     loss-free call runs the same counts, so its row and col are those of
 //     the loss call bit for bit.
+//   * hinge pair sum (kernel 1, unmasked): the gradient route's loss with no
+//     counts and no col pass. grad_sort_kernel sorts b's tiles with their
+//     suffix sums (a null counts pointer: nothing to zero), the row pass of
+//     grad_count_kernel runs with COUNTS false (no atomics: each block only
+//     writes its float64 partial of the loss; a block searches a tile with
+//     kSumSweeps / kGradSweeps = 8 times the values of a, since the tile
+//     and its suffix sums fill a block's shared memory and their load is
+//     the block's other cost), and grad_finish_kernel sums a
+//     problem's partials in a fixed order, so a run repeats bit for bit. A
+//     selected pair adds (1 - a_i) + b_j in float64 where the pair sweep added
+//     fl(1 - fl(a_i - b_j)) in float32: the two differ by at most half an ulp
+//     of fl(a_i - b_j) and half an ulp of the float32 term a pair (rule 5).
 // A sorted tile sits in shared memory in Eytzinger (breadth-first) order:
 // sorted positions 0..T-2 form a complete search tree of log2(T) levels,
 // position T-1 sits in slot T-1. A search step is one load, one subtraction,
@@ -598,13 +616,19 @@ hinge_kernel(const float* __restrict__ A, const float* __restrict__ B,
 // ------------------------------------------------------------------------ //
 
 // the threads of a gradient count block, by tile size, and the values of
-// the searching side one block counts (kIlp in flight, kGradSweeps rounds)
+// the searching side one block counts (kIlp in flight, kGradSweeps rounds;
+// the pair sum's blocks kSumSweeps: with no col pass beside them, a tile
+// loaded into a block's shared memory is searched by more values of a)
 constexpr int kGradSweeps = 4;
+constexpr int kSumSweeps = 32;
 __host__ __device__ constexpr int grad_threads(int T) {
   return T <= 2048 ? 128 : 512;
 }
 __host__ __device__ constexpr int grad_chunk(int T) {
   return grad_threads(T) * kIlp * kGradSweeps;
+}
+__host__ __device__ constexpr int sum_chunk(int T) {
+  return grad_threads(T) * kIlp * kSumSweeps;
 }
 
 // row pass, !(fl(a - b) < 1) with a tile of b: a prefix (rule 1), whose
@@ -629,7 +653,8 @@ struct GradColPrefix {
 // values, kTileNan if a NaN, -inf values); with SUFFIX, suffix[w, tile, p]
 // = the float64 sum of the finite values at sorted positions >= p (p <= T).
 // It zeroes the counts of the tile's own values, counts[w, col0 + i], to
-// which the other side's count launch (later on the stream) adds.
+// which the other side's count launch (later on the stream) adds (counts
+// null: no counts to zero).
 template <int THREADS, int ITEMS, bool SUFFIX>
 __global__ void __launch_bounds__(THREADS)
 grad_sort_kernel(const float* __restrict__ v, float* __restrict__ sorted,
@@ -648,7 +673,7 @@ grad_sort_kernel(const float* __restrict__ v, float* __restrict__ sorted,
   const int64_t rem = n - col0;
   const int len = rem < T ? (int)rem : T;
   const float* src = v + (int64_t)blockIdx.y * n + col0;
-  int* cnt = counts + (int64_t)blockIdx.y * n + col0;
+  int* cnt = counts ? counts + (int64_t)blockIdx.y * n + col0 : nullptr;
   if (threadIdx.x < 3) scount[threadIdx.x] = 0;
   unsigned keys[ITEMS];
   int nnan = 0, npos = 0, nneg = 0;
@@ -658,7 +683,7 @@ grad_sort_kernel(const float* __restrict__ v, float* __restrict__ sorted,
     const bool in = i < len;
     const float x = in ? src[i] : 0.f;
     keys[r] = in ? float_key(x) : kNanKey;
-    if (in) cnt[i] = 0;
+    if (in && cnt) cnt[i] = 0;
     nnan += in && x != x;
     npos += in && x == kInf;
     nneg += in && x == -kInf;
@@ -739,11 +764,11 @@ __device__ __forceinline__ double hinge_grad_loss(float x, int p,
 
 // grid (chunks of the searching side x, tiles of the other side, W),
 // grad_threads(T) threads, dynamic shared memory: the sorted tile [T] and,
-// for the row pass with the loss, its suffix sums [T + 1]. Adds each value's
-// count over the tile to counts[w, i] (integer atomics, order-free): ROW,
-// #{b : fl(x - b) < 1}; else #{a : fl(a - x) < 1}. The row pass with the
-// loss writes one float64 partial a block: losspart[w, tile, chunk].
-template <int LOG_T, bool ROW, bool WITH_LOSS>
+// for the row pass with the loss, its suffix sums [T + 1]. With COUNTS, adds
+// each value's count over the tile to counts[w, i] (integer atomics, order-
+// free): ROW, #{b : fl(x - b) < 1}; else #{a : fl(a - x) < 1}. The row pass
+// with the loss writes one float64 partial a block: losspart[w, tile, chunk].
+template <int LOG_T, bool ROW, bool WITH_LOSS, bool COUNTS>
 __global__ void __launch_bounds__(grad_threads(1 << LOG_T))
 grad_count_kernel(const float* __restrict__ x, const float* __restrict__ sorted,
                   const double* __restrict__ suffix,
@@ -751,7 +776,7 @@ grad_count_kernel(const float* __restrict__ x, const float* __restrict__ sorted,
                   double* __restrict__ losspart, int64_t n) {
   constexpr int T = 1 << LOG_T;
   constexpr int THREADS = grad_threads(T);
-  constexpr int CHUNK = grad_chunk(T);
+  constexpr int CHUNK = COUNTS ? grad_chunk(T) : sum_chunk(T);
   constexpr bool LOSS = ROW && WITH_LOSS;
   extern __shared__ __align__(16) unsigned char smem[];
   float* e = reinterpret_cast<float*>(smem);
@@ -772,7 +797,7 @@ grad_count_kernel(const float* __restrict__ x, const float* __restrict__ sorted,
 
   const int nv = ti.x;
   const float* xw = x + w * n;
-  int* cw = counts + w * n;
+  int* cw = COUNTS ? counts + w * n : nullptr;
   const int64_t row0 = (int64_t)blockIdx.x * CHUNK;
   const int64_t end = n - row0 < CHUNK ? n : row0 + CHUNK;
   double acc = 0.0;
@@ -797,7 +822,7 @@ grad_count_kernel(const float* __restrict__ x, const float* __restrict__ sorted,
       // slots except for x = +inf or NaN (row pass), whose count is 0
       const int p = c[u] < nv ? c[u] : nv;
       const int cnt = ROW ? nv - p : p;
-      if (cnt) atomicAdd(cw + r, cnt);
+      if (COUNTS && cnt) atomicAdd(cw + r, cnt);
       if (LOSS) acc += hinge_grad_loss(xv[u], p, ti, suf);
     }
   }
@@ -813,7 +838,8 @@ grad_count_kernel(const float* __restrict__ x, const float* __restrict__ sorted,
 // grid (ceil(max(n1, n2) / 256), W), 256 threads: row = -rowcnt, col =
 // -colcnt as float32 (one rounding of an exact integer, as the plain
 // version rounds its float64 sum of -1s), loss[w] = the sum of the nparts
-// partials of problem w in a fixed order (loss null: no loss).
+// partials of problem w in a fixed order (loss null: no loss). The pair sum
+// launches it with n1 = n2 = 0 on a grid (1, W): the loss alone.
 __global__ void __launch_bounds__(256)
 grad_finish_kernel(const int* __restrict__ rowcnt,
                    const int* __restrict__ colcnt,
@@ -923,7 +949,7 @@ int launch_grad_sort(bool with_suffix, const float* v, float* sorted,
 }
 
 // counts the n values of x [W, n] against the sorted tiles of the other
-// side (tiles of T values)
+// side (tiles of T values); counts null: the row pass's loss alone
 template <int LOG_T>
 int launch_grad_count(bool row, bool with_loss, const float* x,
                       const float* sorted, const double* suffix,
@@ -932,13 +958,16 @@ int launch_grad_count(bool row, bool with_loss, const float* x,
   constexpr int T = 1 << LOG_T;
   const bool loss = row && with_loss;
   const int smem = 4 * T + (loss ? 8 * (T + 1) : 0);
-  auto kern = loss ? &grad_count_kernel<LOG_T, true, true>
-                   : (row ? &grad_count_kernel<LOG_T, true, false>
-                          : &grad_count_kernel<LOG_T, false, false>);
+  if (!counts && !loss) return (int)cudaErrorInvalidValue;
+  auto kern = !counts ? &grad_count_kernel<LOG_T, true, true, false>
+              : loss  ? &grad_count_kernel<LOG_T, true, true, true>
+              : row   ? &grad_count_kernel<LOG_T, true, false, true>
+                      : &grad_count_kernel<LOG_T, false, false, true>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  const unsigned chunks = (unsigned)((n + grad_chunk(T) - 1) / grad_chunk(T));
+  const int chunk = counts ? grad_chunk(T) : sum_chunk(T);
+  const unsigned chunks = (unsigned)((n + chunk - 1) / chunk);
   const unsigned tiles = (unsigned)((n_other + T - 1) / T);
   kern<<<dim3(chunks, tiles, (unsigned)w), grad_threads(T), smem, s>>>(
       x, sorted, suffix, info, counts, losspart, n);
@@ -1118,6 +1147,44 @@ int tw_rank_hinge_grad(const void* a, const void* b, void* sorted_a,
                                static_cast<float*>(col),
                                wl ? static_cast<double*>(loss) : nullptr, n1,
                                n2, nparts);
+  return (int)cudaGetLastError();
+}
+
+// the values of a one pair-sum block takes, for a tile of T values of b (0
+// for a T the route does not build)
+int tw_rank_sum_chunk(int T) {
+  return tw_rank_grad_chunk(T) ? sum_chunk(T) : 0;
+}
+
+// hinge pair sum (kernel 1, unmasked): sorts the tiles of b (Tb values each)
+// with float64 suffix sums, sums each a's loss against every tile into one
+// float64 partial a block, then sums each problem's partials in a fixed
+// order into loss [W] float64, on `stream`: three launches; returns the
+// first nonzero cuda error. a [W, n1], b [W, n2] contiguous float32 on the
+// device. Scratch, from the wrapper: sorted_b [W, tb, Tb] float32, suffix_b
+// [W, tb, Tb + 1] float64, info_b [W, tb] int4, losspart [W, tb,
+// ceil(n1 / tw_rank_sum_chunk(Tb))] float64, tb = ceil(n2 / Tb). Tb as
+// for tw_rank_hinge_grad.
+int tw_rank_hinge_sum(const void* a, const void* b, void* sorted_b,
+                      void* suffix_b, void* info_b, void* losspart,
+                      void* loss, long long n1, long long n2, int w, int Tb,
+                      void* stream) {
+  if (!tw_rank_grad_chunk(Tb)) return (int)cudaErrorInvalidValue;
+  auto s = static_cast<cudaStream_t>(stream);
+  auto sb = static_cast<float*>(sorted_b);
+  auto suf = static_cast<double*>(suffix_b);
+  auto ib = static_cast<int4*>(info_b);
+  auto lp = static_cast<double*>(losspart);
+  int err = grad_sort(Tb, true, static_cast<const float*>(b), sb, suf, ib,
+                      nullptr, n2, w, s);
+  if (!err) err = grad_count(Tb, true, true, static_cast<const float*>(a), sb,
+                             suf, ib, nullptr, lp, n1, n2, w, s);
+  if (err) return err;
+  const int nparts = (int)(((n2 + Tb - 1) / Tb) *
+                           ((n1 + sum_chunk(Tb) - 1) / sum_chunk(Tb)));
+  grad_finish_kernel<<<dim3(1, (unsigned)w), 256, 0, s>>>(
+      nullptr, nullptr, lp, nullptr, nullptr, static_cast<double*>(loss), 0,
+      0, nparts);
   return (int)cudaGetLastError();
 }
 

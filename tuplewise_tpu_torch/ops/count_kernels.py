@@ -27,7 +27,11 @@ counterpart of ``tenant_signed_count_local_fn``: per tenant row t, the
 queries ``qn[t]`` against the sorted row ``neg_pack[t]`` and ``qp[t]``
 against ``pos_pack[t]``, one int32 block [4, T, q] with rows (less_n,
 leq_n, less_p, leq_p). The rows are +inf padded; the two packs may have
-different row lengths. Its dispatch is the same.
+different row lengths. Its dispatch is the same. The kernel takes the
+top ``TENANT_TOP_LEVELS`` halvings of a row's search from shared memory
+and the rest ``TENANT_LEVELS`` a round of loads, the lower and upper
+bounds in one descent: :func:`tenant_rounds` gives its chain of
+dependent loads.
 
 ``LAUNCHES["signed_count[flat]"]`` and ``LAUNCHES["tenant_count"]`` (the
 counter of ``ops.pair_kernels``) count kernel launches.
@@ -158,6 +162,25 @@ def signed_count(runs: Sequence[torch.Tensor], signs: Sequence[int],
 # --------------------------------------------------------------------- #
 
 _TENANT_SOURCE = "tenant_count.cu"
+# kernel 7's search (csrc/tenant_count.cu kTopLevels and kLevels, checked
+# against the built library): the halvings of a row's search that a block
+# reads from shared memory after one round of loads, and the halvings a
+# round below them
+TENANT_TOP_LEVELS, TENANT_LEVELS = 5, 2
+# one block row of the kernel's grid a tenant row
+_MAX_TENANT_ROWS = 65535
+
+
+def tenant_rounds(cap: int) -> int:
+    """Dependent load rounds of kernel 7's lower bound in a row of cap
+    values: one for the block's top ``TENANT_TOP_LEVELS`` halvings, the
+    other ceil(log2 cap) halvings ``TENANT_LEVELS`` a round, and a last
+    round; the upper bound adds none unless the query equals the value at
+    the lower bound."""
+    if cap <= 0:
+        return 0
+    below = max(0, (int(cap) - 1).bit_length() - TENANT_TOP_LEVELS)
+    return 2 + -(-below // TENANT_LEVELS)
 
 
 def _check_tenant(pos_pack, neg_pack, qn, qp) -> None:
@@ -215,12 +238,22 @@ def load_tenant_library():
         p, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
         lib.tw_tenant_count.argtypes = [p, ll, p, ll, p, p, i, i, p, p]
         lib.tw_tenant_count.restype = i
+        lib.tw_tenant_levels.restype = i
+        lib.tw_tenant_top_levels.restype = i
+        built = (lib.tw_tenant_top_levels(), lib.tw_tenant_levels())
+        if built != (TENANT_TOP_LEVELS, TENANT_LEVELS):
+            raise RuntimeError(f"{_TENANT_SOURCE} was built with halvings "
+                               f"{built}, the launcher expects "
+                               f"{(TENANT_TOP_LEVELS, TENANT_LEVELS)}")
         lib._tw_typed = True
     return lib
 
 
 def _launch_tenant(pos_pack, neg_pack, qn, qp) -> torch.Tensor:
     T, qb = qn.shape
+    if T > _MAX_TENANT_ROWS:
+        raise ValueError(f"T={T} tenant rows are beyond the CUDA grid of "
+                         f"the tenant count (at most {_MAX_TENANT_ROWS})")
     out = torch.empty((4, T, qb), dtype=torch.int32, device=qn.device)
     if T * qb == 0:
         return out

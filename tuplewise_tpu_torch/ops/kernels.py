@@ -86,7 +86,7 @@ class Kernel:
 
 # ---------------------------------------------------------------------------
 # Score-difference kernels (degree 2). Body ids match csrc/pair_sum.cu (the
-# unmasked auc sum runs csrc/rank_count.cu).
+# unmasked auc and hinge sums run csrc/rank_count.cu).
 # ---------------------------------------------------------------------------
 
 AUC_BODY, HINGE_BODY, LOGISTIC_BODY = 0, 1, 2

@@ -18,10 +18,13 @@ tensor of shape [] or [W].
 
 Dispatch. A tensor on the CPU takes the plain version. A CUDA tensor
 launches the kernel, or raises: nothing falls back from a kernel that
-fails to build or launch. The unmasked auc body runs the sort-and-count
-kernels of ``csrc/rank_count.cu`` (``ops.rank_count``): an exact int64
-``2 * wins + ties`` a problem, halved in float64. Every other body, and
-every masked sum, runs ``csrc/pair_sum.cu``; the logistic body there
+fails to build or launch. The unmasked auc and hinge bodies run the
+sort-and-count kernels of ``csrc/rank_count.cu`` (``ops.rank_count``):
+for the auc an exact int64 ``2 * wins + ties`` a problem, halved in
+float64; for the hinge the float64 sum c (1 - a_i) + (the suffix sum of
+the sorted b where fl(a_i - b) < 1) over a_i and tiles of b. The
+logistic body, and every masked sum, runs ``csrc/pair_sum.cu``; the
+logistic body there
 factors e^{-|d|} into per-score exponentials where a block's scores span
 at most ``LOGISTIC_SPAN`` and takes log1p as a polynomial
 (``LOG1P_COEFFS``; :func:`logistic_branch_blocks` counts the blocks of
@@ -44,7 +47,7 @@ from typing import Optional
 import torch
 
 from tuplewise_tpu_torch.ops import rank_count
-from tuplewise_tpu_torch.ops.kernels import AUC_BODY, Kernel
+from tuplewise_tpu_torch.ops.kernels import AUC_BODY, HINGE_BODY, Kernel
 
 LAUNCHES: collections.Counter = collections.Counter()
 
@@ -196,9 +199,13 @@ def _launch(name, a, b, ma, mb, kernel: Kernel,
     if n1 == 0 or n2 == 0 or W == 0:
         out = torch.zeros(W, dtype=torch.float64, device=a.device)
         return out[0] if squeeze else out
-    if not masked and kernel.cuda_body == AUC_BODY:
-        # sort-and-count: an exact int64 2 * wins + ties a problem
-        out = rank_count.auc_twice_counts(a, b).to(torch.float64) * 0.5
+    if not masked and kernel.cuda_body in (AUC_BODY, HINGE_BODY):
+        # sort-and-count: an exact int64 2 * wins + ties a problem (auc),
+        # sort-and-search with float64 suffix sums (hinge)
+        if kernel.cuda_body == AUC_BODY:
+            out = rank_count.auc_twice_counts(a, b).to(torch.float64) * 0.5
+        else:
+            out = rank_count.hinge_pair_sums(a, b)
         LAUNCHES[f"{name}[{kernel.name}]"] += 1
         return out[0] if squeeze else out
     lib = load_library()
@@ -240,7 +247,8 @@ def pair_sum(a, b, kernel: Kernel, impl: Optional[str] = None):
     (float64 result of shape [] or [W]); count = n1 * n2.
 
     CUDA tensors launch the CUDA kernel (or raise): the sort-and-count
-    kernels for the auc body, ``csrc/pair_sum.cu`` for the others; CPU
+    kernels for the auc and hinge bodies, ``csrc/pair_sum.cu`` for the
+    logistic; CPU
     tensors take ``pair_sum_plain``; ``impl="plain"`` forces the plain
     version. A kernel without a CUDA body runs the plain tiled version."""
     return _dispatch("pair_sum", a, b, None, None, kernel, impl)

@@ -6,6 +6,10 @@ usual wrappers (which check the tensors and count the launches):
 * ``pair_kernels.pair_sum`` with the auc body (kernel 1, unmasked):
   :func:`auc_twice_counts` returns the int64 ``2 * wins + ties`` of each
   problem, which the wrapper halves in float64.
+* ``pair_kernels.pair_sum`` with the hinge body (kernel 1, unmasked):
+  :func:`hinge_pair_sums` returns the float64 pair sum of each problem,
+  the hinge gradient route's loss alone (b's tiles sorted once with their
+  suffix sums, each a searching every tile; no counts, no col pass).
 * ``triplet_kernels.batched_masked_pair_sum`` with the indicator or the
   hinge combine (kernel 5): :func:`triplet_sums` returns the float64
   per-problem sums; the hinge's as (margin + A) * sum(mk) - sum(mk * B)
@@ -74,8 +78,12 @@ def load_library():
         lib.tw_rank_hinge.restype = i
         lib.tw_rank_hinge_grad.argtypes = [p] * 13 + [ll, ll, i, i, i, i, p]
         lib.tw_rank_hinge_grad.restype = i
+        lib.tw_rank_hinge_sum.argtypes = [p] * 7 + [ll, ll, i, i, p]
+        lib.tw_rank_hinge_sum.restype = i
         lib.tw_rank_grad_chunk.argtypes = [i]
         lib.tw_rank_grad_chunk.restype = i
+        lib.tw_rank_sum_chunk.argtypes = [i]
+        lib.tw_rank_sum_chunk.restype = i
         built = (lib.tw_rank_max_tile(), lib.tw_rank_min_tile(),
                  lib.tw_rank_count_chunk(), lib.tw_rank_hinge_max_tile())
         want = (MAX_TILE, MIN_TILE, COUNT_CHUNK, HINGE_MAX_TILE)
@@ -198,3 +206,43 @@ def hinge_grad(a: torch.Tensor, b: torch.Tensor, with_loss: bool):
     _raise_on(err, f"hinge gradient sort-and-search (W={W}, n1={n1}, "
                    f"n2={n2}, tiles {Ta} / {Tb})")
     return loss, row, col
+
+
+def hinge_pair_sums(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """[W] float64 sums of max(0, 1 - fl(a_i - b_j)) over each problem's
+    pairs, NaN and infinities as the plain version gives them, for checked
+    contiguous float32 CUDA tensors a [W, n1] and b [W, n2] (n1, n2, W >
+    0): b cut into tiles of :func:`grad_tile_size` values, sorted once
+    with their float64 suffix sums; each a_i searches every tile with the
+    body's float32 predicate and adds c (1 - a_i) + the suffix sum past
+    the search. Three launches (sort, search, a fixed-order sum of the
+    partials), so a call repeats bit for bit."""
+    W, n1 = a.shape
+    n2 = b.shape[1]
+    T = grad_tile_size(n2)
+    tiles = -(-n2 // T)
+    if W > _MAX_GRID_YZ or tiles > _MAX_GRID_YZ or max(n1, n2) >= 1 << 31:
+        raise ValueError(f"W={W}, n1={n1}, n2={n2} is beyond the CUDA grid "
+                         f"of the hinge pair sum ({tiles} tiles of {T})")
+    lib = load_library()
+    chunks = -(-n1 // lib.tw_rank_sum_chunk(T))
+    dev = a.device
+    # one float64 scratch carved in 8-byte words: the sorted tiles (float32)
+    # and the tile infos (int4) first, 16-byte aligned (T / 2 and 2 words
+    # a tile), then the suffix sums and the partials
+    words = (W * tiles * T // 2, W * tiles * 2, W * tiles * (T + 1),
+             W * tiles * chunks)
+    wide = torch.empty(sum(words), dtype=torch.float64, device=dev)
+    at = [wide.data_ptr()]
+    for size in words[:-1]:
+        at.append(at[-1] + 8 * size)
+    sorted_b, info_b, suffix, losspart = at
+    loss = torch.empty(W, dtype=torch.float64, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.tw_rank_hinge_sum(a.data_ptr(), b.data_ptr(), sorted_b,
+                                    suffix, info_b, losspart,
+                                    loss.data_ptr(), n1, n2, W, T, stream)
+    _raise_on(err, f"pair_sum[hinge] sort-and-search (W={W}, n1={n1}, "
+                   f"n2={n2}, tile {T})")
+    return loss
