@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""Times the logistic and hinge pair sums, the triplet hinge sums, the
-gradient pair sums and the fleet's tenant counts of two or more checkouts
-of the PyTorch port in one run, on one GPU, in turns.
+"""Times the logistic and hinge pair sums, the masked pair sums, the
+triplet hinge sums, the gradient pair sums and the fleet's tenant counts
+of two or more checkouts of the PyTorch port in one run, on one GPU, in
+turns.
 
 Run from the root of a checkout, on a machine with one CUDA card:
 
@@ -16,9 +17,11 @@ from one seed on the card, at the shapes of chip_smoke.py's main path:
 
 * ``pair_sum`` with the logistic and the hinge body at 2^20 x 2^20
   (N(1, 1) against N(0, 1) scores), phase 5's rows;
-* ``masked_pair_sum`` with the logistic body at W = 8, 125001 x 125000
-  (ragged worker blocks: the last row of 3 workers masked out), phase 5's
-  masked row;
+* ``masked_pair_sum`` with the logistic, auc and hinge bodies at W = 8,
+  125001 x 125000 (ragged worker blocks: the last row of 3 workers masked
+  out), phase 5's masked rows, and around the masked auc and hinge the
+  Estimator backend's ragged local round (``local_round_from_blocks``,
+  N = 8 blocks of 10^6 + 5 / 10^6 scores), phase 3's;
 * ``batched_masked_pair_sum`` with the hinge combine (margin 1) on the
   distances of 128 anchors and of all 32768 anchors to 32768 positives
   and 32768 negatives, d = 32 (N(0, I) against N(0.3, I)), phase 12b's
@@ -26,7 +29,8 @@ from one seed on the card, at the shapes of chip_smoke.py's main path:
 * ``pair_loss_grad`` and ``pair_grad_sums`` (kernels 3-4) with the hinge
   and the logistic body at W = 1, 5e5 x 5e5 (N(0.3, 0.5) against
   N(0, 0.5) scores, phase 6's rows) and at the simulated learner's batch,
-  W = 1536 problems of 16 x 16;
+  W = 1536 problems of 16 x 16 (there, host-bound calls, also
+  torch.profiler's device time a call, "<row> device");
 * the learner around them: 20 hinge steps of ``train_pairwise`` at
   n = 5e5 per class (loss_every 1, chip_smoke.py phase 7's first run)
   and one 500-step ``train_curves`` cell of the gauss sweep (S = 48
@@ -103,7 +107,24 @@ def _turn():
     ma[5:, -1] = 0.0
     t, s = ms(lambda: pk.masked_pair_sum(ab, bb, ma, mb, logistic), 3)
     out["masked_pair_sum[logistic]"] = (t, float(s.sum()))
+    for name in ("auc", "hinge"):
+        k = get_kernel(name)
+        t, s = ms(lambda: pk.masked_pair_sum(ab, bb, ma, mb, k), 20)
+        out[f"masked_pair_sum[{name}]"] = (t, float(s.sum()))
     del a, b, ab, bb, ma, mb
+
+    import chip_smoke as cs
+    from tuplewise_tpu_torch import Estimator
+    n = 10 ** 6
+    s1 = torch.randn(n + 5, generator=g, device="cuda") + 1.0
+    s2 = torch.randn(n, generator=g, device="cuda")
+    i1, i2 = cs.ragged_blocks(g, n + 5, 8), cs.ragged_blocks(g, n, 8)
+    for name in ("auc", "hinge"):
+        be = Estimator(name, backend="torch").backend
+        t, v = ms(lambda: float(be.local_round_from_blocks(s1, s2, i1, i2)),
+                  5)
+        out[f"ragged local round[{name}]"] = (t, v)
+    del s1, s2, i1, i2
 
     m = 32768
     X = torch.randn(m, 32, generator=g, device="cuda")
@@ -145,6 +166,12 @@ def _turn():
             out[f"pair_loss_grad[{name}]{tag}"] = (t, float(s.sum()))
             t, (r, _) = ms(lambda: pg.pair_grad_sums(a, b, k), reps)
             out[f"pair_grad_sums[{name}]{tag}"] = (t, float(r.sum()))
+            if W > 1:
+                # host-bound calls: their device time a call beside
+                for wrapper, fn in (("pair_loss_grad", pg.pair_loss_grad),
+                                    ("pair_grad_sums", pg.pair_grad_sums)):
+                    _, dev, _ = cs.timed_on_device(lambda: fn(a, b, k), 50)
+                    out[f"{wrapper}[{name}]{tag} device"] = (dev, 0.0)
     del a, b
 
     from tuplewise_tpu_torch.data import make_gaussian_splits
@@ -172,7 +199,6 @@ def _turn():
                 1)
     out["train_curves[hinge] cell"] = (t, float(res["loss"].mean()))
 
-    import chip_smoke as cs
     from tuplewise_tpu_torch.ops import count_kernels as ck
     scores, labels, tids = cs.fleet_stream(cs.FLEET_EVENTS, cs.FLEET_TENANTS)
     pos, neg, _, _ = cs.fleet_packs(scores, labels, tids, cs.FLEET_TENANTS)

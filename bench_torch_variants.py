@@ -1,10 +1,13 @@
 #!/usr/bin/env python3
 """Times variants of the fleet's tenant count kernel (kernel 7,
-``tuplewise_tpu_torch/csrc/tenant_count.cu``) in one run, on one GPU.
+``tuplewise_tpu_torch/csrc/tenant_count.cu``), or with ``--masked`` of
+kernel 2's masked auc and hinge routes (``csrc/rank_count.cu``), in one
+run, on one GPU.
 
 Run from the root of a checkout, on a machine with one CUDA card:
 
     python3 bench_torch_variants.py [OTHER_CHECKOUT]
+    python3 bench_torch_variants.py --masked
 
 Each variant is this checkout's source with some of its compile-time
 constants replaced (``VARIANTS``: the halvings a block takes from shared
@@ -19,6 +22,15 @@ block) and with a dense block (every cell a distinct N(0, 1) query), in
 two turns. It prints one line a variant and turn, one JSON object of the
 times and the card's name and power limit. Without a CUDA device it
 exits nonzero.
+
+With ``--masked`` the variants (``MASKED_VARIANTS``) change the chunk of
+a that one search block of the masked routes takes (``kSumSweeps``
+rounds of kIlp searches a thread, shared with the unmasked hinge); each
+is held against the plain version (auc equal, hinge within rel 1e-9) and
+timed at chip_smoke.py phase 5's masked shape (W = 8, 125001 x 125000,
+N(0, 1) scores, the last value of 3 workers' a weighted 0) by
+torch.profiler's device time a call over 50 calls and split by kernel
+(sort, search, finish), in two turns.
 """
 
 import concurrent.futures
@@ -30,7 +42,8 @@ import sys
 import tempfile
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-SOURCE = os.path.join(ROOT, "tuplewise_tpu_torch", "csrc", "tenant_count.cu")
+CSRC = os.path.join(ROOT, "tuplewise_tpu_torch", "csrc")
+SOURCE = os.path.join(CSRC, "tenant_count.cu")
 # name: the constants replaced in the committed source
 VARIANTS = {
     "committed": {},
@@ -44,12 +57,22 @@ VARIANTS = {
 }
 
 
-def variant_source(tmp, name, subs):
+# kernel 2's masked routes: the rounds of kIlp searches a thread in one
+# search block, so its chunk of a (the committed source: 32)
+MASKED_VARIANTS = {
+    "committed": {},
+    "2 sweeps": {"kSumSweeps": 2},
+    "8 sweeps": {"kSumSweeps": 8},
+    "16 sweeps": {"kSumSweeps": 16},
+}
+
+
+def variant_source(tmp, name, subs, source=SOURCE):
     """This checkout's source with ``constexpr int <key> = ...;`` set to
     each value of subs, written under tmp."""
     import re
 
-    src = open(SOURCE).read()
+    src = open(source).read()
     for key, value in subs.items():
         src, n = re.subn(rf"constexpr int {key} = \d+;",
                          f"constexpr int {key} = {value};", src)
@@ -93,6 +116,58 @@ def launcher(lib_path, pos, neg, qn, qp):
     return run
 
 
+def masked_main(card):
+    """The --masked run (see the module note)."""
+    import torch
+
+    import chip_smoke as cs
+    from tuplewise_tpu_torch.ops import _build, rank_count
+    from tuplewise_tpu_torch.ops import pair_kernels as pk
+    from tuplewise_tpu_torch.ops.kernels import get_kernel
+
+    tmp = tempfile.mkdtemp()
+    source = os.path.join(CSRC, "rank_count.cu")
+    sources = {name: variant_source(tmp, name, subs, source)
+               for name, subs in MASKED_VARIANTS.items()}
+    with concurrent.futures.ThreadPoolExecutor(len(sources)) as ex:
+        built = dict(zip(sources, ex.map(build, sources.values())))
+    g = torch.Generator(device="cuda").manual_seed(cs.SEED)
+    ab = torch.randn(8, 125001, generator=g, device="cuda")
+    bb = torch.randn(8, 125000, generator=g, device="cuda")
+    ma, mb = torch.ones_like(ab), torch.ones_like(bb)
+    ma[5:, -1] = 0.0
+    want = {name: pk.masked_pair_sum(ab, bb, ma, mb, get_kernel(name),
+                                     impl="plain")
+            for name in ("auc", "hinge")}
+    times = {}
+    for turn in (1, 2):
+        for vname, (lib_path, _) in built.items():
+            # the variant's library in place of the built one
+            _build._LIBS["rank_count.cu"] = ctypes.CDLL(lib_path)
+            for name in ("auc", "hinge"):
+                def run():
+                    return rank_count.masked_pair_sums(
+                        ab, bb, ma, mb, hinge=name == "hinge")
+                got = run()
+                if name == "auc":
+                    assert torch.equal(got, want[name]), vname
+                else:
+                    rel = ((got - want[name]).abs() / want[name].abs()).max()
+                    assert float(rel) < 1e-9, (vname, float(rel))
+                call_ms, ms, _ = cs.timed_on_device(run, 50)
+                split = cs.device_ms_by_kernel(run, 20)
+                key = f"{vname} [{name}]"
+                times.setdefault(key, []).append(ms)
+                times.setdefault(f"{key} by kernel", []).append(split)
+                print(f"[turn {turn}] {key}: {ms:.4f} ms of device time a "
+                      f"call ({call_ms:.4f} ms by CUDA events); by kernel "
+                      f"{json.dumps(split)}", flush=True)
+    _build._LIBS.pop("rank_count.cu", None)
+    print(json.dumps({"ms": times, "card": card}), flush=True)
+    print(card, flush=True)
+    return 0
+
+
 def main():
     import torch
 
@@ -105,6 +180,8 @@ def main():
     from tuplewise_tpu_torch.parallel import sharded_counts as sc
 
     card = cs.card_line()
+    if sys.argv[1:2] == ["--masked"]:
+        return masked_main(card)
     tmp = tempfile.mkdtemp()
     sources = {name: variant_source(tmp, name, subs)
                for name, subs in VARIANTS.items()}

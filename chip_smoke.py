@@ -22,8 +22,8 @@ nonzero. Each phase prints its seconds.
    2^14 x 2^14 and at the harness's local-round batch (W = 512,
    1250 x 1250), each against its plain PyTorch version on the same card.
    AUC must be equal exactly (the unmasked auc is an int64 sort-and-count
-   of csrc/rank_count.cu; the masked one sums halves exactly: float32
-   below 2^23 per partial, float64 above). hinge and logistic must agree
+   of csrc/rank_count.cu; the masked one sums {0, 1} weights and halves
+   exactly in float64, csrc/rank_count.cu too). hinge and logistic must agree
    within rel 1e-5: both sum float32 values, in different orders. Then
    every body on edge-case scores (+-inf, NaN of both signs, +-0.0,
    subnormals, heavy ties) from 1 x 1 to W = 3 x 9000 x 70000: auc
@@ -37,7 +37,16 @@ nonzero. Each phase prints its seconds.
    d == 1, a -inf score of a and a +inf of b, b past one 16384-value
    tile with a short last tile, and W = 512 x 1250: finite sums equal to
    plain (exact differences), +inf where plain is +inf, two calls bit
-   for bit. The edge-value cases also run at W = 512 x 1250.
+   for bit. The edge-value cases also run at W = 512 x 1250. Then the
+   masked auc and hinge routes (csrc/rank_count.cu) with {0, 1} and
+   fractional weights in [0, 2) (20 % zeros): b past one 8192- and one
+   16384-value tile with a short last tile, W = 512 x 1250, lattice
+   scores, infinities of weight 0 and facing a zero weight, edge values:
+   the auc equal to plain with {0, 1} weights (the hinge too on the
+   lattice), otherwise NaN and inf where plain has them and finite sums
+   within the gap that plain's float32 rounding allows (masked_gap, the
+   derivation of tests/test_torch_masked_routes.py) and rel 1e-5; two
+   calls bit for bit.
 3. Main path at full size, through Estimator(kernel, backend="torch") on
    the default device: complete at n = 2^20 and 2^20 + 64 per class (AUC
    with auc_fast=False, which must equal rank_auc exactly), local_average
@@ -54,8 +63,9 @@ nonzero. Each phase prints its seconds.
    rank_auc; for the hinge, torch.sort + torch.cumsum +
    torch.searchsorted on the same scores; for the masked auc and hinge
    the same composition with the masks' weights; none computes the
-   logistic. The bound: for the sort-and-count routes (auc, hinge) the
-   bytes of their inputs and partials, or the sort of b's keys. Each
+   logistic. The bound: for the sort-and-count routes (auc, hinge,
+   masked or not) the bytes of their inputs (scores and weights) and
+   partials, or the sort of b's keys. Each
    timed kernel result is held against its plain result as in phase 2,
    and that full-size error of the mean is the row's max_abs_err (phase
    2's is max_abs_err_small). The logistic rows also give the blocks of
@@ -234,6 +244,7 @@ import dataclasses
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -284,6 +295,8 @@ REPLACES = {
 SOURCES = {
     "pair_sum[auc]": "tuplewise_tpu_torch/csrc/rank_count.cu",
     "pair_sum[hinge]": "tuplewise_tpu_torch/csrc/rank_count.cu",
+    "masked_pair_sum[auc]": "tuplewise_tpu_torch/csrc/rank_count.cu",
+    "masked_pair_sum[hinge]": "tuplewise_tpu_torch/csrc/rank_count.cu",
     "batched_masked_pair_sum": "tuplewise_tpu_torch/csrc/rank_count.cu",
     "signed_count": "tuplewise_tpu_torch/csrc/signed_count.cu",
     "tenant_count": "tuplewise_tpu_torch/csrc/tenant_count.cu",
@@ -298,8 +311,8 @@ SOURCES = {
 # run of this script on an NVIDIA H100 80GB HBM3 at 700 W (ms): printed
 # beside this run's times, never written into the kernels line
 EARLIER_MS = {
-    "pair_sum[hinge]": 144.74,
-    "tenant_count": 0.02315,
+    "masked_pair_sum[auc]": 34.30,
+    "masked_pair_sum[hinge]": 19.11,
 }
 EDGE_VALUES = (math.inf, -math.inf, math.nan, -math.nan, 0.0, -0.0, 1.0,
                -1.0, 1e-45, -1e-45)
@@ -376,18 +389,32 @@ def timed_on_device(fn, reps):
     time a call by torch.profiler, the last result). For a call that
     launches little work the two differ: the events also see the device
     wait for the host to enqueue the next call."""
+    call_ms, out = cuda_ms(fn, reps)
+    device_ms = sum(device_ms_by_kernel(fn, reps).values())
+    assert device_ms > 0, "the profiler saw no device time"
+    return call_ms, device_ms, out
+
+
+def device_ms_by_kernel(fn, reps):
+    """{kernel: ms of device time a call} of fn() over reps calls by
+    torch.profiler, each kernel by its own name (no namespace, template
+    arguments or parameters)."""
     from torch.profiler import ProfilerActivity, profile
 
-    call_ms, out = cuda_ms(fn, reps)
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    device_us = sum(ev.time_range.end - ev.time_range.start
-                    for ev in prof.events()
-                    if ev.device_type == torch.autograd.DeviceType.CUDA)
-    assert device_us > 0, "the profiler saw no device time"
-    return call_ms, device_us / 1e3 / reps, out
+    out = {}
+    for ev in prof.events():
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            name = ev.name.removeprefix("void ").replace(
+                "(anonymous namespace)::", "")
+            name = re.match(r"[\w:]*", name).group(0).split("::")[-1] \
+                or ev.name
+            out[name] = out.get(name, 0.0) + (
+                ev.time_range.end - ev.time_range.start) / 1e3 / reps
+    return out
 
 
 def card_line():
@@ -691,6 +718,7 @@ def phase_kernel_vs_plain(errs):
             assert want.isnan().tolist() == want_nan, (name, want)
     log("[kernel vs plain] infinities without NaN: hinge and logistic sums "
         "+inf where plain is +inf, NaN where a zero mask meets +inf")
+    phase_masked_routes(g, errs)
     # the unmasked hinge's sort-and-search route: b past one tile with a
     # short last tile, a -inf score of a and a +inf of b, pairs at d == 1
     # exactly (scores on a 1/4 lattice: every difference and term exact,
@@ -752,6 +780,166 @@ def phase_kernel_vs_plain(errs):
             f"[-50, 50]: within rel 1e-5 of plain; blocks factored {fac}, "
             f"per-pair {per}")
         assert fac > 0 and per > 0, (fac, per)
+
+
+def mask_weights(gen, kind, *shape):
+    """{0, 1} masks (30 % zeros), or fractional weights in [0, 2) with 20 %
+    zeros."""
+    u = torch.rand(*shape, generator=gen, device="cuda")
+    if kind == "binary":
+        return (u > 0.3).float()
+    w = torch.rand(*shape, generator=gen, device="cuda") * 2.0
+    return torch.where(u < 0.2, torch.zeros((), device="cuda"), w)
+
+
+def half_ulp(x):
+    """Half the float32 ulp at |x|, as float64."""
+    x = x.abs()
+    up = torch.nextafter(x, torch.full_like(x, math.inf))
+    return (up - x).double() * 0.5
+
+
+def masked_gap(name, a, b, ma, mb):
+    """[W]: the largest |route - plain| of kernel 2's masked auc or hinge
+    route that the plain version's float32 rounding allows (derived in
+    tests/test_torch_masked_routes.py): the roundings of plain's products
+    fl(fl(g mb) ma), exact in float64; for the hinge also, over the pairs
+    with finite fl(a - b) < 1, half an ulp of fl(a - b) and of fl(1 - d)
+    times mb ma. In tiles of the plain version's size."""
+    from tuplewise_tpu_torch.ops import pair_kernels as pk
+    from tuplewise_tpu_torch.ops.kernels import get_kernel
+
+    body = get_kernel(name).diff
+    W, n1 = a.shape
+    n2 = b.shape[1]
+    rows, cols = pk.plain_tile(a, n2)
+    total = torch.zeros(W, dtype=torch.float64, device=a.device)
+    for j0 in range(0, n2, cols):
+        mbj = mb[:, None, j0:j0 + cols]
+        for i0 in range(0, n1, rows):
+            mai = ma[:, i0:i0 + rows, None]
+            d = a[:, i0:i0 + rows, None] - b[:, None, j0:j0 + cols]
+            g = body(d)
+            p1 = g * mbj
+            p2 = p1 * mai
+            gap = ((p1.double() - g.double() * mbj.double()).abs()
+                   * mai.double()
+                   + (p2.double() - p1.double() * mai.double()).abs())
+            if name == "hinge":
+                gap = torch.where(
+                    (d < 1) & d.isfinite(),
+                    gap + (half_ulp(d) + half_ulp(g)) * mai.double()
+                    * mbj.double(), torch.zeros((), dtype=torch.float64,
+                                                device=a.device))
+            total += gap.sum(dim=(1, 2))
+    return total
+
+
+def check_masked_route(name, a, b, ma, mb, exact, what):
+    """Kernel 2's masked auc or hinge route against its plain version: two
+    calls bit-equal; NaN and inf where plain has them; finite sums equal
+    where `exact`, else within masked_gap plus a float64 slack (1e-12 of
+    the sum) and within rel 1e-5. Returns the largest error of the mean,
+    sum / (sum(ma) sum(mb)), over the finite sums, and the plain sums."""
+    from tuplewise_tpu_torch.ops import pair_kernels as pk
+    from tuplewise_tpu_torch.ops.kernels import get_kernel
+
+    k = get_kernel(name)
+    got = pk.masked_pair_sum(a, b, ma, mb, k)
+    again = pk.masked_pair_sum(a, b, ma, mb, k)
+    want = pk.masked_pair_sum(a, b, ma, mb, k, impl="plain")
+    assert torch.equal(got.view(torch.int64), again.view(torch.int64)), what
+    check_nonfinite(got, want, what)
+    fin = want.isfinite()
+    if not fin.any():
+        return 0.0, want
+    err = (got - want).abs()[fin]
+    if exact:
+        assert torch.equal(got[fin], want[fin]), what
+    gap = masked_gap(name, a, b, ma, mb)[fin]
+    assert (err <= gap + 1e-12 * want[fin].abs()).all(), (
+        what, float((err - gap).max()))
+    count = (ma.sum(1, dtype=torch.float64)
+             * mb.sum(1, dtype=torch.float64)).clamp_min(1.0)
+    return float((err / count[fin]).max()), want
+
+
+def phase_masked_routes(g, errs):
+    """Kernel 2's masked auc and hinge routes (csrc/rank_count.cu) in phase
+    2: {0, 1} and fractional weights, b past one 8192- and one 16384-value
+    tile with a short last tile, the harness's W = 512 x 1250, lattice
+    scores (heavy ties, d == 0 and d == 1), infinities of weight 0 and
+    infinities facing a zero weight, and edge values."""
+    for W, n1, n2, lattice in [(3, 4133, 8192 + 97, False),
+                               (2, 3000, (1 << 14) + 5, True),
+                               (512, 1250, 1250, False), (1, 1, 1, False)]:
+        a = torch.randn(W, n1, generator=g, device="cuda") + 1.0
+        b = torch.randn(W, n2, generator=g, device="cuda")
+        if lattice:
+            a, b = torch.round(a * 4) / 4, torch.round(b * 4) / 4
+        k = min(97, n1, n2)
+        a[:, :k] = b[:, :k]                        # d == 0
+        b[:, k:2 * k] = a[:, k:2 * k] - 1.0        # d == 1
+        for weights in ("binary", "fractional"):
+            ma = mask_weights(g, weights, W, n1)
+            mb = mask_weights(g, weights, W, n2)
+            for name in ("auc", "hinge"):
+                exact = weights == "binary" and (name == "auc" or lattice)
+                err, _ = check_masked_route(name, a, b, ma, mb, exact,
+                                            ("masked route", name, weights,
+                                             W, n1, n2))
+                key = f"masked_pair_sum[{name}]"
+                errs[key] = max(errs[key], err)
+        log(f"[kernel vs plain] masked routes W={W} {n1}x{n2}"
+            f"{' (lattice)' if lattice else ''}: auc equal to plain with "
+            f"{{0, 1}} weights and hinge too on the lattice, fractional "
+            f"weights within the derived gap; two calls bit-equal")
+    # infinities without NaN, fractional weights otherwise > 0, one case a
+    # problem: none; -inf in a (+inf); -inf in a of weight 0 (NaN); +inf in
+    # b facing a zero weight in a (NaN); +inf in b of weight 0 (NaN); +inf
+    # in a and -inf in b (finite)
+    W, n1, n2 = 6, 3000, (1 << 14) + 97
+    a = torch.randn(W, n1, generator=g, device="cuda")
+    b = torch.randn(W, n2, generator=g, device="cuda")
+    ma = torch.rand(W, n1, generator=g, device="cuda") + 0.5
+    mb = torch.rand(W, n2, generator=g, device="cuda") + 0.5
+    a[1, 17] = a[2, 17] = -math.inf
+    a[5, 2999] = math.inf
+    b[3, 16400] = b[4, 5] = math.inf
+    b[5, 16480] = -math.inf
+    ma[2, 17] = ma[3, 100] = mb[4, 5] = 0.0
+    want_inf = [False, True, False, False, False, False]
+    want_nan = [False, False, True, True, True, False]
+    for name in ("auc", "hinge"):
+        err, want = check_masked_route(name, a, b, ma, mb, False,
+                                       ("masked infinities", name))
+        errs[f"masked_pair_sum[{name}]"] = max(
+            errs[f"masked_pair_sum[{name}]"], err)
+    assert want.isinf().tolist() == want_inf, want
+    assert want.isnan().tolist() == want_nan, want
+    # edge values (+-inf, NaN of both signs, +-0.0, subnormals, ties) with
+    # fractional weights, ragged tiles, and sparse ones at W = 512 x 1250
+    for W, n1, n2, frac in [(3, 300, (1 << 14) + 517, 0.3),
+                            (2, 2000, 8192 + 3, 0.3),
+                            (512, 1250, 1250, 1e-4)]:
+        a = (edge_values(g, W, n1) if frac == 0.3
+             else sparse_edge(g, frac, W, n1))
+        b = (edge_values(g, W, n2) if frac == 0.3
+             else sparse_edge(g, frac, W, n2))
+        ma = mask_weights(g, "fractional", W, n1)
+        mb = mask_weights(g, "fractional", W, n2)
+        outcomes = []
+        for name in ("auc", "hinge"):
+            err, want = check_masked_route(name, a, b, ma, mb, False,
+                                           ("masked edge", name, W, n1, n2))
+            errs[f"masked_pair_sum[{name}]"] = max(
+                errs[f"masked_pair_sum[{name}]"], err)
+            outcomes += want.tolist()
+        log(f"[kernel vs plain] masked routes, edge values W={W} {n1}x{n2} "
+            f"fractional weights: as plain ({sum(map(math.isnan, outcomes))} "
+            f"NaN, {sum(map(math.isinf, outcomes))} inf of {len(outcomes)})")
+    log("[kernel vs plain] masked routes, infinities of weight 0 and facing "
+        "a zero weight: NaN where plain is NaN, +inf where it is +inf")
 
 
 def ragged_blocks(gen, n, n_workers):
@@ -827,11 +1015,12 @@ def phase_main_path(launches_by_phase):
     i1, i2 = ragged_blocks(gen, n + 5, 8), ragged_blocks(gen, n, 8)
     for name in NAMES:
         be = Estimator(name, backend="torch").backend
-        val = float(be.local_round_from_blocks(s1, s2, i1, i2))
+        ms, val = cuda_ms(
+            lambda: float(be.local_round_from_blocks(s1, s2, i1, i2)))
         full = Estimator(name, backend="torch").complete(s1, s2)
         assert math.isfinite(val) and abs(val - full) < 0.01, (name, val)
         log(f"[main] ragged local round {name:8s} (blocks of "
-            f"{i1.shape[1]}/{i1.shape[1] - 1} rows): {val:.6f}")
+            f"{i1.shape[1]}/{i1.shape[1] - 1} rows): {val:.6f} ({ms:.3f} ms)")
     snapshot("ragged local round", seen)
     return i1, i2
 
@@ -937,24 +1126,34 @@ def phase_timing(errs, launches, i1, i2, sass):
             shape=f"W=1 {n}x{n}", **extra))
         cuda_ms(lambda: pk.masked_pair_sum(ab, bb, ma, mb, k))
         ms, got = cuda_ms(lambda: pk.masked_pair_sum(ab, bb, ma, mb, k),
-                          reps=3)
+                          reps=reps)
         plain_ms, want = cuda_ms(
             lambda: pk.masked_pair_sum(ab, bb, ma, mb, k, impl="plain"))
         err = check_against_plain(
             name, got, want,
             ma.sum(1, dtype=torch.float64) * mb.sum(1, dtype=torch.float64),
             ("masked_pair_sum", *i1.shape, i2.shape[1]))
-        bms, by = bound_ms(name, masked_pairs, True,
-                           2 * (i1.numel() + i2.numel()))
+        if name == "logistic":
+            bms, by = bound_ms(name, masked_pairs, True,
+                               2 * (i1.numel() + i2.numel()))
+        else:
+            bms, by = masked_sum_bound_ms(name, i1.shape[1], i2.shape[1],
+                                          i1.shape[0])
         library_ms = None
         if name != "logistic":
             cuda_ms(lambda: masked_pair_library(name, ab, bb, ma, mb))
             library_ms, lib = cuda_ms(
-                lambda: masked_pair_library(name, ab, bb, ma, mb), reps=3)
+                lambda: masked_pair_library(name, ab, bb, ma, mb), reps=reps)
             log(f"[timing] masked_pair_sum[{name}] yardstick (sort + cumsum "
                 f"+ searchsorted with the mask weights): largest rel diff to "
                 f"the kernel {float(((lib - got).abs() / got.abs()).max()):.3g}")
         extra = {}
+        if name != "logistic":
+            # the route's launches: the sort, the search, the finish
+            extra["kernel_ms"] = device_ms_by_kernel(
+                lambda: pk.masked_pair_sum(ab, bb, ma, mb, k), reps)
+            log(f"[timing] masked_pair_sum[{name}] device ms a call by "
+                f"kernel: {json.dumps(extra['kernel_ms'])}")
         if name == "logistic":
             fac, per, _ = pk.logistic_branch_blocks(ab, bb, ma, mb)
             extra = logistic_fields(sass, "masked_pair_sum",
@@ -970,8 +1169,8 @@ def phase_timing(errs, launches, i1, i2, sass):
             library_ms=library_ms,
             shape=f"W={i1.shape[0]} {i1.shape[1]}x{i2.shape[1]}", **extra))
         for r in rows[-2:]:
-            log(f"[timing] {r['name']:24s} {r['shape']:22s} {r['ms']:9.2f} ms "
-                f"(bound {r['bound_ms']:.2f} ms by {r['bound_by']}, plain "
+            log(f"[timing] {r['name']:24s} {r['shape']:22s} {r['ms']:10.4f} ms"
+                f" (bound {r['bound_ms']:.4g} ms by {r['bound_by']}, plain "
                 f"{r['plain_ms']:.1f} ms, library {r['library_ms']}, parent "
                 f"commit {EARLIER_MS.get(r['name'])} ms); error of the mean "
                 f"vs plain {r['max_abs_err']:.3g}")
@@ -1064,6 +1263,22 @@ def hinge_sum_bound_ms(n1, n2, W):
     chunk = rank_count.load_library().tw_rank_sum_chunk(T)
     parts = W * -(-n2 // T) * -(-n1 // chunk)
     byts = 4 * W * (n1 + n2) + 8 * parts + 8 * W
+    ops = SORT_OPS_PER_KEY * W * n2
+    by = "operations" if ops / PEAK_FP32_OPS >= byts / PEAK_BYTES else "bytes"
+    return max(ops / PEAK_FP32_OPS, byts / PEAK_BYTES) * 1e3, by
+
+
+def masked_sum_bound_ms(name, n1, n2, W):
+    """Bound of kernel 2's masked auc and hinge routes: bytes, the scores
+    and weights read once and the float64 partials (one a tile of b and
+    chunk of a) and the sums written once; operations, the radix sort of
+    b's keys."""
+    from tuplewise_tpu_torch.ops import rank_count
+
+    T = rank_count.masked_tile_size(n2, name == "hinge")
+    chunk = rank_count.load_library().tw_rank_sum_chunk(T)
+    parts = W * -(-n2 // T) * -(-n1 // chunk)
+    byts = 8 * W * (n1 + n2) + 8 * parts + 8 * W
     ops = SORT_OPS_PER_KEY * W * n2
     by = "operations" if ops / PEAK_FP32_OPS >= byts / PEAK_BYTES else "bytes"
     return max(ops / PEAK_FP32_OPS, byts / PEAK_BYTES) * 1e3, by
@@ -2495,8 +2710,9 @@ def phase_tenant_count_vs_plain():
     log(f"[timing] tenant_count {shape}: {ms * 1e3:.2f} us of device time "
         f"a launch ({call_ms * 1e3:.2f} us a call by events; bound "
         f"{bms * 1e3:.3f} us by {by}: {byts / 1e6:.3f} MB; a thread's chain "
-        f"is {rounds} dependent rounds, the parent's {chain} dependent loads"
-        f" in {EARLIER_MS['tenant_count'] * 1e3:.2f} us), plain "
+        f"is {rounds} dependent rounds, the earlier search's {chain} "
+        f"dependent loads; parent commit {EARLIER_MS.get('tenant_count')} "
+        f"ms), plain "
         f"{plain_ms:.1f} ms, batched searchsorted {lib_ms * 1e3:.2f} us "
         f"({lib_call_ms * 1e3:.2f} us a call); max |kernel - plain|, "
         f"|kernel - searchsorted| = {err}")

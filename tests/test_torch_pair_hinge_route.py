@@ -232,15 +232,21 @@ def test_grid_limits_raise():
                                    torch.zeros(1, 16384 * 65535 + 1))
 
 
-def test_unmasked_hinge_takes_the_route_masked_the_sweep(monkeypatch):
+@pytest.mark.parametrize("name", ["auc", "hinge", "logistic"])
+def test_pair_sums_take_the_route_of_their_body(name, monkeypatch):
     """The dispatch of the wrapper with the launchers stubbed so that it
-    runs here: the unmasked hinge goes to rank_count.hinge_pair_sums, the
-    masked hinge to csrc/pair_sum.cu; each call counts one launch."""
+    runs here: the auc and hinge bodies, unmasked and masked, go to their
+    rank_count launchers (csrc/rank_count.cu), the masked one with the
+    body's flag; only the logistic body reaches csrc/pair_sum.cu. Each
+    call counts one launch under its wrapper."""
     calls = []
 
-    def route(a, b):
-        calls.append(("route", tuple(a.shape), tuple(b.shape)))
-        return torch.zeros(a.shape[0], dtype=F64)
+    def route(what, dtype):
+        def launch(a, b, *masks, **flags):
+            calls.append((what, tuple(a.shape), tuple(b.shape), len(masks),
+                          flags.get("hinge")))
+            return torch.zeros(a.shape[0], dtype=dtype)
+        return launch
 
     class Sweep(Exception):
         pass
@@ -249,19 +255,35 @@ def test_unmasked_hinge_takes_the_route_masked_the_sweep(monkeypatch):
         calls.append(("pair_sum.cu",))
         raise Sweep
 
-    monkeypatch.setattr(rank_count, "hinge_pair_sums", route)
+    monkeypatch.setattr(rank_count, "auc_twice_counts",
+                        route("auc", torch.int64))
+    monkeypatch.setattr(rank_count, "hinge_pair_sums", route("hinge", F64))
+    monkeypatch.setattr(rank_count, "masked_pair_sums", route("masked", F64))
     monkeypatch.setattr(pk, "load_library", sweep_library)
+    k = get_kernel(name)
     a, b = torch.zeros(2, 5), torch.zeros(2, 3)
+    ma, mb = torch.ones_like(a), torch.ones_like(b)
     pk.reset_launch_counts()
-    assert pk._launch("pair_sum", a, b, None, None, HINGE).shape == (2,)
-    assert pk._launch("pair_sum", a[0], b[0], None, None, HINGE).shape == ()
-    with pytest.raises(Sweep):
-        pk._launch("masked_pair_sum", a, b, torch.ones_like(a),
-                   torch.ones_like(b), HINGE)
-    assert calls == [("route", (2, 5), (2, 3)), ("route", (1, 5), (1, 3)),
-                     ("pair_sum.cu",)]
-    assert pk.LAUNCHES["pair_sum[hinge]"] == 2
-    assert pk.LAUNCHES["masked_pair_sum[hinge]"] == 0
+    if name == "logistic":
+        for wrapper, masks in (("pair_sum", (None, None)),
+                               ("masked_pair_sum", (ma, mb))):
+            with pytest.raises(Sweep):
+                pk._launch(wrapper, a, b, *masks, k)
+        assert calls == [("pair_sum.cu",)] * 2
+        assert sum(pk.LAUNCHES.values()) == 0
+    else:
+        assert pk._launch("pair_sum", a, b, None, None, k).shape == (2,)
+        assert pk._launch("pair_sum", a[0], b[0], None, None, k).shape == ()
+        assert pk._launch("masked_pair_sum", a, b, ma, mb, k).shape == (2,)
+        assert pk._launch("masked_pair_sum", a[0], b[0], ma[0], mb[0],
+                          k).shape == ()
+        hinge = name == "hinge"
+        assert calls == [(name, (2, 5), (2, 3), 0, None),
+                         (name, (1, 5), (1, 3), 0, None),
+                         ("masked", (2, 5), (2, 3), 2, hinge),
+                         ("masked", (1, 5), (1, 3), 2, hinge)]
+        assert pk.LAUNCHES[f"pair_sum[{name}]"] == 2
+        assert pk.LAUNCHES[f"masked_pair_sum[{name}]"] == 2
     pk.reset_launch_counts()
 
 

@@ -1,6 +1,7 @@
-// Complete-U pair sums for score-difference kernels on Hopper (sm_90a).
+// Complete-U pair sums of the logistic body on Hopper (sm_90a).
 //
-// Replaces the two Pallas TPU kernels of tuplewise_tpu/ops/pallas_pairs.py:
+// Replaces, for the logistic body, the two Pallas TPU kernels of
+// tuplewise_tpu/ops/pallas_pairs.py:
 //   * pallas_pair_sum        (body _pair_sum_kernel)         -> MASKED = false
 //   * pallas_masked_pair_sum (body _masked_pair_sum_kernel)  -> MASKED = true
 // and, with them, the any-size dispatcher pallas_pair_sum_any: bounds
@@ -10,9 +11,9 @@
 // 1 for a complete statistic, N workers for a local round, reps x workers
 // for the Monte-Carlo harness):
 //     S_w = sum_{i < n1, j < n2} g(a[w,i] - b[w,j]) * ma[w,i] * mb[w,j]
-// (the masks are absent when MASKED is false). g is the auc, hinge or
-// logistic body; the unmasked auc and hinge sums are not built here: they
-// run the sort-and-count kernels of csrc/rank_count.cu.
+// (the masks are absent when MASKED is false), g the logistic body. The
+// auc and hinge bodies, masked or not, are not built here: they run the
+// sort-and-search kernels of csrc/rank_count.cu.
 //
 // Design. The grid is (row tiles, column tiles, W). A block of 256 threads
 // owns a row tile of kTileA = 2048 scores of `a`, 8 per thread in
@@ -25,12 +26,6 @@
 // in float64. No block depends on another, so blocks run in any order
 // (the TPU kernel instead carried a Kahan cell across a sequential grid
 // axis, which Hopper does not have).
-//
-// AUC exactness. AUC terms are multiples of 0.5, which float32 holds
-// exactly below 2^23. A block covers kTileA * kTileB = 2^22 pairs, so
-// every per-thread, per-warp and per-block float32 sum of the AUC body is
-// exact, and the float64 sum of the partials is exact too: the kernel's
-// AUC equals the integer rank AUC (ops/rank_auc.py) bit for bit.
 //
 // Logistic body: g(d) = max(-d, 0) + log1p(e^{-|d|}). The full-precision
 // expf and log1pf sequences cost about 40 instructions a pair, so the
@@ -68,14 +63,10 @@
 //   gives in IEEE float32: NaN for a NaN difference, 0 for d = +inf, +inf
 //   for d = -inf.
 //
-// NaN. The hinge body takes max.NaN: a NaN difference gives a NaN term, as
-// jnp.maximum and torch.clamp_min give (fmaxf would return the other
-// operand, and a NaN score would add 0).
-//
 // Bound. After the tile loads, a pair costs a subtraction, the body and
 // an add (a multiply more when MASKED), all in registers, with no memory
-// traffic: the kernel is bound by the FP32/ALU issue rate (for the
-// logistic body by its instruction count a pair), not by bytes. It is
+// traffic: the kernel is bound by the FP32/ALU issue rate, by its
+// instruction count a pair, not by bytes. It is
 // built without fast-math: expf keeps its full precision, and the
 // subtractions keep gradual underflow.
 
@@ -88,27 +79,6 @@ constexpr int kThreads = 256;
 constexpr int kRowsPerThread = 8;
 constexpr int kTileA = kThreads * kRowsPerThread;
 constexpr int kTileB = 2048;
-static_assert((long long)kTileA * kTileB < (1LL << 23),
-              "a block partial must cover fewer than 2^23 pairs");
-
-struct AucBody {  // 1{d > 0} + 0.5 * 1{d == 0}
-  __device__ __forceinline__ static float g(float d) {
-    return d > 0.f ? 1.f : (d == 0.f ? 0.5f : 0.f);
-  }
-};
-
-// max(x, y), NaN when either is NaN (PTX max.NaN, sm_80 and later)
-__device__ __forceinline__ float max_nan(float x, float y) {
-  float r;
-  asm("max.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(x), "f"(y));
-  return r;
-}
-
-struct HingeBody {  // max(0, 1 - d), NaN for NaN d
-  __device__ __forceinline__ static float g(float d) {
-    return max_nan(1.f - d, 0.f);
-  }
-};
 
 // the logistic kernel's constants (see the note; ops/pair_kernels.py
 // checks them against the built library)
@@ -134,74 +104,7 @@ __device__ __forceinline__ float log1p_unit(float x) {
   return s * p;
 }
 
-template <class Body, bool MASKED>
-__global__ void __launch_bounds__(kThreads)
-pair_sum_kernel(const float* __restrict__ a, const float* __restrict__ b,
-                const float* __restrict__ ma, const float* __restrict__ mb,
-                float* __restrict__ partials, int64_t n1, int64_t n2) {
-  __shared__ float sb[kTileB];
-  __shared__ float smb[MASKED ? kTileB : 1];
-  __shared__ float swarp[kThreads / 32];
-
-  const int64_t w = blockIdx.z;
-  const int64_t row0 = (int64_t)blockIdx.x * kTileA;
-  const int64_t col0 = (int64_t)blockIdx.y * kTileB;
-  const int64_t rem = n2 - col0;
-  const int ncols = rem < kTileB ? (int)rem : kTileB;
-  const float* aw = a + w * n1;
-  const float* bw = b + w * n2 + col0;
-
-  for (int j = threadIdx.x; j < ncols; j += kThreads) {
-    sb[j] = bw[j];
-    if (MASKED) smb[j] = mb[w * n2 + col0 + j];
-  }
-
-  float av[kRowsPerThread];
-  float acc[kRowsPerThread];
-#pragma unroll
-  for (int k = 0; k < kRowsPerThread; ++k) {
-    const int64_t r = row0 + k * kThreads + threadIdx.x;
-    av[k] = r < n1 ? aw[r] : 0.f;  // rows past n1 are dropped below
-    acc[k] = 0.f;
-  }
-  __syncthreads();
-
-#pragma unroll 4
-  for (int j = 0; j < ncols; ++j) {
-    const float bj = sb[j];
-    if (MASKED) {
-      const float mj = smb[j];
-#pragma unroll
-      for (int k = 0; k < kRowsPerThread; ++k)
-        acc[k] += Body::g(av[k] - bj) * mj;
-    } else {
-#pragma unroll
-      for (int k = 0; k < kRowsPerThread; ++k) acc[k] += Body::g(av[k] - bj);
-    }
-  }
-
-  float t = 0.f;
-#pragma unroll
-  for (int k = 0; k < kRowsPerThread; ++k) {
-    const int64_t r = row0 + k * kThreads + threadIdx.x;
-    if (r < n1) t += MASKED ? acc[k] * ma[w * n1 + r] : acc[k];
-  }
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    t += __shfl_down_sync(0xffffffffu, t, off);
-  if ((threadIdx.x & 31) == 0) swarp[threadIdx.x >> 5] = t;
-  __syncthreads();
-  if (threadIdx.x < 32) {
-    t = threadIdx.x < kThreads / 32 ? swarp[threadIdx.x] : 0.f;
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      t += __shfl_down_sync(0xffffffffu, t, off);
-    if (threadIdx.x == 0)
-      partials[(w * gridDim.y + blockIdx.y) * gridDim.x + blockIdx.x] = t;
-  }
-}
-
-// The logistic body's kernel: pair_sum_kernel's grid, tiles and reduction,
+// The logistic body's kernel: the grid, tiles and reduction of the note,
 // with the factored exponential or the per-pair expf chosen per block (see
 // the note). branches, when not null, counts the blocks of each branch:
 // [0] factored, [1] per-pair.
@@ -342,18 +245,19 @@ float tw_pair_log1p_coef(int i) {
   return i >= 0 && i < 5 ? c[i] : 0.f;
 }
 
-// Launches one pair-sum kernel on `stream` and returns cudaGetLastError().
-// a [W, n1], b [W, n2] (and ma, mb when masked) are contiguous float32 on
-// the device; out holds W * ceil(n2/kTileB) * ceil(n1/kTileA) partials.
-// body: 0 auc (masked only), 1 hinge (masked only), 2 logistic
-// (ops/kernels.py).
-// branches: null, or 2 uint64 on the device to which the logistic kernel
-// adds its blocks of each branch (factored, per-pair). The wrapper checks
-// every argument; an unknown body, or the unmasked auc or hinge body,
-// returns cudaErrorInvalidValue.
+// Launches the logistic pair-sum kernel on `stream` and returns
+// cudaGetLastError(). a [W, n1], b [W, n2] (and ma, mb when masked) are
+// contiguous float32 on the device; out holds W * ceil(n2/kTileB) *
+// ceil(n1/kTileA) partials. body: 2 logistic (ops/kernels.py); the auc
+// (0) and hinge (1) bodies, masked or not, run csrc/rank_count.cu, and
+// they or an unknown body return cudaErrorInvalidValue.
+// branches: null, or 2 uint64 on the device to which the kernel adds its
+// blocks of each branch (factored, per-pair). The wrapper checks every
+// argument.
 int tw_pair_sum(const void* a, const void* b, const void* ma, const void* mb,
                 void* out, long long n1, long long n2, int w, int body,
                 int masked, void* branches, void* stream) {
+  if (body != 2) return (int)cudaErrorInvalidValue;
   const dim3 grid((unsigned)((n1 + kTileA - 1) / kTileA),
                   (unsigned)((n2 + kTileB - 1) / kTileB), (unsigned)w);
   auto s = static_cast<cudaStream_t>(stream);
@@ -362,29 +266,13 @@ int tw_pair_sum(const void* a, const void* b, const void* ma, const void* mb,
   auto pma = static_cast<const float*>(ma);
   auto pmb = static_cast<const float*>(mb);
   auto fo = static_cast<float*>(out);
-  switch (body) {
-    case 0:  // the unmasked auc sum is tw_rank_auc (csrc/rank_count.cu)
-      if (!masked) return (int)cudaErrorInvalidValue;
-      pair_sum_kernel<AucBody, true>
-          <<<grid, kThreads, 0, s>>>(fa, fb, pma, pmb, fo, n1, n2);
-      break;
-    case 1:  // the unmasked hinge sum is tw_rank_hinge_sum (csrc/rank_count.cu)
-      if (!masked) return (int)cudaErrorInvalidValue;
-      pair_sum_kernel<HingeBody, true>
-          <<<grid, kThreads, 0, s>>>(fa, fb, pma, pmb, fo, n1, n2);
-      break;
-    case 2: {
-      auto nb = static_cast<unsigned long long*>(branches);
-      if (masked)
-        logistic_sum_kernel<true>
-            <<<grid, kThreads, 0, s>>>(fa, fb, pma, pmb, fo, n1, n2, nb);
-      else
-        logistic_sum_kernel<false>
-            <<<grid, kThreads, 0, s>>>(fa, fb, pma, pmb, fo, n1, n2, nb);
-      break;
-    }
-    default: return (int)cudaErrorInvalidValue;
-  }
+  auto nb = static_cast<unsigned long long*>(branches);
+  if (masked)
+    logistic_sum_kernel<true>
+        <<<grid, kThreads, 0, s>>>(fa, fb, pma, pmb, fo, n1, n2, nb);
+  else
+    logistic_sum_kernel<false>
+        <<<grid, kThreads, 0, s>>>(fa, fb, pma, pmb, fo, n1, n2, nb);
   return (int)cudaGetLastError();
 }
 

@@ -1,19 +1,21 @@
 // Sort-and-count kernels on Hopper (sm_90a): the auc and hinge bodies of the
-// unmasked pair sum, the indicator and hinge bodies of the per-anchor triplet
-// sums, and the hinge body of the gradient pair sums.
+// pair sum, unmasked and masked, the indicator and hinge bodies of the
+// per-anchor triplet sums, and the hinge body of the gradient pair sums.
 //
 // Replaces, for these bodies, the Pallas TPU kernels of
 //   * tuplewise_tpu/ops/pallas_pairs.py:134 pallas_pair_sum (auc and hinge
 //     bodies, also reached through pallas_pair_sum_any) -> tw_rank_auc,
 //                                                         tw_rank_hinge_sum
+//   * tuplewise_tpu/ops/pallas_pairs.py:300 pallas_masked_pair_sum (auc and
+//     hinge bodies)                                     -> tw_rank_masked_sum
 //   * tuplewise_tpu/ops/pallas_triplets.py:185 _batched_masked_pair_sum
 //     (indicator and hinge combines, driven by pallas_triplet_stats)
 //                                                      -> tw_rank_indicator,
 //                                                         tw_rank_hinge
 //   * tuplewise_tpu/ops/pallas_pairs.py:440 pallas_pair_loss_grad and :520
 //     pallas_pair_grad_sums (hinge body)                -> tw_rank_hinge_grad
-// The other pair bodies, and every masked pair sum, keep csrc/pair_sum.cu
-// and csrc/pair_grad.cu.
+// The logistic body, masked or not, keeps csrc/pair_sum.cu and
+// csrc/pair_grad.cu.
 //
 // What they compute, for each of W independent problems w:
 //   tw_rank_auc:       2 * #{(i,j): fl(a_i - b_j) > 0} + #{(i,j): fl(a_i - b_j) == 0}
@@ -32,6 +34,10 @@
 //   tw_rank_hinge_sum: loss[w] = sum_ij max(0, 1 - fl(a_i - b_j)) in float64,
 //                      the hinge body's pair sum (the gradient route's loss
 //                      alone).
+//   tw_rank_masked_sum: out[w] = sum_ij g(fl(a_i - b_j)) * ma_i * mb_j in
+//                      float64, g the auc or the hinge body, for any finite
+//                      non-negative weights ma, mb (the caller forms the
+//                      count sum(ma) * sum(mb)).
 //
 // Design. The TPU kernels compared every pair (or triplet) because the TPU
 // has no fast search. Here the second operand is cut into tiles of T values
@@ -100,6 +106,51 @@
 //     selected pair adds (1 - a_i) + b_j in float64 where the pair sweep added
 //     fl(1 - fl(a_i - b_j)) in float32: the two differ by at most half an ulp
 //     of fl(a_i - b_j) and half an ulp of the float32 term a pair (rule 5).
+//   * masked pair sum (kernel 2, auc and hinge): the TPU kernel swept every
+//     pair with a multiply by each mask; here the weights ride the sort.
+//     masked_sort_kernel sorts each tile of b once into scratch as (key,
+//     weight) pairs (NaN values and padding weigh 0 and sit as +inf slots
+//     after the others) with the float64 suffix sums of the sorted weights
+//     (auc: 12 bytes a value, tiles of up to 16384, 196 KB in a block) or of
+//     (mb, mb b) over the finite values (hinge: 20 bytes a value, tiles of
+//     up to kHingeMaxTile = 8192, 160 KB), and the tile's int4 info (values
+//     that are not NaN, +inf values, flags, -inf values).
+//     masked_search_kernel loads one sorted tile and its sums into shared
+//     memory and searches a chunk of sum_chunk(T) values of a against it, as
+//     the unmasked hinge's row pass does (a grid of (chunks, tiles, W): at
+//     W = 8 the chunks of a, not the problems and tiles alone, fill the 132
+//     SMs with one block each; bench_torch_variants.py --masked times other
+//     chunks):
+//       auc: P_gt and P_ge, the weights of the b with fl(a_i - b) > 0 and
+//         >= 0 (rule 1: a lower search, and an upper one only where a_i ties
+//         the next value), from the suffix sums; the row adds ma_i (P_gt +
+//         (P_ge - P_gt) / 2) in float64. For weights in {0, 1} every suffix
+//         sum, row and partial is an integer or a half below 2^53, so the
+//         sum is the plain version's exactly; NaN a_i, NaN b and equal
+//         infinities satisfy no predicate and add 0, so a zero weight never
+//         makes NaN (the auc body is 0 there, times a finite weight). For
+//         other weights the plain version rounds each float32 product
+//         g mb ma once (g mb is exact for g in {0, 1/2, 1}), so the two differ
+//         by at most 2^-24 of the sum, and float64 rounding.
+//       hinge: the terms that are not 0 are the b with fl(a_i - b) < 1, a
+//         suffix of the sorted tile past the prefix where !(fl(a_i - b) <
+//         1); the row adds ma_i ((1 - a_i) W + S) with W and S the suffix
+//         sums of mb and mb b there, in float64. Non-finite scores follow
+//         rule 4 read for the pair hinge max(0, 1 - a_i + b_j) ma_i mb_j
+//         (masked_hinge_row): a NaN anywhere in a[w] or b[w] makes S_w NaN;
+//         an infinite term times a zero weight, on either side, is NaN; the
+//         tile's counts of +inf and -inf values and its flags (kTileNan,
+//         a finite or +inf value of weight 0, a +inf value of weight 0)
+//         decide these cases by count. The plain version rounds fl(a - b),
+//         fl(1 - d) and the two float32 products by the weights; this form
+//         adds the exact products, so the two differ by at most half an ulp
+//         of each of those a pair, times the weights that follow it (rule 5;
+//         tests/test_torch_masked_routes.py derives the gap).
+//     Both write one float64 partial a block; grad_finish_kernel sums a
+//     problem's partials in a fixed order, so a call repeats bit for bit.
+//     Any finite non-negative weights are right, not only {0, 1}: the
+//     suffix sums are of the weights themselves, and every non-finite case
+//     is decided by the sign rules above, which need weights >= 0.
 // A sorted tile sits in shared memory in Eytzinger (breadth-first) order:
 // sorted positions 0..T-2 form a complete search tree of log2(T) levels,
 // position T-1 sits in slot T-1. A search step is one load, one subtraction,
@@ -154,8 +205,9 @@
 // Built without fast-math (ops/_build.py): fl(x - s) == 0 iff x == s for
 // finite floats only with gradual underflow.
 //
-// Bound. Bytes: each operand is read once and each partial written once
-// (the auc count re-reads a sorted tile from L2 once per chunk of a). The
+// Bound. Bytes: each operand (and weight) is read once and each partial
+// written once (the count and search kernels re-read a sorted tile from L2
+// once per chunk of a). The
 // work is log2(T) + 1 shared-memory probes a value and tile plus a radix
 // sort of each tile, far below the all-pairs operation count of the TPU
 // kernels; what sets the time is the instruction issue of the probes and
@@ -163,6 +215,8 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include <cub/block/block_radix_sort.cuh>
 
@@ -266,6 +320,38 @@ __device__ __forceinline__ V block_sum(V v, V* swarp) {
   return v;  // valid in thread 0
 }
 
+__device__ __forceinline__ double plus(double x, double y) { return x + y; }
+__device__ __forceinline__ double2 plus(double2 x, double2 y) {
+  return make_double2(x.x + y.x, x.y + y.y);
+}
+__device__ __forceinline__ double shfl_down(double v, int off) {
+  return __shfl_down_sync(0xffffffffu, v, off);
+}
+__device__ __forceinline__ double2 shfl_down(double2 v, int off) {
+  return make_double2(shfl_down(v.x, off), shfl_down(v.y, off));
+}
+
+// the sum of tot over the block's later threads (those of higher index), in
+// a fixed order: a suffix scan over the block's threads. swarp holds one
+// value a warp; the call syncs the block once.
+template <class S>
+__device__ __forceinline__ S later_threads_sum(S tot, S* swarp) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  S incl = tot;  // this lane's and the later lanes' totals
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const S o = shfl_down(incl, off);
+    if (lane + off < 32) incl = plus(incl, o);
+  }
+  if (lane == 0) swarp[warp] = incl;
+  __syncthreads();
+  S run = shfl_down(incl, 1);
+  if (lane == 31) run = S();
+  for (int q = warp + 1; q < (int)(blockDim.x >> 5); ++q)
+    run = plus(run, swarp[q]);
+  return run;
+}
+
 // ------------------------------------------------------------------------ //
 // auc                                                                      //
 // ------------------------------------------------------------------------ //
@@ -310,6 +396,22 @@ __device__ __forceinline__ int prefix_count(const float* e, float x,
   return c[0];
 }
 
+// gt[u], ge[u] = the lengths of the prefixes of the sorted tile e on which
+// fl(x[u] - b) > 0 and >= 0 hold (rule 1): one search each, and the second
+// only where x[u] ties the next value (ties are rare: probe it first)
+template <int LOG_T, int N>
+__device__ __forceinline__ void auc_counts(const float* e, const float (&x)[N],
+                                           int (&gt)[N], int (&ge)[N]) {
+  constexpr int T = 1 << LOG_T;
+  prefix_counts<LOG_T>(e, x, gt, Wins());
+#pragma unroll
+  for (int u = 0; u < N; ++u) {
+    ge[u] = gt[u];
+    if (ge[u] < T && WinsOrTies().holds(x[u], e[eyt_slot<LOG_T>(ge[u])]))
+      ge[u] = prefix_count<LOG_T>(e, x[u], WinsOrTies());
+  }
+}
+
 // grid (chunks of a, tiles, W), kCountThreads threads, 4 T bytes of dynamic
 // shared memory. partials[w, tile, chunk] = sum over the chunk's a of
 // (wins + (wins + ties)) against the sorted tile.
@@ -336,21 +438,15 @@ auc_count_kernel(const float* __restrict__ a, const float* __restrict__ sorted,
        r0 += (int64_t)kIlp * kCountThreads) {
     // a slot past the end searches NaN, which counts 0 (rule 3)
     float x[kIlp];
-    int wins[kIlp];
+    int wins[kIlp], upto[kIlp];
 #pragma unroll
     for (int u = 0; u < kIlp; ++u) {
       const int64_t r = r0 + (int64_t)u * kCountThreads;
       x[u] = r < end ? aw[r] : __int_as_float(0x7FFFFFFF);
     }
-    prefix_counts<LOG_T>(e, x, wins, Wins());
+    auc_counts<LOG_T>(e, x, wins, upto);
 #pragma unroll
-    for (int u = 0; u < kIlp; ++u) {
-      // wins + ties: ties are rare, so probe the next position first
-      int upto = wins[u];
-      if (upto < T && WinsOrTies().holds(x[u], e[eyt_slot<LOG_T>(upto)]))
-        upto = prefix_count<LOG_T>(e, x[u], WinsOrTies());
-      acc += wins[u] + upto;
-    }
+    for (int u = 0; u < kIlp; ++u) acc += wins[u] + upto[u];
   }
   acc = block_sum(acc, swarp);
   if (threadIdx.x == 0) partials[tile * gridDim.x + blockIdx.x] = acc;
@@ -406,18 +502,8 @@ indicator_kernel(const float* __restrict__ A, const float* __restrict__ B,
     if (keys[r] == kNanKey) wts[r] = 0.f;
     tot += (double)wts[r];
   }
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  double incl = tot;  // this lane's and the later lanes' totals
-#pragma unroll
-  for (int off = 1; off < 32; off <<= 1) {
-    const double o = __shfl_down_sync(0xffffffffu, incl, off);
-    if (lane + off < 32) incl += o;
-  }
-  if (lane == 0) swarp[warp] = incl;
-  __syncthreads();  // the sort is done with its storage: e, suffix alias it
-  double run = __shfl_down_sync(0xffffffffu, incl, 1);
-  if (lane == 31) run = 0.0;
-  for (int v = warp + 1; v < THREADS / 32; ++v) run += swarp[v];
+  // its sync: the sort is done with its storage, which e and suffix alias
+  double run = later_threads_sum(tot, swarp);
   const int base = threadIdx.x * ITEMS;
 #pragma unroll
   for (int r = ITEMS - 1; r >= 0; --r) {
@@ -617,8 +703,9 @@ hinge_kernel(const float* __restrict__ A, const float* __restrict__ B,
 
 // the threads of a gradient count block, by tile size, and the values of
 // the searching side one block counts (kIlp in flight, kGradSweeps rounds;
-// the pair sum's blocks kSumSweeps: with no col pass beside them, a tile
-// loaded into a block's shared memory is searched by more values of a)
+// the pair sums' blocks, unmasked hinge and masked auc and hinge,
+// kSumSweeps: with no col pass beside them, a tile loaded into a block's
+// shared memory is searched by more values of a)
 constexpr int kGradSweeps = 4;
 constexpr int kSumSweeps = 32;
 __host__ __device__ constexpr int grad_threads(int T) {
@@ -711,18 +798,7 @@ grad_sort_kernel(const float* __restrict__ v, float* __restrict__ sorted,
 #pragma unroll
     for (int r = ITEMS - 1; r >= 0; --r)
       if (fabsf(vals[r]) < kInf) tot += (double)vals[r];
-    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-    double incl = tot;  // this lane's and the later lanes' totals
-#pragma unroll
-    for (int off = 1; off < 32; off <<= 1) {
-      const double o = __shfl_down_sync(0xffffffffu, incl, off);
-      if (lane + off < 32) incl += o;
-    }
-    if (lane == 0) swarp[warp] = incl;
-    __syncthreads();
-    double run = __shfl_down_sync(0xffffffffu, incl, 1);
-    if (lane == 31) run = 0.0;
-    for (int q = warp + 1; q < THREADS / 32; ++q) run += swarp[q];
+    double run = later_threads_sum(tot, swarp);
     double* sp = suffix + tile * (T + 1);
 #pragma unroll
     for (int r = ITEMS - 1; r >= 0; --r) {
@@ -861,6 +937,219 @@ grad_finish_kernel(const int* __restrict__ rowcnt,
   }
 }
 
+// ------------------------------------------------------------------------ //
+// masked pair sums (kernel 2: auc and hinge bodies)                        //
+// ------------------------------------------------------------------------ //
+
+// more flags of a weighted tile of b (the pair hinge's rule 4)
+constexpr unsigned kTileUpZeroW = 16u;     // a finite or +inf value of weight 0
+constexpr unsigned kTilePosInfZeroW = 32u; // a +inf value of weight 0
+
+// a tile's float64 suffix sums: auc the weights, hinge (weights, weights x
+// values) side by side, one 16-byte load a search
+template <bool HINGE>
+using MaskedSum = typename std::conditional<HINGE, double2, double>::type;
+
+// grid (tiles, W), THREADS threads, the sort's temporary storage as dynamic
+// shared memory. Sorts a tile of b[w] with its weights mb[w] (CUB's block
+// radix sort on (key, weight) pairs) and writes: its values in Eytzinger
+// order, NaN values and padding as +inf slots after the others, to
+// sorted[w, tile, 0:T]; suffix[w, tile, p] (p <= T) = the float64 sum over
+// sorted positions >= p of the weights (auc: of every value that is not
+// NaN) or of (weight, weight x value) of the finite values (hinge); NaN
+// values and padding weigh 0. info[w, tile] = (values that are not NaN,
+// +inf values, flags: kTileNan, kTileUpZeroW, kTilePosInfZeroW, -inf
+// values).
+template <int THREADS, int ITEMS, bool HINGE>
+__global__ void __launch_bounds__(THREADS)
+masked_sort_kernel(const float* __restrict__ b, const float* __restrict__ mb,
+                   float* __restrict__ sorted,
+                   MaskedSum<HINGE>* __restrict__ suffix,
+                   int4* __restrict__ info, int64_t n) {
+  using S = MaskedSum<HINGE>;
+  constexpr int T = THREADS * ITEMS;
+  constexpr int LOG_T = log2_of(T);
+  const float kInf = __int_as_float(0x7F800000);
+  using Sort = cub::BlockRadixSort<unsigned, THREADS, ITEMS, float>;
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ S swarp[THREADS / 32];
+  __shared__ int scount[4];  // NaN, +inf, -inf values; flags
+
+  const int64_t tile = (int64_t)blockIdx.y * gridDim.x + blockIdx.x;
+  const int64_t col0 = (int64_t)blockIdx.x * T;
+  const int64_t rem = n - col0;
+  const int len = rem < T ? (int)rem : T;
+  const float* src = b + (int64_t)blockIdx.y * n + col0;
+  const float* wsrc = mb + (int64_t)blockIdx.y * n + col0;
+  if (threadIdx.x < 4) scount[threadIdx.x] = 0;
+  unsigned keys[ITEMS];
+  float wts[ITEMS];
+  int nnan = 0, npos = 0, nneg = 0;
+  unsigned flags = 0;
+#pragma unroll
+  for (int r = 0; r < ITEMS; ++r) {
+    const int i = r * THREADS + threadIdx.x;
+    const bool in = i < len;
+    const float x = in ? src[i] : 0.f;
+    keys[r] = in ? float_key(x) : kNanKey;
+    wts[r] = in ? wsrc[i] : 0.f;
+    nnan += in && x != x;
+    npos += in && x == kInf;
+    nneg += in && x == -kInf;
+    if (in && wts[r] == 0.f && x == x && x != -kInf)
+      flags |= x == kInf ? kTileUpZeroW | kTilePosInfZeroW : kTileUpZeroW;
+  }
+  __syncthreads();  // scount is zeroed
+  // integer counts and flags: the order of the atomics does not matter
+  if (nnan) atomicAdd(&scount[0], nnan);
+  if (npos) atomicAdd(&scount[1], npos);
+  if (nneg) atomicAdd(&scount[2], nneg);
+  if (flags) atomicOr(reinterpret_cast<unsigned*>(&scount[3]), flags);
+  // blocked result: this thread holds sorted positions [t ITEMS, t ITEMS + ITEMS)
+  Sort(*reinterpret_cast<typename Sort::TempStorage*>(smem)).Sort(keys, wts);
+
+  const int base = threadIdx.x * ITEMS;
+  float* out = sorted + tile * T;
+  // a sorted slot's part of the sums (recomputed, not kept: registers)
+  auto part = [&](int r) -> S {
+    const double wt = keys[r] == kNanKey ? 0.0 : (double)wts[r];
+    if constexpr (HINGE) {
+      // infinite values weigh 0 here: the search takes them by their counts
+      const float v = key_float(keys[r]);
+      return fabsf(v) < kInf ? make_double2(wt, wt * (double)v)
+                             : make_double2(0.0, 0.0);
+    } else {
+      return wt;
+    }
+  };
+  S tot = S();
+#pragma unroll
+  for (int r = ITEMS - 1; r >= 0; --r) {
+    out[eyt_slot<LOG_T>(base + r)] =
+        keys[r] == kNanKey ? kInf : key_float(keys[r]);
+    tot = plus(tot, part(r));
+  }
+  S run = later_threads_sum(tot, swarp);
+  S* sp = suffix + tile * (T + 1);
+#pragma unroll
+  for (int r = ITEMS - 1; r >= 0; --r) {
+    run = plus(run, part(r));
+    sp[base + r] = run;
+  }
+  if (threadIdx.x == 0) sp[T] = S();
+  __syncthreads();  // scount is complete
+  if (threadIdx.x == 0)
+    info[tile] = make_int4(len - scount[0], scount[1],
+                           (int)((scount[0] ? kTileNan : 0u) |
+                                 (unsigned)scount[3]),
+                           scount[2]);
+}
+
+// the hinge's row of one value x of a with weight wa against a sorted,
+// weighted tile of b: sum_j max(0, 1 - fl(x - b_j)) * mb_j * wa as the
+// plain float32 terms summed in IEEE arithmetic give it (rule 4 read for
+// the pair hinge max(0, 1 - a + b) ma mb, with non-negative weights):
+//   * finite x: the terms that are not 0 are those of the suffix of the
+//     sorted tile past p (the prefix where !(fl(x - b) < 1)), wa ((1 - x) W
+//     + S) with W, S the suffix sums of mb and mb b; a +inf b gives d = -inf,
+//     a term of +inf times its weight and wa, so +inf, or NaN where either
+//     is 0; a -inf b gives d = +inf, a term of 0, and lies in the prefix;
+//   * x = +inf: d = +inf (a term of 0) but NaN against a +inf;
+//   * x = -inf: d = -inf, a term of +inf times the weights (NaN where one
+//     is 0), but NaN against a -inf;
+//   * x NaN: NaN. A NaN in the tile makes the block's partial NaN.
+__device__ __forceinline__ double masked_hinge_row(float x, float wa, int p,
+                                                   const int4& ti,
+                                                   const double2* suf) {
+  const float kInf = __int_as_float(0x7F800000);
+  const double dnan = __longlong_as_double(0x7FF8000000000000LL);
+  const double dinf = __longlong_as_double(0x7FF0000000000000LL);
+  if (fabsf(x) < kInf) {
+    if (ti.y > 0)
+      return wa == 0.f || (ti.z & kTilePosInfZeroW) ? dnan : dinf;
+    const double2 s = suf[p];
+    return (double)wa * ((1.0 - (double)x) * s.x + s.y);
+  }
+  if (x == kInf) return ti.y > 0 ? dnan : 0.0;
+  if (x == -kInf)
+    return ti.w > 0 || wa == 0.f || (ti.z & kTileUpZeroW) ? dnan : dinf;
+  return dnan;
+}
+
+// grid (chunks of a, tiles of b, W), grad_threads(T) threads, dynamic
+// shared memory: the sorted tile [T] and its suffix sums [T + 1].
+// partials[w, tile, chunk] = the float64 sum over the chunk's a_i of the
+// tile's part of row i, weighted by ma_i:
+//   auc: ma_i (P_gt + (P_ge - P_gt) / 2), P_gt and P_ge the weights of the b
+//        with fl(a_i - b) > 0 and >= 0 (two searches with the body's
+//        predicates, the second only where a_i ties the next value);
+//   hinge: masked_hinge_row, after one search with !(fl(a_i - b) < 1).
+template <int LOG_T, bool HINGE>
+__global__ void __launch_bounds__(grad_threads(1 << LOG_T))
+masked_search_kernel(const float* __restrict__ a, const float* __restrict__ ma,
+                     const float* __restrict__ sorted,
+                     const MaskedSum<HINGE>* __restrict__ suffix,
+                     const int4* __restrict__ info,
+                     double* __restrict__ partials, int64_t n1) {
+  using S = MaskedSum<HINGE>;
+  constexpr int T = 1 << LOG_T;
+  constexpr int THREADS = grad_threads(T);
+  constexpr int CHUNK = sum_chunk(T);
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* e = reinterpret_cast<float*>(smem);
+  S* suf = reinterpret_cast<S*>(smem + 4 * (size_t)T);
+  __shared__ double swarp[THREADS / 32];
+
+  const int64_t w = blockIdx.z;
+  const int64_t tile = w * gridDim.y + blockIdx.y;
+  const float4* src = reinterpret_cast<const float4*>(sorted + tile * T);
+  for (int i = threadIdx.x; i < T / 4; i += THREADS)
+    reinterpret_cast<float4*>(e)[i] = src[i];
+  const S* sp = suffix + tile * (T + 1);
+  for (int i = threadIdx.x; i <= T; i += THREADS) suf[i] = sp[i];
+  const int4 ti = info[tile];
+  __syncthreads();
+
+  const float* aw = a + w * n1;
+  const float* mw = ma + w * n1;
+  const int64_t row0 = (int64_t)blockIdx.x * CHUNK;
+  const int64_t end = n1 - row0 < CHUNK ? n1 : row0 + CHUNK;
+  double acc = 0.0;
+  for (int64_t r0 = row0 + threadIdx.x; r0 < end;
+       r0 += (int64_t)kIlp * THREADS) {
+    // a slot past the end searches NaN with weight 0, which adds 0 to the
+    // auc and is skipped by the hinge
+    float x[kIlp], wa[kIlp];
+    int c[kIlp];
+#pragma unroll
+    for (int u = 0; u < kIlp; ++u) {
+      const int64_t r = r0 + (int64_t)u * THREADS;
+      x[u] = r < end ? aw[r] : __int_as_float(0x7FFFFFFF);
+      wa[u] = r < end ? mw[r] : 0.f;
+    }
+    if constexpr (HINGE) {
+      prefix_counts<LOG_T>(e, x, c, GradRowPrefix());
+#pragma unroll
+      for (int u = 0; u < kIlp; ++u)
+        if (r0 + (int64_t)u * THREADS < end)
+          acc += masked_hinge_row(x[u], wa[u], c[u], ti, suf);
+    } else {
+      int upto[kIlp];
+      auc_counts<LOG_T>(e, x, c, upto);
+      // P_gt + (P_ge - P_gt) / 2 = suf[0] - (suf[gt] + suf[ge]) / 2: an
+      // integer or a half, exactly, for weights in {0, 1}
+#pragma unroll
+      for (int u = 0; u < kIlp; ++u)
+        acc += (double)wa[u] * (suf[0] - 0.5 * (suf[c[u]] + suf[upto[u]]));
+    }
+  }
+  acc = block_sum(acc, swarp);
+  if (threadIdx.x == 0)
+    partials[tile * gridDim.x + blockIdx.x] =
+        HINGE && (ti.z & kTileNan) ? __longlong_as_double(0x7FF8000000000000LL)
+                                   : acc;
+}
+
 template <int THREADS, int ITEMS>
 int launch_auc(const float* a, const float* b, float* sorted,
                long long* partials, long long n1, long long n2, int w,
@@ -995,6 +1284,65 @@ int grad_count(int T, bool row, bool with_loss, const float* x,
     case 2048: return launch_grad_count<11>(row, with_loss, x, sorted, suffix, info, counts, losspart, n, n_other, w, s);
     case 8192: return launch_grad_count<13>(row, with_loss, x, sorted, suffix, info, counts, losspart, n, n_other, w, s);
     case 16384: return launch_grad_count<14>(row, with_loss, x, sorted, suffix, info, counts, losspart, n, n_other, w, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// masked pair sum: sorts the tiles of b (T = THREADS * ITEMS values each)
+// with their weights, searches each a against every tile and sums each
+// problem's partials in a fixed order into out [W]: three launches
+template <int THREADS, int ITEMS, bool HINGE>
+int launch_masked(const float* a, const float* b, const float* ma,
+                  const float* mb, float* sorted, MaskedSum<HINGE>* suffix,
+                  int4* info, double* partials, double* out, long long n1,
+                  long long n2, int w, cudaStream_t s) {
+  constexpr int T = THREADS * ITEMS;
+  constexpr int LOG_T = log2_of(T);
+  static_assert(!HINGE || T <= kHingeMaxTile,
+                "the hinge tile and its sums must fit shared memory");
+  using Sort = cub::BlockRadixSort<unsigned, THREADS, ITEMS, float>;
+  const int sort_smem = (int)sizeof(typename Sort::TempStorage);
+  const int search_smem = 4 * T + (int)sizeof(MaskedSum<HINGE>) * (T + 1);
+  cudaError_t err = cudaFuncSetAttribute(
+      masked_sort_kernel<THREADS, ITEMS, HINGE>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, sort_smem);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(masked_search_kernel<LOG_T, HINGE>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               search_smem);
+  if (err != cudaSuccess) return (int)err;
+  const unsigned tiles = (unsigned)((n2 + T - 1) / T);
+  const unsigned chunks = (unsigned)((n1 + sum_chunk(T) - 1) / sum_chunk(T));
+  masked_sort_kernel<THREADS, ITEMS, HINGE>
+      <<<dim3(tiles, (unsigned)w), THREADS, sort_smem, s>>>(b, mb, sorted,
+                                                             suffix, info, n2);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  masked_search_kernel<LOG_T, HINGE>
+      <<<dim3(chunks, tiles, (unsigned)w), grad_threads(T), search_smem, s>>>(
+          a, ma, sorted, suffix, info, partials, n1);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  grad_finish_kernel<<<dim3(1, (unsigned)w), 256, 0, s>>>(
+      nullptr, nullptr, partials, nullptr, nullptr, out, 0, 0,
+      (int)(tiles * chunks));
+  return (int)cudaGetLastError();
+}
+
+template <bool HINGE>
+int masked_sum(int T, const float* a, const float* b, const float* ma,
+               const float* mb, float* sorted, MaskedSum<HINGE>* suffix,
+               int4* info, double* partials, double* out, long long n1,
+               long long n2, int w, cudaStream_t s) {
+  switch (T) {
+    case 256: return launch_masked<128, 2, HINGE>(a, b, ma, mb, sorted, suffix, info, partials, out, n1, n2, w, s);
+    case 2048: return launch_masked<256, 8, HINGE>(a, b, ma, mb, sorted, suffix, info, partials, out, n1, n2, w, s);
+    case 8192: return launch_masked<1024, 8, HINGE>(a, b, ma, mb, sorted, suffix, info, partials, out, n1, n2, w, s);
+    case 16384:
+      // the hinge's tile and its (W, S) sums would need 4 + 16 bytes a
+      // value, 320 KB: beyond a block's shared memory
+      if constexpr (HINGE) return (int)cudaErrorInvalidValue;
+      else return launch_masked<1024, 16, HINGE>(a, b, ma, mb, sorted, suffix, info, partials, out, n1, n2, w, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -1186,6 +1534,38 @@ int tw_rank_hinge_sum(const void* a, const void* b, void* sorted_b,
       nullptr, nullptr, lp, nullptr, nullptr, static_cast<double*>(loss), 0,
       0, nparts);
   return (int)cudaGetLastError();
+}
+
+// masked pair sum (kernel 2, auc and hinge bodies): sorts the tiles of b (T
+// values each) with their weights mb, sums each a_i's weighted row against
+// every tile into one float64 partial a block, then sums each problem's
+// partials in a fixed order into out [W] float64, on `stream`: three
+// launches; returns the first nonzero cuda error. a, ma [W, n1] and b, mb
+// [W, n2] contiguous float32 on the device, the weights finite and
+// non-negative. Scratch, from the wrapper: sorted_b [W, tb, T] float32,
+// suffix_b [W, tb, T + 1] float64 (auc) or double2 (hinge), info_b [W, tb]
+// int4, partials [W, tb, ceil(n1 / tw_rank_sum_chunk(T))] float64, tb =
+// ceil(n2 / T). T is 256, 2048, 8192 or (auc only) 16384.
+int tw_rank_masked_sum(const void* a, const void* b, const void* ma,
+                       const void* mb, void* sorted_b, void* suffix_b,
+                       void* info_b, void* partials, void* out, long long n1,
+                       long long n2, int w, int T, int hinge, void* stream) {
+  auto fa = static_cast<const float*>(a);
+  auto fb = static_cast<const float*>(b);
+  auto fma = static_cast<const float*>(ma);
+  auto fmb = static_cast<const float*>(mb);
+  auto sb = static_cast<float*>(sorted_b);
+  auto ib = static_cast<int4*>(info_b);
+  auto lp = static_cast<double*>(partials);
+  auto o = static_cast<double*>(out);
+  auto s = static_cast<cudaStream_t>(stream);
+  if (hinge)
+    return masked_sum<true>(T, fa, fb, fma, fmb, sb,
+                            static_cast<double2*>(suffix_b), ib, lp, o, n1,
+                            n2, w, s);
+  return masked_sum<false>(T, fa, fb, fma, fmb, sb,
+                           static_cast<double*>(suffix_b), ib, lp, o, n1, n2,
+                           w, s);
 }
 
 }  // extern "C"

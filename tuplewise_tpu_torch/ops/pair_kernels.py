@@ -18,13 +18,16 @@ tensor of shape [] or [W].
 
 Dispatch. A tensor on the CPU takes the plain version. A CUDA tensor
 launches the kernel, or raises: nothing falls back from a kernel that
-fails to build or launch. The unmasked auc and hinge bodies run the
+fails to build or launch. The auc and hinge bodies run the
 sort-and-count kernels of ``csrc/rank_count.cu`` (``ops.rank_count``):
-for the auc an exact int64 ``2 * wins + ties`` a problem, halved in
-float64; for the hinge the float64 sum c (1 - a_i) + (the suffix sum of
-the sorted b where fl(a_i - b) < 1) over a_i and tiles of b. The
-logistic body, and every masked sum, runs ``csrc/pair_sum.cu``; the
-logistic body there
+unmasked, for the auc an exact int64 ``2 * wins + ties`` a problem,
+halved in float64, for the hinge the float64 sum c (1 - a_i) + (the
+suffix sum of the sorted b where fl(a_i - b) < 1) over a_i and tiles of
+b; masked, the same searches over tiles of b sorted with their weights,
+each a_i adding ma_i times the suffix sums of the weights past its
+searches (auc) or ma_i ((1 - a_i) W + S) with W and S the suffix sums of
+mb and mb * b (hinge). The logistic body, masked or not, runs
+``csrc/pair_sum.cu``, which
 factors e^{-|d|} into per-score exponentials where a block's scores span
 at most ``LOGISTIC_SPAN`` and takes log1p as a polynomial
 (``LOG1P_COEFFS``; :func:`logistic_branch_blocks` counts the blocks of
@@ -199,10 +202,14 @@ def _launch(name, a, b, ma, mb, kernel: Kernel,
     if n1 == 0 or n2 == 0 or W == 0:
         out = torch.zeros(W, dtype=torch.float64, device=a.device)
         return out[0] if squeeze else out
-    if not masked and kernel.cuda_body in (AUC_BODY, HINGE_BODY):
+    if kernel.cuda_body in (AUC_BODY, HINGE_BODY):
         # sort-and-count: an exact int64 2 * wins + ties a problem (auc),
-        # sort-and-search with float64 suffix sums (hinge)
-        if kernel.cuda_body == AUC_BODY:
+        # sort-and-search with float64 suffix sums (hinge); masked, the
+        # suffix sums of the sorted weights
+        if masked:
+            out = rank_count.masked_pair_sums(
+                a, b, ma, mb, hinge=kernel.cuda_body == HINGE_BODY)
+        elif kernel.cuda_body == AUC_BODY:
             out = rank_count.auc_twice_counts(a, b).to(torch.float64) * 0.5
         else:
             out = rank_count.hinge_pair_sums(a, b)
@@ -247,8 +254,8 @@ def pair_sum(a, b, kernel: Kernel, impl: Optional[str] = None):
     (float64 result of shape [] or [W]); count = n1 * n2.
 
     CUDA tensors launch the CUDA kernel (or raise): the sort-and-count
-    kernels for the auc and hinge bodies, ``csrc/pair_sum.cu`` for the
-    logistic; CPU
+    kernels of ``csrc/rank_count.cu`` for the auc and hinge bodies,
+    ``csrc/pair_sum.cu`` for the logistic; CPU
     tensors take ``pair_sum_plain``; ``impl="plain"`` forces the plain
     version. A kernel without a CUDA body runs the plain tiled version."""
     return _dispatch("pair_sum", a, b, None, None, kernel, impl)
@@ -257,8 +264,8 @@ def pair_sum(a, b, kernel: Kernel, impl: Optional[str] = None):
 def masked_pair_sum(a, b, ma, mb, kernel: Kernel,
                     impl: Optional[str] = None):
     """Weighted sum of g(a_i - b_j) * ma_i * mb_j for [n] or [W, n]
-    inputs; the caller's count is sum(ma) * sum(mb). Dispatch as in
-    :func:`pair_sum`."""
+    inputs and finite non-negative weights; the caller's count is
+    sum(ma) * sum(mb). Dispatch as in :func:`pair_sum`."""
     return _dispatch("masked_pair_sum", a, b, ma, mb, kernel, impl)
 
 

@@ -1,7 +1,7 @@
 """Launchers of the sort-and-count kernels of ``csrc/rank_count.cu``.
 
-Three bodies have a sort-and-count route on the card, behind their
-usual wrappers (which check the tensors and count the launches):
+These wrappers and bodies have a sort-and-count route on the card,
+behind the wrappers' usual checks and launch counts:
 
 * ``pair_kernels.pair_sum`` with the auc body (kernel 1, unmasked):
   :func:`auc_twice_counts` returns the int64 ``2 * wins + ties`` of each
@@ -10,6 +10,12 @@ usual wrappers (which check the tensors and count the launches):
   :func:`hinge_pair_sums` returns the float64 pair sum of each problem,
   the hinge gradient route's loss alone (b's tiles sorted once with their
   suffix sums, each a searching every tile; no counts, no col pass).
+* ``pair_kernels.masked_pair_sum`` with the auc or the hinge body
+  (kernel 2): :func:`masked_pair_sums` returns the float64 weighted pair
+  sum of each problem (b's tiles sorted once with their weights and the
+  float64 suffix sums of the weights, and for the hinge of the weighted
+  scores; each a searching every tile with the body's predicates and
+  adding ma_i times its part).
 * ``triplet_kernels.batched_masked_pair_sum`` with the indicator or the
   hinge combine (kernel 5): :func:`triplet_sums` returns the float64
   per-problem sums; the hinge's as (margin + A) * sum(mk) - sum(mk * B)
@@ -62,6 +68,15 @@ def grad_tile_size(n: int) -> int:
     return next((t for t in GRAD_TILES if t >= n), GRAD_TILES[-1])
 
 
+def masked_tile_size(n: int, hinge: bool) -> int:
+    """Values of b sorted by one block of the masked pair sum: the
+    smallest of ``GRAD_TILES`` that holds n, else the largest that fits
+    (the hinge's at most ``HINGE_MAX_TILE``: its tile carries two float64
+    suffix sums a value)."""
+    T = grad_tile_size(n)
+    return min(T, HINGE_MAX_TILE) if hinge else T
+
+
 def load_library():
     """Build (at first use) and load the sort-and-count library."""
     from tuplewise_tpu_torch.ops import _build
@@ -84,6 +99,8 @@ def load_library():
         lib.tw_rank_grad_chunk.restype = i
         lib.tw_rank_sum_chunk.argtypes = [i]
         lib.tw_rank_sum_chunk.restype = i
+        lib.tw_rank_masked_sum.argtypes = [p] * 9 + [ll, ll, i, i, i, p]
+        lib.tw_rank_masked_sum.restype = i
         built = (lib.tw_rank_max_tile(), lib.tw_rank_min_tile(),
                  lib.tw_rank_count_chunk(), lib.tw_rank_hinge_max_tile())
         want = (MAX_TILE, MIN_TILE, COUNT_CHUNK, HINGE_MAX_TILE)
@@ -94,6 +111,17 @@ def load_library():
                                f"tiles {GRAD_TILES}")
         lib._tw_typed = True
     return lib
+
+
+def _carve(sizes, dtype, device):
+    """One scratch tensor of sum(sizes) elements of dtype and the address
+    of each part in order (the caller keeps the tensor alive while its
+    kernels run)."""
+    buf = torch.empty(sum(sizes), dtype=dtype, device=device)
+    at = [buf.data_ptr()]
+    for size in sizes[:-1]:
+        at.append(at[-1] + buf.element_size() * size)
+    return buf, at
 
 
 def _raise_on(err: int, what: str) -> None:
@@ -180,11 +208,8 @@ def hinge_grad(a: torch.Tensor, b: torch.Tensor, with_loss: bool):
     # and the tile infos first (16-byte aligned: tiles and infos are
     # multiples of 4 words), the counts last; one float64 scratch for the
     # suffix sums and the loss partials
-    sizes = (W * ta * Ta, W * tb * Tb, W * ta * 4, W * tb * 4, W * n1, W * n2)
-    words = torch.empty(sum(sizes), dtype=torch.int32, device=dev)
-    at = [words.data_ptr()]
-    for size in sizes[:-1]:
-        at.append(at[-1] + 4 * size)
+    words, at = _carve((W * ta * Ta, W * tb * Tb, W * ta * 4, W * tb * 4,
+                        W * n1, W * n2), torch.int32, dev)
     wide = (torch.empty(W * tb * (Tb + 1 + chunks), dtype=torch.float64,
                         device=dev) if with_loss else None)
     row = torch.empty(W, n1, dtype=torch.float32, device=dev)
@@ -230,12 +255,8 @@ def hinge_pair_sums(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     # one float64 scratch carved in 8-byte words: the sorted tiles (float32)
     # and the tile infos (int4) first, 16-byte aligned (T / 2 and 2 words
     # a tile), then the suffix sums and the partials
-    words = (W * tiles * T // 2, W * tiles * 2, W * tiles * (T + 1),
-             W * tiles * chunks)
-    wide = torch.empty(sum(words), dtype=torch.float64, device=dev)
-    at = [wide.data_ptr()]
-    for size in words[:-1]:
-        at.append(at[-1] + 8 * size)
+    wide, at = _carve((W * tiles * T // 2, W * tiles * 2, W * tiles * (T + 1),
+                       W * tiles * chunks), torch.float64, dev)
     sorted_b, info_b, suffix, losspart = at
     loss = torch.empty(W, dtype=torch.float64, device=dev)
     with torch.cuda.device(dev):
@@ -246,3 +267,47 @@ def hinge_pair_sums(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     _raise_on(err, f"pair_sum[hinge] sort-and-search (W={W}, n1={n1}, "
                    f"n2={n2}, tile {T})")
     return loss
+
+
+def masked_pair_sums(a, b, ma, mb, hinge: bool) -> torch.Tensor:
+    """[W] float64 sums of g(fl(a_i - b_j)) * ma_i * mb_j over each
+    problem's pairs for the auc body (hinge False) or the hinge body, NaN
+    and infinities as the plain version gives them, for checked contiguous
+    float32 CUDA tensors a, ma [W, n1] and b, mb [W, n2] (n1, n2, W > 0;
+    finite non-negative weights): b cut into tiles of
+    :func:`masked_tile_size` values, sorted once with its weights and
+    their float64 suffix sums (the hinge's also of mb * b); each a_i
+    searches every tile with the body's float32 predicates and adds its
+    weighted part. Three launches (sort, search, a fixed-order sum of the
+    partials), so a call repeats bit for bit; with weights in {0, 1} the
+    auc is exact."""
+    W, n1 = a.shape
+    n2 = b.shape[1]
+    T = masked_tile_size(n2, hinge)
+    tiles = -(-n2 // T)
+    if W > _MAX_GRID_YZ or tiles > _MAX_GRID_YZ or max(n1, n2) >= 1 << 31:
+        raise ValueError(f"W={W}, n1={n1}, n2={n2} is beyond the CUDA grid "
+                         f"of the masked pair sum ({tiles} tiles of {T})")
+    lib = load_library()
+    chunks = -(-n1 // lib.tw_rank_sum_chunk(T))
+    dev = a.device
+    # one float64 scratch carved in 8-byte words: the sorted tiles (float32)
+    # and the tile infos (int4) first, 16-byte aligned (T / 2 and 2 words
+    # a tile), then the suffix sums (one or two words a value) and the
+    # partials
+    width = 2 if hinge else 1
+    wide, at = _carve((W * tiles * T // 2, W * tiles * 2,
+                       W * tiles * (T + 1) * width, W * tiles * chunks),
+                      torch.float64, dev)
+    sorted_b, info_b, suffix, partials = at
+    out = torch.empty(W, dtype=torch.float64, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.tw_rank_masked_sum(
+            a.data_ptr(), b.data_ptr(), ma.data_ptr(), mb.data_ptr(),
+            sorted_b, suffix, info_b, partials, out.data_ptr(), n1, n2, W, T,
+            int(hinge), stream)
+    body = "hinge" if hinge else "auc"
+    _raise_on(err, f"masked_pair_sum[{body}] sort-and-search (W={W}, "
+                   f"n1={n1}, n2={n2}, tile {T})")
+    return out
