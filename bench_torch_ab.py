@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Times the logistic and hinge pair sums, the masked pair sums, the
-triplet hinge sums, the gradient pair sums and the fleet's tenant counts
-of two or more checkouts of the PyTorch port in one run, on one GPU, in
+triplet hinge sums, the gradient pair sums, the fleet's tenant counts and
+the index's signed counts of two or more checkouts of the PyTorch port in one run, on one GPU, in
 turns.
 
 Run from the root of a checkout, on a machine with one CUDA card:
@@ -21,7 +21,8 @@ from one seed on the card, at the shapes of chip_smoke.py's main path:
   125001 x 125000 (ragged worker blocks: the last row of 3 workers masked
   out), phase 5's masked rows, and around the masked auc and hinge the
   Estimator backend's ragged local round (``local_round_from_blocks``,
-  N = 8 blocks of 10^6 + 5 / 10^6 scores), phase 3's;
+  N = 8 blocks of 10^6 + 5 / 10^6 scores), phase 3's, also by
+  torch.profiler's device time a call ("<row> device");
 * ``batched_masked_pair_sum`` with the hinge combine (margin 1) on the
   distances of 128 anchors and of all 32768 anchors to 32768 positives
   and 32768 negatives, d = 32 (N(0, I) against N(0.3, I)), phase 12b's
@@ -40,7 +41,11 @@ from one seed on the card, at the shapes of chip_smoke.py's main path:
   the packs of make_tenant_stream(10^6, 1024, skew 1.1, seed 0) at caps
   2^17 and the last 256-event apply's query block (chip_smoke.py's own
   helpers), timed by torch.profiler's device time a launch (its "ms";
-  CUDA events a call beside it).
+  CUDA events a call beside it);
+* ``signed_count`` (kernel 6) at phase 16's headline (two runs of 500000
+  values on a 1/64 grid at cap 2^19, 512 queries a set, half of them run
+  values) and at the index's shape (two runs of 250000 N(0, 1) values at
+  cap 2^18, 255 and 257 N(0, 1) queries), timed the same way.
 
 A kernel time is the mean of several calls by CUDA events after a
 warm-up. After the turns it reads each checkout's built
@@ -124,6 +129,9 @@ def _turn():
         t, v = ms(lambda: float(be.local_round_from_blocks(s1, s2, i1, i2)),
                   5)
         out[f"ragged local round[{name}]"] = (t, v)
+        _, dev, _ = cs.timed_on_device(
+            lambda: be.local_round_from_blocks(s1, s2, i1, i2), 5)
+        out[f"ragged local round[{name}] device"] = (dev, 0.0)
     del s1, s2, i1, i2
 
     m = 32768
@@ -210,6 +218,28 @@ def _turn():
         lambda: ck.tenant_count(pos, neg, qn, qp), 200)
     out["tenant_count"] = (t, int(got.long().sum()))
     out["tenant_count call"] = (call_ms, int(got.long().sum()))
+
+    from tuplewise_tpu_torch.parallel import sharded_counts as sc
+    for tag, grid, n, (la, lb) in (("", True, cs.COUNT_BASE, (512, 512)),
+                                   (" index", False, 250_000, (255, 257))):
+        vals = [torch.randn(n, generator=g, device="cuda") + shift
+                for shift in (0.0, 1.0)]
+        if grid:
+            vals = [torch.round(v * 64) / 64 for v in vals]
+        vals = [torch.sort(v).values for v in vals]
+        runs = [cs.padded(v, sc.next_bucket(n)) for v in vals]
+        if grid:
+            qa = cs.tied_queries(g, la, vals[0])
+            qb = cs.tied_queries(g, lb, vals[1])
+        else:
+            qa = torch.randn(la, generator=g, device="cuda")
+            qb = torch.randn(lb, generator=g, device="cuda")
+        args = (runs, [1, 1], [0, 1], qa, qb)
+        ck.signed_count(*args)                            # warm-up
+        call_ms, t, got = cs.timed_on_device(
+            lambda: ck.signed_count(*args), 1000)
+        out[f"signed_count{tag}"] = (t, int(got.long().sum()))
+        out[f"signed_count{tag} call"] = (call_ms, int(got.long().sum()))
     print(json.dumps(out), flush=True)
 
 

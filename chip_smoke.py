@@ -39,14 +39,17 @@ nonzero. Each phase prints its seconds.
    plain (exact differences), +inf where plain is +inf, two calls bit
    for bit. The edge-value cases also run at W = 512 x 1250. Then the
    masked auc and hinge routes (csrc/rank_count.cu) with {0, 1} and
-   fractional weights in [0, 2) (20 % zeros): b past one 8192- and one
-   16384-value tile with a short last tile, W = 512 x 1250, lattice
-   scores, infinities of weight 0 and facing a zero weight, edge values:
-   the auc equal to plain with {0, 1} weights (the hinge too on the
-   lattice), otherwise NaN and inf where plain has them and finite sums
-   within the gap that plain's float32 rounding allows (masked_gap, the
-   derivation of tests/test_torch_masked_routes.py) and rel 1e-5; two
-   calls bit for bit.
+   {-1, 0, 1} weights and fractional weights in [0, 2) and in (-2, 2)
+   (20 % zeros): b past one 8192- and one 16384-value tile with a short
+   last tile, W = 512 x 1250, lattice scores, infinities of weight 0,
+   facing a zero weight and meeting negative weights (-inf, +inf and NaN
+   by the weights' signs), the four W = 1 inputs where a negative weight
+   sets the hinge's infinity, edge values: the auc equal to plain with
+   {0, 1} and {-1, 0, 1} weights (the hinge too on the lattice),
+   otherwise NaN and +-inf where plain has them and finite sums within
+   the gap that plain's float32 rounding allows (masked_gap, the
+   derivation of tests/test_torch_masked_routes.py); two calls bit for
+   bit.
 3. Main path at full size, through Estimator(kernel, backend="torch") on
    the default device: complete at n = 2^20 and 2^20 + 64 per class (AUC
    with auc_fast=False, which must equal rank_auc exactly), local_average
@@ -153,11 +156,20 @@ nonzero. Each phase prints its seconds.
    equal as integers: k = 6 runs (a ragged base of 1000003 values with
    duplicates, a -1 tombstone run of 4097, a +1 delta run | a second
    base, a -1 run, an empty run) for queries of 1/255, 255/1, 513/4099
-   and 4099/513 with ties at run values; then at the headline (each
-   class's base at cap 2^19, 512 queries a set) the three are timed, by
-   CUDA events a call and by torch.profiler's device time a call. The
-   bound counts the 32-byte run sectors that the kernel's binary searches
-   of these queries read (replayed here), not the whole runs.
+   and 4099/513 with ties at run values; then the search's edge cases: k
+   = 8 runs of mixed signs and sets, lengths 0, 1, 2, 3, 254, 255, 257
+   and 30011 (+inf padded), -inf, +inf and -0.0 values, NaN, +-inf,
+   +-0.0 and tied queries (kernel = plain, = searchsorted at every query
+   that is not NaN; a NaN query counts 0); then at the headline (each
+   class's base at cap 2^19, 512 queries a set, half of them run values)
+   the three are timed, by CUDA events a call and by torch.profiler's
+   device time a call, and the call is split by host timers (the argument
+   checks, the ctypes marshalling and launch, the count layer's query
+   copy up and block copy back, the whole count-layer call). The bound
+   counts the 32-byte run sectors that binary searches of these queries
+   read (replayed here), not the whole runs; the row prints the kernel's
+   dependent rounds (count_kernels.signed_rounds) beside the replayed
+   chain of the binary searches it replaced.
 17. Serving index main path at bench.py _serving_kernel_cell's
    single-device size: 10^6 events of make_stream(seed=0) in float32,
    window 5e5, compact_every 1024, chunks of 256, through ExactAucIndex
@@ -166,7 +178,7 @@ nonzero. Each phase prints its seconds.
    the float32 rank-AUC oracle of the window, and after seeding and
    compacting one launch of kernel 6 per micro-batch, no fallback.
    Events/s, insert p50/p99; then, outside the counted run, kernel 6 at
-   the index's own final shape.
+   the index's own final shape, with its call split.
 18. Engine through replay at bench.py _streaming_events_per_sec's knobs,
    cut from its 300000 events to 100000 to leave the fleet phases room
    in the time limit: budget 64, max_batch 256, policy block, flush 0.5 ms,
@@ -311,8 +323,8 @@ SOURCES = {
 # run of this script on an NVIDIA H100 80GB HBM3 at 700 W (ms): printed
 # beside this run's times, never written into the kernels line
 EARLIER_MS = {
-    "masked_pair_sum[auc]": 34.30,
-    "masked_pair_sum[hinge]": 19.11,
+    "signed_count": 0.00713,
+    "signed_count index": 0.00657,
 }
 EDGE_VALUES = (math.inf, -math.inf, math.nan, -math.nan, 0.0, -0.0, 1.0,
                -1.0, 1e-45, -1e-45)
@@ -783,12 +795,19 @@ def phase_kernel_vs_plain(errs):
 
 
 def mask_weights(gen, kind, *shape):
-    """{0, 1} masks (30 % zeros), or fractional weights in [0, 2) with 20 %
-    zeros."""
+    """{0, 1} masks (30 % zeros), {-1, 0, 1} weights ("ternary"), or
+    fractional weights in [0, 2) ("fractional") or in (-2, 2) ("signed")
+    with 20 % zeros."""
     u = torch.rand(*shape, generator=gen, device="cuda")
     if kind == "binary":
         return (u > 0.3).float()
+    if kind == "ternary":
+        return torch.randint(-1, 2, shape, generator=gen,
+                             device="cuda").float()
     w = torch.rand(*shape, generator=gen, device="cuda") * 2.0
+    if kind == "signed":
+        w = torch.where(torch.rand(*shape, generator=gen, device="cuda")
+                        < 0.5, -w, w)
     return torch.where(u < 0.2, torch.zeros((), device="cuda"), w)
 
 
@@ -805,7 +824,8 @@ def masked_gap(name, a, b, ma, mb):
     tests/test_torch_masked_routes.py): the roundings of plain's products
     fl(fl(g mb) ma), exact in float64; for the hinge also, over the pairs
     with finite fl(a - b) < 1, half an ulp of fl(a - b) and of fl(1 - d)
-    times mb ma. In tiles of the plain version's size."""
+    times |mb ma|. In tiles of the plain version's size; weights of either
+    sign enter by their magnitude."""
     from tuplewise_tpu_torch.ops import pair_kernels as pk
     from tuplewise_tpu_torch.ops.kernels import get_kernel
 
@@ -823,24 +843,26 @@ def masked_gap(name, a, b, ma, mb):
             p1 = g * mbj
             p2 = p1 * mai
             gap = ((p1.double() - g.double() * mbj.double()).abs()
-                   * mai.double()
+                   * mai.double().abs()
                    + (p2.double() - p1.double() * mai.double()).abs())
             if name == "hinge":
                 gap = torch.where(
                     (d < 1) & d.isfinite(),
-                    gap + (half_ulp(d) + half_ulp(g)) * mai.double()
-                    * mbj.double(), torch.zeros((), dtype=torch.float64,
-                                                device=a.device))
+                    gap + (half_ulp(d) + half_ulp(g))
+                    * (mai.double() * mbj.double()).abs(),
+                    torch.zeros((), dtype=torch.float64, device=a.device))
             total += gap.sum(dim=(1, 2))
     return total
 
 
-def check_masked_route(name, a, b, ma, mb, exact, what):
+def check_masked_route(name, a, b, ma, mb, exact, what, rtol=1e-5):
     """Kernel 2's masked auc or hinge route against its plain version: two
     calls bit-equal; NaN and inf where plain has them; finite sums equal
     where `exact`, else within masked_gap plus a float64 slack (1e-12 of
-    the sum) and within rel 1e-5. Returns the largest error of the mean,
-    sum / (sum(ma) sum(mb)), over the finite sums, and the plain sums."""
+    the sum), and within rel rtol. With weights of both signs a sum
+    cancels, and the gap, of the terms' magnitudes, is the one tolerance
+    (rtol inf). Returns the largest error of the mean, sum / (sum|ma|
+    sum|mb|), over the finite sums, and the plain sums."""
     from tuplewise_tpu_torch.ops import pair_kernels as pk
     from tuplewise_tpu_torch.ops.kernels import get_kernel
 
@@ -849,7 +871,7 @@ def check_masked_route(name, a, b, ma, mb, exact, what):
     again = pk.masked_pair_sum(a, b, ma, mb, k)
     want = pk.masked_pair_sum(a, b, ma, mb, k, impl="plain")
     assert torch.equal(got.view(torch.int64), again.view(torch.int64)), what
-    check_nonfinite(got, want, what)
+    check_nonfinite(got, want, what, rtol)
     fin = want.isfinite()
     if not fin.any():
         return 0.0, want
@@ -859,17 +881,19 @@ def check_masked_route(name, a, b, ma, mb, exact, what):
     gap = masked_gap(name, a, b, ma, mb)[fin]
     assert (err <= gap + 1e-12 * want[fin].abs()).all(), (
         what, float((err - gap).max()))
-    count = (ma.sum(1, dtype=torch.float64)
-             * mb.sum(1, dtype=torch.float64)).clamp_min(1.0)
+    count = (ma.abs().sum(1, dtype=torch.float64)
+             * mb.abs().sum(1, dtype=torch.float64)).clamp_min(1.0)
     return float((err / count[fin]).max()), want
 
 
 def phase_masked_routes(g, errs):
     """Kernel 2's masked auc and hinge routes (csrc/rank_count.cu) in phase
-    2: {0, 1} and fractional weights, b past one 8192- and one 16384-value
-    tile with a short last tile, the harness's W = 512 x 1250, lattice
-    scores (heavy ties, d == 0 and d == 1), infinities of weight 0 and
-    infinities facing a zero weight, and edge values."""
+    2: {0, 1}, {-1, 0, 1} and fractional weights of one or either sign, b
+    past one 8192- and one 16384-value tile with a short last tile, the
+    harness's W = 512 x 1250, lattice scores (heavy ties, d == 0 and d ==
+    1), infinities of weight 0 and infinities facing a zero weight, the
+    inputs where a negative weight sets the sign of an infinity, and edge
+    values."""
     for W, n1, n2, lattice in [(3, 4133, 8192 + 97, False),
                                (2, 3000, (1 << 14) + 5, True),
                                (512, 1250, 1250, False), (1, 1, 1, False)]:
@@ -880,20 +904,24 @@ def phase_masked_routes(g, errs):
         k = min(97, n1, n2)
         a[:, :k] = b[:, :k]                        # d == 0
         b[:, k:2 * k] = a[:, k:2 * k] - 1.0        # d == 1
-        for weights in ("binary", "fractional"):
+        for weights in ("binary", "fractional", "ternary", "signed"):
             ma = mask_weights(g, weights, W, n1)
             mb = mask_weights(g, weights, W, n2)
             for name in ("auc", "hinge"):
-                exact = weights == "binary" and (name == "auc" or lattice)
+                exact = (weights in ("binary", "ternary")
+                         and (name == "auc" or lattice))
+                rtol = (1e-5 if weights in ("binary", "fractional")
+                        else math.inf)
                 err, _ = check_masked_route(name, a, b, ma, mb, exact,
                                             ("masked route", name, weights,
-                                             W, n1, n2))
+                                             W, n1, n2), rtol)
                 key = f"masked_pair_sum[{name}]"
                 errs[key] = max(errs[key], err)
         log(f"[kernel vs plain] masked routes W={W} {n1}x{n2}"
             f"{' (lattice)' if lattice else ''}: auc equal to plain with "
-            f"{{0, 1}} weights and hinge too on the lattice, fractional "
-            f"weights within the derived gap; two calls bit-equal")
+            f"{{0, 1}} and {{-1, 0, 1}} weights and hinge too on the "
+            f"lattice, fractional weights of either sign within the derived "
+            f"gap; two calls bit-equal")
     # infinities without NaN, fractional weights otherwise > 0, one case a
     # problem: none; -inf in a (+inf); -inf in a of weight 0 (NaN); +inf in
     # b facing a zero weight in a (NaN); +inf in b of weight 0 (NaN); +inf
@@ -917,6 +945,38 @@ def phase_masked_routes(g, errs):
             errs[f"masked_pair_sum[{name}]"], err)
     assert want.isinf().tolist() == want_inf, want
     assert want.isnan().tolist() == want_nan, want
+    # negative weights, one case a problem: none; -inf in a of weight < 0
+    # (-inf); +inf in b of weight < 0 (-inf); +inf in b of weights of both
+    # signs (NaN); -inf in a against weights of b all < 0 (-inf); the same
+    # with a's weight < 0 (+inf)
+    ma = torch.rand(W, n1, generator=g, device="cuda") + 0.5
+    mb = torch.rand(W, n2, generator=g, device="cuda") + 0.5
+    a = torch.randn(W, n1, generator=g, device="cuda")
+    b = torch.randn(W, n2, generator=g, device="cuda")
+    a[1, 17] = a[4, 17] = a[5, 17] = -math.inf
+    b[2, 16400] = b[3, 5] = b[3, 9000] = math.inf
+    ma[1, 17] = ma[5, 17] = -0.7
+    mb[2, 16400] = mb[3, 5] = -1.3
+    mb[4:] = -mb[4:]
+    for name in ("auc", "hinge"):
+        err, want = check_masked_route(name, a, b, ma, mb, False,
+                                       ("masked negative weights", name))
+        errs[f"masked_pair_sum[{name}]"] = max(
+            errs[f"masked_pair_sum[{name}]"], err)
+    assert want[1:].tolist()[:2] == [-math.inf] * 2, want
+    assert want[3].isnan() and want[4:].tolist() == [-math.inf, math.inf], \
+        want
+    # the four W = 1 inputs where a negative weight decides the hinge's
+    # infinity (plain: -inf, NaN, -inf, -inf)
+    inf = math.inf
+    for row in ([[0.5, 0.0], [inf, 0.3], [1.0, 1.0], [-1.0, 1.0]],
+                [[0.5, 0.0], [inf, inf], [1.0, 1.0], [1.0, -1.0]],
+                [[-inf, 0.0], [0.1, 0.3], [1.0, 1.0], [-2.0, -1.0]],
+                [[-inf, 0.0], [0.1, 0.3], [-1.0, 1.0], [1.0, 1.0]]):
+        a, b, ma, mb = (torch.tensor([x], device="cuda") for x in row)
+        for name in ("auc", "hinge"):
+            check_masked_route(name, a, b, ma, mb, False,
+                               ("negative-weight input", name, row))
     # edge values (+-inf, NaN of both signs, +-0.0, subnormals, ties) with
     # fractional weights, ragged tiles, and sparse ones at W = 512 x 1250
     for W, n1, n2, frac in [(3, 300, (1 << 14) + 517, 0.3),
@@ -926,20 +986,25 @@ def phase_masked_routes(g, errs):
              else sparse_edge(g, frac, W, n1))
         b = (edge_values(g, W, n2) if frac == 0.3
              else sparse_edge(g, frac, W, n2))
-        ma = mask_weights(g, "fractional", W, n1)
-        mb = mask_weights(g, "fractional", W, n2)
-        outcomes = []
-        for name in ("auc", "hinge"):
-            err, want = check_masked_route(name, a, b, ma, mb, False,
-                                           ("masked edge", name, W, n1, n2))
-            errs[f"masked_pair_sum[{name}]"] = max(
-                errs[f"masked_pair_sum[{name}]"], err)
-            outcomes += want.tolist()
-        log(f"[kernel vs plain] masked routes, edge values W={W} {n1}x{n2} "
-            f"fractional weights: as plain ({sum(map(math.isnan, outcomes))} "
-            f"NaN, {sum(map(math.isinf, outcomes))} inf of {len(outcomes)})")
-    log("[kernel vs plain] masked routes, infinities of weight 0 and facing "
-        "a zero weight: NaN where plain is NaN, +inf where it is +inf")
+        for weights in ("fractional", "signed"):
+            ma = mask_weights(g, weights, W, n1)
+            mb = mask_weights(g, weights, W, n2)
+            outcomes = []
+            for name in ("auc", "hinge"):
+                err, want = check_masked_route(
+                    name, a, b, ma, mb, False,
+                    ("masked edge", name, weights, W, n1, n2),
+                    1e-5 if weights == "fractional" else math.inf)
+                errs[f"masked_pair_sum[{name}]"] = max(
+                    errs[f"masked_pair_sum[{name}]"], err)
+                outcomes += want.tolist()
+            log(f"[kernel vs plain] masked routes, edge values W={W} "
+                f"{n1}x{n2} {weights} weights: as plain "
+                f"({sum(map(math.isnan, outcomes))} NaN, "
+                f"{sum(map(math.isinf, outcomes))} inf of {len(outcomes)})")
+    log("[kernel vs plain] masked routes, infinities of weight 0, facing a "
+        "zero weight and meeting negative weights: NaN where plain is NaN, "
+        "+-inf where it is +-inf; the four negative-weight inputs as plain")
 
 
 def ragged_blocks(gen, n, n_workers):
@@ -2218,7 +2283,8 @@ def count_bound_ms(runs, sets, qa, qb):
     sectors the binary searches read (each once), the queries read once
     and the [4, q] int32 block written once, at HBM rate; or one
     comparison per load at the FP32 peak. Also returns the dependent
-    loads a thread makes one after another (its latency chain)."""
+    loads a thread of kernel 6's first form made one after another (its
+    latency chain, the lower and then the upper binary search)."""
     lens, qs = (len(qa), len(qb)), (qa, qb)
     sectors = loads = 0
     chains = [0, 0]           # a thread searches every run of its set
@@ -2232,9 +2298,47 @@ def count_bound_ms(runs, sets, qa, qb):
             max(chains))
 
 
+def count_call_split(args, reps=1000):
+    """Host microseconds of each part of a signed count, the mean over
+    reps calls (perf_counter; the device is not waited for inside a
+    part): ``ck._check``; ``ck._launch`` (ctypes marshalling and the
+    enqueued launch); the query copy up as ``signed_pair_counts`` makes it
+    (one concatenation of the host queries to a device tensor); the [4, q]
+    block copy back to int64 numpy; and the whole ``signed_pair_counts``
+    call on the placed runs."""
+    from tuplewise_tpu_torch.ops import count_kernels as ck
+    from tuplewise_tpu_torch.parallel import sharded_counts as sc
+
+    runs, signs, sets, qa, qb = args
+    qa_h, qb_h = qa.cpu().numpy(), qb.cpu().numpy()
+    out = ck.signed_count(*args)
+
+    def host_us(fn):
+        fn()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        dt = time.perf_counter() - t
+        torch.cuda.synchronize()
+        return dt / reps * 1e6
+
+    sides = [[(r, r.numel(), s) for r, s, a in zip(runs, signs, sets)
+              if a == side] for side in (0, 1)]
+    return dict(
+        check=host_us(lambda: ck._check(*args)),
+        marshal_and_launch=host_us(lambda: ck._launch(*args)),
+        copy_up=host_us(lambda: torch.from_numpy(
+            np.concatenate([qa_h, qb_h])).to("cuda")),
+        copy_back=host_us(lambda: out.cpu().numpy().astype(np.int64)),
+        count_layer_call=host_us(lambda: sc.signed_pair_counts(
+            None, *sides, qa_h, qb_h, kernel=True)))
+
+
 def phase_count_vs_plain():
     """Phase 16: kernel 6 against its plain version and the searchsorted
-    chain, as integers; the timing row at the headline shape."""
+    chain, as integers, on phase 16's runs and on the search's edge cases;
+    the timing row at the headline shape, with the call's split."""
     from tuplewise_tpu_torch.ops import count_kernels as ck
     from tuplewise_tpu_torch.parallel import sharded_counts as sc
 
@@ -2270,6 +2374,45 @@ def phase_count_vs_plain():
             f"delta 30011 +1 | 500009 +1, 777 -1, empty) qa={la} qb={lb}: "
             f"kernel = plain = searchsorted")
 
+    # the search's edge cases: 8 runs of mixed signs and sets, odd and
+    # empty runs, runs shorter than the top, -inf, +inf and -0.0 values,
+    # +inf padding; NaN, +-inf, +-0.0 and half-tied queries. A NaN query
+    # counts 0 (comparisons, as the JAX Pallas kernel); the searchsorted
+    # route sorts NaN last, as jnp.searchsorted does, so it is held to the
+    # kernel at the other queries only
+    lens = [0, 1, 2, 3, 254, 255, 257, 30011]
+    e_runs = [run_of(n, 0.5 * (k % 2)) for k, n in enumerate(lens)]
+    e_runs[2] = torch.tensor([-math.inf, math.inf], device="cuda")
+    e_runs[3] = torch.tensor([-math.inf, -0.0, math.inf], device="cuda")
+    e_runs[7] = padded(e_runs[7], sc.next_bucket(lens[7]))
+    e_signs, e_sets = [1, -1, 1, -1, 1, 1, -1, 1], [0, 1, 0, 1, 0, 1, 1, 0]
+    special = torch.tensor([math.nan, math.inf, -math.inf, -0.0, 0.0],
+                           device="cuda")
+
+    def edge_queries(n, side):
+        pool = torch.cat([r for r, a in zip(e_runs, e_sets) if a == side])
+        q = tied_queries(g, n, pool)
+        q[:min(n, 5)] = special[:min(n, 5)]
+        return q
+
+    for la, lb in [(255, 1), (64, 63), (1, 300), (513, 4099)]:
+        qa, qb = edge_queries(la, 0), edge_queries(lb, 1)
+        args = (e_runs, e_signs, e_sets, qa, qb)
+        got = ck.signed_count(*args)
+        lib = sc.signed_count_searchsorted(*args)
+        num = torch.ones_like(got, dtype=torch.bool)
+        num[:2, :la] = ~qa.isnan()
+        num[2:, :lb] = ~qb.isnan()
+        err = max(err, differ(got, ck.signed_count_plain(*args)),
+                  differ(got[num], lib[num]))
+        assert err == 0, (la, lb, err)
+        assert not got[:, 0].any(), "a NaN query counts 0"
+        log(f"[count vs plain] k=8 (lengths {lens}, signs {e_signs}, sets "
+            f"{e_sets}; +-inf and -0.0 values; NaN, +-inf, +-0.0 and tied "
+            f"queries) qa={la} qb={lb}: kernel = plain, = searchsorted but "
+            f"at NaN; {ck.signed_rounds(max(r.numel() for r in e_runs))} "
+            f"dependent rounds")
+
     neg_b, pos_b = run_of(COUNT_BASE), run_of(COUNT_BASE, 1.0)
     cap = sc.next_bucket(COUNT_BASE)
     runs = [padded(neg_b, cap), padded(pos_b, cap)]
@@ -2288,22 +2431,29 @@ def phase_count_vs_plain():
     bms, by, loads = count_bound_ms(runs, [0, 1], qa, qb)
     (call_ms, ms, _), (_, plain_ms, _), (lib_call_ms, lib_ms, _) = (
         times["kernel"], times["plain"], times["library"])
+    split = count_call_split(args)
     row = dict(
         name="signed_count[flat]", route="cuda",
         source=source_of("signed_count"),
         replaces=REPLACES["signed_count"], launches=None, max_abs_err=err,
         ms=ms, call_ms=call_ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
-        dependent_loads=loads, library_ms=lib_ms, library_call_ms=lib_call_ms,
+        rounds=ck.signed_rounds(cap), dependent_loads_earlier=loads,
+        call_split_us=split, library_ms=lib_ms, library_call_ms=lib_call_ms,
         library_calls=f"{2 * len(runs)} searchsorted",
         shape=f"2 runs of {COUNT_BASE} (cap {cap}), qa=qb={COUNT_Q}")
     log(f"[timing] signed_count[flat] {row['shape']}: {ms * 1e3:.2f} us of "
         f"device time a launch ({call_ms * 1e3:.2f} us a call by events; "
-        f"bound {bms * 1e3:.3f} us by {by}, from the sectors the searches "
-        f"read; a thread's chain is {loads} dependent loads), plain "
+        f"bound {bms * 1e3:.3f} us by {by}, from the sectors the binary "
+        f"searches read; a cell's chain is {row['rounds']} dependent rounds,"
+        f" the first form's {loads} dependent loads; parent commit "
+        f"{EARLIER_MS.get('signed_count')} ms), plain "
         f"{plain_ms * 1e3:.1f} us, searchsorted chain "
         f"({row['library_calls']}) {lib_ms * 1e3:.2f} us "
         f"({lib_call_ms * 1e3:.2f} us a call); max |kernel - plain|, "
         f"|kernel - searchsorted| = {err}")
+    log(f"[timing] signed_count[flat] call split, host us a call: "
+        f"{json.dumps({k: round(v, 2) for k, v in split.items()})}; kernel "
+        f"{ms * 1e3:.2f} us of device time")
     return row
 
 
@@ -2401,12 +2551,17 @@ def time_index_kernel(probe, out):
     out["kernel_us_per_launch"] = ms * 1e3
     out["kernel_call_us"] = call_ms * 1e3
     out["kernel_bound_us"] = bms * 1e3
+    out["kernel_rounds"] = max(ck.signed_rounds(r.numel()) for r in args[0])
+    out["kernel_call_split_us"] = count_call_split(args)
     out["kernel_shape"] = (f"caps {[r.numel() for r in args[0]]}, "
                            f"qa={len(qa)} qb={len(qb)}")
     log(f"[index] kernel 6 at the index's shape ({out['kernel_shape']}): "
         f"{ms * 1e3:.2f} us of device time a launch ({call_ms * 1e3:.2f} us "
-        f"a call by events; bound {bms * 1e3:.3f} us by {by}; a thread's "
-        f"chain is {loads} dependent loads)")
+        f"a call by events; bound {bms * 1e3:.3f} us by {by}; a cell's chain "
+        f"is {out['kernel_rounds']} dependent rounds, the first form's "
+        f"{loads} dependent loads; parent commit "
+        f"{EARLIER_MS.get('signed_count index')} ms); call split, host us a "
+        f"call: {json.dumps({k: round(v, 2) for k, v in out['kernel_call_split_us'].items()})}")
 
 
 def phase_engine():

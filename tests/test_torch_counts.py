@@ -220,3 +220,24 @@ def test_kernel_matches_plain_on_card():
         assert torch.equal(got, sc.signed_count_searchsorted(*args))
         _assert_block_equal(got.cpu(), _jax_block(runs, qa, qb), len(qa),
                             len(qb))
+    # the search's edge cases (8 runs of mixed signs, odd and empty runs,
+    # runs shorter than the top, +-inf values, NaN, +-inf and tied
+    # queries): plain and the CPU emulation bit for bit, searchsorted at
+    # every query that is not NaN, one launch a call
+    from test_torch_signed_search import (EDGE_CASES, _edge_problem,
+                                          _non_nan, search_route)
+
+    for case in EDGE_CASES:
+        runs, signs, sets, qa, qb = _edge_problem(*case)
+        cpu = ([torch.from_numpy(r) for r in runs], signs, sets,
+               torch.from_numpy(qa), torch.from_numpy(qb))
+        args = ([r.cuda() for r in cpu[0]], signs, sets, cpu[3].cuda(),
+                cpu[4].cuda())
+        pk.reset_launch_counts()
+        got = ck.signed_count(*args)
+        assert pk.LAUNCHES["signed_count[flat]"] == 1
+        assert torch.equal(got, ck.signed_count_plain(*args))
+        assert torch.equal(got.cpu(), search_route(*cpu)[0])
+        ok = _non_nan(cpu[3], cpu[4], got.shape[1]).cuda()
+        assert torch.equal(got[ok], sc.signed_count_searchsorted(*args)[ok])
+    pk.reset_launch_counts()

@@ -67,7 +67,11 @@ def hinge_route(A, B, mp, ip, ia, mk, margin, C, tile):
             nan_b = bool(b.isnan().any())
             posinf_b = bool((b == INF).any())
             neginf_b = bool((b == -INF).any())
-            zero_w = bool(((~b.isnan()) & (b != INF) & (m == 0)).any())
+            # the signs of the finite and -inf values' weights (x = +inf)
+            down = ~b.isnan() & (b != INF)
+            zero_w = bool((down & ~((m < 0) | (m > 0))).any())
+            neg_w = bool((down & (m < 0)).any())
+            pos_w = bool((down & (m > 0)).any())
             # keys: -0.0 as +0.0, NaN to the top as a +inf slot
             v = torch.where(b.isnan(), torch.tensor(INF), b + 0.0)
             order = torch.argsort(v, stable=True)
@@ -83,8 +87,9 @@ def hinge_route(A, B, mp, ip, ia, mk, margin, C, tile):
             prefix = torch.arange(len(v))[None, :] < c[:, None]
             assert torch.equal(holds, prefix), "predicate is not a prefix"
             inner = (margin + x.to(F64)) * Wp[c] - Sp[c]
-            inner = torch.where(x == INF, NAN if posinf_b or zero_w else INF,
-                                inner)
+            up_inf = (NAN if posinf_b or zero_w or (neg_w and pos_w)
+                      else -INF if neg_w else INF)
+            inner = torch.where(x == INF, up_inf, inner)
             inner = torch.where(x == -INF, NAN if neginf_b else 0.0, inner)
             inner = torch.where(x.isnan(), NAN, inner)
             part = (wj.to(F64) * inner).sum()
@@ -242,6 +247,64 @@ def test_hinge_route_one_nonfinite_at_a_time():
         _same_nonfinite(got, want, 1e-12)
         outcomes.add("nan" if math.isnan(want) else str(float(want)))
     assert {"nan", "inf"} <= outcomes and len(outcomes) > 3
+
+
+def test_hinge_route_negative_weights_match_plain():
+    """Weights of either sign (rule 4): one +inf or -inf distance placed
+    in turn in A or B, and one negative weight (mp or mk, -1 or -0.5)
+    placed in turn, or a mix of both signs: equal to plain, +inf, -inf and
+    NaN all met. A +inf in A against negative weights mk gave +inf while
+    the route assumed weights >= 0."""
+    comb = tk.TripletCombine("hinge", 0.5)
+    base_a = torch.tensor([[1.0, 2.0, 3.0]])
+    base_b = torch.tensor([[1.5, 2.5, 0.5, 4.0]])
+    ip, ia = torch.arange(3)[None], torch.tensor([7])
+    outcomes = set()
+    for val in (INF, -INF):
+        for side, n in (("a", 3), ("b", 4)):
+            for j in range(n):
+                for neg in (-1.0, -0.5):
+                    for which in ("mp", "mk", "all mk", "mixed mk"):
+                        a, b = base_a.clone(), base_b.clone()
+                        (a if side == "a" else b)[0, j] = val
+                        mp, mk = torch.ones(1, 3), torch.ones(1, 4)
+                        if which == "mp":
+                            mp[0, j % 3] = neg
+                        elif which == "mk":
+                            mk[0, j % 4] = neg
+                        elif which == "all mk":
+                            mk[:] = neg
+                        else:
+                            mk[0, ::2] = neg
+                        got = hinge_route(a, b, mp, ip, ia, mk, 0.5, 1, 2)
+                        want = tk.batched_masked_pair_sum(a, b, mp, ip, ia,
+                                                          mk, comb)
+                        _same_nonfinite(got, want, 1e-12)
+                        outcomes.add("nan" if math.isnan(want) else
+                                     str(float(want)))
+    assert {"nan", "inf", "-inf"} <= outcomes
+
+
+@pytest.mark.parametrize("seed,G,C,P,K,tile", [(5, 2, 30, 9, 40, 16),
+                                               (6, 3, 25, 6, 7, 4)])
+def test_hinge_route_signed_weights_on_edge_values(seed, G, C, P, K, tile):
+    """Random weights in (-1, 1) with zeros, on edge distances: NaN and
+    infinities where plain has them, finite sums within rel 1e-5."""
+    rng = np.random.default_rng(seed)
+    W = G * C
+    A, B = _edge(rng, (W, P)), _edge(rng, (W, K))
+    mp = rng.uniform(-1, 1, (G, P)).astype(np.float32)
+    mk = rng.uniform(-1, 1, (G, K)).astype(np.float32)
+    mp[rng.random((G, P)) < 0.2] = 0.0
+    mk[rng.random((G, K)) < 0.2] = 0.0
+    ip = (np.arange(G * P) % 5).reshape(G, P).astype(np.int64)
+    ia = (np.arange(W) % 3).astype(np.int64)
+    args = [torch.from_numpy(t) for t in (A, B, mp, ip, ia, mk)]
+    got = hinge_route(*args, 0.5, C, tile)
+    want = tk.batched_masked_pair_sum(*args, tk.TripletCombine("hinge", 0.5),
+                                      C)
+    _same_nonfinite(got, want, 1e-5)
+    assert np.isnan(want.numpy()).any() and np.isfinite(want.numpy()).any()
 
 
 def test_hinge_tile_is_the_kernels():
@@ -476,7 +539,8 @@ def test_rank_hinge_kernel_matches_plain_on_card(card):
         for C, G, P, K, frac, edge in [(1, 1, 1, 1, False, True),
                                        (3, 2, 300, 517, False, True),
                                        (2, 2, 40, 20000, True, True),
-                                       (64, 1, 2000, 9000, True, False)]:
+                                       (64, 1, 2000, 9000, True, False),
+                                       (3, 2, 300, 517, "signed", True)]:
             W = C * G
             if edge:
                 A = _edge_on_card(card, W, P) + 3.0
@@ -492,6 +556,11 @@ def test_rank_hinge_kernel_matches_plain_on_card(card):
             if frac:
                 mp = mp * torch.rand(G, P, generator=card, device="cuda")
                 mk = mk * torch.rand(G, K, generator=card, device="cuda")
+            if frac == "signed":        # weights of either sign (rule 4)
+                mp = mp * torch.where(torch.rand(G, P, generator=card,
+                                                 device="cuda") < 0.5, -1, 1)
+                mk = mk * torch.where(torch.rand(G, K, generator=card,
+                                                 device="cuda") < 0.5, -1, 1)
             ip = (torch.arange(G * P, device="cuda") % 7).reshape(G, P)
             ia = torch.arange(W, device="cuda") % 5
             pk.reset_launch_counts()
@@ -540,3 +609,14 @@ def test_infinities_without_nan_on_card(card):
         _nonfinite_equal(got, want, 1e-5)
         flags = want.isinf() if pattern == "inf" else want.isnan()
         assert flags.tolist() == [False, True, True, False]
+    # +inf in A against weights mk all negative: -inf; of both signs: NaN
+    mk = -torch.ones(1, K, device="cuda")
+    A[2:] = torch.rand(2, P, generator=card, device="cuda") * 20
+    B[2] = torch.rand(K, generator=card, device="cuda") * 20
+    for mk0, row1 in [(-1.0, -INF), (1.0, NAN)]:
+        mk[0, 0] = mk0
+        got = tk.batched_masked_pair_sum(A, B, mp, ip, ia, mk, comb)
+        want = tk.batched_masked_pair_sum(A, B, mp, ip, ia, mk, comb,
+                                          impl="plain")
+        _nonfinite_equal(got, want, 1e-5)
+        assert math.isnan(want[1]) if math.isnan(row1) else want[1] == row1

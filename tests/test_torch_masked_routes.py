@@ -14,8 +14,10 @@ tile with the body's own float32 predicates:
 * hinge: the prefix where !(fl(a_i - b) < 1); the row adds
   ma_i ((1 - a_i) W + S), W and S the suffix sums past it, in float64;
   non-finite scores follow the tile's counts of +inf and -inf values and
-  its flags (a NaN; a finite or +inf value of weight 0; a +inf value of
-  weight 0), as ``masked_hinge_row`` in the source.
+  its flags (a NaN; for the finite and +inf values and for the +inf
+  values, whether one has a weight < 0, = 0 or > 0: an infinite term takes
+  the sign of its weights' product, NaN where one is 0), as
+  ``masked_hinge_row`` in the source. Weights are finite, of either sign.
 
 Tolerances, derived from the arithmetic, not chosen:
 
@@ -59,11 +61,18 @@ AUC, HINGE = get_kernel("auc"), get_kernel("hinge")
 # the routes                                                              #
 # --------------------------------------------------------------------- #
 
+def _signs(m, where):
+    """(a weight = 0, < 0, > 0) among the weights m where ``where`` holds;
+    a NaN weight counts as 0."""
+    return (bool((where & ~((m < 0) | (m > 0))).any()),
+            bool((where & (m < 0)).any()), bool((where & (m > 0)).any()))
+
+
 def _weighted_tile(v, m, tile):
     """(values sorted with their weights, NaN and padding as +inf slots of
     weight 0, padded to tile; the tile's info: values that are not NaN, +inf
-    values, -inf values, a finite or +inf value of weight 0, a +inf value
-    of weight 0)."""
+    values, -inf values, the signs of the finite and +inf values' weights,
+    the signs of the +inf values' weights, each as ``_signs``)."""
     nan = v.isnan()
     key = torch.where(nan, torch.tensor(INF), v + 0.0)
     wt = torch.where(nan, torch.zeros(()), m)
@@ -71,9 +80,8 @@ def _weighted_tile(v, m, tile):
     pad = tile - len(v)
     s = torch.cat([key[order], torch.full((pad,), INF)])
     w = torch.cat([wt[order], torch.zeros(pad)])
-    zero = (m == 0) & ~nan
     info = (int((~nan).sum()), int((v == INF).sum()), int((v == -INF).sum()),
-            bool((zero & (v != -INF)).any()), bool((zero & (v == INF)).any()))
+            _signs(m, ~nan & (v != -INF)), _signs(m, v == INF))
     return s, w, info
 
 
@@ -101,19 +109,30 @@ def masked_auc_route(a, b, ma, mb, tile):
     return out
 
 
+def _signed_inf(wa, signs):
+    """signed_inf: [len(wa)] the infinite part of rows of weights wa whose
+    infinite terms are +inf times weights of the given signs (``_signs``):
+    NaN if wa or one of those weights is 0 or both signs are present, else
+    an infinity of sign(wa) times theirs."""
+    zero, neg, pos = signs
+    nan = ~((wa < 0) | (wa > 0)) | zero | (neg and pos)
+    flip = (wa < 0) ^ neg
+    return torch.where(nan, NAN, torch.where(flip, -INF, INF)).to(F64)
+
+
 def _masked_hinge_rows(x, wa, p, info, sw, sb):
     """masked_hinge_row: each value x of a with weight wa against one
     weighted tile, p its prefix."""
-    _, npos, nneg, up_zero, posinf_zero = info
+    _, npos, nneg, up_signs, posinf_signs = info
     wad = wa.to(F64)
     out = wad * ((1.0 - x.to(F64)) * sw[p] + sb[p])
     fin = x.abs() < INF
     if npos:
-        out = torch.where(fin, torch.where((wa == 0) | posinf_zero, NAN, INF),
-                          out)
+        out = torch.where(fin, _signed_inf(wa, posinf_signs), out)
     out = torch.where(x == INF, NAN if npos else 0.0, out)
-    neg_nan = (wa == 0) | bool(nneg) | up_zero
-    out = torch.where(x == -INF, torch.where(neg_nan, NAN, INF), out)
+    neg_part = (torch.full_like(out, NAN) if nneg
+                else _signed_inf(wa, up_signs))
+    out = torch.where(x == -INF, neg_part, out)
     return torch.where(x.isnan(), NAN, out)
 
 
@@ -153,7 +172,7 @@ def _product_roundings(g, ma, mb):
     p1 = g * mb[:, None, :]
     p2 = p1 * ma[:, :, None]
     exact1 = g.to(F64) * mb[:, None, :].to(F64)
-    err = ((p1.to(F64) - exact1).abs() * ma[:, :, None].to(F64)
+    err = ((p1.to(F64) - exact1).abs() * ma[:, :, None].to(F64).abs()
            + (p2.to(F64) - p1.to(F64) * ma[:, :, None].to(F64)).abs())
     return err
 
@@ -171,7 +190,7 @@ def hinge_gap(a, b, ma, mb):
     d = a[:, :, None] - b[:, None, :]
     g = 1.0 - d
     sel = (d < 1) & d.isfinite()
-    w = ma[:, :, None].to(F64) * mb[:, None, :].to(F64)
+    w = (ma[:, :, None].to(F64) * mb[:, None, :].to(F64)).abs()
     gap = (_half_ulp(d) + _half_ulp(g)) * w + _product_roundings(g, ma, mb)
     return torch.where(sel, gap, torch.zeros((), dtype=F64)).sum((1, 2))
 
@@ -189,10 +208,15 @@ def _held_to_plain(name, got, a, b, ma, mb):
 
 
 def _weights(rng, shape, kind):
-    """{0, 1} masks, or random weights in [0, 2) with a fifth of them 0."""
+    """{0, 1} masks, {-1, 0, 1} weights ("ternary"), or random weights in
+    [0, 2) ("random") or in (-2, 2) ("signed") with a fifth of them 0."""
     if kind == "binary":
         return rng.integers(0, 2, shape).astype(np.float32)
+    if kind == "ternary":
+        return rng.integers(-1, 2, shape).astype(np.float32)
     w = (rng.random(shape) * 2.0).astype(np.float32)
+    if kind == "signed":
+        w = np.where(rng.random(shape) < 0.5, -w, w).astype(np.float32)
     w[rng.random(shape) < 0.2] = 0.0
     return w
 
@@ -408,6 +432,166 @@ def test_grid_limits_raise():
 
 
 # --------------------------------------------------------------------- #
+# weights of either sign                                                  #
+# --------------------------------------------------------------------- #
+
+# W = 1 inputs where a negative weight decides the hinge's infinity:
+# (a, b, ma, mb, plain's value). The routes gave +inf on each while they
+# assumed weights >= 0.
+NEGATIVE_WEIGHT_INPUTS = [
+    ([0.5, 0.0], [INF, 0.3], [1.0, 1.0], [-1.0, 1.0], -INF),
+    ([0.5, 0.0], [INF, INF], [1.0, 1.0], [1.0, -1.0], NAN),
+    ([-INF, 0.0], [0.1, 0.3], [1.0, 1.0], [-2.0, -1.0], -INF),
+    ([-INF, 0.0], [0.1, 0.3], [-1.0, 1.0], [1.0, 1.0], -INF),
+]
+
+
+def _row_tensors(a, b, ma, mb):
+    return tuple(torch.tensor([x], dtype=F32) for x in (a, b, ma, mb))
+
+
+@pytest.mark.parametrize("case", range(len(NEGATIVE_WEIGHT_INPUTS)))
+@pytest.mark.parametrize("tile", [1, 2, 256])
+def test_negative_weight_inputs_equal_plain(case, tile):
+    """The four inputs where a negative weight sets the sign of the
+    hinge's infinity: the route equals plain exactly (-inf, NaN, -inf,
+    -inf), one tile or a tile a value."""
+    *args, value = NEGATIVE_WEIGHT_INPUTS[case]
+    a, b, ma, mb = _row_tensors(*args)
+    got = masked_hinge_route(a, b, ma, mb, tile)
+    want, _ = _held_to_plain("hinge", got, a, b, ma, mb)
+    assert (math.isnan(value) and math.isnan(float(want))) or \
+        float(want) == value
+
+
+def test_infinite_masked_sums_are_nan_in_the_reference():
+    """A known divergence, not a fault: the reference's masked pair sum
+    turns every infinite sum into NaN, on both of its routes. Its Kahan
+    step (t - s) - y is inf - inf once the running sum is infinite
+    (``_masked_pair_sum_kernel``, Pallas interpret, and ``pair_stats``'s
+    ``_acc_update``, XLA), also with tiles of the inputs' own size (no
+    zero-weight padding) and with every weight positive. The port's plain
+    version and its routes sum the float32 terms in float64 with no
+    compensation: an infinity of the sign the weights give, NaN only
+    where IEEE arithmetic makes one."""
+    from tuplewise_tpu.ops import pair_tiles as jt
+
+    k = jk.get_kernel("hinge")
+    positive = ([0.5, 0.0], [INF, 0.3], [1.0, 1.0], [1.0, 1.0], INF)
+    for *args, value in NEGATIVE_WEIGHT_INPUTS + [positive]:
+        a, b, ma, mb = (np.asarray(x, np.float32) for x in args)
+        ja, jb, jma, jmb = (jnp.asarray(x) for x in (a, b, ma, mb))
+        ref = [float(jp.pallas_masked_pair_sum(ja, jb, jma, jmb, kernel=k,
+                                               interpret=True)),
+               float(jp.pallas_masked_pair_sum(ja, jb, jma, jmb, kernel=k,
+                                               tile_a=2, tile_b=2,
+                                               interpret=True)),
+               float(jt.pair_stats(k, ja, jb, mask_a=jma, mask_b=jmb)[0]),
+               float(jt.pair_stats(k, ja, jb, mask_a=jma, mask_b=jmb,
+                                   tile_a=2, tile_b=2)[0])]
+        assert all(math.isnan(r) for r in ref), ref
+        port = _row_tensors(*args)
+        for got in (masked_hinge_route(*port, 2),
+                    pk.masked_pair_sum(*port, HINGE)):
+            assert (math.isnan(value) and math.isnan(float(got))) or \
+                float(got) == value
+
+
+@pytest.mark.parametrize("name", ["auc", "hinge"])
+def test_one_negative_weight_and_infinity_at_a_time(name):
+    """One +inf or -inf placed in turn at every position of a or b, its
+    own weight 1, -1 or -0.5, and one negative weight placed in turn at
+    every position of the other side (or none), with a ragged tiling of b:
+    equal to plain (the hinge exactly where it is not finite); the hinge
+    meets +inf, -inf and NaN."""
+    base_a = torch.tensor([[0.5, 1.5, 2.0, -1.0, 3.0]])
+    base_b = torch.tensor([[1.0, -0.5, 2.5, 0.5]])
+    outcomes = set()
+    for val in (INF, -INF):
+        for side, n, m in (("a", 5, 4), ("b", 4, 5)):
+            for j in range(n):
+                for own in (1.0, -1.0, -0.5):
+                    for k in range(-1, m):
+                        a, b = base_a.clone(), base_b.clone()
+                        ma, mb = torch.ones_like(a), torch.ones_like(b)
+                        (a if side == "a" else b)[0, j] = val
+                        (ma if side == "a" else mb)[0, j] = own
+                        if k >= 0:  # a negative weight across
+                            (mb if side == "a" else ma)[0, k] = -1.5
+                        got = ROUTES[name](a, b, ma, mb, 3)
+                        want, _ = _held_to_plain(name, got, a, b, ma, mb)
+                        if name == "auc":
+                            assert torch.equal(got, want)
+                        outcomes.add("nan" if math.isnan(want) else
+                                     str(float(want)))
+    if name == "hinge":
+        assert {"nan", "inf", "-inf"} <= outcomes
+
+
+@pytest.mark.parametrize("name", ["auc", "hinge"])
+@pytest.mark.parametrize("seed,W,n1,n2,tile,frac", [
+    (20, 24, 9, 13, 8, 0.15),        # short last tile, many problems
+    (21, 16, 40, 33, 8, 0.05),
+    (22, 8, 70, 90, 64, 0.01),
+])
+@pytest.mark.parametrize("weights", ["ternary", "signed"])
+def test_signed_weights_match_plain(name, seed, W, n1, n2, tile, frac,
+                                    weights):
+    """Edge values (+-inf, NaN, +-0.0, ties, subnormals) with weights of
+    either sign: the auc equal to plain under {-1, 0, 1} weights (every
+    sum an integer or a half) and within auc_gap otherwise; the hinge NaN
+    and +-inf where plain has them, finite sums within hinge_gap."""
+    rng = np.random.default_rng(seed)
+    a = _edge_scores(rng, (W, n1), frac)
+    b = _edge_scores(rng, (W, n2), frac)
+    ma, mb = _weights(rng, (W, n1), weights), _weights(rng, (W, n2), weights)
+    a, b, ma, mb = _tensors(a, b, ma, mb)
+    got = ROUTES[name](a, b, ma, mb, tile)
+    want, _ = _held_to_plain(name, got, a, b, ma, mb)
+    if name == "auc":
+        assert want.isfinite().all()
+        if weights == "ternary":
+            assert torch.equal(got, want)
+    else:
+        assert want.isnan().any() and want.isfinite().any()
+
+
+@pytest.mark.parametrize("name", ["auc", "hinge"])
+@pytest.mark.parametrize("weights", ["ternary", "signed"])
+def test_signed_weights_match_jax(name, weights):
+    """Finite scores with weights of either sign against both routes of
+    the reference (Pallas interpret and XLA ``pair_stats``): the auc under
+    {-1, 0, 1} weights exactly (every float32 partial a small half
+    integer), otherwise within 1e-5 of the sum of |terms|: with signed
+    weights the sum cancels, and each route's float32 rounding is of the
+    terms' magnitudes, not of their sum."""
+    from tuplewise_tpu.ops import pair_tiles as jt
+
+    rng = np.random.default_rng(30 + len(weights))
+    W, n1, n2 = 2, 300, 517
+    a, b = _scores(rng, W, n1, n2, lattice=name == "auc")
+    ma, mb = _weights(rng, (W, n1), weights), _weights(rng, (W, n2), weights)
+    got = ROUTES[name](*_tensors(a, b, ma, mb), 128)
+    k = jk.get_kernel(name)
+    for w in range(W):
+        ja, jb, jma, jmb = (jnp.asarray(x[w]) for x in (a, b, ma, mb))
+        ref = (float(jp.pallas_masked_pair_sum(ja, jb, jma, jmb, kernel=k,
+                                               tile_a=256, tile_b=512,
+                                               interpret=True)),
+               float(jt.pair_stats(k, ja, jb, mask_a=jma, mask_b=jmb)[0]))
+        terms = get_kernel(name).diff(
+            torch.from_numpy(a[w][:, None] - b[w][None, :])).double()
+        mass = float((terms * torch.from_numpy(
+            np.abs(ma[w][:, None] * mb[w][None, :]))).sum())
+        for want in ref:
+            if name == "auc" and weights == "ternary":
+                assert float(got[w]) == want, (w, float(got[w]), want)
+            else:
+                assert abs(float(got[w]) - want) <= 1e-5 * mass, (w, want)
+    _held_to_plain(name, got, *_tensors(a, b, ma, mb))
+
+
+# --------------------------------------------------------------------- #
 # on the card                                                             #
 # --------------------------------------------------------------------- #
 
@@ -423,10 +607,12 @@ def _gap_on(name, a, b, ma, mb, rows=64):
 def test_masked_routes_match_plain_on_card(name):
     """The kernel against the plain version on the card: b past one 8192-
     and one 16384-value tile with a short last tile, the harness's
-    W = 512 x 1250, edge values; {0, 1} and random weights. The auc equal
-    to plain under {0, 1} weights and within auc_gap otherwise; the hinge
-    NaN and inf where plain has them, finite sums within hinge_gap; two
-    calls bit-equal, one launch counted a call."""
+    W = 512 x 1250, edge values; {0, 1}, {-1, 0, 1} and random weights of
+    one or either sign; the inputs where a negative weight sets the
+    hinge's infinity. The auc equal to plain under {0, 1} and {-1, 0, 1}
+    weights and within auc_gap otherwise; the hinge NaN and +-inf where
+    plain has them, finite sums within hinge_gap; two calls bit-equal, one
+    launch counted a call."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the masked sort-and-search "
                     "kernels have no CPU mode")
@@ -435,7 +621,7 @@ def test_masked_routes_match_plain_on_card(name):
     for W, n1, n2, frac in [(1, 1000, 8192 + 97, 0.0),
                             (2, 700, 16384 + 5, 0.0), (512, 125, 125, 0.0),
                             (3, 300, 517, 0.1), (1, 1, 1, 0.0)]:
-        for weights in ("binary", "random"):
+        for weights in ("binary", "random", "ternary", "signed"):
             if frac:
                 a = _edge_scores(rng, (W, n1), frac)
                 b = _edge_scores(rng, (W, n2), frac)
@@ -456,6 +642,11 @@ def test_masked_routes_match_plain_on_card(name):
             fin = want.isfinite()
             err = (got - want).abs()[fin]
             assert (err <= gap[fin] + 1e-12 * want.abs()[fin]).all()
-            if name == "auc" and weights == "binary":
+            if name == "auc" and weights in ("binary", "ternary"):
                 assert torch.equal(got, want)
+    for *args, _ in NEGATIVE_WEIGHT_INPUTS:
+        a, b, ma, mb = (t.cuda() for t in _row_tensors(*args))
+        got = pk.masked_pair_sum(a, b, ma, mb, k).cpu()
+        want = pk.masked_pair_sum(a, b, ma, mb, k, impl="plain").cpu()
+        _same_nonfinite(got, want, 1e-12)
     pk.reset_launch_counts()

@@ -36,7 +36,7 @@
 //                      alone).
 //   tw_rank_masked_sum: out[w] = sum_ij g(fl(a_i - b_j)) * ma_i * mb_j in
 //                      float64, g the auc or the hinge body, for any finite
-//                      non-negative weights ma, mb (the caller forms the
+//                      weights ma, mb of either sign (the caller forms the
 //                      count sum(ma) * sum(mb)).
 //
 // Design. The TPU kernels compared every pair (or triplet) because the TPU
@@ -138,9 +138,10 @@
 //         sums of mb and mb b there, in float64. Non-finite scores follow
 //         rule 4 read for the pair hinge max(0, 1 - a_i + b_j) ma_i mb_j
 //         (masked_hinge_row): a NaN anywhere in a[w] or b[w] makes S_w NaN;
-//         an infinite term times a zero weight, on either side, is NaN; the
-//         tile's counts of +inf and -inf values and its flags (kTileNan,
-//         a finite or +inf value of weight 0, a +inf value of weight 0)
+//         an infinite term takes the sign of its two weights' product, and
+//         is NaN where one of them is 0; the tile's counts of +inf and -inf
+//         values and its flags (kTileNan; for the +inf values, and for the
+//         finite and +inf values, whether one has a weight < 0, = 0, > 0)
 //         decide these cases by count. The plain version rounds fl(a - b),
 //         fl(1 - d) and the two float32 products by the weights; this form
 //         adds the exact products, so the two differ by at most half an ulp
@@ -148,9 +149,9 @@
 //         tests/test_torch_masked_routes.py derives the gap).
 //     Both write one float64 partial a block; grad_finish_kernel sums a
 //     problem's partials in a fixed order, so a call repeats bit for bit.
-//     Any finite non-negative weights are right, not only {0, 1}: the
+//     Any finite weights of either sign are right, not only {0, 1}: the
 //     suffix sums are of the weights themselves, and every non-finite case
-//     is decided by the sign rules above, which need weights >= 0.
+//     is decided by the sign flags above (rule 4).
 // A sorted tile sits in shared memory in Eytzinger (breadth-first) order:
 // sorted positions 0..T-2 form a complete search tree of log2(T) levels,
 // position T-1 sits in slot T-1. A search step is one load, one subtraction,
@@ -179,21 +180,34 @@
 //      to the auc and the indicator.
 //   4. The hinge propagates NaN and infinity as max(0, margin + t) * mk * wp
 //      summed in IEEE arithmetic does (jnp.maximum and torch.clamp_min both
-//      return NaN for NaN), with non-negative weights mk and wp:
+//      return NaN for NaN), with finite weights mk and wp of either sign. An
+//      infinite t gives a term of +inf * mk_k * wp: an infinity with the
+//      sign of mk_k * wp, NaN where either is 0; a sum that meets both
+//      signs is NaN. So a row's infinite part is NaN if its own weight, or
+//      a weight of the values that give it an infinite t, is 0, or if those
+//      weights have both signs; else an infinity of sign(wp) times their
+//      sign. A tile records, for each class of values that can give an
+//      infinite t, whether it holds one of weight < 0, = 0 and > 0:
 //        * a NaN in A[w, :] or in B[w, :] makes S_w NaN, whatever the
 //          weights (a NaN term times a zero weight is NaN): a NaN in the
 //          tile makes the block's partial NaN, a NaN positive its term;
 //        * x = -inf: t = -inf - B is -inf (a term of 0) unless B = -inf,
 //          where t is NaN; so NaN if the tile holds a -inf, else 0;
 //        * x = +inf: t = +inf for every finite or -inf B, and NaN for B =
-//          +inf; the term is +inf * mk_k, NaN where mk_k = 0; so NaN if the
-//          tile holds a +inf, or a finite or -inf B of weight 0, else +inf;
+//          +inf; so NaN if the tile holds a +inf, else the infinite part
+//          of the finite and -inf B's weights (kTileNegW, kTileZeroW,
+//          kTilePosW);
 //        * finite x: B = +inf gives t = -inf, a term of 0, and stays out of
 //          every prefix; B = -inf gives t = +inf and lies in every prefix, so
-//          mk_k * B_k = -inf (or NaN for mk_k = 0) in S makes the term +inf
-//          (or NaN), as in the plain sum;
-//        * a term of +inf times wp = 0 is NaN, so every positive of the row
-//          enters the sum, whatever its weight.
+//          mk_k * B_k = -inf * sign(mk_k) (or NaN for mk_k = 0) in S makes
+//          the term an infinity of sign(mk_k) (or NaN), and -inf values of
+//          both signs of weight make S NaN, as in the plain sum;
+//        * the row's part is multiplied by wp in IEEE arithmetic: an
+//          infinity times wp = 0 is NaN, and a negative wp flips its sign,
+//          so every positive of the row enters the sum, whatever its
+//          weight.
+//      Kernel 2's masked pair hinge max(0, 1 - a + b) ma mb reads the same
+//      rule with the roles of the classes mirrored (masked_hinge_row).
 //      A finite difference that overflows float32 (|A - B| > 3.4e38) is out
 //      of this contract: the plain sum gives +inf there, this form a finite
 //      float64.
@@ -551,6 +565,28 @@ constexpr unsigned kTileNan = 1u;       // a NaN
 constexpr unsigned kTilePosInf = 2u;    // a +inf
 constexpr unsigned kTileNegInf = 4u;    // a -inf
 constexpr unsigned kTileZeroW = 8u;     // a finite or -inf value of weight 0
+constexpr unsigned kTileNegW = 64u;     // ... of weight < 0
+constexpr unsigned kTilePosW = 128u;    // ... of weight > 0
+
+// the flag of a weight's sign among (zero, neg, pos); a NaN weight counts as
+// 0, whose term is NaN too
+__device__ __forceinline__ unsigned weight_flag(float w, unsigned zero,
+                                                unsigned neg, unsigned pos) {
+  return w > 0.f ? pos : (w < 0.f ? neg : zero);
+}
+
+// rule 4: the infinite part of a row with weight wa whose infinite terms are
+// +inf times the weights of one class of values, flagged in z by (zero, neg,
+// pos): NaN if wa or one of those weights is 0, or if they have both signs;
+// else an infinity of sign(wa) times their sign
+__device__ __forceinline__ double signed_inf(float wa, unsigned z,
+                                             unsigned zero, unsigned neg,
+                                             unsigned pos) {
+  if (!(wa > 0.f || wa < 0.f) || (z & zero) || ((z & neg) && (z & pos)))
+    return __longlong_as_double(0x7FF8000000000000LL);
+  const double inf = __longlong_as_double(0x7FF0000000000000LL);
+  return ((z & neg) != 0) != (wa < 0.f) ? -inf : inf;
+}
 
 // a sorted slot's term of the sum mk * B: NaN and +inf slots hold +inf with
 // weight 0 and add nothing (they lie in no prefix); a -inf slot adds
@@ -580,6 +616,7 @@ hinge_kernel(const float* __restrict__ A, const float* __restrict__ B,
   double2* pre = reinterpret_cast<double2*>(smem + 4 * (size_t)T);
   __shared__ double2 swarp[THREADS / 32];
   __shared__ double sred[THREADS / 32];
+  __shared__ unsigned sflags;  // the tile's kTile* flags
 
   const int64_t w = blockIdx.x;
   const int64_t q = w / C;
@@ -588,6 +625,7 @@ hinge_kernel(const float* __restrict__ A, const float* __restrict__ B,
   const int len = rem < T ? (int)rem : T;
   const float* bw = B + w * K + col0;
   const float* mkq = mk + q * K + col0;
+  if (threadIdx.x == 0) sflags = 0u;
   unsigned keys[ITEMS];
   float wts[ITEMS];
   unsigned flags = 0;
@@ -603,14 +641,15 @@ hinge_kernel(const float* __restrict__ A, const float* __restrict__ B,
       else if (v == kInf) flags |= kTilePosInf;
       else {
         if (v == -kInf) flags |= kTileNegInf;
-        if (wts[r] == 0.f) flags |= kTileZeroW;
+        flags |= weight_flag(wts[r], kTileZeroW, kTileNegW, kTilePosW);
       }
     }
   }
-  const bool nan_b = __syncthreads_or(flags & kTileNan);
-  const bool posinf_b = __syncthreads_or(flags & kTilePosInf);
-  const bool neginf_b = __syncthreads_or(flags & kTileNegInf);
-  const bool zero_w = __syncthreads_or(flags & kTileZeroW);
+  __syncthreads();  // sflags is zeroed
+  // a warp ORs its flags, then one lane adds them to the tile's (read after
+  // the barrier below)
+  flags = __reduce_or_sync(0xffffffffu, flags);
+  if ((threadIdx.x & 31) == 0 && flags) atomicOr(&sflags, flags);
   // blocked result: this thread holds sorted positions [t ITEMS, t ITEMS + ITEMS)
   Sort(*reinterpret_cast<typename Sort::TempStorage*>(smem)).Sort(keys, wts);
 
@@ -638,6 +677,7 @@ hinge_kernel(const float* __restrict__ A, const float* __restrict__ B,
   }
   if (lane == 31) swarp[warp] = make_double2(iw, is);
   __syncthreads();  // the sort is done with its storage: e, pre alias it
+  const unsigned tile_flags = sflags;
   double rw = __shfl_up_sync(0xffffffffu, iw, 1);
   double rs = __shfl_up_sync(0xffffffffu, is, 1);
   if (lane == 0) rw = rs = 0.0;
@@ -663,7 +703,6 @@ hinge_kernel(const float* __restrict__ A, const float* __restrict__ B,
   const int64_t* ipq = ip + q * P;
   const int64_t id = ia[w];
   const double dnan = __longlong_as_double(0x7FF8000000000000LL);
-  const double dinf = __longlong_as_double(0x7FF0000000000000LL);
   double acc = 0.0;
   for (int64_t j0 = threadIdx.x; j0 < P; j0 += (int64_t)kIlp * THREADS) {
     float x[kIlp], wj[kIlp];
@@ -684,9 +723,13 @@ hinge_kernel(const float* __restrict__ A, const float* __restrict__ B,
         const double2 s = pre[c[u]];
         inner = (dm + (double)x[u]) * s.x - s.y;
       } else if (x[u] == kInf) {
-        inner = posinf_b || zero_w ? dnan : dinf;
+        // wj's own sign and zero enter below, by the product
+        inner = (tile_flags & kTilePosInf)
+                    ? dnan
+                    : signed_inf(1.f, tile_flags, kTileZeroW, kTileNegW,
+                                 kTilePosW);
       } else if (x[u] == -kInf) {
-        inner = neginf_b ? dnan : 0.0;
+        inner = (tile_flags & kTileNegInf) ? dnan : 0.0;
       } else {
         inner = dnan;
       }
@@ -694,7 +737,8 @@ hinge_kernel(const float* __restrict__ A, const float* __restrict__ B,
     }
   }
   acc = block_sum(acc, sred);
-  if (threadIdx.x == 0) partials[w * gridDim.y + blockIdx.y] = nan_b ? dnan : acc;
+  if (threadIdx.x == 0)
+    partials[w * gridDim.y + blockIdx.y] = (tile_flags & kTileNan) ? dnan : acc;
 }
 
 // ------------------------------------------------------------------------ //
@@ -941,9 +985,15 @@ grad_finish_kernel(const int* __restrict__ rowcnt,
 // masked pair sums (kernel 2: auc and hinge bodies)                        //
 // ------------------------------------------------------------------------ //
 
-// more flags of a weighted tile of b (the pair hinge's rule 4)
-constexpr unsigned kTileUpZeroW = 16u;     // a finite or +inf value of weight 0
-constexpr unsigned kTilePosInfZeroW = 32u; // a +inf value of weight 0
+// more flags of a weighted tile of b (the pair hinge's rule 4): the signs of
+// the weights of the finite and +inf values (which meet a = -inf with an
+// infinite term) and of the +inf values (which meet a finite a so)
+constexpr unsigned kTileUpZeroW = 16u;      // a finite or +inf value of weight 0
+constexpr unsigned kTileUpNegW = 256u;      // ... of weight < 0
+constexpr unsigned kTileUpPosW = 512u;      // ... of weight > 0
+constexpr unsigned kTilePosInfZeroW = 32u;  // a +inf value of weight 0
+constexpr unsigned kTilePosInfNegW = 1024u; // ... of weight < 0
+constexpr unsigned kTilePosInfPosW = 2048u; // ... of weight > 0
 
 // a tile's float64 suffix sums: auc the weights, hinge (weights, weights x
 // values) side by side, one 16-byte load a search
@@ -958,8 +1008,8 @@ using MaskedSum = typename std::conditional<HINGE, double2, double>::type;
 // sorted positions >= p of the weights (auc: of every value that is not
 // NaN) or of (weight, weight x value) of the finite values (hinge); NaN
 // values and padding weigh 0. info[w, tile] = (values that are not NaN,
-// +inf values, flags: kTileNan, kTileUpZeroW, kTilePosInfZeroW, -inf
-// values).
+// +inf values, flags: kTileNan and the weight signs kTileUp*W and
+// kTilePosInf*W, -inf values).
 template <int THREADS, int ITEMS, bool HINGE>
 __global__ void __launch_bounds__(THREADS)
 masked_sort_kernel(const float* __restrict__ b, const float* __restrict__ mb,
@@ -996,15 +1046,23 @@ masked_sort_kernel(const float* __restrict__ b, const float* __restrict__ mb,
     nnan += in && x != x;
     npos += in && x == kInf;
     nneg += in && x == -kInf;
-    if (in && wts[r] == 0.f && x == x && x != -kInf)
-      flags |= x == kInf ? kTileUpZeroW | kTilePosInfZeroW : kTileUpZeroW;
+    if (in && x == x && x != -kInf) {
+      flags |= weight_flag(wts[r], kTileUpZeroW, kTileUpNegW, kTileUpPosW);
+      if (x == kInf)
+        flags |= weight_flag(wts[r], kTilePosInfZeroW, kTilePosInfNegW,
+                             kTilePosInfPosW);
+    }
   }
   __syncthreads();  // scount is zeroed
-  // integer counts and flags: the order of the atomics does not matter
+  // integer counts and flags: the order of the atomics does not matter;
+  // nearly every thread holds a weight-sign flag, so a warp ORs its flags
+  // first and one lane adds them to the tile's
   if (nnan) atomicAdd(&scount[0], nnan);
   if (npos) atomicAdd(&scount[1], npos);
   if (nneg) atomicAdd(&scount[2], nneg);
-  if (flags) atomicOr(reinterpret_cast<unsigned*>(&scount[3]), flags);
+  flags = __reduce_or_sync(0xffffffffu, flags);
+  if ((threadIdx.x & 31) == 0 && flags)
+    atomicOr(reinterpret_cast<unsigned*>(&scount[3]), flags);
   // blocked result: this thread holds sorted positions [t ITEMS, t ITEMS + ITEMS)
   Sort(*reinterpret_cast<typename Sort::TempStorage*>(smem)).Sort(keys, wts);
 
@@ -1048,31 +1106,36 @@ masked_sort_kernel(const float* __restrict__ b, const float* __restrict__ mb,
 // the hinge's row of one value x of a with weight wa against a sorted,
 // weighted tile of b: sum_j max(0, 1 - fl(x - b_j)) * mb_j * wa as the
 // plain float32 terms summed in IEEE arithmetic give it (rule 4 read for
-// the pair hinge max(0, 1 - a + b) ma mb, with non-negative weights):
+// the pair hinge max(0, 1 - a + b) ma mb, with finite weights of either
+// sign; signed_inf gives an infinite part):
 //   * finite x: the terms that are not 0 are those of the suffix of the
 //     sorted tile past p (the prefix where !(fl(x - b) < 1)), wa ((1 - x) W
 //     + S) with W, S the suffix sums of mb and mb b; a +inf b gives d = -inf,
-//     a term of +inf times its weight and wa, so +inf, or NaN where either
-//     is 0; a -inf b gives d = +inf, a term of 0, and lies in the prefix;
+//     a term of +inf times its weight and wa, so the infinite part of the
+//     +inf values' weights; a -inf b gives d = +inf, a term of 0, and lies
+//     in the prefix;
 //   * x = +inf: d = +inf (a term of 0) but NaN against a +inf;
-//   * x = -inf: d = -inf, a term of +inf times the weights (NaN where one
-//     is 0), but NaN against a -inf;
+//   * x = -inf: d = -inf, a term of +inf times the weights, so the infinite
+//     part of the finite and +inf values' weights, but NaN against a -inf;
 //   * x NaN: NaN. A NaN in the tile makes the block's partial NaN.
 __device__ __forceinline__ double masked_hinge_row(float x, float wa, int p,
                                                    const int4& ti,
                                                    const double2* suf) {
   const float kInf = __int_as_float(0x7F800000);
   const double dnan = __longlong_as_double(0x7FF8000000000000LL);
-  const double dinf = __longlong_as_double(0x7FF0000000000000LL);
+  const unsigned z = (unsigned)ti.z;
   if (fabsf(x) < kInf) {
     if (ti.y > 0)
-      return wa == 0.f || (ti.z & kTilePosInfZeroW) ? dnan : dinf;
+      return signed_inf(wa, z, kTilePosInfZeroW, kTilePosInfNegW,
+                        kTilePosInfPosW);
     const double2 s = suf[p];
     return (double)wa * ((1.0 - (double)x) * s.x + s.y);
   }
   if (x == kInf) return ti.y > 0 ? dnan : 0.0;
   if (x == -kInf)
-    return ti.w > 0 || wa == 0.f || (ti.z & kTileUpZeroW) ? dnan : dinf;
+    return ti.w > 0 ? dnan
+                    : signed_inf(wa, z, kTileUpZeroW, kTileUpNegW,
+                                 kTileUpPosW);
   return dnan;
 }
 
@@ -1541,8 +1604,8 @@ int tw_rank_hinge_sum(const void* a, const void* b, void* sorted_b,
 // every tile into one float64 partial a block, then sums each problem's
 // partials in a fixed order into out [W] float64, on `stream`: three
 // launches; returns the first nonzero cuda error. a, ma [W, n1] and b, mb
-// [W, n2] contiguous float32 on the device, the weights finite and
-// non-negative. Scratch, from the wrapper: sorted_b [W, tb, T] float32,
+// [W, n2] contiguous float32 on the device, the weights finite, of either
+// sign. Scratch, from the wrapper: sorted_b [W, tb, T] float32,
 // suffix_b [W, tb, T + 1] float64 (auc) or double2 (hinge), info_b [W, tb]
 // int4, partials [W, tb, ceil(n1 / tw_rank_sum_chunk(T))] float64, tb =
 // ceil(n2 / T). T is 256, 2048, 8192 or (auc only) 16384.

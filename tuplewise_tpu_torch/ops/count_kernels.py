@@ -19,8 +19,14 @@ Dispatch. A CPU tensor takes :func:`signed_count_plain`; a CUDA tensor
 launches the kernel, or raises: nothing falls back from a kernel that
 fails to build or launch. The plain version counts by tiled comparison,
 the TPU kernel's own arithmetic, so it does not depend on sortedness;
-the kernel binary-searches. Both give the same integers, and so does the
-``torch.searchsorted`` route of ``parallel.sharded_counts``.
+the kernel searches: each (query, run) cell takes its first cut from the
+run's top (``SIGNED_TOP_LEVELS``: 2^8 - 1 splitters a block loads into
+shared memory at once), then rounds in which ``SIGNED_LANES`` lanes load
+one splitter each, for the lower and the upper bound side by side:
+:func:`signed_rounds` gives its chain of dependent loads. Both give the
+same integers, and so does the ``torch.searchsorted`` route of
+``parallel.sharded_counts`` at every query that is not NaN (a NaN query
+counts 0 here and the whole run there).
 
 The fleet's tenant-axis count (:func:`tenant_count`, kernel 7) is the
 counterpart of ``tenant_signed_count_local_fn``: per tenant row t, the
@@ -48,6 +54,11 @@ from tuplewise_tpu_torch.ops.pair_kernels import LAUNCHES
 
 _SOURCE = "signed_count.cu"
 MAX_RUNS = 8
+# kernel 6's search (csrc/signed_count.cu kTopLevels and kLanes, checked
+# against the built library): a run's top holds 2^SIGNED_TOP_LEVELS - 1
+# splitters; below it a round loads SIGNED_LANES splitters at once for each
+# bound
+SIGNED_TOP_LEVELS, SIGNED_LANES = 8, 16
 # int32 counts stay exact while the runs hold fewer values than this
 _COUNT_LIMIT = 1 << 31
 # element budget of one plain comparison tile [run rows, queries]
@@ -98,6 +109,23 @@ def signed_count_plain(runs: Sequence[torch.Tensor], signs: Sequence[int],
     return out.to(torch.int32)
 
 
+def signed_rounds(length: int) -> int:
+    """Dependent load rounds of kernel 6's search of a run of ``length``
+    values: one for the block's top (its first cut then comes from shared
+    memory), and one for each cut into SIGNED_LANES + 1 parts until the window of the bound is empty. The lower and upper
+    bounds search side by side, so a tie adds none."""
+    if length <= 0:
+        return 0
+    parts = SIGNED_LANES + 1
+    # the candidates of the bound after the top's cut, at most
+    left = -(-(int(length) + 1) // (1 << SIGNED_TOP_LEVELS))
+    rounds = 1
+    while left > 1:
+        left = -(-left // parts)
+        rounds += 1
+    return rounds
+
+
 def load_library():
     """Build (at first use) and load the signed-count library."""
     from tuplewise_tpu_torch.ops import _build
@@ -111,10 +139,16 @@ def load_library():
             ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int),
             i, p, i, p, i, p, i, p]
         lib.tw_signed_count.restype = i
-        lib.tw_signed_count_max_runs.restype = i
-        if lib.tw_signed_count_max_runs() != MAX_RUNS:
-            raise RuntimeError("csrc/signed_count.cu and ops/count_kernels.py"
-                               " disagree on the largest number of runs")
+        for name in ("max_runs", "top_levels", "lanes"):
+            getattr(lib, f"tw_signed_count_{name}").restype = i
+        built = (lib.tw_signed_count_max_runs(),
+                 lib.tw_signed_count_top_levels(),
+                 lib.tw_signed_count_lanes())
+        want = (MAX_RUNS, SIGNED_TOP_LEVELS, SIGNED_LANES)
+        if built != want:
+            raise RuntimeError(f"{_SOURCE} was built with (runs, top levels,"
+                               f" lanes) {built}, the launcher expects "
+                               f"{want}")
         lib._tw_typed = True
     return lib
 

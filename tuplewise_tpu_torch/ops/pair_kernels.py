@@ -264,7 +264,7 @@ def pair_sum(a, b, kernel: Kernel, impl: Optional[str] = None):
 def masked_pair_sum(a, b, ma, mb, kernel: Kernel,
                     impl: Optional[str] = None):
     """Weighted sum of g(a_i - b_j) * ma_i * mb_j for [n] or [W, n]
-    inputs and finite non-negative weights; the caller's count is
+    inputs and finite weights of either sign; the caller's count is
     sum(ma) * sum(mb). Dispatch as in :func:`pair_sum`."""
     return _dispatch("masked_pair_sum", a, b, ma, mb, kernel, impl)
 

@@ -274,7 +274,7 @@ def masked_pair_sums(a, b, ma, mb, hinge: bool) -> torch.Tensor:
     problem's pairs for the auc body (hinge False) or the hinge body, NaN
     and infinities as the plain version gives them, for checked contiguous
     float32 CUDA tensors a, ma [W, n1] and b, mb [W, n2] (n1, n2, W > 0;
-    finite non-negative weights): b cut into tiles of
+    finite weights of either sign): b cut into tiles of
     :func:`masked_tile_size` values, sorted once with its weights and
     their float64 suffix sums (the hinge's also of mb * b); each a_i
     searches every tile with the body's float32 predicates and adds its

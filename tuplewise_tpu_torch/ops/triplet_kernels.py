@@ -199,7 +199,12 @@ def batched_masked_pair_sum(A, B, mp, ip, ia, mk, combine: TripletCombine,
                             impl: Optional[str] = None):
     """[W] float64 per-problem sums (see the module docstring) of A [W, P]
     and B [W, K] float32 distances; mp, ip [G, P], mk [G, K] and ia [W],
-    with G = W / anchors_per_group groups (one group by default).
+    with G = W / anchors_per_group groups (one group by default). The
+    weights mp and mk are finite, of either sign: the public masks of
+    ``factorized_triplet_stats`` and ``grouped_triplet_stats`` reach them
+    unchecked, so the hinge's infinite terms take the sign of their
+    weights' product, as in the plain sum (rule 4 of
+    ``csrc/rank_count.cu``).
 
     CUDA tensors launch the sort-and-count kernel of the combine (or
     raise); CPU tensors take ``batched_masked_pair_sum_plain``;
