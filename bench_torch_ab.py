@@ -47,6 +47,16 @@ from one seed on the card, at the shapes of chip_smoke.py's main path:
   values) and at the index's shape (two runs of 250000 N(0, 1) values at
   cap 2^18, 255 and 257 N(0, 1) queries), timed the same way.
 
+With ``--harness`` (``python3 bench_torch_ab.py --harness OTHER ...``)
+the turns time the variance harness instead, and nothing else: one
+``batched_estimates`` call (auc, M = 64 reps, seed 0) with its estimates
+copied to the host, by the host's clock (the harness's own wall-clock
+metric, less the closed form, which the parent computes at n = 10^6 over
+the whole grid), at chip_smoke.py phase 4's four cells (n = 10^4 a
+class, N = 8 workers, T = 4 rounds, B = 10^4 with-replacement pairs) and
+at config 3's incomplete cell (n = 10^6, B = 10^4, swr): the median and
+the least of 7 calls after a warm-up.
+
 A kernel time is the mean of several calls by CUDA events after a
 warm-up. After the turns it reads each checkout's built
 ``csrc/pair_sum.cu`` library with cuobjdump and counts, in the unmasked
@@ -71,6 +81,43 @@ import sys
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SEED = 0
+
+
+HARNESS_CELLS = (
+    ("complete", dict(scheme="complete")),
+    ("local", dict(scheme="local")),
+    ("repartitioned", dict(scheme="repartitioned", n_rounds=4)),
+    ("incomplete", dict(scheme="incomplete")),
+    ("incomplete config 3", dict(scheme="incomplete", n_pos=10 ** 6,
+                                 n_neg=10 ** 6)),
+)
+
+
+def _harness_turn():
+    """One checkout's harness wall-clocks (ms: median, least of 7)."""
+    import statistics
+    import time
+
+    sys.path.insert(0, os.getcwd())
+    from tuplewise_tpu_torch.harness.variance import (
+        VarianceConfig, batched_estimates,
+    )
+
+    def once(cfg):
+        t0 = time.perf_counter()
+        batched_estimates(cfg, "cuda").cpu()
+        return (time.perf_counter() - t0) * 1e3
+
+    out = {}
+    for tag, kw in HARNESS_CELLS:
+        cfg = VarianceConfig(**{**dict(kernel="auc", n_pos=10_000,
+                                       n_neg=10_000, n_workers=8,
+                                       n_pairs=10_000, n_reps=64,
+                                       seed=SEED), **kw})
+        once(cfg)                                         # warm-up
+        runs = [once(cfg) for _ in range(7)]
+        out[f"harness {tag}"] = (statistics.median(runs), min(runs))
+    print(json.dumps(out), flush=True)
 
 
 def _turn():
@@ -295,15 +342,17 @@ def grad_sass(root):
 
 
 def main():
-    if len(sys.argv) > 1 and sys.argv[1] == "--turn":
-        _turn()
+    harness = "--harness" in sys.argv
+    args = [a for a in sys.argv[1:] if a != "--harness"]
+    if args[:1] == ["--turn"]:
+        _harness_turn() if harness else _turn()
         return 0
     import torch
 
     if not torch.cuda.is_available():
         print("bench_torch_ab: no CUDA device is available", file=sys.stderr)
         return 2
-    roots = [ROOT] + [os.path.abspath(r) for r in sys.argv[1:]]
+    roots = [ROOT] + [os.path.abspath(r) for r in args]
     for r in roots:
         if not os.path.isdir(os.path.join(r, "tuplewise_tpu_torch")):
             print(f"bench_torch_ab: {r} holds no tuplewise_tpu_torch",
@@ -316,7 +365,8 @@ def main():
     turns = []
     for root in roots + roots[::-1]:
         proc = subprocess.run(
-            [sys.executable, os.path.abspath(__file__), "--turn"], cwd=root,
+            [sys.executable, os.path.abspath(__file__), "--turn",
+             *(["--harness"] if harness else [])], cwd=root,
             capture_output=True, text=True, timeout=1200)
         if proc.returncode != 0:
             print(proc.stdout + proc.stderr, file=sys.stderr)
@@ -325,8 +375,8 @@ def main():
         turns.append({"root": root, "times": times})
         print(f"[turn] {root}: " + "; ".join(
             f"{k} {v[0]:.3f} ms" for k, v in times.items()), flush=True)
-    sass = {root: {**logistic_sass(root), **grad_sass(root)}
-            for root in roots}
+    sass = {} if harness else {
+        root: {**logistic_sass(root), **grad_sass(root)} for root in roots}
     for root, counts in sass.items():
         print(f"[sass] {root}: logistic kernels, SASS instructions a pair: "
               + "; ".join(f"{k} {v:.3f}" for k, v in counts.items()),

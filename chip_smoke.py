@@ -231,17 +231,47 @@ nonzero. Each phase prints its seconds.
    T = 1024, skew 1.1, 300000 events: tenant_auc_max_abs_err 0, every
    event applied, kernel 7 launched. Events/s, latency p50/p99, the
    worst and median tenant p99, and the host-tax split.
+23. The distinct sampling designs (ops.device_design) on their paths at
+   full width. (a) draw_pair_design_device at n = 10^6 a class, B = 10^4,
+   64 rows a call, for swr, swor and bernoulli under
+   torch.cuda.set_sync_debug_mode("error"), timed with CUDA events read
+   after the mode is off: every swor row holds exactly B distinct
+   tuples, the bernoulli sizes' mean lies within 5 standard errors of B.
+   (b) Estimator("auc").incomplete at n = 10^6, B = 10^4, swor and
+   bernoulli, each within 5 standard errors (the exact conditional form)
+   of its complete statistic; the triplet indicator's swor incomplete on
+   phase 12's data (n = 32768, d = 32, B = 2e4) within 5 of phase 12's
+   complete value. (c) The harness at BASELINE config 3 (n = 10^6, B =
+   10^4, M = 64) for swor and bernoulli: the variance / closed form in
+   CHI2_BAND; the same run as 32 reps in chunks of 16 with a checkpoint,
+   then resumed to 64, equals the straight run bit for bit. fix_data at
+   n = 100 a class, B = G/2 = 5000, M = 800: each design's variance
+   within 20 % of the exact conditional form, swor / swr in [0.4, 0.6].
+   The three trade-off curves at n = 10^4, M = 64 (rounds 1 and 4, swor
+   pairs 10^3 and 10^4, workers 2, 8 and 32), each cell in CHI2_BAND,
+   and the looped degree-3 harness (complete and repartitioned, n = 512,
+   d = 8, M = 8). (d) Budgeted hinge learners on phase 7's data (N = 8,
+   B = 4096 a worker, 20 steps, swr, swor and bernoulli): steps/s and
+   held-out AUC >= 0.75; the Adult surrogate of load_adult_splits() (N =
+   1, B = 4096, lr 0.1, swor and bernoulli): held-out AUC >= 0.75; the
+   triplet learner at phase 14's gauss-overlap cell (S = 8, 300 steps)
+   with triplet_design="swor": above each seed's initial accuracy.
+   (e) graft_entry (the logistic pair mean of a LinearScorer(dim=16) on
+   two [2048, 16] blocks) against its plain version, within rel 1e-5.
 
 The launch counters are set to 0 before phase 3 and read after phase 4,
 set to 0 again before phase 7 and read after it, before phase 12 and
 after it, before phase 14 and after it, before phase 17 and after it,
-before phase 18 and after it, and before each of phases 21, 21b and 22
-and after it: every kernel must have been launched on its path (pair
-sums on the estimator's, gradient kernels on the trainer's, the triplet
-kernel on the degree-3 estimator's and on the triplet learner's
-evaluations, the count kernel on the serving index's and the engine's,
-the tenant count kernel on the fleet's and the fleet engine's, kernel 6
-on the promoted whales'). The script prints one JSON line of kernels,
+before phase 18 and after it, before each of phases 21, 21b and 22 and
+after it, and before phase 23 and after it: every kernel must have been
+launched on its path (pair sums on the estimator's, gradient kernels on
+the trainer's, the triplet kernel on the degree-3 estimator's and on the
+triplet learner's evaluations, the count kernel on the serving index's
+and the engine's, the tenant count kernel on the fleet's and the fleet
+engine's, kernel 6 on the promoted whales'; on the designs' path, kernel
+1's auc body in the trade-off curves, its logistic body in graft_entry
+and kernel 5's indicator in the looped degree-3 harness and the triplet
+learner's evaluations). The script prints one JSON line of kernels,
 the card's name and power limit as nvidia-smi reports them, and, last,
 {"ok": true, "device": {...}}. Without a CUDA device, or without the
 package beside it, it exits nonzero and prints no result.
@@ -3076,6 +3106,250 @@ def phase_fleet_engine():
     return out
 
 
+# --------------------------------------------------------------------- #
+# slice 12: the distinct sampling designs drawn on the card              #
+# --------------------------------------------------------------------- #
+
+def phase_designs(data, triplet_main):
+    """Phase 23: the swor and bernoulli designs on their paths at full
+    width: the draws (under sync debug "error"), the estimator, the
+    harness (config 3, fix_data, a chunked resume, the trade-off curves,
+    the looped degree-3 schemes), the budgeted learners and the entry.
+    Returns the numbers of the JSON line."""
+    from tuplewise_tpu_torch import Estimator
+    from tuplewise_tpu_torch.data import load_adult_splits
+    from tuplewise_tpu_torch.estimators.variance import (
+        conditional_incomplete_variance,
+    )
+    from tuplewise_tpu_torch.graft_entry import entry
+    from tuplewise_tpu_torch.harness import variance as H
+    from tuplewise_tpu_torch.models.pairwise_sgd import (
+        TrainConfig, evaluate_auc, split_by_label, train_pairwise,
+    )
+    from tuplewise_tpu_torch.models.scorers import LinearScorer
+    from tuplewise_tpu_torch.ops.device_design import (
+        draw_pair_design_device,
+    )
+    from tuplewise_tpu_torch.utils.checkpoint import load_checkpoint
+    from tuplewise_tpu_torch.utils.rng import generator
+
+    out = {}
+    n, B, M = 10 ** 6, 10 ** 4, 64
+    # 1. the draws at config 3's grid, 64 rows a call; nothing may stop
+    # the host, so the events are read after the debug mode is off
+    g = generator(SEED, "design", device="cuda")
+    draws = {}
+    for design in ("swr", "swor", "bernoulli"):
+        draw_pair_design_device(g, n, n, B, design, batch=(M,))   # warm-up
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        start.record()
+        for _ in range(10):
+            i, j, w = draw_pair_design_device(g, n, n, B, design,
+                                              batch=(M,))
+        end.record()
+        torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        draws[design] = start.elapsed_time(end) / 10
+        sizes = w.sum(1).double()
+        if design == "swor":
+            code = i * n + j
+            distinct = (code.sort(1).values.diff(dim=1) != 0).sum(1) + 1
+            assert bool((sizes == B).all()) and bool((distinct == B).all())
+        if design == "bernoulli":
+            # K ~ Binomial(10^12, 10^-8): mean B, sd ~sqrt(B)
+            assert abs(float(sizes.mean()) - B) < 5 * math.sqrt(B / M), sizes
+    log(f"[designs] draw n={n} x {n} B={B} batch {M}: swr "
+        f"{draws['swr']:.3f} ms, swor {draws['swor']:.3f} ms, bernoulli "
+        f"{draws['bernoulli']:.3f} ms a call (no host sync)")
+    out["draw_ms"] = draws
+
+    # 2. the estimator: pairs at config 3, triplets at phase 12's data
+    gs = torch.Generator(device="cuda").manual_seed(SEED + 23)
+    s1 = torch.randn(n, generator=gs, device="cuda") + 1.0
+    s2 = torch.randn(n, generator=gs, device="cuda")
+    est = Estimator("auc", backend="torch")
+    u = est.complete(s1, s2)
+    out["estimator"] = {}
+    for design in ("swor", "bernoulli"):
+        est.incomplete(s1, s2, n_pairs=B, seed=SEED, design=design)
+        ms, v = cuda_ms(lambda: est.incomplete(s1, s2, n_pairs=B, seed=SEED,
+                                               design=design))
+        se = math.sqrt(conditional_incomplete_variance(
+            u * (1 - u), n * n, n_pairs=B, design=design))
+        assert abs(v - u) < 5 * se, (design, v, u, se)
+        out["estimator"][design] = dict(value=v, ms=ms)
+        log(f"[designs] Estimator('auc').incomplete n={n} B={B} {design}: "
+            f"{v:.6f} (complete {u:.6f}, se {se:.2e}) in {ms:.3f} ms")
+    gt = torch.Generator(device="cuda").manual_seed(SEED + 6)
+    gaussian_clouds(gt, 1024, TRIPLET_D)             # phase 12's draws
+    X3, Y3 = gaussian_clouds(gt, TRIPLET_N, TRIPLET_D)
+    full = triplet_main["triplet_indicator"]["complete"]
+    tri = Estimator("triplet_indicator", backend="torch")
+    tri.incomplete(X3, Y3, n_pairs=20_000, seed=SEED, design="swor")
+    ms, v = cuda_ms(lambda: tri.incomplete(X3, Y3, n_pairs=20_000,
+                                           seed=SEED, design="swor"))
+    se = math.sqrt(full * (1 - full) / 20_000)
+    assert abs(v - full) < 5 * se, (v, full, se)
+    out["estimator"]["triplet_swor"] = dict(value=v, ms=ms)
+    log(f"[designs] triplet_indicator incomplete n={TRIPLET_N} "
+        f"d={TRIPLET_D} B=2e4 swor: {v:.6f} (complete {full:.6f}) in "
+        f"{ms:.3f} ms")
+    del X3, Y3, s1, s2
+
+    # 3-4. the harness at config 3, straight and chunked with a checkpoint
+    out["harness"] = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for design in ("swor", "bernoulli"):
+            cfg = H.VarianceConfig(kernel="auc", scheme="incomplete",
+                                   n_pos=n, n_neg=n, n_pairs=B, n_reps=M,
+                                   design=design, seed=SEED)
+            H.run_variance_experiment(cfg)                  # warm-up
+            straight = os.path.join(tmp, f"{design}-straight.npz")
+            r = H.run_variance_experiment(cfg, checkpoint_path=straight)
+            ratio = r["variance"] / r["closed_form_variance"]
+            assert CHI2_BAND[0] < ratio < CHI2_BAND[1], (design, ratio)
+            assert abs(r["mean"] - r["population_value"]) < 5 * r["std_error"]
+            cut = os.path.join(tmp, f"{design}-cut.npz")
+            H.run_variance_experiment(dataclasses.replace(cfg, n_reps=32),
+                                      checkpoint_path=cut,
+                                      checkpoint_every=16)
+            rc = H.run_variance_experiment(cfg, checkpoint_path=cut,
+                                           checkpoint_every=16)
+            a = load_checkpoint(straight)["extra"]["estimates"]
+            b = load_checkpoint(cut)["extra"]["estimates"]
+            assert rc["recovery"]["resumed_from"] == 32
+            assert a.tobytes() == b.tobytes(), design
+            out["harness"][design] = dict(
+                mean=r["mean"], variance=r["variance"],
+                closed_form_variance=r["closed_form_variance"], ratio=ratio,
+                ms=r["wallclock_s"] * 1e3,
+                chunked_ms=rc["wallclock_s"] * 1e3)
+            log(f"[designs] harness config 3 (n={n}, B={B}, M={M}) "
+                f"{design}: var {r['variance']:.4e} closed form "
+                f"{r['closed_form_variance']:.4e} ratio {ratio:.3f} "
+                f"({r['wallclock_s'] * 1e3:.1f} ms); 2 + 2 chunks of 16 "
+                f"with a resume equal the straight run bit for bit")
+    var = {}
+    for design in ("swr", "swor", "bernoulli"):
+        cfg = H.VarianceConfig(kernel="auc", scheme="incomplete", n_pos=100,
+                               n_neg=100, n_pairs=5000, n_reps=800,
+                               design=design, fix_data=True, seed=SEED)
+        r = H.run_variance_experiment(cfg)
+        var[design] = r["variance"]
+        rel = r["variance"] / r["closed_form_variance"] - 1
+        assert abs(rel) < 0.2, (design, r["variance"],
+                                r["closed_form_variance"])
+        log(f"[designs] fix_data n=100 B=G/2 M=800 {design}: var "
+            f"{r['variance']:.4e} exact {r['closed_form_variance']:.4e} "
+            f"({rel:+.3f}; {r['wallclock_s'] * 1e3:.1f} ms)")
+    out["fix_data_swor_over_swr"] = var["swor"] / var["swr"]
+    assert 0.4 < out["fix_data_swor_over_swr"] < 0.6, var
+    base = H.VarianceConfig(kernel="auc", n_pos=10_000, n_neg=10_000,
+                            n_workers=8, n_pairs=10_000, n_reps=M,
+                            design="swor", seed=SEED)
+    curves = {"rounds": H.tradeoff_vs_rounds(base, rounds=(1, 4)),
+              "pairs": H.tradeoff_vs_pairs(base, pairs=(1000, 10_000)),
+              "workers": H.tradeoff_vs_workers(base, workers=(2, 8, 32))}
+    for name, rows in curves.items():
+        for r in rows:
+            ratio = r["variance"] / r["closed_form_variance"]
+            assert CHI2_BAND[0] < ratio < CHI2_BAND[1], (name, ratio)
+    out["curves"] = {k: [dict(variance=r["variance"],
+                              closed_form_variance=r["closed_form_variance"],
+                              ms=r["wallclock_s"] * 1e3) for r in rows]
+                     for k, rows in curves.items()}
+    log("[designs] trade-off curves (n=1e4, M=64; variance / closed form): "
+        + "; ".join(f"{k} " + ", ".join(
+            f"{r['variance'] / r['closed_form_variance']:.3f}" for r in rows)
+            for k, rows in curves.items()))
+    looped = {}
+    for scheme in ("complete", "repartitioned"):
+        cfg = H.VarianceConfig(kernel="triplet_indicator", scheme=scheme,
+                               n_pos=512, n_neg=512, dim=8, n_workers=8,
+                               n_rounds=2, n_reps=8, seed=SEED)
+        r = H.run_variance_experiment(cfg)
+        assert not r["batched"] and math.isfinite(r["mean"]), r
+        looped[scheme] = r["mean"]
+    assert abs(looped["complete"] - looped["repartitioned"]) < 0.01, looped
+    log(f"[designs] looped degree-3 harness n=512 d=8 M=8: {looped}")
+
+    # 5. the budgeted learners
+    Xp, Xn, Xp_te, Xn_te = data
+    scorer = LinearScorer(dim=5)
+    p0 = scorer.init(0)
+    auc0 = evaluate_auc(scorer, p0, Xp_te, Xn_te)
+    out["learner"] = {}
+    for design in ("swr", "swor", "bernoulli"):
+        cfg = TrainConfig(kernel="hinge", lr=0.3, n_workers=8,
+                          repartition_every=10, seed=7, steps=20,
+                          pairs_per_worker=4096, pair_design=design)
+        train_pairwise(scorer, p0, Xp, Xn, dataclasses.replace(cfg, steps=2))
+        ms, (params, hist) = cuda_ms(
+            lambda: train_pairwise(scorer, p0, Xp, Xn, cfg))
+        auc = evaluate_auc(scorer, params, Xp_te, Xn_te)
+        assert np.isfinite(hist["loss"]).all() and auc >= 0.75, (design, auc)
+        out["learner"][design] = dict(steps_per_s=20 / ms * 1e3,
+                                      auc_test_after=auc)
+        log(f"[designs] budgeted hinge N=8 B=4096 {design}: "
+            f"{20 / ms * 1e3:.2f} steps/s; test AUC {auc0:.5f} -> {auc:.5f}")
+    Xtr, ytr, Xte, yte, meta = load_adult_splits()
+    Ap, An = split_by_label(Xtr, ytr)
+    Ap_te, An_te = split_by_label(Xte, yte)
+    adult = LinearScorer(dim=Xtr.shape[1])
+    a0 = adult.init(0)
+    before = evaluate_auc(adult, a0, Ap_te, An_te)
+    out["adult"] = {"source": meta["source"], "auc_test_before": before}
+    for design in ("swor", "bernoulli"):
+        cfg = TrainConfig(kernel="hinge", lr=0.1, steps=20, n_workers=1,
+                          pairs_per_worker=4096, pair_design=design)
+        params, _ = train_pairwise(adult, a0, Ap, An, cfg)
+        auc = evaluate_auc(adult, params, Ap_te, An_te)
+        assert auc >= 0.75, (design, auc)
+        out["adult"][design] = auc
+        log(f"[designs] Adult ({meta['source']}) N=1 B=4096 {design}: "
+            f"test AUC {before:.5f} -> {auc:.5f} (JAX, CPU: 0.578 -> 0.791)")
+    from tuplewise_tpu_torch.models.triplet_sgd import (
+        TripletTrainConfig, evaluate_triplet_accuracy, init_embed,
+        train_triplet,
+    )
+    accs, t_train = [], 0.0
+    for seed in range(8):
+        Xc_tr, Xo_tr, Xc_te, Xo_te = triplet_task("gauss-overlap", seed)
+        p0t = init_embed(Xc_tr.shape[1], 2, seed=seed)
+        acc0 = evaluate_triplet_accuracy(p0t, Xc_te, Xo_te)
+        cfg = TripletTrainConfig(lr=0.1, steps=300, n_workers=8,
+                                 repartition_every=1,
+                                 triplets_per_worker=4_096, seed=1_000 + seed,
+                                 embed_dim=2, triplet_design="swor")
+        t0 = time.perf_counter()
+        _, hist = train_triplet(p0t, Xc_tr, Xo_tr, cfg, eval_every=30,
+                                eval_data=(Xc_te, Xo_te))
+        t_train += time.perf_counter() - t0
+        assert np.isfinite(hist["loss"]).all()
+        assert hist["test_acc"][-1] > acc0, (seed, hist["test_acc"], acc0)
+        accs.append(float(hist["test_acc"][-1]))
+    out["triplet_learner_swor"] = dict(final_acc_mean=float(np.mean(accs)),
+                                       steps_per_s_with_eval=8 * 300 / t_train)
+    log(f"[designs] triplet learner gauss-overlap swor N=8 B=4096 300 steps "
+        f"S=8: test acc {np.mean(accs):.6f} (swr, JAX row "
+        f"{JAX_GAUSS_OVERLAP[0]}); {8 * 300 / t_train:.2f} steps/s with "
+        f"10 evaluations")
+
+    # 6. the flagship entry: kernel 1's logistic body against plain
+    f, args = entry()
+    v = float(f(*args))
+    fp, ap = entry(impl="plain")
+    vp = float(fp(*ap))
+    assert abs(v - vp) <= 1e-5 * abs(vp), (v, vp)
+    out["graft_entry"] = dict(value=v, plain=vp)
+    log(f"[designs] graft_entry logistic pair mean 2048 x 2048: {v:.9f} "
+        f"(plain {vp:.9f})")
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -3201,11 +3475,21 @@ def main():
     tenant_row["launches"] = fleet_launches[0][key]
     tenant_row["launches_engine"] = fleet_launches[2][key]
     rows.append(tenant_row)
+
+    pk.reset_launch_counts()
+    designs = timed("23 designs", phase_designs, data, triplet_main)
+    design_launches = dict(pk.LAUNCHES)
+    log(f"[launches] designs path {json.dumps(design_launches)}")
+    for key in ("pair_sum[auc]", "pair_sum[logistic]",
+                "batched_masked_pair_sum[triplet_indicator]"):
+        assert design_launches.get(key, 0) > 0, f"{key} never launched"
+    for r in rows:
+        r["launches_designs"] = design_launches.get(r["name"], 0)
     log(f"[done] {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": rows, "train": train_rows,
                       "sim_learner_cell_s": sim_wall,
                       "triplet": triplet_main, "config4": config4,
-                      "triplet_learner": learner,
+                      "triplet_learner": learner, "designs": designs,
                       "serving": {"index": index, "engine": engine,
                                   "streaming_estimator": streaming,
                                   "fleet": fleet,

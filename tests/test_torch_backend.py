@@ -157,14 +157,18 @@ def test_randomized_schemes_agree_statistically(data, scheme):
 
 
 def test_unported_designs_raise(data):
+    """Every design is ported; a distinct design raises only for a budget
+    above 0.8 x the grid (the device sampler's contract)."""
     X, Y = data
     est = Estimator("auc", device="cpu")
-    with pytest.raises(NotImplementedError):
-        est.incomplete(X[:, 0], Y[:, 0], n_pairs=10, design="swor")
-    # triplet kernels are ported; their distinct designs are not
-    with pytest.raises(NotImplementedError):
-        Estimator("triplet_hinge", device="cpu").incomplete(
-            X, Y, n_pairs=10, design="bernoulli")
+    s1, s2 = X[:8, 0], Y[:8, 0]
+    assert 0.0 <= est.incomplete(s1, s2, n_pairs=10, design="swor") <= 1.0
+    with pytest.raises(ValueError, match="distinct"):
+        est.incomplete(s1, s2, n_pairs=52, design="swor")
+    tri = Estimator("triplet_hinge", device="cpu")
+    assert tri.incomplete(X[:8], Y[:8], n_pairs=10, design="bernoulli") >= 0
+    with pytest.raises(ValueError, match="distinct"):
+        tri.incomplete(X[:4], Y[:4], n_pairs=39, design="bernoulli")
 
 
 def test_state_round_trip():

@@ -231,8 +231,11 @@ class TestTrainPairwise:
         run(kernel="sq_no_grad")            # autograd through the plain mean
         with pytest.raises(ValueError, match="too small"):
             run(n_workers=500)
-        with pytest.raises(NotImplementedError, match="swor"):
-            run(pairs_per_worker=8, pair_design="swor")
+        # the distinct designs run; above 0.8 x a worker's pair grid
+        # (240 x 200 here) the device draw raises
+        run(pairs_per_worker=8, pair_design="swor")
+        with pytest.raises(ValueError, match="distinct"):
+            run(pairs_per_worker=240 * 200, pair_design="swor")
         with pytest.raises(ValueError, match="unknown pair design"):
             run(pairs_per_worker=8, pair_design="nope")
         path = str(tmp_path / "ck.npz")

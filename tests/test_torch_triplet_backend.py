@@ -104,8 +104,8 @@ def test_estimator_errors_and_no_card(clouds, monkeypatch):
         est.complete(X[:, 0], Y[:, 0])
     with pytest.raises(ValueError, match="two-sample"):
         est.complete(X)
-    with pytest.raises(NotImplementedError, match="swor"):
-        est.incomplete(X, Y, n_pairs=10, design="swor")
+    with pytest.raises(ValueError, match="distinct"):
+        est.incomplete(X[:3], Y[:3], n_pairs=15, design="swor")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         Estimator("triplet_indicator")

@@ -135,7 +135,8 @@ class TestStep:
         new, got_loss = T.sgd_step(
             te, get_kernel("triplet_hinge"), cfg, params_to_state(p0),
             torch.from_numpy(A), torch.from_numpy(B),
-            tuple(torch.from_numpy(a) for a in (i, j, k)))
+            (*(torch.from_numpy(a) for a in (i, j, k)),
+             torch.ones(i.shape)))
         assert float(got_loss) == pytest.approx(float(want_loss), rel=1e-5)
         for n in p0:
             np.testing.assert_allclose(new[n].numpy(),
@@ -144,11 +145,12 @@ class TestStep:
 
     def test_sampled_triplets_keep_i_and_j_apart(self):
         cfg = T.TripletTrainConfig(n_workers=3, triplets_per_worker=500)
-        i, j, k = T.sample_triplets(cfg, 7, 4, 5, "cpu")
-        assert i.shape == j.shape == k.shape == (3, 500)
+        i, j, k, w = T.sample_triplets(cfg, 7, 4, 5, "cpu")
+        assert i.shape == j.shape == k.shape == w.shape == (3, 500)
         assert bool((i != j).all()) and int(k.max()) == 4
+        assert bool((w == 1).all())
         again = T.sample_triplets(cfg, 7, 4, 5, "cpu")
-        assert all(bool((a == b).all()) for a, b in zip((i, j, k), again))
+        assert all(bool((a == b).all()) for a, b in zip((i, j, k, w), again))
 
 
 class TestTripletSGD:
@@ -240,7 +242,9 @@ class TestTripletSGD:
             run(kernel="triplet_indicator")
         with pytest.raises(ValueError, match="degree-3"):
             run(kernel="hinge")
-        with pytest.raises(NotImplementedError, match="swor"):
+        # the distinct designs run; 4096 triplets exceed 0.8 x the
+        # 8 x 7 x 8 grid, so the device draw raises
+        with pytest.raises(ValueError, match="distinct"):
             run(triplet_design="swor")
         with pytest.raises(ValueError, match="unknown triplet design"):
             run(triplet_design="nope")

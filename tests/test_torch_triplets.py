@@ -20,7 +20,7 @@ from tuplewise_tpu.ops import kernels as jk
 from tuplewise_tpu.ops.pair_tiles import triplet_stats as j_triplet_stats
 from tuplewise_tpu.ops.pallas_triplets import _sqdist_matrix as j_sqdist
 from tuplewise_tpu.ops.pallas_triplets import pallas_triplet_stats
-from tuplewise_tpu_torch.ops import pair_kernels, pair_tiles
+from tuplewise_tpu_torch.ops import device_design, pair_kernels, pair_tiles
 from tuplewise_tpu_torch.ops import triplet_kernels as tk
 from tuplewise_tpu_torch.ops.kernels import (
     Kernel, builtin_triplet_spec, get_kernel,
@@ -208,9 +208,16 @@ def test_incomplete_triplet_mean_is_unbiased(data, name):
     s, c = tk.factorized_triplet_stats(k, _t(X), _t(Y))
     full = float(s) / int(c)
     gen = torch.Generator().manual_seed(4)
-    vals = [float(pair_tiles.incomplete_triplet_mean(k, gen, _t(X), _t(Y),
-                                                     2000))
-            for _ in range(20)]
+    Xt, Yt = _t(X), _t(Y)
+
+    def once():
+        # swr draws (i, j) by the shift trick, then k
+        i, j, kk, w = device_design.draw_triplet_design_device(
+            gen, Xt.shape[0], Yt.shape[0], 2000, "swr")
+        return float(device_design.weighted_mean(
+            k.triplet_values(Xt[i], Xt[j], Yt[kk]), w))
+
+    vals = [once() for _ in range(20)]
     se = np.std(vals, ddof=1) / np.sqrt(len(vals))
     assert abs(np.mean(vals) - full) < 4 * se + 1e-9
     # the shift trick never draws i == j

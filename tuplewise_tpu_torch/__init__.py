@@ -5,12 +5,16 @@ NVIDIA H100: the same semantics as the JAX package, with its Pallas TPU
 kernels rewritten as hand-written CUDA kernels for Hopper (csrc/).
 Module names mirror the JAX package so each counterpart is easy to find:
 
-  L0 data        -> tuplewise_tpu_torch.data
+  L0 data        -> tuplewise_tpu_torch.data  (Gaussians, the Adult and
+                    MNIST-embedding loaders and their surrogates)
   L1 kernels     -> tuplewise_tpu_torch.ops.kernels, ops.pair_kernels,
-                    ops.pair_grad_kernels, ops.triplet_kernels
-  L2 partitioner -> tuplewise_tpu_torch.parallel
+                    ops.pair_grad_kernels, ops.triplet_kernels; tuple
+                    designs drawn on the card: ops.device_design
+  L2 partitioner -> tuplewise_tpu_torch.parallel  (device blocks; the
+                    host partitioner and design oracle: parallel.partition)
   L3 estimators  -> tuplewise_tpu_torch.estimators  (Estimator(backend="torch"))
-  L4 harness     -> tuplewise_tpu_torch.harness.variance,
+  L4 harness     -> tuplewise_tpu_torch.harness.variance (Monte-Carlo,
+                    checkpoint/resume, the three trade-off curves),
                     harness.triplet_experiment (BASELINE config 4)
   L5 learners    -> tuplewise_tpu_torch.models  (train_pairwise,
                     train_curves, train_triplet)
@@ -18,6 +22,7 @@ Module names mirror the JAX package so each counterpart is easy to find:
                     MicroBatchEngine, replay; the fleet: TenantFleetIndex,
                     MultiTenantEngine, replay_fleet), estimators.streaming
 
+The flagship forward step is ``tuplewise_tpu_torch.graft_entry.entry``.
 Entry points run on the card unless the caller passes device="cpu".
 """
 
@@ -33,7 +38,10 @@ from tuplewise_tpu_torch.models.sim_learner import train_curves
 from tuplewise_tpu_torch.models.triplet_sgd import (
     TripletTrainConfig, evaluate_triplet_accuracy, init_embed, train_triplet,
 )
-from tuplewise_tpu_torch.ops.kernels import Kernel, get_kernel, register_kernel
+from tuplewise_tpu_torch.ops.kernels import (
+    Kernel, auc_kernel, get_kernel, hinge_kernel, logistic_kernel,
+    register_kernel, triplet_hinge_kernel, triplet_indicator_kernel,
+)
 from tuplewise_tpu_torch.serving import (
     ExactAucIndex, MicroBatchEngine, MultiTenantEngine, ServingConfig,
     StreamingIncompleteU, TenancyConfig, TenantFleetIndex, make_stream,
@@ -43,8 +51,10 @@ from tuplewise_tpu_torch.serving import (
 __all__ = ["Estimator", "ExactAucIndex", "Kernel", "MicroBatchEngine",
            "MultiTenantEngine", "ServingConfig", "StreamingEstimator",
            "StreamingIncompleteU", "TenancyConfig", "TenantFleetIndex",
-           "TrainConfig", "TripletTrainConfig", "evaluate_auc",
-           "evaluate_triplet_accuracy", "get_kernel", "init_embed",
-           "make_stream", "make_tenant_stream", "register_kernel",
-           "replay", "replay_fleet", "split_by_label", "train_curves",
-           "train_pairwise", "train_triplet", "triplet_mnist_statistic"]
+           "TrainConfig", "TripletTrainConfig", "auc_kernel",
+           "evaluate_auc", "evaluate_triplet_accuracy", "get_kernel",
+           "hinge_kernel", "init_embed", "logistic_kernel", "make_stream",
+           "make_tenant_stream", "register_kernel", "replay",
+           "replay_fleet", "split_by_label", "train_curves",
+           "train_pairwise", "train_triplet", "triplet_hinge_kernel",
+           "triplet_indicator_kernel", "triplet_mnist_statistic"]

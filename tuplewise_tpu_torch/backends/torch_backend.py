@@ -16,6 +16,9 @@
 * Randomness comes from ``torch.Generator``s derived per purpose
   (utils.rng); values agree with the JAX backend statistically, not bit
   for bit.
+* The incomplete estimator's tuples are drawn on the device under any
+  of the three designs (ops.device_design) and evaluated there: fixed
+  shapes, no host synchronisation in the draw.
 * ``dropped_workers`` drop and renormalize: excluded workers get weight
   0 and the mean runs over the survivors.
 
@@ -29,7 +32,9 @@ import numpy as np
 import torch
 
 from tuplewise_tpu_torch.backends.base import register_backend
-from tuplewise_tpu_torch.ops import pair_kernels, pair_tiles, triplet_kernels
+from tuplewise_tpu_torch.ops import (
+    device_design, pair_kernels, pair_tiles, triplet_kernels,
+)
 from tuplewise_tpu_torch.ops.kernels import Kernel, auc_kernel, get_kernel
 from tuplewise_tpu_torch.ops.rank_auc import rank_auc
 from tuplewise_tpu_torch.ops.scatter_exact import (
@@ -180,20 +185,30 @@ class TorchBackend:
         return float(total / n_rounds)
 
     def incomplete(self, A, B=None, *, n_pairs, seed=0, design="swr") -> float:
-        """B tuples drawn with replacement. The distinct designs ("swor",
-        "bernoulli") are not ported yet."""
-        if design != "swr":
-            raise NotImplementedError(
-                f"design={design!r} is not ported yet; only 'swr' runs"
-            )
+        """B sampled tuples; design in {"swr", "swor", "bernoulli"},
+        drawn on the device by ``ops.device_design`` ("swr" with
+        replacement from generator (seed, "incomplete"), the distinct
+        designs from (seed, "design") with ``floor_one=True``: bernoulli's
+        size is at least 1); the mean over the drawn tuples is taken in
+        float64. The distinct designs bound the budget at 0.8 x the grid
+        (ValueError above)."""
         A = self.to_device(A)
-        gen = generator(seed, "incomplete", device=self.device)
-        if self.kernel.kind == "triplet":
-            return float(pair_tiles.incomplete_triplet_mean(
-                self.kernel, gen, A, self.to_device(B), n_pairs))
-        if self.kernel.two_sample:
+        k = self.kernel
+        gen = generator(seed, "incomplete" if design == "swr" else "design",
+                        device=self.device)
+        if k.kind == "triplet":
             B = self.to_device(B)
-            return float(pair_tiles.incomplete_pair_mean(
-                self.kernel, gen, A, B, n_pairs, one_sample=False))
-        return float(pair_tiles.incomplete_pair_mean(
-            self.kernel, gen, A, A, n_pairs, one_sample=True))
+            i, j, kk, w = device_design.draw_triplet_design_device(
+                gen, A.shape[0], B.shape[0], n_pairs, design, floor_one=True)
+            vals = k.triplet_values(A[i], A[j], B[kk])
+        elif k.two_sample:
+            B = self.to_device(B)
+            i, j, w = device_design.draw_pair_design_device(
+                gen, A.shape[0], B.shape[0], n_pairs, design, floor_one=True)
+            vals = k.pair_elementwise(A[i], B[j])
+        else:
+            i, j, w = device_design.draw_pair_design_device(
+                gen, A.shape[0], A.shape[0] - 1, n_pairs, design,
+                one_sample=True, floor_one=True)
+            vals = k.pair_elementwise(A[i], A[j])
+        return float(device_design.weighted_mean(vals, w))

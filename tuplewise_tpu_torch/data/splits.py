@@ -1,16 +1,23 @@
 """L0 — train/test splitting for held-out evaluation (numpy only).
 
-A copy of the generic part of ``tuplewise_tpu.data.splits``: the same
-seed gives the same arrays in both packages. Standardization is fit on
-the TRAIN side only and applied to both (:func:`standardize_pair`).
+A copy of ``tuplewise_tpu.data.splits``: the same seed gives the same
+arrays in both packages. ``load_adult_splits`` takes the canonical UCI
+split when ``adult.data`` and ``adult.test`` are both on disk, else a
+seeded stratified split of whatever ``loaders.load_adult`` resolves (a
+real file or the surrogate). Standardization is fit on the TRAIN side
+only and applied to both (:func:`standardize_pair`).
 """
 
 from __future__ import annotations
 
+import os
 from typing import Tuple
 
 import numpy as np
 
+from tuplewise_tpu_torch.data.loaders import (
+    _data_dir, load_adult, parse_adult_csv,
+)
 from tuplewise_tpu_torch.data.synthetic import make_gaussians
 
 
@@ -50,6 +57,55 @@ def standardize_pair(
     mu = X_train.mean(axis=0)
     sd = X_train.std(axis=0) + 1e-12
     return (X_train - mu) / sd, (X_test - mu) / sd
+
+
+def load_adult_splits(
+    n: int = 32561,
+    seed: int = 0,
+    test_fraction: float = 0.25,
+):
+    """UCI Adult as a held-out-evaluation task.
+
+    Returns ``(X_tr, y_tr, X_te, y_te, meta)``. Resolution order:
+
+    1. canonical ``adult.data`` + ``adult.test`` both in
+       ``TUPLEWISE_DATA_DIR`` → the official UCI split, column-aligned
+       by the canonical vocabulary (``meta["split"] = "adult.test"``);
+       train subsampled to ``n`` if larger (test kept whole — it is the
+       evaluation yardstick);
+    2. whatever :func:`load_adult` resolves (single real file, npz, or
+       the deterministic surrogate) → seeded stratified split
+       (``meta["split"] = "stratified"``).
+
+    Features are standardized with train statistics in both paths.
+    """
+    d = _data_dir()
+    tr_path = os.path.join(d, "adult.data")
+    te_path = os.path.join(d, "adult.test")
+    if os.path.exists(tr_path) and os.path.exists(te_path):
+        X_tr, y_tr = parse_adult_csv(tr_path)
+        X_te, y_te = parse_adult_csv(te_path)
+        if len(X_tr) > n:
+            keep = np.random.default_rng(seed).choice(
+                len(X_tr), n, replace=False
+            )
+            X_tr, y_tr = X_tr[keep], y_tr[keep]
+        X_tr, X_te = standardize_pair(X_tr, X_te)
+        meta = {
+            "synthetic": False,
+            "source": tr_path,
+            "split": "adult.test",
+            "test_source": te_path,
+        }
+        return X_tr, y_tr, X_te, y_te, meta
+
+    X, y, meta = load_adult(n=n, seed=seed, standardize=False)
+    (X_tr, y_tr), (X_te, y_te) = stratified_split(
+        X, y, test_fraction=test_fraction, seed=seed + 7919
+    )
+    X_tr, X_te = standardize_pair(X_tr, X_te)
+    meta = dict(meta, split="stratified", test_fraction=test_fraction)
+    return X_tr, y_tr, X_te, y_te, meta
 
 
 def make_gaussian_splits(

@@ -102,8 +102,12 @@ class Estimator:
 
     def incomplete(self, A, B=None, *, n_pairs: int, seed: int = 0,
                    design: str = "swr") -> float:
-        """U~_B — B sampled tuples ("swr"; the distinct designs are not
-        ported yet)."""
+        """U~_B — B sampled tuples under ``design``: "swr" (with
+        replacement), "swor" (B distinct tuples) or "bernoulli" (each
+        tuple kept with probability B/G, G the grid size; the realized
+        size is at least 1). Two-sample, one-sample (the off-diagonal)
+        and triplet grids alike; the distinct designs are drawn on the
+        device and bound B at 0.8 G (ValueError above)."""
         if n_pairs < 1:
             raise ValueError(f"n_pairs must be >= 1, got {n_pairs}")
         A, B = self._prep(A, B)

@@ -1,41 +1,70 @@
-"""L4 — Monte-Carlo variance harness (the counterpart of
-``tuplewise_tpu.harness.variance``).
+"""L4 — Monte-Carlo variance harness and trade-off curves (the
+counterpart of ``tuplewise_tpu.harness.variance``).
 
-Repeat an estimator M times over fresh Gaussian score draws and fresh
-partitions, and report the empirical mean and variance beside the
-Hoeffding closed form — the measurement behind the paper's
-variance-vs-communication curves.
+Repeat an estimator M times over fresh Gaussian draws and fresh
+partitions or tuple designs, and report the empirical mean and variance
+beside the closed form — the measurement behind the paper's
+variance-vs-communication curves (``tradeoff_vs_rounds``,
+``tradeoff_vs_pairs``, ``tradeoff_vs_workers``).
 
-The M reps are a batch axis, not a loop: the data of all reps is drawn
-at once on the device, and each local round of all reps and all workers
-is ONE batched pair-kernel launch over [M * N, m] blocks (a complete
-statistic is one launch over [M, n]). This replaces the JAX harness's
-vmap, and with it the dense shortcut for small worker grids: the batched
-kernel takes any block size.
+Reps are drawn in blocks of ``REP_BLOCK`` (64): every draw of block k
+(its reps' data, then their tuples or the partitions of rounds 0, 1,
+...) is one batched call on the generator of (seed, "mc_rep", k), and
+rep r is row r % 64 of its block. A chunk of reps draws the blocks it
+touches whole and keeps its rows, so estimates depend only on the
+absolute rep index, and a run cut into chunks, with a checkpoint between
+them, repeats the straight run (bit for bit wherever the batched sums are
+exact, as the AUC's are). A run of a multiple of 64 reps draws exactly
+what it uses; any other draws up to 63 rows of randomness it discards.
+``fix_data=True`` freezes ONE dataset, drawn from (seed, "data_fixed"),
+and Monte-Carlos over the sampling randomness only: the CONDITIONAL
+variance Var(U~ | data), where the swor/bernoulli finite-population
+reduction lives (at B = G/2 swor halves the swr variance; G is the size
+of the tuple grid).
 
-The port runs the score-difference kernels and the four schemes
-(incomplete with the "swr" design). Checkpoint/resume, chaos injection,
-fixed-data conditional runs and the mesh runner are not ported yet.
+The M reps are a batch axis, not a loop, for the score-difference
+kernels (all four schemes) and the degree-3 incomplete estimator: each
+local round of all reps and all workers is ONE batched pair-kernel launch
+over [M * N, m] blocks (a complete statistic is one launch over [M, n]),
+and each draw (data, blocks, designs) is one batched call a block of 64
+reps. The other degree-3 schemes loop the public
+Estimator over numpy Gaussian clouds, as the JAX harness does.
+
+Not ported here: the tracer (``trace_dir``, slice 8), chaos injection
+and self-healing retries (``chaos``, ``heal_retries``, slice 7) and the
+mesh runner.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import functools
+import json
 import time
+from typing import Optional
 
 import numpy as np
 import torch
 
 from tuplewise_tpu_torch.data.synthetic import make_gaussians, true_gaussian_auc
 from tuplewise_tpu_torch.estimators import variance as closed
-from tuplewise_tpu_torch.ops import pair_kernels, pair_tiles
+from tuplewise_tpu_torch.estimators.estimator import Estimator
+from tuplewise_tpu_torch.ops import device_design, pair_kernels, rank_count
 from tuplewise_tpu_torch.ops.kernels import get_kernel
 from tuplewise_tpu_torch.parallel.device_partition import draw_blocks
+from tuplewise_tpu_torch.utils.checkpoint import (
+    iter_chunks, resume_progress, save_checkpoint,
+)
 from tuplewise_tpu_torch.utils.device import resolve_device
 from tuplewise_tpu_torch.utils.rng import generator
 
 SCHEMES = ("complete", "local", "repartitioned", "incomplete")
+# reps a generator draws for at once (see the module docstring): a
+# constant, so that the reps' values do not depend on the run's size
+REP_BLOCK = 64
+# the closed form's plug-in zetas come from one Gaussian sample of at most
+# this many rows a class (the float64 moments cost n1 * n2 on the CPU)
+_ZETA_N = 10_000
 
 
 @dataclasses.dataclass(frozen=True)
@@ -46,11 +75,14 @@ class VarianceConfig:
     scheme: str = "complete"          # complete | local | repartitioned | incomplete
     n_pos: int = 10_000
     n_neg: int = 10_000
+    dim: int = 1                      # feature width of the triplet clouds
     separation: float = 1.0
     n_workers: int = 8
     n_rounds: int = 1                 # T (repartitioned)
     n_pairs: int = 10_000             # B (incomplete)
     design: str = "swr"               # incomplete tuple design
+    # one frozen dataset, Monte-Carlo over the sampling randomness only
+    fix_data: bool = False
     partition_scheme: str = "swor"
     n_reps: int = 100                 # M Monte-Carlo repetitions
     seed: int = 0
@@ -64,9 +96,10 @@ def _validate(cfg: VarianceConfig) -> None:
         raise ValueError(
             f"unknown scheme {cfg.scheme!r}; choose one of {SCHEMES}"
         )
-    if get_kernel(cfg.kernel).kind != "diff":
+    if get_kernel(cfg.kernel).kind not in ("diff", "triplet"):
         raise NotImplementedError(
-            "the port's harness runs score-difference kernels only"
+            "the port's harness runs score-difference and triplet kernels "
+            "only"
         )
     if (cfg.scheme in ("local", "repartitioned")
             and cfg.n_workers > min(cfg.n_pos, cfg.n_neg)):
@@ -75,26 +108,98 @@ def _validate(cfg: VarianceConfig) -> None:
             f"size ({cfg.n_pos}, {cfg.n_neg}); every worker needs at "
             f"least one row per class"
         )
-    if cfg.scheme == "incomplete" and cfg.design != "swr":
-        raise NotImplementedError(
-            f"design={cfg.design!r} is not ported yet; only 'swr' runs"
-        )
+    if cfg.design not in device_design.DESIGNS:
+        raise ValueError(f"unknown sampling design {cfg.design!r}; "
+                         f"choose one of {device_design.DESIGNS}")
 
 
-def batched_estimates(cfg: VarianceConfig, device=None) -> torch.Tensor:
-    """[n_reps] float64 estimates of cfg's scheme, every rep batched."""
+def _looped(cfg: VarianceConfig) -> bool:
+    """Degree-3 schemes other than incomplete loop the Estimator."""
+    return (get_kernel(cfg.kernel).kind == "triplet"
+            and cfg.scheme != "incomplete")
+
+
+def _draw_data(cfg: VarianceConfig, g: torch.Generator, batch=()):
+    """Datasets from ``g`` ([*batch] of them, one normal draw): scores
+    [n] for diff kernels, Gaussian clouds [n, dim] for triplet kernels;
+    the first class shifted by ``separation``."""
+    feat = () if get_kernel(cfg.kernel).kind == "diff" else (cfg.dim,)
+    Z = torch.randn((*batch, cfg.n_pos + cfg.n_neg, *feat), generator=g,
+                    device=g.device)
+    X, Y = Z.split([cfg.n_pos, cfg.n_neg], dim=len(batch))
+    return X + cfg.separation, Y
+
+
+def fixed_dataset(cfg: VarianceConfig, device=None):
+    """The frozen arrays a fix_data=True run on ``device`` draws, as
+    numpy: the same generator and the same calls as the runner, so a
+    results audit computes exact conditional closed forms on the very
+    dataset. torch's generators differ between the CPU and the card, so
+    the device is part of the dataset's identity."""
+    dev = resolve_device(device)
+    X, Y = _draw_data(cfg, generator(cfg.seed, "data_fixed", device=dev))
+    return X.cpu().numpy(), Y.cpu().numpy()
+
+
+def _rows(X: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Per-rep rows: X [M, n, d], idx [M, B] -> [M, B, d]."""
+    return X.gather(1, idx[..., None].expand(-1, -1, X.shape[-1]))
+
+
+def batched_estimates(cfg: VarianceConfig, device=None,
+                      reps=None) -> torch.Tensor:
+    """[len(reps)] float64 estimates of cfg's scheme for the reps of the
+    range ``reps`` (default range(cfg.n_reps)), every rep batched."""
     _validate(cfg)
+    if _looped(cfg):
+        raise ValueError(f"the {cfg.scheme} degree-3 scheme is looped; "
+                         "use run_variance_experiment")
     dev = resolve_device(device)
     kernel = get_kernel(cfg.kernel)
-    M, n1, n2, N = cfg.n_reps, cfg.n_pos, cfg.n_neg, cfg.n_workers
-    g = generator(cfg.seed, "data", device=dev)
-    s1 = torch.randn(M, n1, generator=g, device=dev) + cfg.separation
-    s2 = torch.randn(M, n2, generator=g, device=dev)
+    reps = range(cfg.n_reps) if reps is None else reps
+    M, n1, n2, N = len(reps), cfg.n_pos, cfg.n_neg, cfg.n_workers
+    B, first = REP_BLOCK, reps.start // REP_BLOCK
+    # every chunk that touches block k draws it whole: the chain is
+    # shared by design, so the key audit does not record it
+    gens = [generator(cfg.seed, "mc_rep", k, device=dev, record=False)
+            for k in range(first, -(-reps.stop // B))]
+    rows = slice(reps.start - first * B, reps.stop - first * B)
 
-    def local_round(t):
-        gen = generator(cfg.seed, "partition", t, device=dev)
-        i1 = draw_blocks(gen, n1, N, cfg.partition_scheme, batch=(M,))
-        i2 = draw_blocks(gen, n2, N, cfg.partition_scheme, batch=(M,))
+    def draw(fn):
+        """fn(g) -> a tensor or tuple of tensors [B, ...] for each block's
+        generator; the chunk's rows of the blocks' draws."""
+        outs = [fn(g) for g in gens]
+        if not isinstance(outs[0], tuple):
+            outs = [(o,) for o in outs]
+        cat = [x[0] if len(gens) == 1 else torch.cat(x) for x in zip(*outs)]
+        return tuple(x[rows] for x in cat)
+
+    if cfg.fix_data:
+        X, Y = _draw_data(cfg, generator(cfg.seed, "data_fixed", device=dev))
+        s1, s2 = X.expand(M, *X.shape), Y.expand(M, *Y.shape)
+    else:
+        s1, s2 = draw(lambda g: _draw_data(cfg, g, (B,)))
+
+    if cfg.scheme == "incomplete":
+        # floor_one: estimation semantics (bernoulli's size is >= 1)
+        if kernel.kind == "triplet":
+            i, j, k, w = draw(
+                lambda g: device_design.draw_triplet_design_device(
+                    g, n1, n2, cfg.n_pairs, cfg.design, floor_one=True,
+                    batch=(B,)))
+            vals = kernel.triplet_values(_rows(s1, i), _rows(s1, j),
+                                         _rows(s2, k))
+        else:
+            i, j, w = draw(lambda g: device_design.draw_pair_design_device(
+                g, n1, n2, cfg.n_pairs, cfg.design, floor_one=True,
+                batch=(B,)))
+            vals = kernel.diff(s1.gather(1, i) - s2.gather(1, j))
+        return device_design.weighted_mean(vals, w)
+
+    def local_round():
+        i1, i2 = draw(lambda g: (
+            draw_blocks(g, n1, N, cfg.partition_scheme, batch=(B,)),
+            draw_blocks(g, n2, N, cfg.partition_scheme, batch=(B,))))
         m1, m2 = i1.shape[-1], i2.shape[-1]
         b1 = torch.gather(s1, 1, i1.reshape(M, N * m1)).reshape(M * N, m1)
         b2 = torch.gather(s2, 1, i2.reshape(M, N * m2)).reshape(M * N, m2)
@@ -102,16 +207,27 @@ def batched_estimates(cfg: VarianceConfig, device=None) -> torch.Tensor:
         return (sums / float(m1 * m2)).reshape(M, N).mean(dim=1)
 
     if cfg.scheme == "complete":
-        return pair_kernels.pair_sum(s1, s2, kernel) / float(n1 * n2)
+        return pair_kernels.pair_sum(s1.contiguous(), s2.contiguous(),
+                                     kernel) / float(n1 * n2)
     if cfg.scheme == "local":
-        return local_round(0)
-    if cfg.scheme == "repartitioned":
-        return sum(local_round(t) for t in range(cfg.n_rounds)) / cfg.n_rounds
-    gen = generator(cfg.seed, "pairs", device=dev)
-    i, j = pair_tiles.sample_pair_indices(gen, n1, n2, cfg.n_pairs, False,
-                                          batch=(M,))
-    vals = kernel.diff(torch.gather(s1, 1, i) - torch.gather(s2, 1, j))
-    return vals.mean(dim=1, dtype=torch.float64)
+        return local_round()
+    return sum(local_round() for _ in range(cfg.n_rounds)) / cfg.n_rounds
+
+
+def _estimate_once(est: Estimator, cfg: VarianceConfig, rep: int) -> float:
+    """One looped degree-3 estimate: numpy Gaussian clouds of rep (the
+    JAX harness's data, seed ``cfg.seed * 1_000_003 + rep``, or + 0 with
+    fix_data) through the public Estimator."""
+    X, Y = make_gaussians(
+        cfg.n_pos, cfg.n_neg, cfg.dim, cfg.separation,
+        seed=cfg.seed * 1_000_003 + (0 if cfg.fix_data else rep),
+    )
+    if cfg.scheme == "complete":
+        return est.complete(X, Y)
+    if cfg.scheme == "local":
+        return est.local_average(X, Y, seed=rep, scheme=cfg.partition_scheme)
+    return est.repartitioned(X, Y, n_rounds=cfg.n_rounds, seed=rep,
+                             scheme=cfg.partition_scheme)
 
 
 @functools.lru_cache(maxsize=16)
@@ -120,11 +236,30 @@ def _zetas(kernel: str, n_pos: int, n_neg: int, separation: float, seed: int):
     return closed.two_sample_zetas(kernel, X[:, 0], Y[:, 0])
 
 
-def closed_form_variance(cfg: VarianceConfig) -> float:
-    """The Hoeffding closed form of cfg's scheme, from plug-in zetas of
-    one Gaussian sample of cfg's sizes."""
-    z = _zetas(cfg.kernel, cfg.n_pos, cfg.n_neg, cfg.separation, cfg.seed)
+def closed_form_variance(cfg: VarianceConfig, device=None) -> Optional[float]:
+    """The closed form of cfg's scheme, or None where the port has none
+    (triplet kernels; fix_data schemes other than incomplete).
+
+    Unconditional runs: the Hoeffding form from plug-in zetas of one
+    Gaussian sample of min(n, 10^4) rows a class (zetas are population
+    quantities; the sample's own error is a few percent). fix_data
+    incomplete runs: the EXACT conditional form of the design from the
+    grid variance of the kernel on the frozen dataset (drawn on
+    ``device``), with G = n_pos * n_neg: float64 moments over the whole
+    grid on the CPU, which fix_data's small datasets afford.
+    """
+    if get_kernel(cfg.kernel).kind != "diff":
+        return None
     n1, n2 = cfg.n_pos, cfg.n_neg
+    if cfg.fix_data:
+        if cfg.scheme != "incomplete":
+            return None
+        s1, s2 = fixed_dataset(cfg, device)
+        grid_var = closed.two_sample_zetas(cfg.kernel, s1, s2)[2]
+        return closed.conditional_incomplete_variance(
+            grid_var, n1 * n2, n_pairs=cfg.n_pairs, design=cfg.design)
+    z = _zetas(cfg.kernel, min(n1, _ZETA_N), min(n2, _ZETA_N),
+               cfg.separation, cfg.seed)
     if cfg.scheme == "complete":
         return closed.two_sample_variance_from_zetas(z, n1, n2)
     if cfg.scheme == "local":
@@ -137,30 +272,129 @@ def closed_form_variance(cfg: VarianceConfig) -> float:
         z, n1, n2, n_pairs=cfg.n_pairs, design=cfg.design)
 
 
-def run_variance_experiment(cfg: VarianceConfig, device=None) -> dict:
-    """M-rep Monte-Carlo: mean, empirical variance and wall-clock of the
-    batched run, beside the closed-form variance. The kernels are built
-    before the clock starts, and the clock stops after a synchronize."""
+def run_variance_experiment(
+    cfg: VarianceConfig,
+    checkpoint_path: Optional[str] = None,
+    checkpoint_every: Optional[int] = None,
+    trace_dir: Optional[str] = None,
+    chaos=None,
+    heal_retries: int = 0,
+    *,
+    device=None,
+) -> dict:
+    """M-rep Monte-Carlo: mean, empirical variance and wall-clock, beside
+    the closed-form variance (None where there is none), the config and
+    a ``recovery`` block (the rep a resumed run started from).
+
+    Checkpoint/resume: with ``checkpoint_path``, reps run in chunks of
+    ``checkpoint_every`` and the estimates so far persist after each
+    chunk; an existing checkpoint resumes from its saved rep count
+    (cfg.n_reps may grow across resumes; every other field must match).
+    Accumulated wall-clock carries across resumes. The kernels are built
+    before the clock starts, and each chunk's clock stops after its
+    estimates reach the host.
+
+    ``trace_dir`` (the tracer, slice 8), ``chaos`` and ``heal_retries``
+    (chaos injection and self-healing retries, slice 7) raise
+    NotImplementedError.
+    """
+    if trace_dir is not None:
+        raise NotImplementedError("trace_dir: the tracer is not ported yet "
+                                  "(slice 8)")
+    if chaos is not None or heal_retries:
+        raise NotImplementedError("chaos and heal_retries: chaos injection "
+                                  "and self_heal are not ported yet "
+                                  "(slice 7)")
     _validate(cfg)
     dev = resolve_device(device)
+    looped = _looped(cfg)
+    start, ck = resume_progress(checkpoint_path, cfg.to_json(),
+                                progress_key="n_reps", requested=cfg.n_reps)
+    parts, wallclock = [], 0.0
+    if ck is not None:
+        parts = [ck["extra"]["estimates"]]
+        wallclock = float(ck["extra"]["wallclock_s"])
     if dev.type == "cuda":
         pair_kernels.load_library()
-    t0 = time.perf_counter()
-    est = batched_estimates(cfg, dev)
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
-    seconds = time.perf_counter() - t0
-    est = est.cpu().numpy()
+        rank_count.load_library()
+    est = (Estimator(cfg.kernel, device=dev, n_workers=cfg.n_workers)
+           if looped else None)
+    for m, chunk in iter_chunks(start, cfg.n_reps, checkpoint_every):
+        reps = range(m, m + chunk)
+        t0 = time.perf_counter()
+        if looped:
+            out = np.asarray([_estimate_once(est, cfg, r) for r in reps])
+        else:
+            out = batched_estimates(cfg, dev, reps).cpu().numpy()
+        wallclock += time.perf_counter() - t0
+        parts.append(out)
+        if checkpoint_path:
+            save_checkpoint(
+                checkpoint_path, step=m + chunk,
+                extra={"estimates": np.concatenate(parts),
+                       "wallclock_s": np.asarray(wallclock)},
+                config=cfg.to_json(),
+            )
+    est = np.concatenate(parts) if parts else np.empty(0)
     result = {
         "config": cfg.to_json(),
         "device": str(dev),
         "mean": float(np.mean(est)),
         "variance": float(np.var(est, ddof=1)),
         "std_error": float(np.std(est, ddof=1) / np.sqrt(cfg.n_reps)),
-        "closed_form_variance": closed_form_variance(cfg),
-        "wallclock_s": seconds,
+        "closed_form_variance": closed_form_variance(cfg, dev),
+        "wallclock_s": wallclock,
         "n_reps": cfg.n_reps,
+        "batched": not looped,
+        "recovery": {"resumed_from": int(start)},
     }
-    if cfg.kernel == "auc":
+    if cfg.kernel == "auc" and cfg.dim == 1:
         result["population_value"] = true_gaussian_auc(cfg.separation)
     return result
+
+
+# --------------------------------------------------------------------- #
+# trade-off curves: the trade-off in the paper's title                  #
+# --------------------------------------------------------------------- #
+
+def tradeoff_vs_rounds(cfg: VarianceConfig, rounds=(1, 2, 4, 8, 16), *,
+                       device=None):
+    """Variance (and wall-clock) vs the number of repartitions T: the
+    communication-buys-variance curve."""
+    return [run_variance_experiment(
+        dataclasses.replace(cfg, scheme="repartitioned", n_rounds=T),
+        device=device) for T in rounds]
+
+
+def tradeoff_vs_pairs(cfg: VarianceConfig,
+                      pairs=(100, 1000, 10_000, 100_000), *, device=None):
+    """Variance vs the sampled-tuple budget B."""
+    return [run_variance_experiment(
+        dataclasses.replace(cfg, scheme="incomplete", n_pairs=B),
+        device=device) for B in pairs]
+
+
+def tradeoff_vs_workers(cfg: VarianceConfig, workers=(2, 8, 32), *,
+                        device=None):
+    """Local-average variance vs the worker count N: what local averaging
+    costs. The deficit over the complete floor scales ~1/m with m = n/N
+    rows a worker, so sweeps should push N high enough that blocks get
+    small."""
+    bad = [N for N in workers if N > min(cfg.n_pos, cfg.n_neg)]
+    if bad:
+        # validate the whole sweep BEFORE spending compute on any of it
+        raise ValueError(
+            f"worker counts {bad} exceed the per-class sample size "
+            f"({cfg.n_pos}, {cfg.n_neg}); every worker needs at least "
+            f"one row per class"
+        )
+    return [run_variance_experiment(
+        dataclasses.replace(cfg, scheme="local", n_workers=N),
+        device=device) for N in workers]
+
+
+def write_jsonl(results, path: str) -> None:
+    """Append results (a list of dicts) as JSON lines."""
+    with open(path, "a") as f:
+        for r in results:
+            f.write(json.dumps(r) + "\n")

@@ -26,6 +26,11 @@ The same step engine trains S independent replicas at once (params
 with S seeds. Every draw is keyed by the absolute step index
 (``utils.rng``), so a run cut into chunks at any step, with a checkpoint
 between them, reproduces the uncut run bit for bit on the same device.
+
+The budgeted path (``pairs_per_worker``) draws each step's pairs of all N
+workers in one call of ``ops.device_design`` under ``pair_design``
+("swr", "swor" or "bernoulli") and takes sum(vals * w) / max(sum(w), 1)
+a worker. ``train_pairwise_numpy`` is the JAX package's numpy oracle.
 """
 
 from __future__ import annotations
@@ -36,18 +41,17 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from tuplewise_tpu_torch.ops import pair_tiles
+from tuplewise_tpu_torch.ops import device_design, pair_tiles
 from tuplewise_tpu_torch.ops.kernels import Kernel, get_kernel
 from tuplewise_tpu_torch.ops.rank_auc import rank_auc
 from tuplewise_tpu_torch.parallel.device_partition import draw_blocks
+from tuplewise_tpu_torch.parallel.partition import partition_two_sample
 from tuplewise_tpu_torch.utils.checkpoint import (
     iter_chunks, resume_progress, save_checkpoint,
 )
 from tuplewise_tpu_torch.utils.device import resolve_device
 from tuplewise_tpu_torch.utils.rng import derive_seed, generator
 from tuplewise_tpu_torch.utils.state import params_to_state, state_to_params
-
-_DESIGNS = ("swr", "swor", "bernoulli")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -61,8 +65,8 @@ class TrainConfig:
     n_workers: int = 1
     repartition_every: int = 10       # n_r: communication budget knob
     pairs_per_worker: Optional[int] = None  # None = all local pairs
-    # per-worker pair-budget design; the port runs "swr" ("swor" and
-    # "bernoulli" raise NotImplementedError)
+    # per-worker pair-budget design: "swr" | "swor" | "bernoulli", drawn
+    # on the device each step (ops.device_design)
     pair_design: str = "swr"
     scheme: str = "swor"
     seed: int = 0
@@ -97,15 +101,10 @@ def check_config(cfg: TrainConfig) -> Kernel:
             f"(kernel {kernel.name!r} has no diff_grad_fn); use "
             "loss_every=1 or a kernel with diff_grad_fn"
         )
-    if cfg.pairs_per_worker is not None:
-        if cfg.pair_design not in _DESIGNS:
-            raise ValueError(
-                f"unknown pair design {cfg.pair_design!r}; known: {_DESIGNS}")
-        if cfg.pair_design != "swr":
-            raise NotImplementedError(
-                f"pair_design={cfg.pair_design!r} is not ported yet; only "
-                "'swr' runs"
-            )
+    if (cfg.pairs_per_worker is not None
+            and cfg.pair_design not in device_design.DESIGNS):
+        raise ValueError(f"unknown pair design {cfg.pair_design!r}; "
+                         f"known: {device_design.DESIGNS}")
     return kernel
 
 
@@ -127,19 +126,19 @@ def _blocks(cfg, seeds, Xp, Xn, t):
 
 
 def _sampled_pairs(cfg, seeds, t, m1, m2, device):
-    """[S * N, B] pair indices of step t: replica s draws all N workers'
-    pairs from generator (derive_seed(seed, "step", t), "pair_sample"),
-    worker w taking row w."""
-    i, j = [], []
-    for seed in seeds:
-        gen = generator(derive_seed(seed, "step", t), "pair_sample",
-                        device=device)
-        ii, jj = pair_tiles.sample_pair_indices(
-            gen, m1, m2, cfg.pairs_per_worker, False,
+    """[S * N, L] pair indices and {0, 1} weights of step t under
+    cfg.pair_design: replica s draws all N workers' designs in one call
+    from generator (derive_seed(seed, "step", t), "pair_sample"), worker
+    w taking row w. swr repeats ``sample_pair_indices``' draws."""
+    draws = [
+        device_design.draw_pair_design_device(
+            generator(derive_seed(seed, "step", t), "pair_sample",
+                      device=device),
+            m1, m2, cfg.pairs_per_worker, cfg.pair_design,
             batch=(cfg.n_workers,))
-        i.append(ii)
-        j.append(jj)
-    return torch.cat(i), torch.cat(j)
+        for seed in seeds
+    ]
+    return tuple(torch.cat(x) for x in zip(*draws))
 
 
 def sgd_step(scorer, kernel, cfg, params, Ab, Bb, seeds, t, impl=None):
@@ -159,8 +158,11 @@ def sgd_step(scorer, kernel, cfg, params, Ab, Bb, seeds, t, impl=None):
         else:
             vals = pair_tiles.diff_pair_mean_loss_free(kernel, s1, s2, impl)
     else:
-        i, j = _sampled_pairs(cfg, seeds, t, m1, m2, s1.device)
-        vals = kernel.diff(s1.gather(1, i) - s2.gather(1, j)).mean(dim=1)
+        i, j, w = _sampled_pairs(cfg, seeds, t, m1, m2, s1.device)
+        vals = kernel.diff(s1.gather(1, i) - s2.gather(1, j))
+        # max(., 1): an exact small-grid bernoulli draw can realize an
+        # EMPTY design, a zero-weight step, not NaN
+        vals = (vals * w).sum(dim=1) / w.sum(dim=1).clamp_min(1.0)
     loss = vals.reshape(S, N).mean(dim=1)
     grads = torch.autograd.grad(loss.sum(), list(params.values()))
     with torch.no_grad():
@@ -274,6 +276,62 @@ def train_pairwise(
             else np.zeros(0, np.float32))
     return (state_to_params({k: v[0] for k, v in params.items()}),
             {"loss": loss})
+
+
+# --------------------------------------------------------------------- #
+# numpy oracle trainer (parity reference)                               #
+# --------------------------------------------------------------------- #
+
+# the surrogate l(d) and its derivative dl/dd, in numpy: the JAX
+# package's expressions, so the oracle repeats its values bit for bit
+_SURROGATE = {
+    "logistic": lambda d: np.logaddexp(0.0, -d),
+    "hinge": lambda d: np.maximum(0.0, 1.0 - d),
+}
+_SURROGATE_DERIV = {
+    "logistic": lambda d: -1.0 / (1.0 + np.exp(d)),   # -sigmoid(-d)
+    "hinge": lambda d: np.where(d < 1.0, -1.0, 0.0),
+}
+
+
+def train_pairwise_numpy(scorer, params, X_pos: np.ndarray,
+                         X_neg: np.ndarray, cfg: TrainConfig):
+    """Serial float64 oracle (a copy of the JAX package's): the same
+    schedule with analytic full-pair gradients for a LINEAR scorer
+    (params {"w", "b"}), the worker blocks drawn by the host partitioner
+    (``parallel.partition.partition_two_sample``) from
+    ``np.random.default_rng(cfg.seed)`` at every repartition boundary.
+    Returns (params as float64 numpy arrays, {"loss": [steps]})."""
+    assert cfg.kernel in _SURROGATE_DERIV, cfg.kernel
+    assert cfg.pairs_per_worker is None, "oracle trainer uses all pairs"
+    loss_fn, deriv = _SURROGATE[cfg.kernel], _SURROGATE_DERIV[cfg.kernel]
+    params = {k: np.asarray(v, np.float64) for k, v in params.items()}
+    rng = np.random.default_rng(cfg.seed)
+    N = cfg.n_workers
+    losses = []
+    parts = None  # drawn by the t=0 refresh below
+    for t in range(cfg.steps):
+        if t % cfg.repartition_every == 0:
+            parts = partition_two_sample(len(X_pos), len(X_neg), N, rng,
+                                         cfg.scheme)
+        g_w = np.zeros_like(params["w"])
+        g_b = 0.0  # a pairwise loss of s(x) - s(y) has zero bias gradient
+        loss_acc = 0.0
+        for w_idx in range(N):
+            A = X_pos[parts[0][w_idx]]
+            Bm = X_neg[parts[1][w_idx]]
+            s1 = A @ params["w"] + params["b"]
+            s2 = Bm @ params["w"] + params["b"]
+            d = s1[:, None] - s2[None, :]
+            lp = deriv(d)
+            cnt = d.size
+            loss_acc += float(np.mean(loss_fn(d)))
+            # dL/dw = mean_ij l'(d_ij) (x_i - y_j)
+            g_w += (lp.sum(axis=1) @ A + (-lp.sum(axis=0)) @ Bm) / cnt
+        params["w"] = params["w"] - cfg.lr * (g_w / N)
+        params["b"] = params["b"] - cfg.lr * g_b
+        losses.append(loss_acc / N)
+    return params, {"loss": np.asarray(losses)}
 
 
 def split_by_label(X: np.ndarray, y: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:

@@ -8,8 +8,9 @@ the triplet-hinge surrogate
 
 by the distributed schedule of the pairwise learner: each worker holds a
 block of anchors/positives (the target class) and a block of negatives,
-and differentiates the mean surrogate over B triplets it samples with
-replacement each step (i != j by the shift trick, k uniform); the
+and differentiates the mean surrogate over B triplets it samples each
+step under ``triplet_design`` (with replacement, "swr", by default; or
+distinct, "swor" and "bernoulli"; i != j, k over its negatives); the
 gradients are averaged over the workers, and the blocks are redrawn
 every ``repartition_every`` steps.
 
@@ -39,15 +40,13 @@ import torch
 from tuplewise_tpu_torch.estimators.estimator import Estimator
 from tuplewise_tpu_torch.models.pairwise_sgd import to_device_rows
 from tuplewise_tpu_torch.models.scorers import LinearEmbed
-from tuplewise_tpu_torch.ops import pair_tiles
+from tuplewise_tpu_torch.ops import device_design
 from tuplewise_tpu_torch.ops.kernels import Kernel, get_kernel
 from tuplewise_tpu_torch.parallel.device_partition import draw_blocks
 from tuplewise_tpu_torch.utils.checkpoint import resume_progress, save_checkpoint
 from tuplewise_tpu_torch.utils.device import resolve_device
 from tuplewise_tpu_torch.utils.rng import derive_seed, generator
 from tuplewise_tpu_torch.utils.state import params_to_state, state_to_params
-
-_DESIGNS = ("swr", "swor", "bernoulli")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -62,8 +61,8 @@ class TripletTrainConfig:
     n_workers: int = 1
     repartition_every: int = 10
     triplets_per_worker: int = 4096   # B per worker per step
-    # per-worker triplet design; the port runs "swr" ("swor" and
-    # "bernoulli" raise NotImplementedError)
+    # per-worker triplet design: "swr" | "swor" | "bernoulli", drawn on
+    # the device each step (ops.device_design)
     triplet_design: str = "swr"
     scheme: str = "swor"
     seed: int = 0
@@ -102,14 +101,9 @@ def check_config(cfg: TripletTrainConfig) -> Kernel:
             "with 'triplet_hinge' and evaluate with "
             "evaluate_triplet_accuracy"
         )
-    if cfg.triplet_design not in _DESIGNS:
+    if cfg.triplet_design not in device_design.DESIGNS:
         raise ValueError(f"unknown triplet design {cfg.triplet_design!r}; "
-                         f"known: {_DESIGNS}")
-    if cfg.triplet_design != "swr":
-        raise NotImplementedError(
-            f"triplet_design={cfg.triplet_design!r} is not ported yet; only "
-            "'swr' runs"
-        )
+                         f"known: {device_design.DESIGNS}")
     return kernel
 
 
@@ -129,22 +123,24 @@ def _blocks(cfg, Xc, Xo, t):
 
 
 def sample_triplets(cfg, t, m1, m2, device):
-    """(i, j, k) [N, B] triplet indices of step t: i != j by the shift
-    trick within the worker's m1 anchors, k uniform over its m2
-    negatives; worker w takes row w."""
+    """(i, j, k, w) [N, L] triplet indices and {0, 1} weights of step t
+    under cfg.triplet_design, all N workers in one draw of
+    ``ops.device_design``: i != j within the worker's m1 anchors, k over
+    its m2 negatives; worker w takes row w. swr draws i, the shifted j,
+    then k (the historical sequence)."""
     gen = generator(derive_seed(cfg.seed, "step", t), "triplet_sample",
                     device=device)
-    B = cfg.triplets_per_worker
-    i, j = pair_tiles.sample_pair_indices(gen, m1, m1, B, True,
-                                          batch=(cfg.n_workers,))
-    k = torch.randint(0, m2, (cfg.n_workers, B), generator=gen, device=device)
-    return i, j, k
+    return device_design.draw_triplet_design_device(
+        gen, m1, m2, cfg.triplets_per_worker, cfg.triplet_design,
+        batch=(cfg.n_workers,))
 
 
 def sgd_step(embedder, kernel, cfg, params, Ab, Bb, triplets):
     """One step on given blocks Ab [N, m1, d], Bb [N, m2, d] and triplet
-    indices (i, j, k) [N, B]: the loss is the mean over workers of each
-    worker's mean surrogate. Returns (new params, loss as a 0-d tensor)."""
+    indices and weights (i, j, k, w) [N, L]: the loss is the mean over
+    workers of each worker's sum(vals * w) / max(sum(w), 1) (an empty
+    bernoulli draw is a zero-weight step). Returns (new params, loss as
+    a 0-d tensor)."""
     def rows(X, idx):
         return X.gather(1, idx[..., None].expand(-1, -1, X.shape[-1]))
 
@@ -152,13 +148,13 @@ def sgd_step(embedder, kernel, cfg, params, Ab, Bb, triplets):
     # embeds the blocks, then indexes): the backward of an index on the
     # card accumulates with atomics, whose order changes from run to
     # run, and a resumed run must repeat the straight one bit for bit
-    i, j, k = triplets
+    i, j, k, wt = triplets
     xa, xp, xn = rows(Ab, i), rows(Ab, j), rows(Bb, k)   # [N, B, d]
     params = {name: v.detach().requires_grad_() for name, v in params.items()}
     vals = kernel.triplet_values(embedder.embed(params, xa),
                                  embedder.embed(params, xp),
                                  embedder.embed(params, xn))
-    loss = vals.mean(dim=1).mean()
+    loss = ((vals * wt).sum(dim=1) / wt.sum(dim=1).clamp_min(1.0)).mean()
     grads = torch.autograd.grad(loss, list(params.values()))
     with torch.no_grad():
         new = {name: w - cfg.lr * g

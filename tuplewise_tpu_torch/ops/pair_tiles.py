@@ -106,14 +106,6 @@ def sample_pair_indices(gen: torch.Generator, n1: int, n2: int,
     return i, j
 
 
-def incomplete_pair_mean(kernel, gen, A, B, n_pairs: int,
-                         one_sample: bool) -> torch.Tensor:
-    """Mean of h over B tuples drawn with replacement (float64 0-d)."""
-    i, j = sample_pair_indices(gen, A.shape[0], B.shape[0], n_pairs,
-                               one_sample)
-    return kernel.pair_elementwise(A[i], B[j]).mean(dtype=torch.float64)
-
-
 def triplet_stats(
     kernel,
     X: torch.Tensor,
@@ -169,15 +161,6 @@ def triplet_stats(
                 total += (vals * w).sum(dtype=torch.float64)
                 count += (w > 0).sum()
     return total, count
-
-
-def incomplete_triplet_mean(kernel, gen, X, Y, n_pairs: int) -> torch.Tensor:
-    """Mean of h over B triplets drawn with replacement: (i, j) from the
-    off-diagonal of X by the shift trick, k uniform over Y (float64 0-d)."""
-    i, j = sample_pair_indices(gen, X.shape[0], X.shape[0], n_pairs, True)
-    k = torch.randint(0, Y.shape[0], (n_pairs,), generator=gen,
-                      device=gen.device)
-    return kernel.triplet_values(X[i], X[j], Y[k]).mean(dtype=torch.float64)
 
 
 # --------------------------------------------------------------------- #

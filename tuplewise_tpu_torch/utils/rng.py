@@ -7,11 +7,18 @@ with different purposes or indices never share a stream and every run
 is reproducible from one integer seed. torch and jax generators give
 different bits from the same seed: tests that compare the two packages
 feed both the same numpy-made indices, or compare statistically.
+
+``audit_keys()`` is the key-discipline check of the JAX module: inside
+its scope every derived chain (seed, purpose, *indices) is recorded, and
+a chain derived twice (two consumers that would draw the same stream)
+raises ``AssertionError`` at once.
 """
 
 from __future__ import annotations
 
+import contextlib
 import hashlib
+import threading
 
 import torch
 
@@ -31,22 +38,56 @@ PURPOSES = (
     "step",
     "pair_sample",
     "triplet_sample",
+    # the incomplete estimator's distinct designs ("design"); the harness
+    # draws rep block k from (seed, "mc_rep", k) and a fix_data run its
+    # one frozen dataset from (seed, "data_fixed")
+    "design",
+    "data_fixed",
 )
 
+_AUDIT = threading.local()
 
-def derive_seed(seed: int, purpose: str, *indices: int) -> int:
-    """A 63-bit seed for the chain (seed, purpose, *indices)."""
+
+def derive_seed(seed: int, purpose: str, *indices: int,
+                record: bool = True) -> int:
+    """A 63-bit seed for the chain (seed, purpose, *indices).
+
+    ``record=False`` leaves the chain out of an ``audit_keys`` scope: for
+    a chain that several consumers share by design, each taking rows of
+    its draws that no other takes (the harness's rep blocks, which every
+    chunk of a run cut mid-block draws whole)."""
     if purpose not in PURPOSES:
         raise ValueError(f"unknown purpose {purpose!r}; known: {PURPOSES}")
     chain = ":".join([str(int(seed)), purpose, *(str(int(i)) for i in indices)])
+    seen = getattr(_AUDIT, "seen", None)
+    if record and seen is not None:
+        if chain in seen:
+            raise AssertionError(
+                f"key-discipline violation: chain {chain!r} derived twice; "
+                "two consumers would draw identical randomness. Give each "
+                "consumer a distinct purpose or index."
+            )
+        seen.add(chain)
     h = hashlib.sha256(chain.encode()).digest()
     return int.from_bytes(h[:8], "big") >> 1
 
 
-def generator(seed: int, purpose: str, *indices: int,
-              device="cpu") -> torch.Generator:
+def generator(seed: int, purpose: str, *indices: int, device="cpu",
+              record: bool = True) -> torch.Generator:
     """A fresh generator on ``device`` for the chain (seed, purpose,
-    *indices)."""
+    *indices); ``record``: see :func:`derive_seed`."""
     g = torch.Generator(device=device)
-    g.manual_seed(derive_seed(seed, purpose, *indices))
+    g.manual_seed(derive_seed(seed, purpose, *indices, record=record))
     return g
+
+
+@contextlib.contextmanager
+def audit_keys():
+    """``with audit_keys(): ...`` — raise on any chain derived twice
+    inside the scope (nested scopes share the outer record)."""
+    prev = getattr(_AUDIT, "seen", None)
+    _AUDIT.seen = set() if prev is None else prev
+    try:
+        yield
+    finally:
+        _AUDIT.seen = prev
