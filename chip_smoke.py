@@ -258,12 +258,41 @@ nonzero. Each phase prints its seconds.
    with triplet_design="swor": above each seed's initial accuracy.
    (e) graft_entry (the logistic pair mean of a LinearScorer(dim=16) on
    two [2048, 16] blocks) against its plain version, within rel 1e-5.
+24. Mesh ring (BASELINE config 5): Estimator(backend="mesh") on the
+   card's worker axis of N = 8 (LocalComm). Complete auc and hinge at n
+   = 10^7 a class, full (every stop kernel 1) and ragged (10^7 + 3 and
+   10^7 - 5: every stop kernel 2), each call exactly 8 launches (one
+   batched launch a stop): the auc equal to rank_auc's exact count
+   (2 wins + ties) over 2 n1 n2, correctly rounded, and within one ulp
+   of rank_auc's value (whose division on the card multiplies by a
+   reciprocal), the hinge within
+   rel 1e-10 of the single-device complete (float64 sums of the same
+   float32 terms, grouped by other tiles); the (2, 4) mesh's ragged auc
+   equal to the 1-D value; logistic at 2^20 a class within rel 1e-6 of
+   the single-device complete; impl="plain" against the kernels on the
+   same ring at n = 10^5 a class, full and ragged, on edge values and on
+   lattice ties with +inf in a and -inf in b: auc and non-finite values
+   equal, finite sums within rel 1e-5; the triplet indicator and hinge
+   at n = 4096, d = 32 through the double ring (64 stops, 64 launches of
+   kernel 5), the indicator equal to the single-device complete, the
+   hinge within rel 1e-6; local, repartitioned (T = 4) and incomplete
+   (swr, swor, B = 10^4) at n = 10^6, each within 5 standard errors
+   (over 8 seeds) of the complete value; a one-rank NCCL group
+   (DistComm, a file:// store) whose complete auc equals the worker axis
+   of N = 1, and, on a machine of two or more cards, one rank a card
+   against the worker axis of that N (the world size is printed). Then,
+   after the launch counts are read, the timing: the ring's complete ms
+   (CUDA events) and pairs/s at 10^7 beside the single-device complete,
+   a stop's kernel and rotation ms (CUDA events; device time by kernel
+   from torch.profiler where the profile captures any), the logistic
+   ring at 2^20.
 
 The launch counters are set to 0 before phase 3 and read after phase 4,
 set to 0 again before phase 7 and read after it, before phase 12 and
 after it, before phase 14 and after it, before phase 17 and after it,
 before phase 18 and after it, before each of phases 21, 21b and 22 and
-after it, and before phase 23 and after it: every kernel must have been
+after it, before phase 23 and after it, and before phase 24 and after
+its estimator calls (before its timing): every kernel must have been
 launched on its path (pair sums on the estimator's, gradient kernels on
 the trainer's, the triplet kernel on the degree-3 estimator's and on the
 triplet learner's evaluations, the count kernel on the serving index's
@@ -271,7 +300,9 @@ and the engine's, the tenant count kernel on the fleet's and the fleet
 engine's, kernel 6 on the promoted whales'; on the designs' path, kernel
 1's auc body in the trade-off curves, its logistic body in graft_entry
 and kernel 5's indicator in the looped degree-3 harness and the triplet
-learner's evaluations). The script prints one JSON line of kernels,
+learner's evaluations; on the mesh's path kernels 1 and 2 for auc,
+hinge and logistic and kernel 5 for both triplet kernels). The script
+prints one JSON line of kernels,
 the card's name and power limit as nvidia-smi reports them, and, last,
 {"ok": true, "device": {...}}. Without a CUDA device, or without the
 package beside it, it exits nonzero and prints no result.
@@ -383,6 +414,10 @@ FLEET_EVENTS, FLEET_TENANTS, FLEET_SKEW = 1_000_000, 1024, 1.1
 FLEET_CHUNK, FLEET_COMPACT, FLEET_WARM_EVENTS = 256, 128, 1 << 16
 INCR_EVENTS, INCR_TENANTS, INCR_WHALE, INCR_WINDOW = 40_000, 256, 1500, 2048
 FLEET_ENGINE_EVENTS = 300_000
+# config 5 (BASELINE.json): cross-shard all-pairs on 8 shards at n = 10^7;
+# the ragged shape pads every shard
+MESH_WORKERS, MESH_N = 8, 10 ** 7
+MESH_RAGGED = (MESH_N + 3, MESH_N - 5)
 
 
 def log(*a):
@@ -1346,6 +1381,67 @@ def masked_pair_library(name, a, b, ma, mb):
     lo = cw.gather(1, torch.searchsorted(sb, a))
     hi = cw.gather(1, torch.searchsorted(sb, a, right=True))
     return (ma.double() * (lo + 0.5 * (hi - lo))).sum(1)
+
+
+def hinge_stop_gap(a, b, ma, mb, tile):
+    """[W]: the largest |route - yardstick| of a hinge stop of the ring:
+    kernel 1's or kernel 2's sort-and-search route (b in tiles of `tile`
+    values) against hinge_sum_library or masked_pair_library("hinge"), on
+    finite [W, n1] x [W, n2] scores with {0, 1} masks ma, mb. Both add the
+    float64 terms (1 - a_i) + b_j, weighted by ma_i mb_j, over the pairs
+    each selects, so they differ by
+    (1) the pairs only one selects. The route keeps fl(a_i - b_j) < 1, the
+    yardstick b_j > fl(a_i - 1). If the route keeps a pair the yardstick
+    drops, a_i - b_j < 1 and b_j <= fl(a_i - 1), so 0 < 1 - a_i + b_j <=
+    half an ulp of fl(a_i - 1); in the other case fl(a_i - b_j) >= 1 puts
+    a_i - b_j at or past 1 - 2^-25, and b_j > fl(a_i - 1) puts 1 - a_i +
+    b_j above minus that half ulp. Such a pair adds at most e_i = max(half
+    an ulp of fl(a_i - 1), 2^-25) and lies in the window |b_j - (a_i - 1)|
+    <= e_i (counted over 2 e_i, wide of float64's own rounding);
+    (2) float64 rounding: a sum in any order errs by at most its depth of
+    additions times 2^-53 of the sum of the magnitudes. The route's depth
+    is a tile's suffix sum, a chunk of a's rows and the fixed-order sum of
+    the tiles x chunks partials (ops/rank_count.py), the yardstick's the
+    cumsum over b and the sum over a, each with a few products and adds;
+    the magnitudes |ma_i| (|1 - a_i| sum |mb_j| + sum |mb_j b_j|) over the
+    pairs of either selection (b_j >= a_i - 1 - 2 e_i)."""
+    from tuplewise_tpu_torch.ops import rank_count
+
+    W, n1 = a.shape
+    n2 = b.shape[1]
+    chunk = rank_count.load_library().tw_rank_sum_chunk(tile)
+    depth = (tile + chunk + -(-n2 // tile) * -(-n1 // chunk) + 8) + (n1 + n2
+                                                                      + 8)
+    e = torch.clamp_min(half_ulp(a - 1.0), 2.0 ** -25)
+    centre = a.double() - 1.0
+    sb, order = torch.sort(b.double(), dim=1)
+    wb = mb.gather(1, order).double().abs()
+    zero = torch.zeros(W, 1, dtype=torch.float64, device=a.device)
+    cw = torch.cat([zero, torch.cumsum(wb, dim=1)], 1)
+    cwb = torch.cat([zero, torch.cumsum(wb * sb.abs(), dim=1)], 1)
+    lo = torch.searchsorted(sb, centre - 2 * e)
+    hi = torch.searchsorted(sb, centre + 2 * e, right=True)
+    wa = ma.double().abs()
+    window = (wa * e * (cw.gather(1, hi) - cw.gather(1, lo))).sum(1)
+    mag = (wa * ((1.0 - a.double()).abs() * (cw[:, -1:] - cw.gather(1, lo))
+                 + (cwb[:, -1:] - cwb.gather(1, lo)))).sum(1)
+    return (window + depth * 2.0 ** -53 * mag) * (1 + 1e-6)
+
+
+def logistic_stop_rel():
+    """The largest relative |kernel - plain| of kernel 1's logistic body
+    on finite scores (every term positive): the kernel adds its float32
+    terms in float32, a thread's row over a column tile, then its rows,
+    then the warp's and the block's shuffles, at most tile_b + tile_a
+    additions deep, each within 2^-24 of the running sum; then float64
+    partials. A term of either side is within 32 units in 2^-24 of the
+    true body (csrc/pair_sum.cu: two expf and their product, the log1p
+    within 4 units; plain's exp and log1p; both sides' fl(a - b)), so 64
+    covers the two. The worst case, far above the errors a run shows."""
+    from tuplewise_tpu_torch.ops import pair_kernels as pk
+
+    lib = pk.load_library()
+    return (lib.tile_b + lib.tile_a + 64) * 2.0 ** -24 + 1e-12
 
 
 def hinge_sum_bound_ms(n1, n2, W):
@@ -3350,6 +3446,364 @@ def phase_designs(data, triplet_main):
     return out
 
 
+# --------------------------------------------------------------------- #
+# slice 13: the multi-worker ring (BASELINE config 5)                    #
+# --------------------------------------------------------------------- #
+
+def mesh_rank(rank, world, store, device, n, seed, out_dir):
+    """One rank of a distributed mesh (DistComm, one worker a rank):
+    brings up the group, computes the complete auc of the seeded data
+    and writes it to out_dir/<rank>.json."""
+    from tuplewise_tpu_torch import Estimator
+    from tuplewise_tpu_torch.parallel import distributed
+    from tuplewise_tpu_torch.parallel.mesh import make_mesh
+
+    import torch.distributed as dist
+
+    assert distributed.initialize(num_processes=world, process_id=rank,
+                                  device=device, init_method=store)
+    try:
+        mesh = make_mesh(distributed=True, device=device)
+        s1, s2 = mesh_rank_data(n, seed, mesh.device)
+        val = Estimator("auc", backend="mesh", mesh=mesh,
+                        device=device).complete(s1, s2)
+        with open(os.path.join(out_dir, f"{rank}.json"), "w") as f:
+            json.dump({"rank": rank, "auc": val}, f)
+        dist.barrier()      # no rank tears down while a peer still talks
+    finally:
+        dist.destroy_process_group()
+
+
+def mesh_rank_data(n, seed, device):
+    """Scores of (n + 3, n - 5) rows made on the CPU from ``seed``, so
+    every rank and the worker axis hold the same data."""
+    g = torch.Generator().manual_seed(seed)
+    return ((torch.randn(n + 3, generator=g) + 1.0).to(device),
+            torch.randn(n - 5, generator=g).to(device))
+
+
+def mesh_ranks(world, device, n=10_000, seed=SEED + 25):
+    """The complete auc of one rank a worker (``world`` processes, one
+    card each on the card) against the worker axis of the same N:
+    returns the value, equal on every rank and to the worker axis."""
+    import torch.multiprocessing as mp
+
+    from tuplewise_tpu_torch import Estimator
+
+    with tempfile.TemporaryDirectory() as tmp:
+        store = f"file://{tmp}/store"
+        mp.spawn(mesh_rank, args=(world, store, device, n, seed, tmp),
+                 nprocs=world, join=True)
+        vals = []
+        for r in range(world):
+            with open(os.path.join(tmp, f"{r}.json")) as f:
+                vals.append(json.load(f)["auc"])
+    s1, s2 = mesh_rank_data(n, seed, device)
+    want = Estimator("auc", backend="mesh", n_workers=world,
+                     device=device).complete(s1, s2)
+    assert vals == [want] * world, (vals, want)
+    return want
+
+
+def check_hinge_stop(s1, s2, mesh, label, reference):
+    """One stop of the hinge ring at config 5's shape, the blocks the
+    ring's first stop gives the kernel: kernel 1 (full) against
+    hinge_sum_library, or kernel 2 (ragged) against masked_pair_library,
+    each worker's sum within hinge_stop_gap. The launches go through
+    `reference` (kept out of the mesh path's count). Returns the largest
+    |kernel - yardstick| and its gap, relative to the sums."""
+    from tuplewise_tpu_torch.ops import pair_kernels as pk
+    from tuplewise_tpu_torch.ops import rank_count
+    from tuplewise_tpu_torch.ops.kernels import get_kernel
+    from tuplewise_tpu_torch.parallel.device_partition import pack_blocks
+
+    k = get_kernel("hinge")
+    pa, ma, _ = pack_blocks(s1, mesh)
+    pb, mb, _ = pack_blocks(s2, mesh)
+    if label == "full":
+        got = reference(lambda: pk.pair_sum(pa, pb, k))
+        want = hinge_sum_library(pa, pb)
+        tile = rank_count.grad_tile_size(pb.shape[1])
+    else:
+        got = reference(lambda: pk.masked_pair_sum(pa, pb, ma, mb, k))
+        want = masked_pair_library("hinge", pa, pb, ma, mb)
+        tile = rank_count.masked_tile_size(pb.shape[1], True)
+    gap = hinge_stop_gap(pa, pb, ma, mb, tile)
+    err = (got - want).abs()
+    assert bool((err <= gap).all()), (label, err.tolist(), gap.tolist())
+    rel = float((err / want.abs()).max())
+    rel_gap = float((gap / want.abs()).max())
+    log(f"[mesh] hinge stop {label} {list(pa.shape)} x {list(pb.shape)} "
+        f"({-(-pb.shape[1] // tile)} tiles of {tile}) against the sort + "
+        f"cumsum + searchsorted yardstick: largest rel diff {rel:.3g}, "
+        f"derived gap {rel_gap:.3g}")
+    return dict(rel_diff=rel, rel_gap=rel_gap, tiles=-(-pb.shape[1] // tile))
+
+
+def phase_mesh():
+    """Phase 24: config 5's ring on the card's worker axis (N = 8
+    workers, LocalComm) through Estimator(backend="mesh"): complete auc
+    and hinge at n = 10^7 a class, full (kernel 1 at every stop) and
+    ragged (kernel 2), each complete call 8 launches; the auc equal to
+    rank_auc's exact count over 2 n1 n2, the hinge within rel 1e-10 of
+    the single-device complete, and one hinge stop at [8, 1.25e6] held
+    to its sort + cumsum + searchsorted yardstick (check_hinge_stop);
+    the 2-D (2, 4) mesh's ragged auc equal to the 1-D value; logistic at
+    2^20 within rel 1e-6 of the single-device complete, and one stop at
+    [8, 2^17] against plain; impl="plain" against the kernels at n =
+    10^5 on edge values and on ties with infinities; the triplet double
+    ring (64 stops) at n = 4096, d = 32;
+    local, repartitioned (T = 4) and incomplete (swr, swor, B = 10^4)
+    at n = 10^6 within 5 standard errors (8 seeds) of the complete value;
+    a one-rank NCCL group (DistComm) equal to the worker axis of N = 1,
+    and one rank a card where there are two or more. The launch counts
+    are read after these calls, less the references' own launches
+    (single-device calls, the stops against their yardsticks, the N = 1
+    worker axis); then the timing: the ring's complete ms
+    and pairs/s, a stop's kernel and rotation ms (CUDA events, and
+    device time by kernel from torch.profiler where it captures any) and
+    the single-device complete. Returns (numbers, launches)."""
+    import torch.distributed as dist
+
+    from tuplewise_tpu_torch import Estimator
+    from tuplewise_tpu_torch.ops import pair_kernels as pk
+    from tuplewise_tpu_torch.ops.kernels import get_kernel
+    from tuplewise_tpu_torch.ops.rank_auc import rank_auc, rank_auc_counts
+    from tuplewise_tpu_torch.parallel import distributed
+    from tuplewise_tpu_torch.parallel.device_partition import pack_blocks
+    from tuplewise_tpu_torch.parallel.mesh import make_mesh, make_mesh_2d
+
+    N, n = MESH_WORKERS, MESH_N
+    g = torch.Generator(device="cuda").manual_seed(SEED + 24)
+    out = {"workers": N, "n": n}
+
+    def launched(fn):
+        before = dict(pk.LAUNCHES)
+        val = fn()
+        return val, {k: v - before.get(k, 0) for k, v in pk.LAUNCHES.items()
+                     if v - before.get(k, 0)}
+
+    # the references' own launches (single-device calls, the stops held
+    # against their yardsticks, the N = 1 worker axis), kept out of the
+    # mesh path's count
+    refs = {}
+
+    def reference(fn):
+        val, delta = launched(fn)
+        for k, v in delta.items():
+            refs[k] = refs.get(k, 0) + v
+        return val
+
+    def scores(n1, n2):
+        return (torch.randn(n1, generator=g, device="cuda") + 1.0,
+                torch.randn(n2, generator=g, device="cuda"))
+
+    # 1. complete auc and hinge at config 5's size, full and ragged
+    mesh = make_mesh(N)
+    data = {"full": scores(n, n), "ragged": scores(*MESH_RAGGED)}
+    for label, (s1, s2) in data.items():
+        wrapper = "pair_sum" if label == "full" else "masked_pair_sum"
+        for name in ("auc", "hinge"):
+            est = Estimator(name, backend="mesh", n_workers=N)
+            val, delta = launched(lambda: est.complete(s1, s2))
+            assert delta == {f"{wrapper}[{name}]": N}, (name, label, delta)
+            if name == "auc":
+                # rank_auc's exact count, correctly rounded (its own
+                # division on the card multiplies by a reciprocal)
+                twice = int(reference(lambda: rank_auc_counts(s1, s2)))
+                want = twice / (2 * s1.numel() * s2.numel())
+                ulps = abs(float(reference(lambda: rank_auc(s1, s2)))
+                           - want) / math.ulp(want)
+                assert val == want and ulps <= 1, (label, val, want, ulps)
+            else:
+                want = reference(lambda: Estimator(name).complete(s1, s2))
+                assert abs(val - want) <= 1e-10 * abs(want), (label, val,
+                                                              want)
+                out[f"hinge_{label}_stop"] = check_hinge_stop(
+                    s1, s2, mesh, label, reference)
+            out[f"{name}_{label}"] = dict(value=val, single=want,
+                                          rel_gap=abs(val - want) / abs(want))
+            log(f"[mesh] complete {name} {label} {s1.numel()} x "
+                f"{s2.numel()} on {N} workers: {val!r} (single device "
+                f"{want!r}, rel gap {abs(val - want) / abs(want):.3g}); "
+                f"{json.dumps(delta)}")
+    s1, s2 = data["ragged"]
+    val, delta = launched(lambda: Estimator(
+        "auc", backend="mesh", mesh=make_mesh_2d(2, 4)).complete(s1, s2))
+    assert delta == {"masked_pair_sum[auc]": N}, delta
+    assert val == out["auc_ragged"]["value"], val
+    log(f"[mesh] 2-D (2, 4) ragged auc {val!r} equal to the 1-D ring")
+
+    # 2. logistic at 2^20 a class; one stop [8, 2^17] against plain
+    a, b = scores(1 << 20, 1 << 20)
+    val, delta = launched(lambda: Estimator(
+        "logistic", backend="mesh", n_workers=N).complete(a, b))
+    assert delta == {"pair_sum[logistic]": N}, delta
+    want = reference(lambda: Estimator("logistic").complete(a, b))
+    assert abs(val - want) <= 1e-6 * abs(want), (val, want)
+    logistic = get_kernel("logistic")
+    pa, _, _ = pack_blocks(a, mesh)
+    pb, _, _ = pack_blocks(b, mesh)
+    got = reference(lambda: pk.pair_sum(pa, pb, logistic))
+    plain = pk.pair_sum(pa, pb, logistic, impl="plain")
+    stop_rel = float(((got - plain).abs() / plain).max())
+    # the derived worst case, and the rel 1e-5 phases 2 and 5 hold this
+    # kernel to
+    assert stop_rel <= logistic_stop_rel(), stop_rel
+    check_against_plain("logistic", got, plain, 1.0,
+                        ("mesh stop", *pa.shape, pb.shape[1]))
+    del pa, pb
+    out["logistic_full"] = dict(value=val, single=want,
+                                rel_gap=abs(val - want) / abs(want),
+                                stop_rel_diff_plain=stop_rel)
+    log(f"[mesh] complete logistic 2^20 x 2^20: {val!r} (single device "
+        f"{want!r}, rel gap {abs(val - want) / abs(want):.3g}); a stop "
+        f"[8, 2^17] against plain: largest rel diff {stop_rel:.3g} (derived "
+        f"worst case {logistic_stop_rel():.3g})")
+
+    # 3. impl="plain" against the kernels at n = 10^5: edge values, and
+    # lattice ties with +inf in a and -inf in b (finite hinge and
+    # logistic sums)
+    m = 10 ** 5
+
+    def lattice(k, sign):
+        x = (torch.randn(k, generator=g, device="cuda") * 4).round() / 4
+        inf = torch.rand(k, generator=g, device="cuda") < 0.01
+        return torch.where(inf, sign * math.inf, x)
+
+    for label, (n1, n2) in (("full", (m, m)), ("ragged", (m + 3, m - 5))):
+        cases = {"edge": (edge_values(g, n1), edge_values(g, n2)),
+                 "ties": (lattice(n1, 1.0), lattice(n2, -1.0))}
+        for case, (a, b) in cases.items():
+            for name in NAMES:
+                got = Estimator(name, backend="mesh",
+                                n_workers=N).complete(a, b)
+                want = Estimator(name, backend="mesh", n_workers=N,
+                                 impl="plain").complete(a, b)
+                if name == "auc" or not math.isfinite(want):
+                    assert got == want or (math.isnan(got)
+                                           and math.isnan(want)), (
+                        name, label, case, got, want)
+                else:
+                    assert abs(got - want) <= 1e-5 * abs(want), (
+                        name, label, case, got, want)
+                log(f"[mesh] plain vs kernels {name} {label} {case}: "
+                    f"{got!r} / {want!r}")
+
+    # 4. the triplet double ring at n = 4096, d = 32
+    X, Y = gaussian_clouds(g, 4096, TRIPLET_D)
+    for name in TRIPLET_NAMES:
+        val, delta = launched(lambda: Estimator(
+            name, backend="mesh", n_workers=N).complete(X, Y))
+        assert delta == {f"batched_masked_pair_sum[{name}]": N * N}, delta
+        want = reference(lambda: Estimator(name).complete(X, Y))
+        if name == "triplet_indicator":
+            assert val == want, (val, want)
+        else:
+            assert abs(val - want) <= 1e-6 * abs(want), (val, want)
+        out[name] = dict(value=val, single=want)
+        log(f"[mesh] {name} n=4096 d={TRIPLET_D} double ring ({N * N} "
+            f"stops): {val!r} (single device {want!r})")
+
+    # 5. the schemes that draw, at n = 10^6: 8 seeds give the standard
+    # error of one estimate
+    a, b = scores(10 ** 6, 10 ** 6)
+    est = Estimator("auc", backend="mesh", n_workers=N)
+    full = est.complete(a, b)
+    calls = {
+        "local": lambda s: est.local_average(a, b, seed=s),
+        "repartitioned": lambda s: est.repartitioned(a, b, n_rounds=4,
+                                                     seed=s),
+        "incomplete_swr": lambda s: est.incomplete(a, b, n_pairs=10_000,
+                                                   seed=s),
+        "incomplete_swor": lambda s: est.incomplete(
+            a, b, n_pairs=10_000, seed=s, design="swor"),
+    }
+    for label, fn in calls.items():
+        vals, delta = launched(lambda: [fn(s) for s in range(8)])
+        if not label.startswith("incomplete"):
+            assert delta.get("pair_sum[auc]", 0) == 8 * (
+                4 if label == "repartitioned" else 1), (label, delta)
+        se = float(np.std(vals, ddof=1))
+        assert abs(vals[0] - full) < 5 * se, (label, vals, full, se)
+        out[label] = dict(value=vals[0], se=se, complete=full)
+        log(f"[mesh] {label} n=10^6: {vals[0]!r} (complete {full!r}, se "
+            f"{se:.3g} over 8 seeds); {json.dumps(delta)}")
+
+    # 6. a one-rank NCCL group: DistComm against the worker axis of N = 1
+    with tempfile.TemporaryDirectory() as tmp:
+        assert distributed.initialize(num_processes=1, process_id=0,
+                                      init_method=f"file://{tmp}/store")
+        try:
+            dmesh = make_mesh(distributed=True)
+            assert dmesh.distributed and dist.get_backend() == "nccl"
+            val = Estimator("auc", backend="mesh", mesh=dmesh).complete(a, b)
+        finally:
+            dist.destroy_process_group()
+    want = reference(lambda: Estimator("auc", backend="mesh",
+                                       n_workers=1).complete(a, b))
+    assert val == want, (val, want)
+    world = 1
+    if torch.cuda.device_count() >= 2:
+        world = torch.cuda.device_count()
+        reference(lambda: mesh_ranks(world, "cuda"))
+    out["dist_world"] = world
+    log(f"[mesh] DistComm (NCCL) world size {world}: complete auc {val!r} "
+        f"equal to the worker axis")
+    # the mesh path's own launches: the counts less the references'
+    launches = {k: v - refs.get(k, 0) for k, v in pk.LAUNCHES.items()
+                if v - refs.get(k, 0)}
+    log(f"[launches] mesh references (not counted) {json.dumps(refs)}")
+
+    # 7. timing: the ring against the single device, a stop's kernel
+    # against its rotation
+    for label, (s1, s2) in data.items():
+        for name in ("auc", "hinge"):
+            est = Estimator(name, backend="mesh", n_workers=N)
+            ms, _ = cuda_ms(lambda: est.complete(s1, s2), reps=3)
+            single = Estimator(name, auc_fast=False)
+            single_ms, _ = cuda_ms(lambda: single.complete(s1, s2), reps=3)
+            k = get_kernel(name)
+            pa, ma, _ = pack_blocks(s1, mesh)
+            pb, mb, _ = pack_blocks(s2, mesh)
+            visiting = [pb] if label == "full" else [pb, mb]
+
+            def stop_fn():
+                if label == "full":
+                    return pk.pair_sum(pa, pb, k)
+                return pk.masked_pair_sum(pa, pb, ma, mb, k)
+
+            def rot_fn():
+                return mesh.comm.start_rotate(visiting, 0).wait()
+
+            stop_ms, _ = cuda_ms(stop_fn, reps=5)
+            rot_ms, _ = cuda_ms(rot_fn, reps=5)
+            # device time by kernel (torch.profiler); a profile that saw
+            # no device time is reported as not captured
+            stop = device_ms_by_kernel(stop_fn, 5)
+            rot = device_ms_by_kernel(rot_fn, 5)
+            pairs = float(s1.numel()) * s2.numel()
+            out[f"{name}_{label}"].update(
+                ms=ms, pairs_per_s=pairs / ms * 1e3, single_ms=single_ms,
+                stop_kernel_ms=stop_ms, stop_rotation_ms=rot_ms,
+                stop_kernel_device_ms=sum(stop.values()) or None,
+                stop_rotation_device_ms=sum(rot.values()) or None)
+            log(f"[mesh] {name} {label} ring complete {ms:.3f} ms "
+                f"({pairs / ms * 1e3:.4g} pairs/s), single device "
+                f"{single_ms:.3f} ms; a stop (CUDA events): kernel "
+                f"{stop_ms:.4f} ms, rotation {rot_ms:.4f} ms; device time "
+                f"(torch.profiler): kernel {stop or 'not captured'}, "
+                f"rotation {rot or 'not captured'}")
+    a, b = scores(1 << 20, 1 << 20)
+    est = Estimator("logistic", backend="mesh", n_workers=N)
+    ms, _ = cuda_ms(lambda: est.complete(a, b))
+    single_ms, _ = cuda_ms(lambda: Estimator("logistic").complete(a, b))
+    out["logistic_full"].update(ms=ms, single_ms=single_ms)
+    log(f"[mesh] logistic 2^20 ring complete {ms:.3f} ms, single device "
+        f"{single_ms:.3f} ms")
+    return out, launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -3485,11 +3939,23 @@ def main():
         assert design_launches.get(key, 0) > 0, f"{key} never launched"
     for r in rows:
         r["launches_designs"] = design_launches.get(r["name"], 0)
+
+    pk.reset_launch_counts()
+    mesh, mesh_launches = timed("24 mesh ring", phase_mesh)
+    log(f"[launches] mesh path {json.dumps(mesh_launches)}")
+    for key in ("pair_sum[auc]", "pair_sum[hinge]", "pair_sum[logistic]",
+                "masked_pair_sum[auc]", "masked_pair_sum[hinge]",
+                "batched_masked_pair_sum[triplet_indicator]",
+                "batched_masked_pair_sum[triplet_hinge]"):
+        assert mesh_launches.get(key, 0) > 0, f"{key} never launched"
+    for r in rows:
+        r["launches_mesh"] = mesh_launches.get(r["name"], 0)
     log(f"[done] {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": rows, "train": train_rows,
                       "sim_learner_cell_s": sim_wall,
                       "triplet": triplet_main, "config4": config4,
                       "triplet_learner": learner, "designs": designs,
+                      "mesh": mesh,
                       "serving": {"index": index, "engine": engine,
                                   "streaming_estimator": streaming,
                                   "fleet": fleet,

@@ -11,8 +11,11 @@ Module names mirror the JAX package so each counterpart is easy to find:
                     ops.pair_grad_kernels, ops.triplet_kernels; tuple
                     designs drawn on the card: ops.device_design
   L2 partitioner -> tuplewise_tpu_torch.parallel  (device blocks; the
-                    host partitioner and design oracle: parallel.partition)
-  L3 estimators  -> tuplewise_tpu_torch.estimators  (Estimator(backend="torch"))
+                    host partitioner and design oracle: parallel.partition;
+                    worker meshes, the ring and torch.distributed:
+                    parallel.mesh, parallel.ring, parallel.distributed)
+  L3 estimators  -> tuplewise_tpu_torch.estimators  (Estimator(backend=
+                    "torch" or "mesh"))
   L4 harness     -> tuplewise_tpu_torch.harness.variance (Monte-Carlo,
                     checkpoint/resume, the three trade-off curves),
                     harness.triplet_experiment (BASELINE config 4)
@@ -26,6 +29,7 @@ The flagship forward step is ``tuplewise_tpu_torch.graft_entry.entry``.
 Entry points run on the card unless the caller passes device="cpu".
 """
 
+from tuplewise_tpu_torch.backends.mesh_backend import MeshBackend
 from tuplewise_tpu_torch.estimators.estimator import Estimator
 from tuplewise_tpu_torch.estimators.streaming import StreamingEstimator
 from tuplewise_tpu_torch.harness.triplet_experiment import (
@@ -42,19 +46,25 @@ from tuplewise_tpu_torch.ops.kernels import (
     Kernel, auc_kernel, get_kernel, hinge_kernel, logistic_kernel,
     register_kernel, triplet_hinge_kernel, triplet_indicator_kernel,
 )
+from tuplewise_tpu_torch.parallel import (
+    make_mesh, make_mesh_2d, ring_pair_stats, ring_pair_stats_2d,
+    ring_triplet_stats, ring_triplet_stats_2d,
+)
 from tuplewise_tpu_torch.serving import (
     ExactAucIndex, MicroBatchEngine, MultiTenantEngine, ServingConfig,
     StreamingIncompleteU, TenancyConfig, TenantFleetIndex, make_stream,
     make_tenant_stream, replay, replay_fleet,
 )
 
-__all__ = ["Estimator", "ExactAucIndex", "Kernel", "MicroBatchEngine",
-           "MultiTenantEngine", "ServingConfig", "StreamingEstimator",
-           "StreamingIncompleteU", "TenancyConfig", "TenantFleetIndex",
-           "TrainConfig", "TripletTrainConfig", "auc_kernel",
-           "evaluate_auc", "evaluate_triplet_accuracy", "get_kernel",
-           "hinge_kernel", "init_embed", "logistic_kernel", "make_stream",
-           "make_tenant_stream", "register_kernel", "replay",
-           "replay_fleet", "split_by_label", "train_curves",
+__all__ = ["Estimator", "ExactAucIndex", "Kernel", "MeshBackend",
+           "MicroBatchEngine", "MultiTenantEngine", "ServingConfig",
+           "StreamingEstimator", "StreamingIncompleteU", "TenancyConfig",
+           "TenantFleetIndex", "TrainConfig", "TripletTrainConfig",
+           "auc_kernel", "evaluate_auc", "evaluate_triplet_accuracy",
+           "get_kernel", "hinge_kernel", "init_embed", "logistic_kernel",
+           "make_mesh", "make_mesh_2d", "make_stream", "make_tenant_stream",
+           "register_kernel", "replay", "replay_fleet", "ring_pair_stats",
+           "ring_pair_stats_2d", "ring_triplet_stats",
+           "ring_triplet_stats_2d", "split_by_label", "train_curves",
            "train_pairwise", "train_triplet", "triplet_hinge_kernel",
            "triplet_indicator_kernel", "triplet_mnist_statistic"]

@@ -2,9 +2,11 @@
 
 A backend owns execution (how pair sums are tiled or launched, where
 randomness comes from, how per-worker results are aggregated); the
-estimator semantics live above it. The port has one backend so far:
+estimator semantics live above it. The port's backends:
 
 * ``torch`` — single device, PyTorch with hand-written CUDA pair kernels.
+* ``mesh`` — a mesh of workers: the worker axis of one device, or one
+  worker per ``torch.distributed`` rank (``parallel.mesh``).
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ def register_backend(name: str):
 
 _LAZY = {
     "torch": "tuplewise_tpu_torch.backends.torch_backend",
+    "mesh": "tuplewise_tpu_torch.backends.mesh_backend",
 }
 
 

@@ -127,17 +127,25 @@ class TorchBackend:
 
     def _round_from_blocks(self, A, B, i1, i2, alive, padded):
         A = self.to_device(A)
+        B = None if i2 is None else self.to_device(B)
         alive = torch.as_tensor(alive, dtype=torch.float64, device=self.device)
+        vals = self.block_means(
+            A[i1.clamp_min(0)], None if B is None else B[i2.clamp_min(0)],
+            i1, i2, padded)
+        return (vals * alive).sum() / alive.sum()
+
+    def block_means(self, a, b, i1, i2, padded) -> torch.Tensor:
+        """[W] float64 per-worker U-statistics of gathered worker blocks
+        a [W, m1(, d)] and b [W, m2(, d)] (None for one-sample kernels)
+        whose global row ids are i1 and i2 (an entry < 0 is an empty
+        slot; ``padded`` says whether there is one): ONE batched kernel
+        launch for the diff and triplet kernels."""
         if self.kernel.kind == "triplet":
-            B = self.to_device(B)
             sums, counts = triplet_kernels.grouped_triplet_stats(
-                self.kernel, A[i1.clamp_min(0)], B[i2.clamp_min(0)], i1,
-                (i1 >= 0).to(torch.float32), (i2 >= 0).to(torch.float32),
-                impl=self.impl)
-            vals = sums / counts
-        elif self.kernel.two_sample:
-            B = self.to_device(B)
-            a, b = A[i1.clamp_min(0)], B[i2.clamp_min(0)]
+                self.kernel, a, b, i1, (i1 >= 0).to(torch.float32),
+                (i2 >= 0).to(torch.float32), impl=self.impl)
+            return sums / counts
+        if self.kernel.two_sample:
             if padded:
                 ma = (i1 >= 0).to(torch.float32)
                 mb = (i2 >= 0).to(torch.float32)
@@ -147,15 +155,13 @@ class TorchBackend:
             else:
                 sums = self._pair_sum(a, b)
                 counts = float(i1.shape[1] * i2.shape[1])
-            vals = sums / counts
-        else:
-            vals = torch.stack([
-                torch.stack(self._one_sample_stats(
-                    A[idx[idx >= 0]], idx[idx >= 0])).to(torch.float64)
-                for idx in i1
-            ])
-            vals = vals[:, 0] / vals[:, 1]
-        return (vals * alive).sum() / alive.sum()
+            return sums / counts
+        vals = torch.stack([
+            torch.stack(self._one_sample_stats(
+                aw[iw >= 0], iw[iw >= 0])).to(torch.float64)
+            for aw, iw in zip(a, i1)
+        ])
+        return vals[:, 0] / vals[:, 1]
 
     def _round(self, A, B, gen, n_workers, scheme, alive):
         # draw_blocks never pads: every worker holds m rows, so the round

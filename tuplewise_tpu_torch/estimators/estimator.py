@@ -10,7 +10,9 @@ numpy arrays, lists or tensors; they are moved to the backend's device
 as float32.
 
 It runs on the card unless ``device="cpu"`` is passed; with no card and
-no device it raises.
+no device it raises. ``backend="mesh"`` runs the schemes over a mesh of
+workers (``backends.mesh_backend``): ``n_workers`` sizes the worker
+axis when no ``mesh`` is given, and ``est.n_workers`` is the mesh size.
 """
 
 from __future__ import annotations
@@ -26,19 +28,39 @@ class Estimator:
 
     Args:
       kernel: kernel name or Kernel instance.
-      backend: "torch" (single device).
+      backend: "torch" (single device) or "mesh" (a mesh of workers).
       device: None (the card) or an explicit torch device such as "cpu".
-      n_workers: default number of simulated workers N.
-      **backend_opts: forwarded to the backend (impl, auc_fast).
+      n_workers: default number of simulated workers N; with "mesh", the
+        mesh size (a conflicting mesh raises ValueError).
+      heal_retries: > 0 arms the JAX package's elastic self-healing of
+        a mesh, which is not ported: NotImplementedError with "mesh".
+      **backend_opts: forwarded to the backend (impl, auc_fast; mesh).
     """
 
     def __init__(self, kernel="auc", backend: str = "torch", device=None,
-                 n_workers: Optional[int] = None, **backend_opts):
+                 n_workers: Optional[int] = None, heal_retries: int = 0,
+                 **backend_opts):
         self.kernel = get_kernel(kernel)
         self.backend_name = backend
+        if heal_retries and backend == "mesh":
+            raise NotImplementedError(
+                "heal_retries: the mesh healer (MeshHealer) is not ported to "
+                "tuplewise_tpu_torch yet (ROADMAP.md slice 7 item 2)")
+        if (backend == "mesh" and "mesh" not in backend_opts
+                and n_workers is not None):
+            backend_opts["n_workers"] = n_workers
         self.backend = get_backend(backend, self.kernel, device=device,
                                    **backend_opts)
-        self.n_workers = 1 if n_workers is None else int(n_workers)
+        if hasattr(self.backend, "n_shards"):
+            # a mesh pins N (one worker a shard): a different explicit N
+            # is a configuration error, never silently overridden
+            if n_workers is not None and n_workers != self.backend.n_shards:
+                raise ValueError(
+                    f"n_workers={n_workers} conflicts with the mesh's "
+                    f"{self.backend.n_shards} shards (one worker a shard)")
+            self.n_workers = self.backend.n_shards
+        else:
+            self.n_workers = 1 if n_workers is None else int(n_workers)
 
     def _resolve_workers(self, n_workers: Optional[int]) -> int:
         n = self.n_workers if n_workers is None else n_workers

@@ -222,3 +222,17 @@ def weighted_mean(vals: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     a {0, 1} weight makes the product exact in the values' dtype)."""
     return ((vals * w).sum(-1, dtype=torch.float64)
             / w.sum(-1, dtype=torch.float64))
+
+
+def shard_design_blocks(cols, w: torch.Tensor, n_shards: int):
+    """Pad a [L] draw to n_shards * per and shape it into [N, per]
+    worker blocks plus the weight mask (padding: index 0, weight 0):
+    the mesh's split of a designed tuple set (the JAX
+    ``shard_design_blocks``)."""
+    L = cols[0].shape[0]
+    per = -(-L // n_shards)
+    pad = n_shards * per - L
+    out = [torch.nn.functional.pad(c, (0, pad)).reshape(n_shards, per)
+           for c in cols]
+    out.append(torch.nn.functional.pad(w, (0, pad)).reshape(n_shards, per))
+    return out

@@ -59,3 +59,31 @@ def scatter_pair_stats(
         _, mult = torch.unique(ids_a[ma > 0], return_counts=True)
         count = count - (mult.to(torch.float64) ** 2).sum()
     return total, count
+
+
+def _moments(x, m):
+    """[W, 2 + d] float64 per-worker (sum m, sum m |x|^2, sum m x)."""
+    x, m = x.to(torch.float64), m.to(torch.float64)
+    return torch.cat([m.sum(1, keepdim=True),
+                      (torch.sum(x * x, dim=-1) * m).sum(1, keepdim=True),
+                      (x * m[..., None]).sum(1)], dim=1)
+
+
+def scatter_mesh_stats(a, ma, b, mb, *, comm, one_sample: bool):
+    """(sum, count) of the scatter grid over all workers' blocks a
+    [n_local, cap, d] (masks ma [n_local, cap]) and b, mb: per-worker
+    moments, ONE float64 all-reduce (``comm.all_reduce_sum``) and the
+    closed-form combine; no ring (the moments are linear, so sharding
+    commutes with them). ``one_sample`` relies on the complete
+    packing's distinct ids: only the diagonal is excluded, so the count
+    drops sum(ma). Float64 0-d tensors, the same on every worker."""
+    mom = _moments(a, ma) if one_sample else torch.cat(
+        [_moments(a, ma), _moments(b, mb)], dim=1)
+    tot = comm.all_reduce_sum(mom)
+    d = a.shape[-1]
+    ca, sq_a, mom_a = tot[0], tot[1], tot[2:2 + d]
+    cb, sq_b, mom_b = ((ca, sq_a, mom_a) if one_sample
+                       else (tot[2 + d], tot[3 + d], tot[4 + d:]))
+    total = 0.5 * (sq_a * cb + sq_b * ca) - torch.dot(mom_a, mom_b)
+    count = ca * cb - (ca if one_sample else 0.0)
+    return total, count

@@ -299,19 +299,28 @@ def _group_stats(kernel, Xa, Xp, Y, ma, mp, ip, ia, my, impl, chunk=0):
 
 
 def grouped_triplet_stats(kernel: Kernel, Xa, Y, ids, mask_a=None,
-                          mask_y=None, impl: Optional[str] = None):
+                          mask_y=None, impl: Optional[str] = None, *,
+                          positives=None, mask_p=None, ids_p=None):
     """Per-group (sum [G] float64, count [G] int64) of the triplet
     statistic whose anchors and positives are the rows of Xa [G, m1, d]
     (ids [G, m1], global row ids: rows with equal ids never pair, which
     covers with-replacement duplicates) and negatives the rows of Y
-    [G, m2, d]; masks [G, m1] and [G, m2] weight them. A local round's
-    workers are the groups: ONE launch for all of them when the distance
-    blocks fit in ``CHUNK_BYTES``."""
+    [G, m2, d]; masks [G, m1] and [G, m2] weight them. A visiting
+    positives block (``positives`` [G, mp, d], ``mask_p``, ``ids_p``
+    [G, mp]; the mesh's double ring) replaces the anchors as positives.
+    A local round's workers, or a ring stop's, are the groups: ONE
+    launch for all of them when the distance blocks fit in
+    ``CHUNK_BYTES``."""
     ma = (torch.ones(Xa.shape[:2], device=Xa.device) if mask_a is None
           else mask_a)
     my = (torch.ones(Y.shape[:2], device=Xa.device) if mask_y is None
           else mask_y)
-    return _group_stats(kernel, Xa, Xa, Y, ma, ma, ids, ids, my, impl)
+    if positives is None:
+        positives, mask_p, ids_p = Xa, ma, ids
+    elif mask_p is None:
+        mask_p = torch.ones(positives.shape[:2], device=Xa.device)
+    return _group_stats(kernel, Xa, positives, Y, ma, mask_p, ids_p, ids,
+                        my, impl)
 
 
 def factorized_triplet_stats(

@@ -1,9 +1,13 @@
-"""Worker index blocks drawn on the device.
+"""Worker index blocks drawn on the device, and the mesh's blocks.
 
-The counterpart of ``tuplewise_tpu.parallel.device_partition.draw_blocks``.
-Leading ``batch`` dimensions draw independent partitions at once (one
-per Monte-Carlo rep), which is how the harness batches reps instead of
-vmapping them.
+The counterpart of ``tuplewise_tpu.parallel.device_partition``.
+``draw_blocks``: leading ``batch`` dimensions draw independent
+partitions at once (one per Monte-Carlo rep), which is how the harness
+batches reps instead of vmapping them. The mesh half: the zero-padded
+worker shards of a global array (``pad_blocks``, the JAX ``pad_put``)
+and the complete packing (``pack_blocks``,
+``parallel.partition.pack_all`` on the device). The JAX
+``linear_shard_index`` is ``comm.worker_ids``.
 """
 
 from __future__ import annotations
@@ -37,3 +41,33 @@ def draw_blocks(gen: torch.Generator, n: int, n_workers: int,
         return torch.randint(0, n, (*batch, n_workers, m), generator=gen,
                              device=dev)
     raise ValueError(f"unknown partition scheme {scheme!r}")
+
+
+def pad_blocks(X: torch.Tensor, mesh) -> torch.Tensor:
+    """Zero-pad axis 0 of X to a multiple of the mesh size and cut it
+    into worker shards [N, cap, ...] on the mesh's device; this process
+    keeps its own rows ([1, cap, ...] under ``DistComm``).
+
+    Padding (never truncation) keeps every real row reachable: callers
+    draw indices over the TRUE n, so padded rows are never gathered."""
+    X = X.to(mesh.device)
+    n_workers = mesh.n_workers
+    pad = (-X.shape[0]) % n_workers
+    if pad:
+        X = torch.cat([X, X.new_zeros((pad,) + X.shape[1:])])
+    blocks = X.reshape((n_workers, -1) + X.shape[1:])
+    return mesh.comm.local_rows(blocks).contiguous()
+
+
+def pack_blocks(X: torch.Tensor, mesh):
+    """Every row of X packed into worker blocks, this process's rows:
+    (blocks [n_local, cap, ...], mask [n_local, cap] float32 (1 for a
+    row, 0 for padding), ids [n_local, cap] int64 (the row index, -1
+    for padding)): ``parallel.partition.pack_all``'s layout, cap =
+    ceil(n / N)."""
+    n = X.shape[0]
+    cap = -(-n // mesh.n_workers)
+    pos = torch.arange(mesh.n_workers * cap, device=mesh.device)
+    ids = torch.where(pos < n, pos, -1).reshape(mesh.n_workers, cap)
+    ids = mesh.comm.local_rows(ids).contiguous()
+    return pad_blocks(X, mesh), (ids >= 0).to(torch.float32), ids

@@ -43,6 +43,9 @@ PURPOSES = (
     # one frozen dataset from (seed, "data_fixed")
     "design",
     "data_fixed",
+    # the mesh's within-shard incomplete draws: the random packing and
+    # every worker's tuples
+    "incomplete_shard",
 )
 
 _AUDIT = threading.local()
