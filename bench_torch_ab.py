@@ -57,6 +57,15 @@ class, N = 8 workers, T = 4 rounds, B = 10^4 with-replacement pairs) and
 at config 3's incomplete cell (n = 10^6, B = 10^4, swr): the median and
 the least of 7 calls after a warm-up.
 
+With ``--trainers`` the turns time the learners end to end instead,
+and nothing else: 20 hinge steps of ``train_pairwise`` at n = 5e5 per
+class, N = 1 (chip_smoke.py phase 7's data; repartition_every 1 with
+loss_every 1, and 10 with the loss never recorded), and 300 steps of
+``train_triplet`` at phase 14's gauss-overlap cell (seed 0, N = 8, B =
+4096, repartition_every 1, no evaluation), by the host's clock around
+calls that end on the host: the median and the best of 5 calls after a
+warm-up, as steps/s (the best is the most steps/s).
+
 A kernel time is the mean of several calls by CUDA events after a
 warm-up. After the turns it reads each checkout's built
 ``csrc/pair_sum.cu`` library with cuobjdump and counts, in the unmasked
@@ -117,6 +126,57 @@ def _harness_turn():
         once(cfg)                                         # warm-up
         runs = [once(cfg) for _ in range(7)]
         out[f"harness {tag}"] = (statistics.median(runs), min(runs))
+    print(json.dumps(out), flush=True)
+
+
+def _trainers_turn():
+    """One checkout's learner steps/s (median, best of 5 calls)."""
+    import statistics
+    import time
+
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, os.getcwd())
+    from tuplewise_tpu_torch.data import make_gaussian_splits, make_gaussians
+    from tuplewise_tpu_torch.models.pairwise_sgd import (
+        TrainConfig, train_pairwise,
+    )
+    from tuplewise_tpu_torch.models.scorers import LinearScorer
+    from tuplewise_tpu_torch.models.triplet_sgd import (
+        TripletTrainConfig, init_embed, train_triplet,
+    )
+
+    def rates(fn, steps):
+        fn()                                              # warm-up
+        runs = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            runs.append(steps / (time.perf_counter() - t0))
+        return statistics.median(runs), max(runs)
+
+    Xp, Xn, _, _ = make_gaussian_splits(500_000, 125_000, dim=5, seed=0)
+    scorer = LinearScorer(dim=5)
+    p0 = scorer.init(0)
+    out = {}
+    for nr, le in ((1, 1), (10, 1 << 30)):
+        cfg = TrainConfig(kernel="hinge", lr=0.3, n_workers=1,
+                          repartition_every=nr, seed=7, tile=2048,
+                          loss_every=le, steps=20)
+        out[f"train_pairwise n_r={nr} loss_every={le}"] = rates(
+            lambda: train_pairwise(scorer, p0, Xp, Xn, cfg), 20)
+    # chip_smoke.triplet_task("gauss-overlap", 0): the same draws
+    rng = np.random.default_rng(0)
+    X, Y = make_gaussians(2_000, 6_000, dim=16, separation=1.0, seed=0)
+    Xc = np.asarray(X, np.float32)[rng.permutation(2_000)[:1_500]]
+    Xo = np.asarray(Y, np.float32)[rng.permutation(6_000)[:4_500]]
+    tcfg = TripletTrainConfig(lr=0.1, steps=300, n_workers=8,
+                              repartition_every=1, triplets_per_worker=4_096,
+                              seed=1_000, embed_dim=2)
+    out["train_triplet 300 steps"] = rates(
+        lambda: train_triplet(init_embed(16, 2), Xc, Xo, tcfg), 300)
     print(json.dumps(out), flush=True)
 
 
@@ -342,10 +402,12 @@ def grad_sass(root):
 
 
 def main():
-    harness = "--harness" in sys.argv
-    args = [a for a in sys.argv[1:] if a != "--harness"]
+    mode = next((m for m in ("--harness", "--trainers") if m in sys.argv),
+                None)
+    args = [a for a in sys.argv[1:] if a != mode]
     if args[:1] == ["--turn"]:
-        _harness_turn() if harness else _turn()
+        {"--harness": _harness_turn, "--trainers": _trainers_turn}.get(
+            mode, _turn)()
         return 0
     import torch
 
@@ -366,16 +428,17 @@ def main():
     for root in roots + roots[::-1]:
         proc = subprocess.run(
             [sys.executable, os.path.abspath(__file__), "--turn",
-             *(["--harness"] if harness else [])], cwd=root,
+             *([mode] if mode else [])], cwd=root,
             capture_output=True, text=True, timeout=1200)
         if proc.returncode != 0:
             print(proc.stdout + proc.stderr, file=sys.stderr)
             return 4
         times = json.loads(proc.stdout.strip().splitlines()[-1])
         turns.append({"root": root, "times": times})
+        unit = "steps/s" if mode == "--trainers" else "ms"
         print(f"[turn] {root}: " + "; ".join(
-            f"{k} {v[0]:.3f} ms" for k, v in times.items()), flush=True)
-    sass = {} if harness else {
+            f"{k} {v[0]:.3f} {unit}" for k, v in times.items()), flush=True)
+    sass = {} if mode else {
         root: {**logistic_sass(root), **grad_sass(root)} for root in roots}
     for root, counts in sass.items():
         print(f"[sass] {root}: logistic kernels, SASS instructions a pair: "

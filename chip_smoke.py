@@ -286,13 +286,35 @@ nonzero. Each phase prints its seconds.
    a stop's kernel and rotation ms (CUDA events; device time by kernel
    from torch.profiler where the profile captures any), the logistic
    ring at 2^20.
+25. Elastic mesh (the batch path on a healed mesh, N = 8 on the card's
+   worker axis): (a) the mesh trainer at phase 7's data (n = 5e5 a
+   class, dim 5), 20 steps, hinge and logistic with loss_every=2, equal
+   bit for bit to the mesh-less engine, steps/s and its launches of
+   kernels 3 and 4; one full-shape step of both kernels ([8, 62500] x
+   [8, 62500], the blocks of step 0) against plain as phase 6 holds
+   them. (b) A chaos train_step fault dropping worker 3 on make_mesh(8,
+   pool=12) with checkpoint_every=5: params and losses equal the
+   fault-free run's bit for bit, one retry, the width kept, the heal's
+   recovery_time_s. (c) The mesh triplet trainer at phase 14's
+   gauss-overlap cell (seed 0, 300 steps, 10 evaluations through kernel
+   5). (d) The harness on backend="mesh": config 1's four schemes (n =
+   10^4, M = 64) in CHI2_BAND; config 5's complete auc at n = 10^7 a
+   class, full and ragged, 4 reps (ms a rep, the 64-rep block's draw
+   timed apart; rep 0 equal to the mesh Estimator on its rows). (e)
+   Config 5 through Estimator(heal_retries=2, chaos=...) on make_mesh(8,
+   pool=12), a fault dropping worker 3 and one dropping nobody, each
+   equal to the fault-free value with one retry; on make_mesh(8), with
+   no spare slot, HealExhaustedError. (f) A one-rank NCCL group's mesh
+   trainer equal bit for bit to the worker axis of N = 1. (g)
+   graft_entry.dryrun_multichip(8). Every fault-free run shows no retry.
 
 The launch counters are set to 0 before phase 3 and read after phase 4,
 set to 0 again before phase 7 and read after it, before phase 12 and
 after it, before phase 14 and after it, before phase 17 and after it,
 before phase 18 and after it, before each of phases 21, 21b and 22 and
-after it, before phase 23 and after it, and before phase 24 and after
-its estimator calls (before its timing): every kernel must have been
+after it, before phase 23 and after it, before phase 24 and after
+its estimator calls (before its timing), and before phase 25 and after
+it (less the references' own launches): every kernel must have been
 launched on its path (pair sums on the estimator's, gradient kernels on
 the trainer's, the triplet kernel on the degree-3 estimator's and on the
 triplet learner's evaluations, the count kernel on the serving index's
@@ -301,7 +323,10 @@ engine's, kernel 6 on the promoted whales'; on the designs' path, kernel
 1's auc body in the trade-off curves, its logistic body in graft_entry
 and kernel 5's indicator in the looped degree-3 harness and the triplet
 learner's evaluations; on the mesh's path kernels 1 and 2 for auc,
-hinge and logistic and kernel 5 for both triplet kernels). The script
+hinge and logistic and kernel 5 for both triplet kernels; on the
+elastic path kernels 3 and 4 for both bodies in the mesh trainers,
+kernels 1 and 2's auc in the mesh Monte-Carlo and the healed Estimator
+and kernel 5's indicator in the mesh triplet trainer's evaluations). The script
 prints one JSON line of kernels,
 the card's name and power limit as nvidia-smi reports them, and, last,
 {"ok": true, "device": {...}}. Without a CUDA device, or without the
@@ -3804,6 +3829,292 @@ def phase_mesh():
     return out, launches
 
 
+# --------------------------------------------------------------------- #
+# slice 14: the elastic batch path on the mesh                          #
+# --------------------------------------------------------------------- #
+
+def meshless_run(scorer, cfg, p0, Xp, Xn):
+    """The trainer's mesh-less engine (the step engine on the full arrays,
+    the blocks indexed from them): what train_pairwise ran before the
+    mesh. Returns (params, losses) as numpy."""
+    from tuplewise_tpu_torch.models import pairwise_sgd as T
+
+    kernel = T.check_config(cfg)
+    p, losses = T.run_chunk(scorer, kernel, cfg, T.replicate(p0, 1, "cuda"),
+                            T.to_device_rows(Xp, "cuda"),
+                            T.to_device_rows(Xn, "cuda"), [cfg.seed], 0,
+                            cfg.steps)
+    return ({k: v[0].cpu().numpy() for k, v in p.items()},
+            losses[0].cpu().numpy())
+
+
+def phase_elastic(data):
+    """Phase 25: the elastic batch path on the card's worker axis (N = 8,
+    LocalComm). (a) train_pairwise(mesh=make_mesh(8)) at phase 7's data,
+    20 steps, hinge and logistic with loss_every=2, equal bit for bit to
+    the mesh-less engine, steps/s and launches of kernels 3 and 4, and one
+    full-shape step ([8, 62500] x [8, 62500]) of both kernels against
+    plain (check_grad_case: hinge equal, logistic as phase 6); (b) a
+    chaos train_step fault dropping worker 3 on make_mesh(8, pool=12)
+    with checkpoint_every=5, equal bit for bit to the fault-free run; (c)
+    the mesh triplet trainer at phase 14's gauss-overlap cell (seed 0,
+    300 steps, evaluations through kernel 5); (d) the harness on
+    backend="mesh": config 1's four schemes in CHI2_BAND, config 5's
+    complete auc at n = 10^7, full and ragged, 4 reps (a rep's value
+    equal to the mesh Estimator's on its rows); (e) config 5 through
+    Estimator(heal_retries=2, chaos=...) on make_mesh(8, pool=12): a
+    fault dropping worker 3 and one dropping nobody, each equal to the
+    fault-free value, then HealExhaustedError on make_mesh(8); (f) a
+    one-rank NCCL group's mesh trainer equal to the worker axis of N =
+    1; (g) graft_entry.dryrun_multichip(8). Runs without a fault show
+    retries_total 0, runs with faults as many retries as faults. Returns
+    (numbers, launches less the references' own)."""
+    import torch.distributed as dist
+
+    from tuplewise_tpu_torch import Estimator
+    from tuplewise_tpu_torch.graft_entry import dryrun_multichip
+    from tuplewise_tpu_torch.harness import mesh_mc
+    from tuplewise_tpu_torch.harness.variance import (
+        VarianceConfig, run_variance_experiment,
+    )
+    from tuplewise_tpu_torch.models import pairwise_sgd as T
+    from tuplewise_tpu_torch.models.scorers import LinearScorer
+    from tuplewise_tpu_torch.models.triplet_sgd import (
+        TripletTrainConfig, evaluate_triplet_accuracy, init_embed,
+        train_triplet,
+    )
+    from tuplewise_tpu_torch.ops import pair_kernels as pk
+    from tuplewise_tpu_torch.parallel import distributed
+    from tuplewise_tpu_torch.parallel.device_partition import ShardedRows
+    from tuplewise_tpu_torch.parallel.mesh import make_mesh
+    from tuplewise_tpu_torch.parallel.self_heal import HealExhaustedError
+    from tuplewise_tpu_torch.testing import FaultInjector
+    from tuplewise_tpu_torch.utils.profiling import MetricsRegistry
+
+    N = MESH_WORKERS
+    out = {}
+    refs = {}
+
+    def reference(fn):
+        """fn's launches are the references', kept out of the path's."""
+        before = dict(pk.LAUNCHES)
+        val = fn()
+        for k, v in pk.LAUNCHES.items():
+            if v - before.get(k, 0):
+                refs[k] = refs.get(k, 0) + v - before.get(k, 0)
+        return val
+
+    def drop(point, workers, on_call=1):
+        return FaultInjector.from_spec({"faults": [
+            {"point": point, "on_call": on_call, "action": "error",
+             "dropped": list(workers)}]})
+
+    # (a) the mesh trainer at phase 7's data
+    Xp, Xn, Xp_te, Xn_te = data
+    scorer = LinearScorer(dim=5)
+    p0 = scorer.init(0)
+    auc0 = reference(lambda: T.evaluate_auc(scorer, p0, Xp_te, Xn_te))
+    runs = {}
+    for name in GRAD_NAMES:
+        cfg = T.TrainConfig(kernel=name, lr=0.3, n_workers=N,
+                            repartition_every=10, seed=7, tile=2048,
+                            loss_every=2, steps=20)
+        mesh = make_mesh(N)
+        _, warm = T.train_pairwise(scorer, p0, Xp, Xn,
+                                   dataclasses.replace(cfg, steps=2),
+                                   mesh=mesh)                  # warm-up
+        assert warm["recovery"]["retries_total"] == 0, warm["recovery"]
+        before = dict(pk.LAUNCHES)
+        ms, (params, hist) = cuda_ms(lambda: T.train_pairwise(
+            scorer, p0, Xp, Xn, cfg, mesh=mesh))
+        delta = {k: v - before.get(k, 0) for k, v in pk.LAUNCHES.items()
+                 if v - before.get(k, 0)}
+        assert hist["recovery"]["retries_total"] == 0, hist["recovery"]
+        want_p, want_loss = reference(
+            lambda: meshless_run(scorer, cfg, p0, Xp, Xn))
+        for k in want_p:
+            assert params[k].tobytes() == want_p[k].tobytes(), (name, k)
+        assert hist["loss"].tobytes() == want_loss.tobytes(), name
+        loss = hist["loss"]
+        assert np.isfinite(loss[::2]).all() and np.isnan(loss[1::2]).all()
+        assert loss[-2] < loss[0], loss
+        auc = reference(lambda: T.evaluate_auc(scorer, params, Xp_te,
+                                               Xn_te))
+        assert auc > auc0, (name, auc, auc0)
+        runs[name] = (cfg, params, hist)
+        out[f"train_{name}"] = dict(
+            ms=ms, steps_per_s=20 / ms * 1e3, launches=delta,
+            auc_test_before=auc0, auc_test_after=auc,
+            loss_first=float(loss[0]), loss_last=float(loss[-2]))
+        log(f"[elastic] mesh trainer {name} N={N} n=5e5/class loss_every=2: "
+            f"{20 / ms * 1e3:.3f} steps/s ({ms:.1f} ms for 20 steps); equal "
+            f"bit for bit to the mesh-less run; test AUC {auc0:.5f} -> "
+            f"{auc:.5f}; launches {json.dumps(delta)}")
+    # one full-shape step of kernels 3 and 4: the blocks of step 0
+    cfg = runs["hinge"][0]
+    mesh = make_mesh(N)
+    Ab, Bb = T._blocks(cfg, [cfg.seed], ShardedRows(
+        T.to_device_rows(Xp, "cuda"), mesh), ShardedRows(
+        T.to_device_rows(Xn, "cuda"), mesh), 0)
+    ps = T.replicate(p0, 1, "cuda")
+    with torch.no_grad():
+        a = scorer.score(ps, Ab.reshape(1, -1, 5)).reshape(N, -1)
+        b = scorer.score(ps, Bb.reshape(1, -1, 5)).reshape(N, -1)
+    del Ab, Bb
+    for name in GRAD_NAMES:
+        err, _ = reference(lambda: check_grad_case(
+            name, a, b, ("elastic step", name, *a.shape)))
+        out[f"step_{name}"] = dict(shape=[list(a.shape), list(b.shape)],
+                                   max_abs_err=err)
+        log(f"[elastic] one step {list(a.shape)} x {list(b.shape)} {name}: "
+            f"kernels 3 and 4 against plain, row/col "
+            f"{'equal' if name == 'hinge' else 'within rel 1e-4'} (max abs "
+            f"err {err:.3g}), loss within rel 1e-5")
+    del a, b
+
+    # (b) a chaos train_step fault dropping worker 3, spares available
+    cfg, ref_params, ref_hist = runs["hinge"]
+    metrics = MetricsRegistry()
+    with tempfile.TemporaryDirectory() as tmp:
+        params, hist = T.train_pairwise(
+            scorer, p0, Xp, Xn, cfg, mesh=make_mesh(N, pool=12),
+            checkpoint_path=os.path.join(tmp, "t.npz"), checkpoint_every=5,
+            chaos=drop("train_step", [3], on_call=2), metrics=metrics)
+    rec = hist["recovery"]
+    for k in ref_params:
+        assert params[k].tobytes() == ref_params[k].tobytes(), k
+    assert hist["loss"].tobytes() == ref_hist["loss"].tobytes()
+    assert rec["reshard_events"] >= 1 and rec["mesh_workers"] == N, rec
+    assert rec["retries_total"] == 1, rec
+    heal_s = metrics.snapshot()["recovery_time_s"]
+    out["train_heal"] = dict(recovery=rec, recovery_time_s=heal_s["sum"])
+    log(f"[elastic] train_step fault dropping worker 3 on make_mesh(8, "
+        f"pool=12), checkpoint_every=5: params and loss equal bit for bit; "
+        f"{json.dumps(rec)}; recovery_time_s {heal_s['sum']:.6f}")
+
+    # (c) the mesh triplet trainer at phase 14's cell
+    Xc_tr, Xo_tr, Xc_te, Xo_te = triplet_task("gauss-overlap", 0)
+    tp0 = init_embed(16, 2, seed=0)
+    acc0 = reference(lambda: evaluate_triplet_accuracy(tp0, Xc_te, Xo_te))
+    tcfg = TripletTrainConfig(lr=0.1, steps=300, n_workers=N,
+                              repartition_every=1, triplets_per_worker=4_096,
+                              seed=1_000, embed_dim=2)
+    t0 = time.perf_counter()
+    _, th = train_triplet(tp0, Xc_tr, Xo_tr, tcfg, eval_every=30,
+                          eval_data=(Xc_te, Xo_te), mesh=make_mesh(N))
+    wall = time.perf_counter() - t0
+    assert np.isfinite(th["loss"]).all() and len(th["test_acc"]) == 10
+    assert th["test_acc"][-1] > acc0, (th["test_acc"], acc0)
+    assert th["recovery"]["retries_total"] == 0
+    out["triplet"] = dict(acc_init=acc0, acc_final=float(th["test_acc"][-1]),
+                          steps_per_s_with_eval=300 / wall)
+    log(f"[elastic] mesh triplet trainer gauss-overlap N={N} B=4096 300 "
+        f"steps: test acc {acc0:.6f} -> {th['test_acc'][-1]:.6f}; "
+        f"{300 / wall:.2f} steps/s with 10 evaluations")
+
+    # (d) the harness on backend="mesh"
+    for scheme in ("complete", "local", "repartitioned", "incomplete"):
+        vcfg = VarianceConfig(kernel="auc", scheme=scheme, backend="mesh",
+                              n_pos=10_000, n_neg=10_000, n_workers=N,
+                              n_rounds=4, n_pairs=10_000, n_reps=64,
+                              seed=SEED)
+        r = run_variance_experiment(vcfg)
+        ratio = r["variance"] / r["closed_form_variance"]
+        assert CHI2_BAND[0] < ratio < CHI2_BAND[1], (scheme, ratio)
+        assert abs(r["mean"] - r["population_value"]) < 5 * r["std_error"]
+        assert r["recovery"]["retries_total"] == 0
+        out[f"harness_{scheme}"] = dict(mean=r["mean"], ratio=ratio,
+                                        ms=r["wallclock_s"] * 1e3)
+        log(f"[elastic] harness mesh {scheme:13s} M=64 n=10^4 N={N}: mean "
+            f"{r['mean']:.6f} var/closed form {ratio:.3f} "
+            f"({r['wallclock_s'] * 1e3:.1f} ms)")
+    for label, (n1, n2) in (("full", (MESH_N, MESH_N)),
+                            ("ragged", MESH_RAGGED)):
+        vcfg = VarianceConfig(kernel="auc", scheme="complete", backend="mesh",
+                              n_pos=n1, n_neg=n2, n_workers=N, n_reps=4,
+                              seed=SEED)
+        r = run_variance_experiment(vcfg)
+        assert r["recovery"]["retries_total"] == 0
+        draw_ms, rows = cuda_ms(lambda: mesh_mc.worker_draws(
+            vcfg, make_mesh(N), ("mc_rep", 0), mesh_mc.REP_BLOCK))
+        # rep 0's value: the mesh Estimator on the same rows
+        A, B = (x[0].reshape(-1)[:n] for x, n in zip(rows, (n1, n2)))
+        del rows
+        want = reference(lambda: Estimator(
+            "auc", backend="mesh", n_workers=N).complete(A, B))
+        got = mesh_mc.make_mesh_mc_runner(vcfg)(range(1))
+        assert got[0] == want, (label, got, want)
+        del A, B
+        torch.cuda.empty_cache()
+        out[f"config5_{label}"] = dict(
+            ms_per_rep=r["wallclock_s"] * 1e3 / 4, block_draw_ms=draw_ms,
+            mean=r["mean"], rep0=want)
+        log(f"[elastic] harness mesh config 5 complete auc {label} {n1} x "
+            f"{n2}, 4 reps: {r['wallclock_s'] * 1e3 / 4:.2f} ms a rep (the "
+            f"64-rep block's draw, {draw_ms:.2f} ms, included once); rep 0 "
+            f"equal to the mesh Estimator on its rows ({want!r})")
+
+    # (e) config 5 through the healed Estimator
+    g = torch.Generator(device="cuda").manual_seed(SEED + 25)
+    s1 = torch.randn(MESH_N, generator=g, device="cuda") + 1.0
+    s2 = torch.randn(MESH_N, generator=g, device="cuda")
+    free = Estimator("auc", backend="mesh", mesh=make_mesh(N, pool=12),
+                     heal_retries=2)
+    want = free.complete(s1, s2)
+    assert free._healer.retries_total == 0
+    heals = {}
+    for label, workers in (("drop 3", [3]), ("no drop", [])):
+        est = Estimator("auc", backend="mesh", mesh=make_mesh(N, pool=12),
+                        heal_retries=2, chaos=drop("estimator", workers))
+        val = est.complete(s1, s2)
+        h = est._healer
+        assert val == want, (label, val, want)
+        assert h.retries_total == 1 and h.n_workers == N, label
+        heals[label] = dict(slots=list(h.mesh.slots),
+                            recovery_time_s=h.metrics.snapshot()[
+                                "recovery_time_s"]["sum"])
+    try:
+        Estimator("auc", backend="mesh", mesh=make_mesh(N), heal_retries=2,
+                  chaos=drop("estimator", [3])).complete(s1, s2)
+        raise AssertionError("a drop without spare slots did not raise")
+    except HealExhaustedError as e:
+        exhausted = str(e)
+    out["estimator_heal"] = dict(value=want, heals=heals,
+                                 exhausted=exhausted)
+    log(f"[elastic] config 5 Estimator(heal_retries=2): drop of worker 3 "
+        f"and a fault without a drop each equal the fault-free {want!r}; "
+        f"{json.dumps(heals)}; no spares: HealExhaustedError ({exhausted})")
+    del s1, s2
+
+    # (f) a one-rank NCCL group runs the mesh trainer
+    cfg = dataclasses.replace(runs["hinge"][0], n_workers=1)
+    with tempfile.TemporaryDirectory() as tmp:
+        assert distributed.initialize(num_processes=1, process_id=0,
+                                      init_method=f"file://{tmp}/store")
+        try:
+            dmesh = make_mesh(distributed=True)
+            assert dmesh.distributed and dist.get_backend() == "nccl"
+            dp, dh = T.train_pairwise(scorer, p0, Xp, Xn, cfg, mesh=dmesh)
+        finally:
+            dist.destroy_process_group()
+    assert dh["recovery"]["retries_total"] == 0, dh["recovery"]
+    lp, lh = reference(lambda: T.train_pairwise(scorer, p0, Xp, Xn, cfg,
+                                                mesh=make_mesh(1)))
+    for k in lp:
+        assert dp[k].tobytes() == lp[k].tobytes(), k
+    assert dh["loss"].tobytes() == lh["loss"].tobytes()
+    log("[elastic] one-rank NCCL group: the mesh trainer (hinge, 20 steps) "
+        "equal bit for bit to the worker axis of N = 1")
+
+    # (g) the multi-worker dry run
+    out["dryrun"] = dryrun_multichip(N)
+    log(f"[elastic] dryrun_multichip({N}): {json.dumps(out['dryrun'])}")
+    launches = {k: v - refs.get(k, 0) for k, v in pk.LAUNCHES.items()
+                if v - refs.get(k, 0)}
+    log(f"[launches] elastic references (not counted) {json.dumps(refs)}")
+    return out, launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -3950,12 +4261,23 @@ def main():
         assert mesh_launches.get(key, 0) > 0, f"{key} never launched"
     for r in rows:
         r["launches_mesh"] = mesh_launches.get(r["name"], 0)
+
+    pk.reset_launch_counts()
+    elastic, elastic_launches = timed("25 elastic mesh", phase_elastic, data)
+    log(f"[launches] elastic mesh path {json.dumps(elastic_launches)}")
+    for key in ("pair_sum[auc]", "masked_pair_sum[auc]",
+                "pair_loss_grad[hinge]", "pair_loss_grad[logistic]",
+                "pair_grad_sums[hinge]", "pair_grad_sums[logistic]",
+                "batched_masked_pair_sum[triplet_indicator]"):
+        assert elastic_launches.get(key, 0) > 0, f"{key} never launched"
+    for r in rows:
+        r["launches_elastic"] = elastic_launches.get(r["name"], 0)
     log(f"[done] {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": rows, "train": train_rows,
                       "sim_learner_cell_s": sim_wall,
                       "triplet": triplet_main, "config4": config4,
                       "triplet_learner": learner, "designs": designs,
-                      "mesh": mesh,
+                      "mesh": mesh, "elastic": elastic,
                       "serving": {"index": index, "engine": engine,
                                   "streaming_estimator": streaming,
                                   "fleet": fleet,

@@ -31,6 +31,7 @@ from tuplewise_tpu_torch.estimators.variance import (
 from tuplewise_tpu_torch.harness import variance as H
 from tuplewise_tpu_torch.ops.kernels import get_kernel
 from tuplewise_tpu_torch.ops.pair_tiles import triplet_stats
+from tuplewise_tpu_torch.testing import FaultInjector
 from tuplewise_tpu_torch.utils.checkpoint import load_checkpoint
 from tuplewise_tpu_torch.utils.rng import audit_keys, derive_seed
 
@@ -112,7 +113,9 @@ def test_harness_designed_incomplete_unbiased(design):
     assert abs(r["mean"] - r["population_value"]) < 5 * r["std_error"]
     ratio = r["variance"] / r["closed_form_variance"]
     assert 0.45 < ratio < 1.85, ratio
-    assert r["batched"] and r["recovery"] == {"resumed_from": 0}
+    assert r["batched"] and r["recovery"] == {
+        "resumed_from": 0, "reshard_events": 0, "retries_total": 0,
+        "mesh_workers": None}
 
 
 def test_fix_data_swor_halves_swr_at_half_the_grid():
@@ -238,10 +241,14 @@ def test_unported_options_and_errors_raise():
     cfg = _cfg(n_reps=4)
     with pytest.raises(NotImplementedError, match="slice 8"):
         H.run_variance_experiment(cfg, trace_dir="t", device="cpu")
-    with pytest.raises(NotImplementedError, match="slice 7"):
-        H.run_variance_experiment(cfg, chaos=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="slice 7"):
-        H.run_variance_experiment(cfg, heal_retries=2, device="cpu")
+    # chaos and heal_retries are ported: a fault-free injector fires at
+    # every chunk and no retry runs
+    r = H.run_variance_experiment(cfg, chaos=FaultInjector(),
+                                  heal_retries=2, device="cpu")
+    assert r["recovery"]["retries_total"] == 0
+    assert r["recovery"]["chaos"]["calls"]["mc_chunk"] == 1
+    with pytest.raises(ValueError, match="unknown backend"):
+        H.run_variance_experiment(_cfg(backend="nope"), device="cpu")
     with pytest.raises(ValueError, match="unknown sampling design"):
         H.run_variance_experiment(_cfg(design="nope"), device="cpu")
     with pytest.raises(ValueError, match="distinct"):

@@ -268,9 +268,12 @@ def test_mesh_backend_needs_a_device_or_a_card(monkeypatch):
 
 
 def test_heal_retries_is_not_ported():
-    with pytest.raises(NotImplementedError, match="MeshHealer"):
-        Estimator("auc", backend="mesh", n_workers=8, device="cpu",
-                  heal_retries=2)
+    """heal_retries was the unported option; it now arms a healer that
+    keeps the mesh's width (tests/test_torch_preemption.py drives it)."""
+    est = Estimator("auc", backend="mesh", n_workers=8, device="cpu",
+                    heal_retries=2)
+    assert est._healer.fixed_width == 8
+    assert est._healer.mesh is est.backend.mesh
 
 
 @pytest.mark.cuda

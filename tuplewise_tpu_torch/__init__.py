@@ -13,11 +13,15 @@ Module names mirror the JAX package so each counterpart is easy to find:
   L2 partitioner -> tuplewise_tpu_torch.parallel  (device blocks; the
                     host partitioner and design oracle: parallel.partition;
                     worker meshes, the ring and torch.distributed:
-                    parallel.mesh, parallel.ring, parallel.distributed)
+                    parallel.mesh, parallel.ring, parallel.distributed;
+                    failure probes and the elastic healer:
+                    parallel.faults, parallel.self_heal)
   L3 estimators  -> tuplewise_tpu_torch.estimators  (Estimator(backend=
                     "torch" or "mesh"))
   L4 harness     -> tuplewise_tpu_torch.harness.variance (Monte-Carlo,
-                    checkpoint/resume, the three trade-off curves),
+                    checkpoint/resume, chaos and healing, the three
+                    trade-off curves), harness.mesh_mc (the mesh
+                    Monte-Carlo, BASELINE config 5),
                     harness.triplet_experiment (BASELINE config 4)
   L5 learners    -> tuplewise_tpu_torch.models  (train_pairwise,
                     train_curves, train_triplet)
@@ -25,7 +29,9 @@ Module names mirror the JAX package so each counterpart is easy to find:
                     MicroBatchEngine, replay; the fleet: TenantFleetIndex,
                     MultiTenantEngine, replay_fleet), estimators.streaming
 
-The flagship forward step is ``tuplewise_tpu_torch.graft_entry.entry``.
+Chaos injection for tests and drills: ``tuplewise_tpu_torch.testing``.
+The flagship forward step is ``tuplewise_tpu_torch.graft_entry.entry``,
+the multi-worker dry run ``graft_entry.dryrun_multichip``.
 Entry points run on the card unless the caller passes device="cpu".
 """
 

@@ -27,6 +27,11 @@ shards) or one worker per ``torch.distributed`` rank (``DistComm``).
   every rank), split it into worker blocks (``shard_design_blocks``),
   regather and take the weighted global mean.
 
+Each scheme's shard-level half (``complete_stats``, ``round_mean``,
+``incomplete_swr``, ``incomplete_designed``) takes the workers' shards
+and a generator, so the mesh Monte-Carlo (``harness.mesh_mc``) runs the
+same code on the rows it makes on each worker.
+
 ``impl``: "kernel" (the CUDA kernels on the card) or "plain" (the plain
 PyTorch versions). Values agree with the JAX mesh backend exactly for
 complete auc (to its float32 carry) and statistically for the schemes
@@ -110,32 +115,41 @@ class MeshBackend:
             b, mb, ib = a, ma, ia
         N = self.n_shards
         no_masks = A.shape[0] % N == 0 and B.shape[0] % N == 0
-        two_d = len(self.mesh.shape) == 2
-        if is_builtin_scatter(k):
-            s, c = scatter_mesh_stats(a, ma, b, mb, comm=self.comm,
-                                      one_sample=not k.two_sample)
-        elif k.kind == "triplet":
-            fn = (ring.ring_triplet_stats_2d if two_d
-                  else ring.ring_triplet_stats)
-            s, c = fn(k, a, b, mask_x=ma, mask_y=mb, ids_x=ia,
-                      mesh=self.mesh, impl=self.impl)
-        else:
-            fn = ring.ring_pair_stats_2d if two_d else ring.ring_pair_stats
-            s, c = fn(k, a, b,
-                      mask_a=None if no_masks else ma,
-                      mask_b=None if no_masks else mb,
-                      ids_a=None if k.two_sample else ia,
-                      ids_b=None if k.two_sample else ib,
-                      mesh=self.mesh, impl=self.impl)
+        s, c = self.complete_stats(a, ma, ia, b, mb, ib, no_masks)
         # on the host: the correctly rounded quotient of the exact sum
         # and count
         return float(s) / float(c)
 
+    def complete_stats(self, a, ma, ia, b, mb, ib, no_masks: bool):
+        """(sum, count) of the complete statistic over the workers'
+        packed blocks (``pack_blocks``'s layout; b, mb, ib are a's for a
+        one-sample kernel): the ring, or the scatter's moment form.
+        ``no_masks``: every block is full (kernel 1 at every stop)."""
+        k = self.kernel
+        two_d = len(self.mesh.shape) == 2
+        if is_builtin_scatter(k):
+            return scatter_mesh_stats(a, ma, b, mb, comm=self.comm,
+                                      one_sample=not k.two_sample)
+        if k.kind == "triplet":
+            fn = (ring.ring_triplet_stats_2d if two_d
+                  else ring.ring_triplet_stats)
+            return fn(k, a, b, mask_x=ma, mask_y=mb, ids_x=ia,
+                      mesh=self.mesh, impl=self.impl)
+        fn = ring.ring_pair_stats_2d if two_d else ring.ring_pair_stats
+        return fn(k, a, b,
+                  mask_a=None if no_masks else ma,
+                  mask_b=None if no_masks else mb,
+                  ids_a=None if k.two_sample else ia,
+                  ids_b=None if k.two_sample else ib,
+                  mesh=self.mesh, impl=self.impl)
+
     # ------------------------------------------------------------------ #
-    def _round(self, As, Bs, n1, n2, gen, scheme, alive):
+    def round_mean(self, As, Bs, n1, n2, gen, scheme, alive):
         """One round: fresh [N, m] blocks from ``gen`` (the same on every
-        rank), regathered from the shards As, Bs, and the survivors'
-        mean of the per-worker means (float64 0-d)."""
+        rank), regathered from the workers' shards As, Bs (``pad_blocks``;
+        Bs is As for a one-sample kernel) of the n1 and n2 real rows, and
+        the survivors' mean of the per-worker means (float64 0-d);
+        ``alive`` is this process's rows of the alive mask."""
         k = self.kernel
         comm = self.comm
         i1 = comm.local_rows(draw_blocks(gen, n1, self.n_shards, scheme))
@@ -164,7 +178,7 @@ class MeshBackend:
         As, Bs, n1, n2, alive = self._schemes_setup(A, B, n_workers,
                                                     dropped_workers)
         gen = generator(seed, "local_average", device=self.device)
-        return float(self._round(As, Bs, n1, n2, gen, scheme, alive))
+        return float(self.round_mean(As, Bs, n1, n2, gen, scheme, alive))
 
     def repartitioned(self, A, B=None, *, n_workers=None, n_rounds,
                       seed=0, scheme="swor", dropped_workers=()) -> float:
@@ -173,7 +187,7 @@ class MeshBackend:
         total = torch.zeros((), dtype=F64, device=self.device)
         for t in range(n_rounds):
             gen = generator(seed, "repartition_round", t, device=self.device)
-            total += self._round(As, Bs, n1, n2, gen, scheme, alive)
+            total += self.round_mean(As, Bs, n1, n2, gen, scheme, alive)
         return float(total / n_rounds)
 
     # ------------------------------------------------------------------ #
@@ -185,14 +199,24 @@ class MeshBackend:
         global set drawn on the device (a budget above 0.8 x the grid
         raises ValueError), split over the workers and regathered; the
         mean is weighted by the realized tuples."""
-        k = self.kernel
         A, B = self._inputs(A, B)
-        if design == "swr":
-            return self._incomplete_within_shards(A, B, n_pairs, seed)
-        comm = self.comm
         As, Bs = self._shards(A, B)
         n1, n2 = A.shape[0], B.shape[0]
+        if design == "swr":
+            self._check_sizes(A, B)
+            gen = generator(seed, "incomplete_shard", device=self.device)
+            return float(self.incomplete_swr(As, Bs, n1, n2, n_pairs, gen))
         gen = generator(seed, "design", device=self.device)
+        return float(self.incomplete_designed(As, Bs, n1, n2, n_pairs, gen,
+                                              design))
+
+    def incomplete_designed(self, As, Bs, n1, n2, n_pairs, gen, design):
+        """The swor / bernoulli estimate (float64 0-d) over the workers'
+        shards As, Bs of n1 and n2 rows: the design drawn from ``gen``
+        (the same on every rank), split into worker blocks
+        (``shard_design_blocks``) and regathered."""
+        k = self.kernel
+        comm = self.comm
         if k.kind == "triplet":
             i, j, kk, w = device_design.draw_triplet_design_device(
                 gen, n1, n2, n_pairs, design, floor_one=True)
@@ -215,33 +239,35 @@ class MeshBackend:
         part = torch.stack([(vals * pw).sum(-1, dtype=F64),
                             pw.sum(-1, dtype=F64)], dim=1)
         tot = comm.all_reduce_sum(part)
-        return float(tot[0] / tot[1])
+        return tot[0] / tot[1]
 
-    def _incomplete_within_shards(self, A, B, n_pairs, seed) -> float:
+    def incomplete_swr(self, As, Bs, n1, n2, n_pairs, gen):
+        """The swr estimate (float64 0-d) over the workers' shards As, Bs
+        of n1 and n2 rows: a random packing and every worker's
+        ceil(n_pairs / N) tuples inside its block, all from ``gen`` (the
+        same on every rank); each process regathers its workers' rows."""
         k = self.kernel
         N, comm, dev = self.n_shards, self.comm, self.device
-        self._check_sizes(A, B)
-        # the packing and every worker's tuples from one generator, the
-        # same on every rank; each process keeps its workers' rows
-        gen = generator(seed, "incomplete_shard", device=dev)
-        ia = draw_blocks(gen, A.shape[0], N)
-        ib = draw_blocks(gen, B.shape[0], N) if k.two_sample else ia
+        ia = draw_blocks(gen, n1, N)
+        ib = draw_blocks(gen, n2, N) if k.two_sample else ia
         per = -(-n_pairs // N)          # ceil: draw AT LEAST n_pairs
         na, nb = ia.shape[1], ib.shape[1]
+
+        def rows(X, ix, t):
+            return comm.regather(X, comm.local_rows(ix.gather(1, t)))
+
         if k.kind == "triplet":
             i, j = pair_tiles.sample_pair_indices(gen, na, na, per, True,
                                                   batch=(N,))
             kn = torch.randint(0, nb, (N, per), generator=gen, device=dev)
-            rows = [comm.local_rows(ix.gather(1, t))
-                    for ix, t in ((ia, i), (ia, j), (ib, kn))]
-            vals = k.triplet_values(A[rows[0]], A[rows[1]], B[rows[2]])
+            vals = k.triplet_values(rows(As, ia, i), rows(As, ia, j),
+                                    rows(Bs, ib, kn))
         else:
             i, j = pair_tiles.sample_pair_indices(
                 gen, na, nb if k.two_sample else na, per, not k.two_sample,
                 batch=(N,))
-            vals = k.pair_elementwise(A[comm.local_rows(ia.gather(1, i))],
-                                      B[comm.local_rows(ib.gather(1, j))])
-        return float(comm.all_reduce_sum(vals.mean(-1, dtype=F64)) / N)
+            vals = k.pair_elementwise(rows(As, ia, i), rows(Bs, ib, j))
+        return comm.all_reduce_sum(vals.mean(-1, dtype=F64)) / N
 
     # ------------------------------------------------------------------ #
     def _check_sizes(self, A, B):

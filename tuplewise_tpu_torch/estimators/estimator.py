@@ -13,6 +13,16 @@ It runs on the card unless ``device="cpu"`` is passed; with no card and
 no device it raises. ``backend="mesh"`` runs the schemes over a mesh of
 workers (``backends.mesh_backend``): ``n_workers`` sizes the worker
 axis when no ``mesh`` is given, and ``est.n_workers`` is the mesh size.
+
+``heal_retries`` > 0 runs every scheme call under the elastic
+heal-and-retry protocol (``parallel.self_heal.MeshHealer``): on the mesh
+a failed call probes the mesh, rebuilds it at the SAME worker count over
+the spare slots of ``mesh.pool``, rebuilds the backend on it with the
+same options and retries with backoff; the value is unchanged, since the
+backend packs its inputs per call and every draw folds the logical
+worker, never a slot. The single-device backend retries with backoff
+only. ``chaos`` (a ``testing.chaos.FaultInjector``) fires at the
+``"estimator"`` hook before each scheme call.
 """
 
 from __future__ import annotations
@@ -21,6 +31,7 @@ from typing import Optional
 
 from tuplewise_tpu_torch.backends.base import get_backend
 from tuplewise_tpu_torch.ops.kernels import get_kernel
+from tuplewise_tpu_torch.parallel.self_heal import MeshHealer
 
 
 class Estimator:
@@ -32,23 +43,24 @@ class Estimator:
       device: None (the card) or an explicit torch device such as "cpu".
       n_workers: default number of simulated workers N; with "mesh", the
         mesh size (a conflicting mesh raises ValueError).
-      heal_retries: > 0 arms the JAX package's elastic self-healing of
-        a mesh, which is not ported: NotImplementedError with "mesh".
+      heal_retries: > 0 retries a failed scheme call up to this many
+        times, healing the mesh first (module docstring); 0 (default)
+        runs the call bare.
+      chaos: a ``testing.chaos.FaultInjector`` fired at the
+        ``"estimator"`` hook before each scheme call (and consulted for
+        the declared dead-worker topology during a heal).
       **backend_opts: forwarded to the backend (impl, auc_fast; mesh).
     """
 
     def __init__(self, kernel="auc", backend: str = "torch", device=None,
                  n_workers: Optional[int] = None, heal_retries: int = 0,
-                 **backend_opts):
+                 chaos=None, **backend_opts):
         self.kernel = get_kernel(kernel)
         self.backend_name = backend
-        if heal_retries and backend == "mesh":
-            raise NotImplementedError(
-                "heal_retries: the mesh healer (MeshHealer) is not ported to "
-                "tuplewise_tpu_torch yet (ROADMAP.md slice 7 item 2)")
         if (backend == "mesh" and "mesh" not in backend_opts
                 and n_workers is not None):
             backend_opts["n_workers"] = n_workers
+        self._backend_opts = dict(backend_opts, device=device)
         self.backend = get_backend(backend, self.kernel, device=device,
                                    **backend_opts)
         if hasattr(self.backend, "n_shards"):
@@ -61,6 +73,41 @@ class Estimator:
             self.n_workers = self.backend.n_shards
         else:
             self.n_workers = 1 if n_workers is None else int(n_workers)
+        self.chaos = chaos
+        self.heal_retries = int(heal_retries)
+        self._healer = None
+        if self.heal_retries:
+            mesh = getattr(self.backend, "mesh", None)
+            self._healer = (
+                MeshHealer(None, chaos=chaos) if mesh is None else
+                MeshHealer(mesh, fixed_width=mesh.n_workers, pool=mesh.pool,
+                           chaos=chaos))
+
+    def _call(self, fn):
+        """Run one scheme call ``fn(backend)``, under the heal-and-retry
+        protocol when ``heal_retries`` > 0."""
+        def attempt():
+            if self.chaos is not None:
+                self.chaos.fire("estimator")
+            return fn(self.backend)
+
+        if self._healer is None:
+            return attempt()
+        return self._healer.run(attempt, retries=self.heal_retries,
+                                on_heal=self._on_heal)
+
+    def _on_heal(self, healer):
+        """Rebuild the mesh backend on the healed mesh (the same worker
+        count, lost slots backfilled from spares) with the same options:
+        the same impl and device. Inputs are packed per call, so no other
+        state needs re-placing."""
+        if healer.mesh is None:
+            return
+        opts = dict(self._backend_opts)
+        opts.pop("mesh", None)
+        opts.pop("n_workers", None)
+        self.backend = get_backend("mesh", self.kernel, mesh=healer.mesh,
+                                   **opts)
 
     def _resolve_workers(self, n_workers: Optional[int]) -> int:
         n = self.n_workers if n_workers is None else n_workers
@@ -99,16 +146,16 @@ class Estimator:
     def complete(self, A, B=None) -> float:
         """Complete U_n — every tuple."""
         A, B = self._prep(A, B)
-        return float(self.backend.complete(A, B))
+        return float(self._call(lambda be: be.complete(A, B)))
 
     def local_average(self, A, B=None, *, seed: int = 0, scheme: str = "swor",
                       n_workers: Optional[int] = None,
                       dropped_workers: tuple = ()) -> float:
         """U^loc_N — per-worker complete U, averaged over the survivors."""
         A, B = self._prep(A, B)
-        return float(self.backend.local_average(
+        return float(self._call(lambda be: be.local_average(
             A, B, n_workers=self._resolve_workers(n_workers), seed=seed,
-            scheme=scheme, dropped_workers=dropped_workers))
+            scheme=scheme, dropped_workers=dropped_workers)))
 
     def repartitioned(self, A, B=None, *, n_rounds: int, seed: int = 0,
                       scheme: str = "swor", n_workers: Optional[int] = None,
@@ -117,10 +164,10 @@ class Estimator:
         if n_rounds < 1:
             raise ValueError(f"n_rounds must be >= 1, got {n_rounds}")
         A, B = self._prep(A, B)
-        return float(self.backend.repartitioned(
+        return float(self._call(lambda be: be.repartitioned(
             A, B, n_workers=self._resolve_workers(n_workers),
             n_rounds=n_rounds, seed=seed, scheme=scheme,
-            dropped_workers=dropped_workers))
+            dropped_workers=dropped_workers)))
 
     def incomplete(self, A, B=None, *, n_pairs: int, seed: int = 0,
                    design: str = "swr") -> float:
@@ -133,6 +180,6 @@ class Estimator:
         if n_pairs < 1:
             raise ValueError(f"n_pairs must be >= 1, got {n_pairs}")
         A, B = self._prep(A, B)
-        return float(self.backend.incomplete(
-            A, B, n_pairs=n_pairs, seed=seed, design=design))
+        return float(self._call(lambda be: be.incomplete(
+            A, B, n_pairs=n_pairs, seed=seed, design=design)))
 

@@ -10,7 +10,9 @@ and the reported statistic averages U_c over classes; with the indicator
 kernel it is the class-balanced triplet accuracy of the embedding.
 
 Progress is checkpointed after every completed class (the JAX layout of
-``utils.checkpoint``); a cut sweep resumes at the next class. Per-class
+``utils.checkpoint``); a cut sweep resumes at the next class. ``chaos``
+fires at ``"checkpoint"`` after each save (where a ``sigkill`` action
+models preemption with durable state). Per-class
 values depend only on the class data and ``seed``, never on the loop, so
 a resumed sweep equals the straight one.
 """
@@ -37,6 +39,7 @@ def triplet_mnist_statistic(
     seed: int = 0,
     path: Optional[str] = None,
     checkpoint_path: Optional[str] = None,
+    chaos=None,
     device=None,
     **backend_opts,
 ) -> dict:
@@ -46,12 +49,15 @@ def triplet_mnist_statistic(
     n_pairs None -> the complete statistic (the factorised CUDA kernel on
     the card); otherwise the incomplete estimator with B = n_pairs
     sampled triplets. ``checkpoint_path``: persist (class, U_c) after
-    every class and resume a cut sweep from the next one. ``device``:
+    every class and resume a cut sweep from the next one. ``chaos``: a
+    ``testing.chaos.FaultInjector``, fired at ``"checkpoint"`` after
+    each save and passed to the Estimator. ``device``:
     None runs on the card (and raises where there is none), "cpu" the
     plain versions.
     """
     E, labels, meta = load_mnist_embeddings(path=path, n=n, seed=seed)
-    est = Estimator(kernel, backend=backend, device=device, **backend_opts)
+    est = Estimator(kernel, backend=backend, device=device, chaos=chaos,
+                    **backend_opts)
     todo = sorted(set(classes or np.unique(labels).tolist()))
     ck_config = {"kernel": kernel, "backend": backend, "n": n,
                  "n_pairs": n_pairs, "classes": [int(c) for c in todo],
@@ -83,6 +89,8 @@ def triplet_mnist_statistic(
                 },
                 config=ck_config,
             )
+            if chaos is not None:
+                chaos.fire("checkpoint")
     return {
         "per_class": per_class,
         "mean": float(np.mean(list(per_class.values()))),

@@ -30,9 +30,21 @@ and each draw (data, blocks, designs) is one batched call a block of 64
 reps. The other degree-3 schemes loop the public
 Estimator over numpy Gaussian clouds, as the JAX harness does.
 
-Not ported here: the tracer (``trace_dir``, slice 8), chaos injection
-and self-healing retries (``chaos``, ``heal_retries``, slice 7) and the
-mesh runner.
+``backend="mesh"`` runs every kernel kind and scheme on a mesh of
+``n_workers`` workers through ``harness.mesh_mc.make_mesh_mc_runner``
+(data made on each worker, the ring for complete statistics): BASELINE
+config 5's Monte-Carlo.
+
+Elastic re-sharding: with ``heal_retries`` > 0 (the default 2) a chunk
+that fails heals through ``parallel.self_heal.MeshHealer``: a mesh config
+probes, rebuilds the mesh at the SAME width over the spare slots of its
+pool, rebuilds the runner and retries; the other backends retry with
+backoff only. Estimates are keyed by (rep, logical worker), so a healed
+sweep equals a fault-free one bit for bit. ``chaos`` fires at
+``"mc_chunk"`` (a chunk), ``"mesh_mc"`` (a block of reps of the mesh
+runner) and ``"checkpoint"`` (after each save).
+
+Not ported here: the tracer (``trace_dir``, slice 8).
 """
 
 from __future__ import annotations
@@ -49,9 +61,12 @@ import torch
 from tuplewise_tpu_torch.data.synthetic import make_gaussians, true_gaussian_auc
 from tuplewise_tpu_torch.estimators import variance as closed
 from tuplewise_tpu_torch.estimators.estimator import Estimator
+from tuplewise_tpu_torch.harness import mesh_mc
 from tuplewise_tpu_torch.ops import device_design, pair_kernels, rank_count
 from tuplewise_tpu_torch.ops.kernels import get_kernel
 from tuplewise_tpu_torch.parallel.device_partition import draw_blocks
+from tuplewise_tpu_torch.parallel.mesh import make_mesh
+from tuplewise_tpu_torch.parallel.self_heal import Backoff, MeshHealer
 from tuplewise_tpu_torch.utils.checkpoint import (
     iter_chunks, resume_progress, save_checkpoint,
 )
@@ -59,6 +74,7 @@ from tuplewise_tpu_torch.utils.device import resolve_device
 from tuplewise_tpu_torch.utils.rng import generator
 
 SCHEMES = ("complete", "local", "repartitioned", "incomplete")
+BACKENDS = ("torch", "mesh")
 # reps a generator draws for at once (see the module docstring): a
 # constant, so that the reps' values do not depend on the run's size
 REP_BLOCK = 64
@@ -73,6 +89,7 @@ class VarianceConfig:
 
     kernel: str = "auc"
     scheme: str = "complete"          # complete | local | repartitioned | incomplete
+    backend: str = "torch"            # torch | mesh
     n_pos: int = 10_000
     n_neg: int = 10_000
     dim: int = 1                      # feature width of the triplet clouds
@@ -96,10 +113,14 @@ def _validate(cfg: VarianceConfig) -> None:
         raise ValueError(
             f"unknown scheme {cfg.scheme!r}; choose one of {SCHEMES}"
         )
-    if get_kernel(cfg.kernel).kind not in ("diff", "triplet"):
+    if cfg.backend not in BACKENDS:
+        raise ValueError(f"unknown backend {cfg.backend!r}; choose one of "
+                         f"{BACKENDS}")
+    if (cfg.backend == "torch"
+            and get_kernel(cfg.kernel).kind not in ("diff", "triplet")):
         raise NotImplementedError(
-            "the port's harness runs score-difference and triplet kernels "
-            "only"
+            "the port's single-device harness runs score-difference and "
+            "triplet kernels only (backend='mesh' runs every kind)"
         )
     if (cfg.scheme in ("local", "repartitioned")
             and cfg.n_workers > min(cfg.n_pos, cfg.n_neg)):
@@ -114,8 +135,10 @@ def _validate(cfg: VarianceConfig) -> None:
 
 
 def _looped(cfg: VarianceConfig) -> bool:
-    """Degree-3 schemes other than incomplete loop the Estimator."""
-    return (get_kernel(cfg.kernel).kind == "triplet"
+    """Single-device degree-3 schemes other than incomplete loop the
+    Estimator."""
+    return (cfg.backend == "torch"
+            and get_kernel(cfg.kernel).kind == "triplet"
             and cfg.scheme != "incomplete")
 
 
@@ -132,11 +155,19 @@ def _draw_data(cfg: VarianceConfig, g: torch.Generator, batch=()):
 
 def fixed_dataset(cfg: VarianceConfig, device=None):
     """The frozen arrays a fix_data=True run on ``device`` draws, as
-    numpy: the same generator and the same calls as the runner, so a
-    results audit computes exact conditional closed forms on the very
-    dataset. torch's generators differ between the CPU and the card, so
-    the device is part of the dataset's identity."""
+    numpy: the same generator and the same calls as the runner (the mesh
+    runner's workers' rows for a mesh config), so a results audit
+    computes exact conditional closed forms on the very dataset. torch's
+    generators differ between the CPU and the card, so the device is part
+    of the dataset's identity."""
     dev = resolve_device(device)
+    if cfg.backend == "mesh":
+        # the workers' shards laid end to end are the global rows
+        rows = mesh_mc.worker_draws(cfg, make_mesh(cfg.n_workers, dev),
+                                    ("data_fixed",), 1)
+        X, Y = (r[0].reshape((-1,) + r.shape[3:])[:n] for r, n in zip(
+            rows + rows[:1], (cfg.n_pos, cfg.n_neg)))
+        return X.cpu().numpy(), Y.cpu().numpy()
     X, Y = _draw_data(cfg, generator(cfg.seed, "data_fixed", device=dev))
     return X.cpu().numpy(), Y.cpu().numpy()
 
@@ -278,13 +309,15 @@ def run_variance_experiment(
     checkpoint_every: Optional[int] = None,
     trace_dir: Optional[str] = None,
     chaos=None,
-    heal_retries: int = 0,
+    heal_retries: int = 2,
     *,
     device=None,
 ) -> dict:
     """M-rep Monte-Carlo: mean, empirical variance and wall-clock, beside
     the closed-form variance (None where there is none), the config and
-    a ``recovery`` block (the rep a resumed run started from).
+    a ``recovery`` block (the rep a resumed run started from, the
+    healer's ``reshard_events`` and ``retries_total``, ``mesh_workers``
+    of a mesh config, and ``chaos.snapshot()`` when chaos is given).
 
     Checkpoint/resume: with ``checkpoint_path``, reps run in chunks of
     ``checkpoint_every`` and the estimates so far persist after each
@@ -294,17 +327,13 @@ def run_variance_experiment(
     before the clock starts, and each chunk's clock stops after its
     estimates reach the host.
 
-    ``trace_dir`` (the tracer, slice 8), ``chaos`` and ``heal_retries``
-    (chaos injection and self-healing retries, slice 7) raise
-    NotImplementedError.
+    ``chaos`` and ``heal_retries``: see the module docstring; a chunk is
+    retried at most ``heal_retries`` times. ``trace_dir`` (the tracer,
+    slice 8) raises NotImplementedError.
     """
     if trace_dir is not None:
         raise NotImplementedError("trace_dir: the tracer is not ported yet "
                                   "(slice 8)")
-    if chaos is not None or heal_retries:
-        raise NotImplementedError("chaos and heal_retries: chaos injection "
-                                  "and self_heal are not ported yet "
-                                  "(slice 7)")
     _validate(cfg)
     dev = resolve_device(device)
     looped = _looped(cfg)
@@ -317,16 +346,50 @@ def run_variance_experiment(
     if dev.type == "cuda":
         pair_kernels.load_library()
         rank_count.load_library()
-    est = (Estimator(cfg.kernel, device=dev, n_workers=cfg.n_workers)
-           if looped else None)
-    for m, chunk in iter_chunks(start, cfg.n_reps, checkpoint_every):
-        reps = range(m, m + chunk)
-        t0 = time.perf_counter()
-        if looped:
-            out = np.asarray([_estimate_once(est, cfg, r) for r in reps])
+    mesh = (make_mesh(cfg.n_workers, dev) if cfg.backend == "mesh"
+            else None)
+    # the runner lives in a rebuildable cell: a heal rebuilds it on the
+    # healed mesh mid-sweep
+    state = {}
+
+    def build(m):
+        if m is not None:
+            state["run"] = mesh_mc.make_mesh_mc_runner(cfg, mesh=m,
+                                                       chaos=chaos)
+        elif looped:
+            est = Estimator(cfg.kernel, device=dev, n_workers=cfg.n_workers)
+            state["run"] = lambda reps: np.asarray(
+                [_estimate_once(est, cfg, r) for r in reps])
         else:
-            out = batched_estimates(cfg, dev, reps).cpu().numpy()
-        wallclock += time.perf_counter() - t0
+            state["run"] = lambda reps: batched_estimates(
+                cfg, dev, reps).cpu().numpy()
+
+    build(mesh)
+    healer = None
+    if heal_retries:
+        healer = MeshHealer(
+            mesh, fixed_width=None if mesh is None else cfg.n_workers,
+            pool=None if mesh is None else mesh.pool, chaos=chaos,
+            backoff=Backoff(seed=cfg.seed))
+
+    def on_heal(h):
+        if h.mesh is not None:
+            build(h.mesh)
+
+    for m, chunk in iter_chunks(start, cfg.n_reps, checkpoint_every):
+        def attempt(m=m, chunk=chunk):
+            if chaos is not None:
+                chaos.fire("mc_chunk")
+            t0 = time.perf_counter()
+            out = state["run"](range(m, m + chunk))
+            return out, time.perf_counter() - t0
+
+        if healer is not None:
+            out, secs = healer.run(attempt, retries=heal_retries,
+                                   on_heal=on_heal)
+        else:
+            out, secs = attempt()
+        wallclock += secs
         parts.append(out)
         if checkpoint_path:
             save_checkpoint(
@@ -335,7 +398,19 @@ def run_variance_experiment(
                        "wallclock_s": np.asarray(wallclock)},
                 config=cfg.to_json(),
             )
+            if chaos is not None:
+                # durable-state preemption point: a 'sigkill' here dies
+                # with exactly m + chunk reps recoverable
+                chaos.fire("checkpoint")
     est = np.concatenate(parts) if parts else np.empty(0)
+    recovery = {"resumed_from": int(start),
+                "reshard_events": healer.reshard_events if healer else 0,
+                "retries_total": healer.retries_total if healer else 0,
+                "mesh_workers": (None if mesh is None else
+                                 healer.n_workers if healer else
+                                 mesh.n_workers)}
+    if chaos is not None:
+        recovery["chaos"] = chaos.snapshot()
     result = {
         "config": cfg.to_json(),
         "device": str(dev),
@@ -346,7 +421,7 @@ def run_variance_experiment(
         "wallclock_s": wallclock,
         "n_reps": cfg.n_reps,
         "batched": not looped,
-        "recovery": {"resumed_from": int(start)},
+        "recovery": recovery,
     }
     if cfg.kernel == "auc" and cfg.dim == 1:
         result["population_value"] = true_gaussian_auc(cfg.separation)

@@ -10,12 +10,20 @@ differentiates the loss over ITS OWN pairs (all local pairs, or B
 sampled ones), the gradients are averaged, and the data is
 re-partitioned every ``repartition_every`` steps. BASELINE config 2.
 
-On one card the workers are a batch axis. Worker blocks are gathered by
-index into [N, m, d] on each repartition boundary, and a step scores
-them and takes the pair loss of all N workers in ONE batched kernel
-launch (``W = N``); the mean over the worker axis takes the place of
-the JAX ``lax.pmean``. The full-pair loss differentiates through
-``ops.pair_tiles.diff_pair_mean``: on a step whose loss is recorded
+The workers live on a mesh (``parallel.mesh``): by default
+``make_mesh(n_workers)``, the worker axis of one device. The data are
+held as the workers' shards (``pad_blocks``) and each repartition
+boundary regathers the [N, m, d] worker blocks from them through the
+mesh's communicator (``ShardedRows``: one collective a side prices the
+communication). A step scores every local worker's block and takes
+their pair loss in ONE batched kernel launch (``W`` = the local workers);
+one backward gives the gradient of their share of the worker mean, and
+``comm.sum_partials`` adds the processes' shares in rank order (on the
+worker axis one process holds every worker: nothing to add), the JAX
+``lax.pmean``. Across ranks (``DistComm``) the sums group otherwise
+than the worker axis's one batched backward, so the two agree within
+float32 rounding, not bit for bit. The full-pair loss differentiates
+through ``ops.pair_tiles.diff_pair_mean``: on a step whose loss is recorded
 (``loss_every``) its forward is the fused loss+gradient CUDA kernel, on
 the other steps the gradient-only one; both give the same gradient, so
 ``loss_every`` changes what is recorded, never the trajectory.
@@ -23,9 +31,15 @@ the other steps the gradient-only one; both give the same gradient, so
 The same step engine trains S independent replicas at once (params
 [S, ...], blocks [S, N, m, d], one launch with ``W = S * N``):
 ``train_pairwise`` runs it with S = 1, ``models.sim_learner.train_curves``
-with S seeds. Every draw is keyed by the absolute step index
+with S seeds (mesh-less: blocks indexed from the full arrays). Every draw
+is keyed by the absolute step index and the logical worker
 (``utils.rng``), so a run cut into chunks at any step, with a checkpoint
-between them, reproduces the uncut run bit for bit on the same device.
+between them, reproduces the uncut run bit for bit on the same device,
+and so does a run healed onto other worker slots
+(``parallel.self_heal.MeshHealer``: a failed chunk probes the mesh,
+rebuilds it at the same width over the pool's spare slots, re-places the
+shards and retries; ``chaos`` fires at ``"train_step"`` before each chunk
+and ``"checkpoint"`` after each save).
 
 The budgeted path (``pairs_per_worker``) draws each step's pairs of all N
 workers in one call of ``ops.device_design`` under ``pair_design``
@@ -36,16 +50,22 @@ a worker. ``train_pairwise_numpy`` is the JAX package's numpy oracle.
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from tuplewise_tpu_torch.obs.tracing import check_tracer
 from tuplewise_tpu_torch.ops import device_design, pair_tiles
 from tuplewise_tpu_torch.ops.kernels import Kernel, get_kernel
 from tuplewise_tpu_torch.ops.rank_auc import rank_auc
-from tuplewise_tpu_torch.parallel.device_partition import draw_blocks
+from tuplewise_tpu_torch.parallel.device_partition import (
+    ShardedRows, draw_blocks,
+)
+from tuplewise_tpu_torch.parallel.mesh import make_mesh
 from tuplewise_tpu_torch.parallel.partition import partition_two_sample
+from tuplewise_tpu_torch.parallel.self_heal import Backoff, MeshHealer
 from tuplewise_tpu_torch.utils.checkpoint import (
     iter_chunks, resume_progress, save_checkpoint,
 )
@@ -114,7 +134,9 @@ def check_config(cfg: TrainConfig) -> Kernel:
 
 def _blocks(cfg, seeds, Xp, Xn, t):
     """[S, N, m1, d] and [S, N, m2, d] worker blocks of every replica as
-    of repartition boundary t (generator (seed, "repartition", t))."""
+    of repartition boundary t (generator (seed, "repartition", t)). Xp,
+    Xn: [n, d] tensors, or ``ShardedRows`` (S = 1; N is then this
+    process's workers)."""
     N = cfg.n_workers
     n1, n2 = Xp.shape[0], Xn.shape[0]
     i1, i2 = [], []
@@ -141,13 +163,17 @@ def _sampled_pairs(cfg, seeds, t, m1, m2, device):
     return tuple(torch.cat(x) for x in zip(*draws))
 
 
-def sgd_step(scorer, kernel, cfg, params, Ab, Bb, seeds, t, impl=None):
+def sgd_step(scorer, kernel, cfg, params, Ab, Bb, seeds, t, impl=None,
+             comm=None):
     """Step t of every replica on given blocks. params: dict of [S, ...]
     tensors; Ab [S, N, m1, d], Bb [S, N, m2, d]; seeds: the S replica
-    seeds (they key the sampled pairs of the budgeted path). Returns
-    (new params, loss [S], NaN where step t's loss is not recorded)."""
+    seeds (they key the sampled pairs of the budgeted path). comm: the
+    mesh's communicator when the N workers are this process's share of
+    a mesh (S = 1). Returns (new params, loss [S], NaN where step t's
+    loss is not recorded)."""
     S, N, m1, d = Ab.shape
     m2 = Bb.shape[2]
+    n_all = N if comm is None else comm.n_workers
     record = t % cfg.loss_every == 0
     params = {k: v.detach().requires_grad_() for k, v in params.items()}
     s1 = scorer.score(params, Ab.reshape(S, N * m1, d)).reshape(S * N, m1)
@@ -159,12 +185,19 @@ def sgd_step(scorer, kernel, cfg, params, Ab, Bb, seeds, t, impl=None):
             vals = pair_tiles.diff_pair_mean_loss_free(kernel, s1, s2, impl)
     else:
         i, j, w = _sampled_pairs(cfg, seeds, t, m1, m2, s1.device)
+        if n_all != N:
+            i, j, w = (comm.local_rows(x) for x in (i, j, w))
         vals = kernel.diff(s1.gather(1, i) - s2.gather(1, j))
         # max(., 1): an exact small-grid bernoulli draw can realize an
         # EMPTY design, a zero-weight step, not NaN
         vals = (vals * w).sum(dim=1) / w.sum(dim=1).clamp_min(1.0)
     loss = vals.reshape(S, N).mean(dim=1)
+    if n_all != N:
+        # this process's share of the mean over every worker
+        loss = loss * (N / n_all)
     grads = torch.autograd.grad(loss.sum(), list(params.values()))
+    if n_all != N:
+        grads, loss = _sum_over_processes(comm, grads, loss.detach())
     with torch.no_grad():
         new = {k: p - cfg.lr * g for (k, p), g in zip(params.items(), grads)}
     loss = loss.detach()
@@ -174,13 +207,24 @@ def sgd_step(scorer, kernel, cfg, params, Ab, Bb, seeds, t, impl=None):
     return new, loss
 
 
+def _sum_over_processes(comm, grads, loss):
+    """Every process's gradient share and loss share summed in rank order
+    in ONE collective (``comm.sum_partials`` of the flattened parts)."""
+    parts = list(grads) + [loss]
+    flat = comm.sum_partials(torch.cat([g.reshape(-1) for g in parts]))
+    out = list(flat.split([g.numel() for g in parts]))
+    out = [o.reshape(g.shape) for o, g in zip(out, parts)]
+    return out[:-1], out[-1]
+
+
 def run_chunk(scorer, kernel, cfg, params, Xp, Xn, seeds: Sequence[int],
-              t0: int, chunk: int, impl=None):
+              t0: int, chunk: int, impl=None, comm=None):
     """Steps [t0, t0 + chunk) of every replica. params: dict of [S, ...]
-    tensors; Xp, Xn: [n, d] float32 on the device. Blocks are drawn as
-    of the latest repartition boundary r0 = t0 - t0 % n_r, so any
-    chunking reproduces the unchunked run. Returns (params, losses
-    [S, chunk] on the device); nothing here reads a value back."""
+    tensors; Xp, Xn: [n, d] float32 on the device, or the mesh's
+    ``ShardedRows`` with its ``comm`` (S = 1). Blocks are drawn as of the
+    latest repartition boundary r0 = t0 - t0 % n_r, so any chunking
+    reproduces the unchunked run. Returns (params, losses [S, chunk] on
+    the device); nothing here reads a value back."""
     Ab, Bb = _blocks(cfg, seeds, Xp, Xn, t0 - t0 % cfg.repartition_every)
     losses = torch.empty(len(seeds), chunk, device=Xp.device)
     for c in range(chunk):
@@ -188,7 +232,7 @@ def run_chunk(scorer, kernel, cfg, params, Xp, Xn, seeds: Sequence[int],
         if t % cfg.repartition_every == 0 and t > t0:
             Ab, Bb = _blocks(cfg, seeds, Xp, Xn, t)
         params, losses[:, c] = sgd_step(scorer, kernel, cfg, params, Ab, Bb,
-                                     seeds, t, impl)
+                                        seeds, t, impl, comm)
     return params, losses
 
 
@@ -208,6 +252,30 @@ def to_device_rows(X, device) -> torch.Tensor:
 # entry points                                                          #
 # --------------------------------------------------------------------- #
 
+def trainer_mesh(n_workers: int, mesh, device):
+    """The mesh a trainer runs on: ``mesh``, whose size must be
+    ``n_workers`` and whose device ``device`` (when given), or
+    ``make_mesh(n_workers, device)``."""
+    if mesh is None:
+        return make_mesh(n_workers, device)
+    if mesh.n_workers != n_workers:
+        raise ValueError(f"n_workers={n_workers} conflicts with the mesh's "
+                         f"{mesh.n_workers} workers")
+    if device is not None and torch.device(device).type != mesh.device.type:
+        raise ValueError(f"device {device} conflicts with the mesh's "
+                         f"{mesh.device}")
+    return mesh
+
+
+def recovery_record(start: int, healer) -> dict:
+    """The history's ``recovery`` block: the step a resumed run started
+    from and the healer's counters."""
+    return {"resumed_from": int(start),
+            "reshard_events": healer.reshard_events,
+            "retries_total": healer.retries_total,
+            "mesh_workers": healer.n_workers}
+
+
 def train_pairwise(
     scorer,
     params,
@@ -217,20 +285,31 @@ def train_pairwise(
     checkpoint_path: Optional[str] = None,
     checkpoint_every: Optional[int] = None,
     *,
+    mesh=None,
+    chaos=None,
+    heal_retries: int = 2,
+    retry_backoff_s: float = 0.05,
+    tracer=None,
+    metrics=None,
     device=None,
     impl: Optional[str] = None,
 ):
-    """Distributed pairwise SGD, its workers a batch axis on one device.
+    """Distributed pairwise SGD over a mesh of workers.
 
     scorer: a port scorer (``models.scorers``); params: its parameters
     as a dict of numpy arrays (the JAX package's form) or tensors, or
     None for the module's own. Returns (params as a dict of numpy
     arrays, history) where history["loss"] is the per-step worker-mean
-    surrogate loss (NaN on steps cfg.loss_every skips).
+    surrogate loss (NaN on steps cfg.loss_every skips) and, with
+    ``heal_retries`` > 0, history["recovery"] holds ``resumed_from``,
+    ``reshard_events``, ``retries_total`` and ``mesh_workers``.
 
-    device: None runs on the card and raises where there is none;
-    "cpu" runs the plain versions. impl="plain" takes the plain pair
-    sums on the card too (the kernels' yardstick).
+    mesh: a ``parallel.mesh.Mesh`` of cfg.n_workers workers (the worker
+    axis of one device, or one worker a ``torch.distributed`` rank);
+    None builds ``make_mesh(cfg.n_workers, device)``. device: None runs
+    on the card (the mesh's device when a mesh is given) and raises
+    where there is none; "cpu" runs the plain versions. impl="plain"
+    takes the plain pair sums on the card too (the kernels' yardstick).
 
     Checkpoint/resume: with ``checkpoint_path``, training runs in
     chunks of ``checkpoint_every`` steps (default: one chunk) and saves
@@ -240,14 +319,30 @@ def train_pairwise(
     is exact: a chunked run reproduces the unchunked run bit for bit on
     the same device (cfg.steps may differ across resumes; every other
     config field must match).
+
+    Elastic re-sharding: a chunk that fails runs the heal-and-retry
+    protocol (``parallel.self_heal.MeshHealer``, at most
+    ``heal_retries`` times, backoff from ``retry_backoff_s``): probe,
+    rebuild the mesh AT THE SAME width over the spare slots of
+    ``mesh.pool``, re-place the shards, retry; the healed trajectory is
+    the fault-free one bit for bit. When the pool runs dry
+    (``HealExhaustedError``) the job is left to checkpoint/resume.
+    ``chaos`` (a ``testing.chaos.FaultInjector``) fires at
+    ``"train_step"`` before each chunk and ``"checkpoint"`` after each
+    save. ``tracer`` must be None (span tracing is not ported).
+    ``metrics``: a ``utils.profiling.MetricsRegistry`` that receives the
+    gauges ``train_step``, ``train_loss_last`` and ``mesh_width``, the
+    ``train_chunk_s`` histogram and the healer's counters.
     """
     kernel = check_config(cfg)
-    device = resolve_device(device)
-    N = cfg.n_workers
+    check_tracer(tracer)
+    mesh = trainer_mesh(cfg.n_workers, mesh, device)
+    device, N = mesh.device, mesh.n_workers
     n1, n2 = len(X_pos), len(X_neg)
     if min(n1 // N, n2 // N) < 1:
         raise ValueError(f"n=({n1},{n2}) too small for {N} workers")
     Xp, Xn = to_device_rows(X_pos, device), to_device_rows(X_neg, device)
+    rows = (ShardedRows(Xp, mesh), ShardedRows(Xn, mesh))
     if params is None:
         params = scorer.state_dict()
     params = replicate(params, 1, device)
@@ -260,10 +355,44 @@ def train_pairwise(
     if ck is not None:
         loss_parts = [ck["extra"]["loss"]]
         params = replicate(ck["params"], 1, device)
+
+    healer = None
+    if heal_retries:
+        healer = MeshHealer(
+            mesh, fixed_width=N, pool=mesh.pool, chaos=chaos,
+            backoff=Backoff(base_s=retry_backoff_s, seed=cfg.seed),
+            metrics=metrics)
+    if metrics is not None:
+        g_step = metrics.gauge("train_step")
+        g_loss = metrics.gauge("train_loss_last")
+        h_chunk = metrics.histogram("train_chunk_s")
+        metrics.gauge("mesh_width").set(N)
+
+    def on_heal(h):
+        # adopt the healed mesh and re-place the shards on it
+        nonlocal rows
+        rows = (ShardedRows(Xp, h.mesh), ShardedRows(Xn, h.mesh))
+
     for t, chunk in iter_chunks(start, cfg.steps, checkpoint_every):
-        params, losses = run_chunk(scorer, kernel, cfg, params, Xp, Xn,
-                                   [cfg.seed], t, chunk, impl)
+        def attempt(t=t, chunk=chunk):
+            if chaos is not None:
+                chaos.fire("train_step")
+            return run_chunk(scorer, kernel, cfg, params, *rows, [cfg.seed],
+                             t, chunk, impl, rows[0].comm)
+
+        t_chunk0 = time.perf_counter()
+        if healer is not None:
+            params, losses = healer.run(attempt, retries=heal_retries,
+                                        on_heal=on_heal)
+        else:
+            params, losses = attempt()
         loss_parts.append(losses[0].cpu().numpy())
+        if metrics is not None:
+            h_chunk.observe(time.perf_counter() - t_chunk0)
+            g_step.set(t + chunk)
+            last = loss_parts[-1][-1] if chunk else np.nan
+            if np.isfinite(last):
+                g_loss.set(float(last))
         if checkpoint_path:
             save_checkpoint(
                 checkpoint_path,
@@ -272,10 +401,16 @@ def train_pairwise(
                 extra={"loss": np.concatenate(loss_parts)},
                 config=dataclasses.asdict(cfg),
             )
+            if chaos is not None:
+                # the checkpoint above is durable: a 'sigkill' scheduled
+                # here dies with exactly t + chunk steps recoverable
+                chaos.fire("checkpoint")
     loss = (np.concatenate(loss_parts) if loss_parts
             else np.zeros(0, np.float32))
-    return (state_to_params({k: v[0] for k, v in params.items()}),
-            {"loss": loss})
+    history = {"loss": loss}
+    if healer is not None:
+        history["recovery"] = recovery_record(start, healer)
+    return state_to_params({k: v[0] for k, v in params.items()}), history
 
 
 # --------------------------------------------------------------------- #

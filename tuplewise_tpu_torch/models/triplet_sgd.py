@@ -14,18 +14,25 @@ distinct, "swor" and "bernoulli"; i != j, k over its negatives); the
 gradients are averaged over the workers, and the blocks are redrawn
 every ``repartition_every`` steps.
 
-On one card the workers are a batch axis: blocks are [N, m, d], a step
-embeds all N blocks, gathers the N x B sampled triplets and takes the
-mean over workers of the per-worker means (the JAX ``lax.pmean``); the
-gradient comes from autograd (the sampled path has no pair kernel).
+The workers live on a mesh (``parallel.mesh``; by default the worker
+axis of one device, ``make_mesh(n_workers)``): the data are the
+workers' shards and each repartition boundary regathers the [N, m, d]
+blocks from them (``ShardedRows``). A step gathers every local worker's
+B sampled triplets, embeds them and takes the mean over workers of the
+per-worker means; one backward gives the gradient of the local workers'
+share and ``comm.sum_partials`` adds the processes' shares (the JAX
+``lax.pmean``; nothing to add on the worker axis). The gradient comes
+from autograd (the sampled path has no pair kernel).
 Held-out quality is the triplet ACCURACY: config 4's indicator
 statistic on the embedded test data, computed by the port's complete
 estimator, so the CUDA triplet kernel runs on the learner's path.
 
 Every draw is keyed by the absolute step (``utils.rng``: blocks from
 (seed, "repartition", t), triplets from (derive_seed(seed, "step", t),
-"triplet_sample")), so a run cut into chunks, with a checkpoint between
-them, equals the uncut run bit for bit on the same device. Checkpoints
+"triplet_sample")) and the logical worker, so a run cut into chunks,
+with a checkpoint between them, equals the uncut run bit for bit on the
+same device, and so does a run healed onto other worker slots (the
+elastic protocol of ``models.pairwise_sgd.train_pairwise``). Checkpoints
 have the JAX layout and config, so either package resumes the other's.
 """
 
@@ -38,11 +45,17 @@ import numpy as np
 import torch
 
 from tuplewise_tpu_torch.estimators.estimator import Estimator
-from tuplewise_tpu_torch.models.pairwise_sgd import to_device_rows
+from tuplewise_tpu_torch.models.pairwise_sgd import (
+    _sum_over_processes, recovery_record, to_device_rows, trainer_mesh,
+)
 from tuplewise_tpu_torch.models.scorers import LinearEmbed
+from tuplewise_tpu_torch.obs.tracing import check_tracer
 from tuplewise_tpu_torch.ops import device_design
 from tuplewise_tpu_torch.ops.kernels import Kernel, get_kernel
-from tuplewise_tpu_torch.parallel.device_partition import draw_blocks
+from tuplewise_tpu_torch.parallel.device_partition import (
+    ShardedRows, draw_blocks,
+)
+from tuplewise_tpu_torch.parallel.self_heal import Backoff, MeshHealer
 from tuplewise_tpu_torch.utils.checkpoint import resume_progress, save_checkpoint
 from tuplewise_tpu_torch.utils.device import resolve_device
 from tuplewise_tpu_torch.utils.rng import derive_seed, generator
@@ -113,7 +126,8 @@ def check_config(cfg: TripletTrainConfig) -> Kernel:
 
 def _blocks(cfg, Xc, Xo, t):
     """[N, m1, d] and [N, m2, d] worker blocks as of repartition boundary
-    t (generator (seed, "repartition", t))."""
+    t (generator (seed, "repartition", t)). Xc, Xo: [n, d] tensors or
+    the mesh's ``ShardedRows`` (N is then this process's workers)."""
     N = cfg.n_workers
     n1, n2 = Xc.shape[0], Xo.shape[0]
     gen = generator(cfg.seed, "repartition", t, device=Xc.device)
@@ -135,12 +149,14 @@ def sample_triplets(cfg, t, m1, m2, device):
         batch=(cfg.n_workers,))
 
 
-def sgd_step(embedder, kernel, cfg, params, Ab, Bb, triplets):
+def sgd_step(embedder, kernel, cfg, params, Ab, Bb, triplets, comm=None):
     """One step on given blocks Ab [N, m1, d], Bb [N, m2, d] and triplet
-    indices and weights (i, j, k, w) [N, L]: the loss is the mean over
+    indices and weights (i, j, k, w) [N, L] (every worker's, on a mesh
+    whose workers this process holds a share of): the loss is the mean over
     workers of each worker's sum(vals * w) / max(sum(w), 1) (an empty
-    bernoulli draw is a zero-weight step). Returns (new params, loss as
-    a 0-d tensor)."""
+    bernoulli draw is a zero-weight step). comm: the mesh's communicator
+    when the N workers are this process's share of a mesh. Returns (new
+    params, loss as a 0-d tensor)."""
     def rows(X, idx):
         return X.gather(1, idx[..., None].expand(-1, -1, X.shape[-1]))
 
@@ -148,6 +164,11 @@ def sgd_step(embedder, kernel, cfg, params, Ab, Bb, triplets):
     # embeds the blocks, then indexes): the backward of an index on the
     # card accumulates with atomics, whose order changes from run to
     # run, and a resumed run must repeat the straight one bit for bit
+    n_local = Ab.shape[0]
+    n_all = n_local if comm is None else comm.n_workers
+    if n_all != n_local:
+        # every worker's draws: this process keeps its workers' rows
+        triplets = [comm.local_rows(x) for x in triplets]
     i, j, k, wt = triplets
     xa, xp, xn = rows(Ab, i), rows(Ab, j), rows(Bb, k)   # [N, B, d]
     params = {name: v.detach().requires_grad_() for name, v in params.items()}
@@ -155,15 +176,22 @@ def sgd_step(embedder, kernel, cfg, params, Ab, Bb, triplets):
                                  embedder.embed(params, xp),
                                  embedder.embed(params, xn))
     loss = ((vals * wt).sum(dim=1) / wt.sum(dim=1).clamp_min(1.0)).mean()
+    if n_all != n_local:
+        # this process's share of the mean over every worker
+        loss = loss * (n_local / n_all)
     grads = torch.autograd.grad(loss, list(params.values()))
+    if n_all != n_local:
+        grads, loss = _sum_over_processes(comm, grads, loss.detach())
     with torch.no_grad():
         new = {name: w - cfg.lr * g
                for (name, w), g in zip(params.items(), grads)}
     return new, loss.detach()
 
 
-def run_chunk(embedder, kernel, cfg, params, Xc, Xo, t0: int, chunk: int):
-    """Steps [t0, t0 + chunk). Blocks are drawn as of the latest
+def run_chunk(embedder, kernel, cfg, params, Xc, Xo, t0: int, chunk: int,
+              comm=None):
+    """Steps [t0, t0 + chunk). Xc, Xo: [n, d] tensors, or the mesh's
+    ``ShardedRows`` with its ``comm``. Blocks are drawn as of the latest
     repartition boundary r0 = t0 - t0 % n_r, so any chunking reproduces
     the unchunked run. Returns (params, losses [chunk] on the device)."""
     n_r = cfg.repartition_every
@@ -176,7 +204,7 @@ def run_chunk(embedder, kernel, cfg, params, Xc, Xo, t0: int, chunk: int):
             Ab, Bb = _blocks(cfg, Xc, Xo, t)
         params, losses[c] = sgd_step(
             embedder, kernel, cfg, params, Ab, Bb,
-            sample_triplets(cfg, t, m1, m2, Xc.device))
+            sample_triplets(cfg, t, m1, m2, Xc.device), comm)
     return params, losses
 
 
@@ -195,23 +223,31 @@ def train_triplet(
     checkpoint_every: Optional[int] = None,
     embedder=None,
     *,
+    mesh=None,
+    chaos=None,
+    heal_retries: int = 2,
+    retry_backoff_s: float = 0.05,
+    tracer=None,
+    metrics=None,
     device=None,
 ):
-    """Distributed triplet SGD, its workers a batch axis on one device:
-    anchors/positives from X_class (the target class), negatives from
-    X_other. params: a dict of numpy arrays (the JAX form) or tensors.
-    Returns (params as float32 numpy arrays, history) with
-    history["loss"] the per-step worker-mean surrogate; with
-    ``eval_every`` and ``eval_data=(Xc_test, Xo_test)`` the history also
-    carries the held-out triplet accuracy at every eval boundary
-    ("eval_steps", "test_acc").
+    """Distributed triplet SGD over a mesh of workers: anchors/positives
+    from X_class (the target class), negatives from X_other. params: a
+    dict of numpy arrays (the JAX form) or tensors. Returns (params as
+    float32 numpy arrays, history) with history["loss"] the per-step
+    worker-mean surrogate; with ``eval_every`` and
+    ``eval_data=(Xc_test, Xo_test)`` the history also carries the
+    held-out triplet accuracy at every eval boundary ("eval_steps",
+    "test_acc"); with ``heal_retries`` > 0, history["recovery"].
 
     embedder: ``models.scorers.LinearEmbed`` / ``MLPEmbed`` (any module
     with a static ``embed(params, X)``); None infers the linear one from
     a bare {"W"} dict.
 
-    device: None runs on the card and raises where there is none; "cpu"
-    runs the plain versions.
+    mesh, device, chaos, heal_retries, retry_backoff_s, tracer, metrics:
+    as in ``models.pairwise_sgd.train_pairwise`` (``metrics`` receives
+    ``train_step`` and ``mesh_width``). device: None runs on the card and
+    raises where there is none; "cpu" runs the plain versions.
 
     Checkpoint/resume, the JAX contract: with ``checkpoint_path``,
     params, the loss history and the accuracy curve persist every
@@ -223,14 +259,16 @@ def train_triplet(
     bit on the same device.
     """
     kernel = check_config(cfg)
-    device = resolve_device(device)
-    N = cfg.n_workers
+    check_tracer(tracer)
+    mesh = trainer_mesh(cfg.n_workers, mesh, device)
+    device, N = mesh.device, mesh.n_workers
     n1, n2 = len(X_class), len(X_other)
     if min(n1 // N, n2 // N) < 2:
         raise ValueError(f"n=({n1},{n2}) too small for {N} workers")
     if embedder is None:
         embedder = default_embedder(params)
     Xc, Xo = to_device_rows(X_class, device), to_device_rows(X_other, device)
+    rows = (ShardedRows(Xc, mesh), ShardedRows(Xo, mesh))
     params = params_to_state(params, device)
 
     # the inferred linear default stores no 'embedder' key (the JAX
@@ -256,12 +294,39 @@ def train_triplet(
                 nxt = min(nxt, t - t % e + e)
         return nxt
 
+    healer = None
+    if heal_retries:
+        healer = MeshHealer(
+            mesh, fixed_width=N, pool=mesh.pool, chaos=chaos,
+            backoff=Backoff(base_s=retry_backoff_s, seed=cfg.seed),
+            metrics=metrics)
+    g_step = None
+    if metrics is not None:
+        g_step = metrics.gauge("train_step")
+        metrics.gauge("mesh_width").set(N)
+
+    def on_heal(h):
+        nonlocal rows
+        rows = (ShardedRows(Xc, h.mesh), ShardedRows(Xo, h.mesh))
+
     t0 = start
     while t0 < cfg.steps:
         t1 = next_boundary(t0)
-        params, losses = run_chunk(embedder, kernel, cfg, params, Xc, Xo,
-                                   t0, t1 - t0)
+
+        def attempt(t0=t0, t1=t1):
+            if chaos is not None:
+                chaos.fire("train_step")
+            return run_chunk(embedder, kernel, cfg, params, *rows, t0,
+                             t1 - t0, rows[0].comm)
+
+        if healer is not None:
+            params, losses = healer.run(attempt, retries=heal_retries,
+                                        on_heal=on_heal)
+        else:
+            params, losses = attempt()
         loss_parts.append(losses.cpu().numpy())
+        if g_step is not None:
+            g_step.set(t1)
         if eval_every is not None and (t1 % eval_every == 0
                                        or t1 == cfg.steps):
             curve_steps.append(t1)
@@ -275,12 +340,17 @@ def train_triplet(
                        "curve_steps": np.asarray(curve_steps),
                        "curve_acc": np.asarray(curve_acc)},
                 config=ck_config)
+            if chaos is not None:
+                # durable-state preemption point ('sigkill' dies here)
+                chaos.fire("checkpoint")
         t0 = t1
     hist = {"loss": (np.concatenate(loss_parts) if loss_parts
                      else np.empty(0, np.float32))}
     if eval_every is not None:
         hist["eval_steps"] = np.asarray(curve_steps)
         hist["test_acc"] = np.asarray(curve_acc)
+    if healer is not None:
+        hist["recovery"] = recovery_record(start, healer)
     return state_to_params(params), hist
 
 

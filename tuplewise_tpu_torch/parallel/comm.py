@@ -28,7 +28,9 @@ buffering of the JAX ring).
 then one local sum of the gathered ``[N, ...]`` float64 rows. Float64
 addition is not associative, and this is what makes the distributed form
 equal the worker axis bit for bit; the payloads (a ring's sum and count,
-a round's means) are a few numbers.
+a round's means) are a few numbers. ``sum_partials`` adds one partial a
+process (a trainer's gradient over its own workers) the same way; on
+the worker axis one process holds every worker and it is the identity.
 """
 
 from __future__ import annotations
@@ -96,6 +98,11 @@ class LocalComm:
         """[n_local, ...] -> [...] float64: the sum over all workers."""
         return self.all_gather(t.to(torch.float64)).sum(0)
 
+    def sum_partials(self, t: torch.Tensor) -> torch.Tensor:
+        """The sum over processes of each process's partial ``t`` (in its
+        own dtype): one process here, so ``t`` itself."""
+        return t
+
     def regather(self, shards: torch.Tensor,
                  idx: torch.Tensor) -> torch.Tensor:
         """Rows ``idx`` [n_local, m] of the global array whose worker
@@ -144,6 +151,11 @@ class DistComm(LocalComm):
         ops = ([dist.P2POp(dist.isend, t, nxt) for t in sends]
                + [dist.P2POp(dist.irecv, b, prv) for b in bufs])
         return _InFlight(dist.batch_isend_irecv(ops), bufs)
+
+    def sum_partials(self, t: torch.Tensor) -> torch.Tensor:
+        """Every rank's partial, gathered and summed in float64 in rank
+        order, cast back to ``t``'s dtype: the same value on every rank."""
+        return self.all_gather(t.to(torch.float64)[None]).sum(0).to(t.dtype)
 
     def all_gather(self, t: torch.Tensor) -> torch.Tensor:
         import torch.distributed as dist

@@ -6,7 +6,9 @@ partitions at once (one per Monte-Carlo rep), which is how the harness
 batches reps instead of vmapping them. The mesh half: the zero-padded
 worker shards of a global array (``pad_blocks``, the JAX ``pad_put``)
 and the complete packing (``pack_blocks``,
-``parallel.partition.pack_all`` on the device). The JAX
+``parallel.partition.pack_all`` on the device). ``ShardedRows`` holds a
+global array as those shards and answers ``X[idx]`` by a regather, how
+the trainers take their worker blocks on a mesh. The JAX
 ``linear_shard_index`` is ``comm.worker_ids``.
 """
 
@@ -59,15 +61,48 @@ def pad_blocks(X: torch.Tensor, mesh) -> torch.Tensor:
     return mesh.comm.local_rows(blocks).contiguous()
 
 
-def pack_blocks(X: torch.Tensor, mesh):
-    """Every row of X packed into worker blocks, this process's rows:
-    (blocks [n_local, cap, ...], mask [n_local, cap] float32 (1 for a
-    row, 0 for padding), ids [n_local, cap] int64 (the row index, -1
-    for padding)): ``parallel.partition.pack_all``'s layout, cap =
-    ceil(n / N)."""
-    n = X.shape[0]
+def pack_layout(n: int, mesh):
+    """The packing of n rows over the mesh's workers, this process's
+    rows: (mask [n_local, cap] float32 (1 for a row, 0 for padding), ids
+    [n_local, cap] int64 (the row index, -1 for padding)), worker w
+    holding rows w cap .. (w + 1) cap - 1, cap = ceil(n / N):
+    ``parallel.partition.pack_all``'s layout."""
     cap = -(-n // mesh.n_workers)
     pos = torch.arange(mesh.n_workers * cap, device=mesh.device)
     ids = torch.where(pos < n, pos, -1).reshape(mesh.n_workers, cap)
     ids = mesh.comm.local_rows(ids).contiguous()
-    return pad_blocks(X, mesh), (ids >= 0).to(torch.float32), ids
+    return (ids >= 0).to(torch.float32), ids
+
+
+def pack_blocks(X: torch.Tensor, mesh):
+    """Every row of X packed into worker blocks, this process's rows:
+    (blocks [n_local, cap, ...], mask, ids) in ``pack_layout``'s
+    layout."""
+    return (pad_blocks(X, mesh),) + pack_layout(X.shape[0], mesh)
+
+
+class ShardedRows:
+    """A global [n, ...] array held as the mesh's zero-padded worker
+    shards (``pad_blocks``). ``rows[idx]``, idx [*batch, N, m] int64 row
+    indices of every worker, regathers this process's workers' rows
+    through the communicator (one collective a batch row; on the worker
+    axis an index of the shards): [*batch, n_local, m, ...]."""
+
+    def __init__(self, X: torch.Tensor, mesh):
+        self.shape = tuple(X.shape)
+        self.device = mesh.device
+        self.comm = mesh.comm
+        self.shards = pad_blocks(X, mesh)
+        # one process holds every worker: the regather is one index of
+        # the flattened shards, taken without a loop a step
+        self._rows = (self.shards.reshape((-1,) + self.shards.shape[2:])
+                      if mesh.comm.n_local == mesh.n_workers else None)
+
+    def __getitem__(self, idx: torch.Tensor) -> torch.Tensor:
+        if self._rows is not None:
+            return self._rows[idx]
+        flat = idx.reshape((-1,) + idx.shape[-2:])
+        parts = [self.comm.regather(self.shards, self.comm.local_rows(i))
+                 for i in flat]
+        out = parts[0][None] if len(parts) == 1 else torch.stack(parts)
+        return out.reshape(idx.shape[:-2] + out.shape[1:])

@@ -51,9 +51,11 @@ PURPOSES = (
 _AUDIT = threading.local()
 
 
-def derive_seed(seed: int, purpose: str, *indices: int,
+def derive_seed(seed: int, purpose: str, *indices,
                 record: bool = True) -> int:
-    """A 63-bit seed for the chain (seed, purpose, *indices).
+    """A 63-bit seed for the chain (seed, purpose, *indices); an index is
+    an int or a str tag (the mesh runner's (seed, "mc_rep", k, "shard",
+    w)).
 
     ``record=False`` leaves the chain out of an ``audit_keys`` scope: for
     a chain that several consumers share by design, each taking rows of
@@ -61,7 +63,9 @@ def derive_seed(seed: int, purpose: str, *indices: int,
     chunk of a run cut mid-block draws whole)."""
     if purpose not in PURPOSES:
         raise ValueError(f"unknown purpose {purpose!r}; known: {PURPOSES}")
-    chain = ":".join([str(int(seed)), purpose, *(str(int(i)) for i in indices)])
+    chain = ":".join([str(int(seed)), purpose,
+                      *(i if isinstance(i, str) else str(int(i))
+                        for i in indices)])
     seen = getattr(_AUDIT, "seen", None)
     if record and seen is not None:
         if chain in seen:
@@ -75,7 +79,7 @@ def derive_seed(seed: int, purpose: str, *indices: int,
     return int.from_bytes(h[:8], "big") >> 1
 
 
-def generator(seed: int, purpose: str, *indices: int, device="cpu",
+def generator(seed: int, purpose: str, *indices, device="cpu",
               record: bool = True) -> torch.Generator:
     """A fresh generator on ``device`` for the chain (seed, purpose,
     *indices); ``record``: see :func:`derive_seed`."""
