@@ -57,6 +57,10 @@ class, N = 8 workers, T = 4 rounds, B = 10^4 with-replacement pairs) and
 at config 3's incomplete cell (n = 10^6, B = 10^4, swr): the median and
 the least of 7 calls after a warm-up.
 
+With ``--counts`` the turns time only kernels 7 and 6 at the shapes
+above (a check that a kernel's other forms left its flat form's time
+alone), about a minute a turn.
+
 With ``--trainers`` the turns time the learners end to end instead,
 and nothing else: 20 hinge steps of ``train_pairwise`` at n = 5e5 per
 class, N = 1 (chip_smoke.py phase 7's data; repartition_every 1 with
@@ -314,7 +318,17 @@ def _turn():
                 1)
     out["train_curves[hinge] cell"] = (t, float(res["loss"].mean()))
 
+    _count_times(out, g, cs)
+    print(json.dumps(out), flush=True)
+
+
+def _count_times(out, g, cs):
+    """Kernels 7 and 6 at their headlines (the module note) into out."""
+    import torch
+
     from tuplewise_tpu_torch.ops import count_kernels as ck
+    from tuplewise_tpu_torch.parallel import sharded_counts as sc
+
     scores, labels, tids = cs.fleet_stream(cs.FLEET_EVENTS, cs.FLEET_TENANTS)
     pos, neg, _, _ = cs.fleet_packs(scores, labels, tids, cs.FLEET_TENANTS)
     last = cs.fleet_chunks(scores[-cs.FLEET_CHUNK:], labels[-cs.FLEET_CHUNK:],
@@ -326,7 +340,6 @@ def _turn():
     out["tenant_count"] = (t, int(got.long().sum()))
     out["tenant_count call"] = (call_ms, int(got.long().sum()))
 
-    from tuplewise_tpu_torch.parallel import sharded_counts as sc
     for tag, grid, n, (la, lb) in (("", True, cs.COUNT_BASE, (512, 512)),
                                    (" index", False, 250_000, (255, 257))):
         vals = [torch.randn(n, generator=g, device="cuda") + shift
@@ -347,6 +360,17 @@ def _turn():
             lambda: ck.signed_count(*args), 1000)
         out[f"signed_count{tag}"] = (t, int(got.long().sum()))
         out[f"signed_count{tag} call"] = (call_ms, int(got.long().sum()))
+
+
+def _counts_turn():
+    """One checkout's times of kernels 7 and 6 alone (``--counts``)."""
+    import torch
+
+    sys.path.insert(0, os.getcwd())
+    import chip_smoke as cs
+
+    out = {}
+    _count_times(out, torch.Generator(device="cuda").manual_seed(SEED), cs)
     print(json.dumps(out), flush=True)
 
 
@@ -402,12 +426,12 @@ def grad_sass(root):
 
 
 def main():
-    mode = next((m for m in ("--harness", "--trainers") if m in sys.argv),
-                None)
+    mode = next((m for m in ("--harness", "--trainers", "--counts")
+                 if m in sys.argv), None)
     args = [a for a in sys.argv[1:] if a != mode]
     if args[:1] == ["--turn"]:
-        {"--harness": _harness_turn, "--trainers": _trainers_turn}.get(
-            mode, _turn)()
+        {"--harness": _harness_turn, "--trainers": _trainers_turn,
+         "--counts": _counts_turn}.get(mode, _turn)()
         return 0
     import torch
 

@@ -307,6 +307,37 @@ nonzero. Each phase prints its seconds.
    no spare slot, HealExhaustedError. (f) A one-rank NCCL group's mesh
    trainer equal bit for bit to the worker axis of N = 1. (g)
    graft_entry.dryrun_multichip(8). Every fault-free run shows no retry.
+26. Mesh serving (the mesh form of serving, S = 8 on the card's worker
+   axis). (a) Phase 17's stream (10^6 events, window 5e5, chunks of
+   256) through ExactAucIndex(shards=8) with count_kernel on and with
+   the searchsorted route, in lockstep with the single-device index:
+   wins2 equal after every batch, the auc equal to the float32 oracle,
+   one worker-axis launch of kernel 6 a batch and 0 fallbacks, minor
+   compactions and majors merged on the mesh (counted by wrapping the
+   index's sharded_major_merge), bytes_h2d_saved > 0; events/s and
+   insert p50/p99. (b) Heals on a 10^5-event stream: a sharded_count
+   fault dropping worker 3 (8 -> 7), a place_base fault, a major_merge
+   fault taking the counted host path; wins2 equal to the single-device
+   index after every batch, reshard_events and recovery_time_s; on
+   make_mesh(8) at fixed width, with no spare, HealExhaustedError. (c)
+   TenantFleetIndex(shards=8) on phase 21's stream cut to 2e5 events (T =
+   1024, Zipf 1.1) in lockstep with the single-device fleet, resized 8
+   -> 4 -> 8 and healed after a drop of worker 5: per-tenant wins2 equal
+   after every apply, every tenant's auc equal to its oracle, one
+   worker-axis launch of kernel 7 an apply, dirty-row re-places
+   dominant. (d) replay and replay_fleet at mesh_shards = 8 with
+   bg_compact under a chaos schedule (a batcher crash, a compactor
+   crash, a sharded_count drop, poison events): the index engine's auc
+   equal to a fault-free replay of the admitted events, every tenant's
+   auc equal to its oracle over the admitted events. (e) The sharded
+   index on a one-rank NCCL group (DistComm) equal to the single-device
+   index after every batch. Then, after the launch counts are read, the
+   timing of kernels 6 and 7 over the worker axis (device time by
+   torch.profiler, or by CUDA events where the profile holds none, ms a
+   call, the bound, plain and the batched searchsorted twin): kernel 6
+   at the mesh index's final runs and one batch's queries, kernel 7 at
+   phase 21's packs split over 8 ([8, 1024, 2^14]) and one apply's
+   queries.
 
 The launch counters are set to 0 before phase 3 and read after phase 4,
 set to 0 again before phase 7 and read after it, before phase 12 and
@@ -314,8 +345,9 @@ after it, before phase 14 and after it, before phase 17 and after it,
 before phase 18 and after it, before each of phases 21, 21b and 22 and
 after it, before phase 23 and after it, before phase 24 and after
 its estimator calls (before its timing), and before phase 25 and after
-it (less the references' own launches): every kernel must have been
-launched on its path (pair sums on the estimator's, gradient kernels on
+it (less the references' own launches), and before phase 26 and after
+its drives (before its timing): every kernel must have been launched on
+its path (pair sums on the estimator's, gradient kernels on
 the trainer's, the triplet kernel on the degree-3 estimator's and on the
 triplet learner's evaluations, the count kernel on the serving index's
 and the engine's, the tenant count kernel on the fleet's and the fleet
@@ -326,7 +358,9 @@ learner's evaluations; on the mesh's path kernels 1 and 2 for auc,
 hinge and logistic and kernel 5 for both triplet kernels; on the
 elastic path kernels 3 and 4 for both bodies in the mesh trainers,
 kernels 1 and 2's auc in the mesh Monte-Carlo and the healed Estimator
-and kernel 5's indicator in the mesh triplet trainer's evaluations). The script
+and kernel 5's indicator in the mesh triplet trainer's evaluations; on
+the mesh serving path kernels 6 and 7 over the worker axis and, on the
+single-device twins in lockstep, their flat forms). The script
 prints one JSON line of kernels,
 the card's name and power limit as nvidia-smi reports them, and, last,
 {"ok": true, "device": {...}}. Without a CUDA device, or without the
@@ -443,6 +477,14 @@ FLEET_ENGINE_EVENTS = 300_000
 # the ragged shape pads every shard
 MESH_WORKERS, MESH_N = 8, 10 ** 7
 MESH_RAGGED = (MESH_N + 3, MESH_N - 5)
+# the mesh form of serving (phase 26, at most 90 s): 8 workers on the
+# card's worker axis; the fleet on phase 21's stream cut to 2e5 events, the
+# heals' index stream 10^5 events, the engines 10000 and 6000 events, the
+# one-rank NCCL index 20000
+MESH_SERVE_WORKERS = 8
+MESH_FLEET_EVENTS, MESH_HEAL_EVENTS = 200_000, 100_000
+MESH_ENGINE_EVENTS, MESH_FLEET_ENGINE_EVENTS = 10_000, 6_000
+MESH_NCCL_EVENTS = 20_000
 
 
 def log(*a):
@@ -2452,8 +2494,8 @@ def count_bound_ms(runs, sets, qa, qb):
 def count_call_split(args, reps=1000):
     """Host microseconds of each part of a signed count, the mean over
     reps calls (perf_counter; the device is not waited for inside a
-    part): ``ck._check``; ``ck._launch`` (ctypes marshalling and the
-    enqueued launch); the query copy up as ``signed_pair_counts`` makes it
+    part): ``ck._check``; ``ck._launch`` at one worker (ctypes
+    marshalling and the enqueued launch); the query copy up as ``signed_pair_counts`` makes it
     (one concatenation of the host queries to a device tensor); the [4, q]
     block copy back to int64 numpy; and the whole ``signed_pair_counts``
     call on the placed runs."""
@@ -2461,6 +2503,7 @@ def count_call_split(args, reps=1000):
     from tuplewise_tpu_torch.parallel import sharded_counts as sc
 
     runs, signs, sets, qa, qb = args
+    wargs = ([r[None] for r in runs], signs, sets, qa, qb)
     qa_h, qb_h = qa.cpu().numpy(), qb.cpu().numpy()
     out = ck.signed_count(*args)
 
@@ -2477,8 +2520,9 @@ def count_call_split(args, reps=1000):
     sides = [[(r, r.numel(), s) for r, s, a in zip(runs, signs, sets)
               if a == side] for side in (0, 1)]
     return dict(
-        check=host_us(lambda: ck._check(*args)),
-        marshal_and_launch=host_us(lambda: ck._launch(*args)),
+        check=host_us(lambda: ck._check(*wargs)),
+        marshal_and_launch=host_us(lambda: ck._launch(
+            *wargs, 1, "signed_count[flat]")),
         copy_up=host_us(lambda: torch.from_numpy(
             np.concatenate([qa_h, qb_h])).to("cuda")),
         copy_back=host_us(lambda: out.cpu().numpy().astype(np.int64)),
@@ -4115,6 +4159,510 @@ def phase_elastic(data):
     return out, launches
 
 
+# --------------------------------------------------------------------- #
+# slice 15: the mesh form of serving                                     #
+# --------------------------------------------------------------------- #
+
+def mesh_count_bound_ms(runs, sets, qa, qb):
+    """Bound of a worker-axis signed count from what these inputs need:
+    count_bound_ms over every worker's rows (the run sectors the binary
+    searches read, the queries read once) and the [S, 4, q] int32 blocks
+    written once; or one comparison a load at the FP32 peak."""
+    S = runs[0].shape[0]
+    sectors = loads = 0
+    qs = (qa, qb)
+    for r, a in zip(runs, sets):
+        for w in range(S):
+            sec, ld, _ = searched(r[w], qs[a])
+            sectors, loads = sectors + sec, loads + ld
+    byts = 32.0 * sectors + 4.0 * (len(qa) + len(qb)) + 16.0 * S * max(
+        len(qa), len(qb))
+    by = ("operations" if loads / PEAK_FP32_OPS >= byts / PEAK_BYTES
+          else "bytes")
+    return max(loads / PEAK_FP32_OPS, byts / PEAK_BYTES) * 1e3, by, byts
+
+
+def mesh_tenant_bound_ms(pos, neg, qn, qp):
+    """Bound of a worker-axis tenant count: tenant_bound_ms over every
+    worker's [T, cap] slices of both packs against the shared queries,
+    and the [S, 4, T, q] int32 blocks written once."""
+    S, T = pos.shape[0], qn.shape[0]
+    sn, ln, _ = tenant_searched(neg.reshape(S * T, -1), qn.repeat(S, 1))
+    sp, lp, _ = tenant_searched(pos.reshape(S * T, -1), qp.repeat(S, 1))
+    byts = (32.0 * (sn + sp) + 4.0 * (qn.numel() + qp.numel())
+            + 16.0 * S * qn.numel())
+    loads = ln + lp
+    by = ("operations" if loads / PEAK_FP32_OPS >= byts / PEAK_BYTES
+          else "bytes")
+    return max(loads / PEAK_FP32_OPS, byts / PEAK_BYTES) * 1e3, by, byts
+
+
+def on_mesh_merges():
+    """Counts the major merges that run on the mesh (the index's host
+    path does not call sharded_major_merge): returns (counter, restore)."""
+    from tuplewise_tpu_torch.serving import index as index_mod
+
+    done = [0]
+    real = index_mod.sharded_major_merge
+
+    def counted(*a, **k):
+        out = real(*a, **k)
+        done[0] += 1
+        return out
+
+    index_mod.sharded_major_merge = counted
+
+    def restore():
+        index_mod.sharded_major_merge = real
+
+    return done, restore
+
+
+def drive_index_lockstep(scores, labels, n, indexes):
+    """The first chunk seeded and compacted, then chunks of INDEX_CHUNK
+    through every index in turn; wins2 equal across them after every
+    batch. Returns each index's insert latencies (s)."""
+    c = INDEX_CHUNK
+    for idx in indexes:
+        idx.insert_batch(scores[:c], labels[:c])
+        idx.compact()
+    lats = [[] for _ in indexes]
+    for i in range(c, n, c):
+        for lat, idx in zip(lats, indexes):
+            t0 = time.perf_counter()
+            idx.insert_batch(scores[i:i + c], labels[i:i + c])
+            lat.append(time.perf_counter() - t0)
+        w = {idx._wins2 for idx in indexes}
+        assert len(w) == 1, (i, w)
+    return lats
+
+
+def mesh_index_record(idx, lat, n, launches):
+    snap = idx.metrics.snapshot()
+    lat = np.asarray(lat) * 1e3
+    v = {k: snap[k]["value"] for k in (
+        "count_kernel_calls_total", "count_kernel_fallbacks_total",
+        "compactions_total", "major_merges_total", "major_merge_fallbacks",
+        "bytes_h2d", "bytes_h2d_saved", "reshard_events", "mesh_width")}
+    return dict(
+        events_per_s=(n - INDEX_CHUNK) / (lat.sum() / 1e3),
+        insert_latency_p50_ms=float(np.percentile(lat, 50)),
+        insert_latency_p99_ms=float(np.percentile(lat, 99)),
+        batches=len(lat), kernel_launches=launches,
+        kernel_calls=v["count_kernel_calls_total"],
+        kernel_fallbacks=v["count_kernel_fallbacks_total"],
+        compactions=v["compactions_total"],
+        minors=snap["compaction_bytes"]["count"],
+        major_merges=v["major_merges_total"],
+        major_merge_fallbacks=v["major_merge_fallbacks"],
+        bytes_h2d=v["bytes_h2d"], bytes_h2d_saved=v["bytes_h2d_saved"],
+        reshard_events=v["reshard_events"], mesh_width=v["mesh_width"],
+        shard_occupancy=idx.shard_occupancy(), auc=idx.auc())
+
+
+def phase_mesh_serving():
+    """Phase 26: the mesh form of serving at S = MESH_SERVE_WORKERS on the
+    card's worker axis. Returns (record, the path's launches, the two
+    worker-axis timing rows)."""
+    from tuplewise_tpu_torch import ExactAucIndex, TenantFleetIndex
+    from tuplewise_tpu_torch.models.metrics import auc_score
+    from tuplewise_tpu_torch.ops import count_kernels as ck
+    from tuplewise_tpu_torch.ops import pair_kernels as pk
+    from tuplewise_tpu_torch.parallel import sharded_counts as sc
+    from tuplewise_tpu_torch.parallel.mesh import make_mesh
+    from tuplewise_tpu_torch.parallel.self_heal import (
+        HealExhaustedError, MeshHealer,
+    )
+    from tuplewise_tpu_torch.serving import (
+        ServingConfig, make_stream, replay, replay_fleet,
+    )
+    from tuplewise_tpu_torch.testing import FaultInjector
+
+    S, c = MESH_SERVE_WORKERS, INDEX_CHUNK
+    out = {"part_s": {}}
+    merges, restore = on_mesh_merges()
+    clock = [time.perf_counter()]
+
+    def lap(part):
+        now = time.perf_counter()
+        out["part_s"][part] = now - clock[0]
+        clock[0] = now
+
+    # (a) the index: phase 17's stream on a mesh of S, the kernel and the
+    # searchsorted route in lockstep with the single-device index
+    n = INDEX_EVENTS
+    scores, labels = make_stream(n, pos_frac=0.5, separation=1.0, seed=0)
+    scores = scores.astype(np.float32)
+
+    def index(shards, ck_on, **kw):
+        return ExactAucIndex(window=n // 2, compact_every=INDEX_COMPACT,
+                             count_kernel=ck_on, shards=shards, **kw)
+
+    warm = [index(S, True), index(S, False), index(None, True)]
+    drive_index_lockstep(scores, labels, INDEX_WARM_EVENTS // 4, warm)
+    del warm
+    trio = [index(S, True), index(S, False), index(None, True)]
+    before = dict(pk.LAUNCHES)
+    merges[0] = 0
+    lats = drive_index_lockstep(scores, labels, n, trio)
+    mesh_launched = pk.LAUNCHES["signed_count[mesh]"] - before.get(
+        "signed_count[mesh]", 0)
+    recs = {}
+    for mode, idx, lat in zip(("mesh kernel", "mesh searchsorted",
+                               "single device"), trio, lats):
+        recs[mode] = mesh_index_record(
+            idx, lat, n, mesh_launched if mode == "mesh kernel" else 0)
+    tail_s, tail_l = scores[n - n // 2:], labels[n - n // 2:]
+    oracle = auc_score(tail_s[tail_l], tail_s[~tail_l])
+    k = recs["mesh kernel"]
+    assert all(r["auc"] == oracle for r in recs.values()), (oracle, recs)
+    assert mesh_launched == k["batches"] == k["kernel_calls"], k
+    assert k["kernel_fallbacks"] == 0 and k["major_merge_fallbacks"] == 0, k
+    assert recs["mesh searchsorted"]["kernel_calls"] == 0
+    assert k["minors"] > 0 and merges[0] > 0 and k["bytes_h2d_saved"] > 0, k
+    k["on_mesh_merges"] = merges[0]
+    for mode, r in recs.items():
+        log(f"[mesh serving] index {mode:17s} S={S if 'mesh' in mode else 1}"
+            f" n={n} window={n // 2} chunk={c}: {r['events_per_s']:.0f} "
+            f"events/s, insert p50 {r['insert_latency_p50_ms']:.3f} ms p99 "
+            f"{r['insert_latency_p99_ms']:.3f} ms, {r['batches']} batches, "
+            f"{r['kernel_launches']} worker-axis launches, {r['minors']} "
+            f"minors, {r['major_merges']} majors "
+            f"({r['major_merge_fallbacks']} on the host after a fault), "
+            f"{r['bytes_h2d']} bytes placed "
+            f"({r['bytes_h2d_saved']} saved), occupancy "
+            f"{r['shard_occupancy']}")
+    log(f"[mesh serving] index: wins2 equal after each of {k['batches']} "
+        f"batches; {merges[0]} majors merged on the mesh; auc "
+        f"{k['auc']!r} = the float32 rank-AUC oracle")
+    out["index"] = recs
+    probe_idx = trio[0]
+    q_s, q_l = scores[n - 2 * c:], labels[n - 2 * c:]
+    probe_runs = (probe_idx._runs(probe_idx._neg),
+                  probe_idx._runs(probe_idx._pos))
+    probe_q = (torch.from_numpy(q_s[q_l]).cuda(),
+               torch.from_numpy(q_s[~q_l]).cuda())
+    for idx in trio:
+        idx.close()
+    del trio
+    lap("a index")
+
+    # (b) heals on the index: a lost worker (8 -> 7), a placement fault,
+    # a major-merge fault taking the counted host path
+    nh = MESH_HEAL_EVENTS
+    spec = {"faults": [
+        {"point": "sharded_count", "on_call": 200, "action": "error",
+         "dropped": [3]},
+        {"point": "place_base", "on_call": 10, "action": "error"},
+        {"point": "major_merge", "on_call": 1, "action": "error"}]}
+    inj = FaultInjector.from_spec(spec)
+    hurt = ExactAucIndex(window=nh // 2, compact_every=INDEX_COMPACT,
+                         count_kernel=True, shards=S, chaos=inj,
+                         retry_backoff_s=0.0)
+    plain = ExactAucIndex(window=nh // 2, compact_every=INDEX_COMPACT,
+                          count_kernel=True)
+    drive_index_lockstep(scores, labels, nh, [hurt, plain])
+    m = hurt.metrics.snapshot()
+    fired = inj.snapshot()["fired"]
+    assert fired == {"sharded_count": 1, "place_base": 1,
+                     "major_merge": 1}, fired
+    assert hurt.shards == S - 1 and m["mesh_width"]["value"] == S - 1
+    assert m["major_merge_fallbacks"]["value"] == 1
+    assert m["count_kernel_fallbacks_total"]["value"] == 0
+    assert hurt.auc() == plain.auc()
+    rec = m["recovery_time_s"]
+    heals = dict(reshard_events=m["reshard_events"]["value"],
+                 shard_retries=m["shard_retries_total"]["value"],
+                 recovery_time_s_max=rec["max"],
+                 recovery_time_s_mean=rec["mean"],
+                 major_merge_fallbacks=m["major_merge_fallbacks"]["value"],
+                 mesh_width=hurt.shards, fired=fired)
+    exhausted = None
+    drop = FaultInjector.from_spec({"faults": [
+        {"point": "sharded_count", "on_call": 1, "action": "error",
+         "dropped": [3]}]})
+    try:
+        MeshHealer(make_mesh(S), fixed_width=S, chaos=drop).run(
+            lambda: drop.fire("sharded_count"))
+    except HealExhaustedError as e:
+        exhausted = str(e)
+    assert exhausted is not None
+    heals["fixed_width_exhausted"] = exhausted
+    out["heals"] = heals
+    log(f"[mesh serving] heals n={nh}: a sharded_count fault dropping "
+        f"worker 3 (8 -> {hurt.shards}), a place_base fault, a major_merge "
+        f"fault (the counted host path): wins2 equal after every batch; "
+        f"{json.dumps({k2: v for k2, v in heals.items() if k2 != 'fired'})}")
+    hurt.close()
+    plain.close()
+    lap("b heals")
+
+    # (c) the fleet: phase 21's stream cut to MESH_FLEET_EVENTS on a mesh
+    # of S, in lockstep with the single-device fleet; resize 8 -> 4 -> 8,
+    # then a heal
+    nf = MESH_FLEET_EVENTS
+    fs, fl, ft = fleet_stream(nf, FLEET_TENANTS)
+    chunks = fleet_chunks(fs, fl, ft, FLEET_CHUNK)
+    third = len(chunks) // 3
+    # the heal lands in the last third, on the mesh of S again
+    fspec = {"faults": [{"point": "sharded_count", "on_call":
+                         2 * third + (len(chunks) - 2 * third) // 2,
+                         "action": "error", "dropped": [5]}]}
+    finj = FaultInjector.from_spec(fspec)
+    mfleet = TenantFleetIndex(compact_every=FLEET_COMPACT, count_kernel=True,
+                              shards=S, chaos=finj, retry_backoff_s=0.0)
+    sfleet = TenantFleetIndex(compact_every=FLEET_COMPACT, count_kernel=True)
+    before = pk.LAUNCHES["tenant_count[mesh]"]
+    lats, slats = [], []
+    for part, width in ((chunks[:third], 4), (chunks[third:2 * third], S),
+                        (chunks[2 * third:], None)):
+        got = drive_fleets(part, [mfleet, sfleet])
+        lats += got[0]
+        slats += got[1]
+        if width is not None:
+            assert mfleet.resize_shards(width)
+    fleet_launched = pk.LAUNCHES["tenant_count[mesh]"] - before
+    frec = fleet_record(mfleet, lats, nf, chunks, fleet_launched)
+    assert fleet_launched == frec["applies"] == frec["kernel_calls"], frec
+    assert frec["kernel_fallbacks"] == 0, frec
+    assert frec["bytes_h2d_saved"] > 0 and frec["pack_replaces"] > frec[
+        "pack_full_replaces"], frec
+    assert finj.snapshot()["fired"] == {"sharded_count": 1}
+    assert mfleet.shards == S - 1
+    fm = mfleet.metrics.snapshot()
+    frec.update(reshard_events=fm["reshard_events"]["value"],
+                mesh_width=mfleet.shards,
+                recovery_time_s_max=fm["recovery_time_s"]["max"],
+                # the lockstep single-device fleet, at the same depth
+                single_events_per_s=nf / sum(slats),
+                single_apply_p99_ms=float(np.percentile(slats, 99)) * 1e3)
+    checked = 0
+    for tid, grp in tenant_groups(ft):
+        s_, l_ = fs[grp], fl[grp]
+        if l_.any() and not l_.all():
+            want = auc_score(s_[l_], s_[~l_])
+            assert mfleet.auc(tid) == want == sfleet.auc(tid), tid
+            checked += 1
+    out["fleet"] = frec
+    log(f"[mesh serving] fleet S={S} n={nf} T={FLEET_TENANTS} chunk="
+        f"{FLEET_CHUNK}: {frec['events_per_s']:.0f} events/s, apply p50 "
+        f"{frec['apply_p50_ms']:.3f} ms p99 {frec['apply_p99_ms']:.3f} ms "
+        f"(the single-device fleet in lockstep: "
+        f"{frec['single_events_per_s']:.0f} events/s, apply p99 "
+        f"{frec['single_apply_p99_ms']:.3f} ms), "
+        f"{frec['applies']} applies, {fleet_launched} worker-axis launches, "
+        f"caps {frec['pack_caps']}, {frec['bytes_h2d']} bytes placed "
+        f"({frec['bytes_h2d_saved']} saved), {frec['pack_replaces']} "
+        f"re-places of which {frec['pack_full_replaces']} full; resize 8 -> "
+        f"4 -> 8 and a heal dropping worker 5 ({frec['reshard_events']} "
+        f"reshards, recovery max {frec['recovery_time_s_max']:.6f} s): "
+        f"wins2 equal to the single-device fleet after every apply, "
+        f"{checked} tenants' auc() = their float32 oracle")
+    mfleet.close()
+    sfleet.close()
+    lap("c fleet")
+
+    # (d) both engines on the mesh under a chaos schedule, against
+    # fault-free runs over the admitted events
+    ne = MESH_ENGINE_EVENTS
+    es, el = make_stream(ne, pos_frac=0.5, separation=1.0, seed=3)
+    poison = [100, ne // 2, ne // 2 + 1]
+    espec = {"faults": [
+        {"point": "batcher", "on_call": 5, "action": "error"},
+        {"point": "compactor_build", "on_call": 1, "action": "error"},
+        {"point": "sharded_count", "on_call": 20, "action": "error",
+         "dropped": [3]},
+        {"point": "poison", "at_events": poison, "value": "nan"}]}
+    cfg = ServingConfig(policy="block", max_batch=256, compact_every=1024,
+                        mesh_shards=S, bg_compact=True, count_kernel=True)
+    erec = replay(es, el, config=cfg, chaos=espec, max_inflight=64)
+    keep = np.ones(ne, dtype=bool)
+    keep[poison] = False
+    clean = replay(es[keep], el[keep], config=dataclasses.replace(
+        cfg, mesh_shards=None, bg_compact=False), max_inflight=64)
+    ef = erec["faults"]
+    assert ef["chaos"]["fired"] == {"batcher": 1, "compactor_build": 1,
+                                    "sharded_count": 1}, ef
+    assert erec["shed_events"] == poison and ef["poison_rejects"] == 3
+    assert erec["auc_exact"] == clean["auc_exact"] and erec[
+        "auc_abs_err"] == 0, (erec["auc_exact"], clean["auc_exact"])
+    assert (erec["index"]["n_pos"], erec["index"]["n_neg"]) == (
+        clean["index"]["n_pos"], clean["index"]["n_neg"])
+    nfe = MESH_FLEET_ENGINE_EVENTS
+    gs, gl, gt = make_stream_fleet(nfe)
+    fpoison = [7, nfe // 2]
+    gspec = dict(espec, faults=[dict(f, at_events=fpoison)
+                                if f["point"] == "poison" else f
+                                for f in espec["faults"]])
+    gcfg = dataclasses.replace(cfg, compact_every=FLEET_COMPACT)
+    grec = replay_fleet(gs, gl, gt, config=gcfg, chaos=gspec,
+                        max_inflight=64)
+    gkeep = np.ones(nfe, dtype=bool)
+    gkeep[fpoison] = False
+    gclean = replay_fleet(gs[gkeep], gl[gkeep], gt[gkeep],
+                          config=dataclasses.replace(
+                              gcfg, mesh_shards=None, bg_compact=False),
+                          max_inflight=64)
+    gf = grec["faults"]
+    assert gf["chaos"]["fired"] == {"batcher": 1, "compactor_build": 1,
+                                    "sharded_count": 1}, gf
+    assert grec["events_poison_rejected"] == 2
+    assert grec["tenant_auc_max_abs_err"] == 0.0 == gclean[
+        "tenant_auc_max_abs_err"], (grec["tenant_auc_max_abs_err"],
+                                    gclean["tenant_auc_max_abs_err"])
+    assert grec["events_applied"] == gclean["events_applied"]
+    keepk = ("events_per_s", "insert_latency_p50_ms",
+             "insert_latency_p99_ms", "batches")
+    out["engine"] = dict({k2: erec[k2] for k2 in keepk},
+                         faults=ef, auc_exact=erec["auc_exact"])
+    out["fleet_engine"] = dict({k2: grec[k2] for k2 in keepk},
+                               faults=gf, fleet_count_calls=grec[
+                                   "fleet_count_calls"])
+    log(f"[mesh serving] engine mesh_shards={S} n={ne} under a batcher "
+        f"crash, a compactor crash, a drop of worker 3 and 3 poison events: "
+        f"{erec['events_per_s']:.0f} events/s, insert p99 "
+        f"{erec['insert_latency_p99_ms']:.3f} ms; auc {erec['auc_exact']!r}"
+        f" = the fault-free run over the admitted events; "
+        f"{json.dumps({k2: v for k2, v in ef.items() if k2 != 'chaos'})}")
+    log(f"[mesh serving] fleet engine mesh_shards={S} n={nfe} T="
+        f"{FLEET_TENANTS}, same schedule, 2 poison events: "
+        f"{grec['events_per_s']:.0f} events/s, insert p99 "
+        f"{grec['insert_latency_p99_ms']:.3f} ms; every tenant's auc = its "
+        f"float32 oracle over the admitted events, as in the fault-free run")
+
+    lap("d engines")
+    # (e) a one-rank NCCL group: the sharded index on DistComm
+    mesh_nccl_index(scores, labels)
+    lap("e nccl")
+    restore()
+    launches = dict(pk.LAUNCHES)
+
+    # timing, after the counts are read: kernel 6 over the worker axis at
+    # the mesh index's shape, kernel 7 at phase 21's packs split over S
+    rows = []
+    runs_n, runs_p = probe_runs
+    qa, qb = probe_q
+    args = ([r for r, _, _ in runs_n + runs_p],
+            [sg for _, _, sg in runs_n + runs_p],
+            [0] * len(runs_n) + [1] * len(runs_p), qa, qb)
+    rows.append(mesh_row(
+        "signed_count[mesh]", args, ck.signed_count_mesh,
+        ck.signed_count_mesh_plain, sc.signed_count_searchsorted_mesh,
+        mesh_count_bound_ms(args[0], args[2], qa, qb),
+        f"S={S}: caps {[r.shape[1] for r in args[0]]} (signs "
+        f"{args[1]}), qa={len(qa)} qb={len(qb)}",
+        f"{2 * len(args[0])} batched searchsorted", launches, plain_reps=3))
+    mesh = make_mesh(S)
+    hs, hl, ht = fleet_stream(FLEET_EVENTS, FLEET_TENANTS)
+    fruns = {True: [np.empty(0, np.float32)] * FLEET_TENANTS,
+             False: [np.empty(0, np.float32)] * FLEET_TENANTS}
+    for tid, grp in tenant_groups(ht):
+        for side in (True, False):
+            fruns[side][int(tid[1:])] = np.sort(hs[grp][hl[grp] == side])
+    pos, cap_p, _ = sc.place_tenant_pack(mesh, fruns[True], FLEET_TENANTS)
+    neg, cap_n, _ = sc.place_tenant_pack(mesh, fruns[False], FLEET_TENANTS)
+    last = fleet_chunks(hs[-FLEET_CHUNK:], hl[-FLEET_CHUNK:],
+                        ht[-FLEET_CHUNK:], FLEET_CHUNK)[0]
+    qn, qp = apply_queries(last, FLEET_TENANTS)
+    targs = (pos, neg, qn, qp)
+    rows.append(mesh_row(
+        "tenant_count[mesh]", targs, ck.tenant_count_mesh,
+        ck.tenant_count_mesh_plain, sc.tenant_count_searchsorted_mesh,
+        mesh_tenant_bound_ms(*targs),
+        f"S={S}: packs [{S}, {FLEET_TENANTS}, {cap_p}] / [{S}, "
+        f"{FLEET_TENANTS}, {cap_n}] (phase 21's [1024, 2^17] split), qb "
+        f"{qn.shape[1]} ({len(last)} tenants of a 256-event apply)",
+        "4 batched searchsorted", launches, plain_reps=1, reps=200))
+    del pos, neg, targs
+    lap("timing")
+    out["kernel_rows"] = [r["name"] for r in rows]
+    parts = {k2: round(v, 1) for k2, v in out["part_s"].items()}
+    log(f"[mesh serving] seconds by part: {json.dumps(parts)}")
+    return out, launches, rows
+
+
+def mesh_nccl_index(scores, labels):
+    """Phase 26(e): the sharded index on a one-rank NCCL group (DistComm)
+    against the single-device index, wins2 equal after every batch."""
+    from tuplewise_tpu_torch import ExactAucIndex
+    from tuplewise_tpu_torch.parallel import distributed
+    from tuplewise_tpu_torch.parallel.mesh import make_mesh
+
+    import torch.distributed as dist
+
+    n = MESH_NCCL_EVENTS
+    with tempfile.TemporaryDirectory() as tmp:
+        assert distributed.initialize(num_processes=1, process_id=0,
+                                      init_method=f"file://{tmp}/store")
+        try:
+            dmesh = make_mesh(distributed=True)
+            assert dmesh.distributed and dist.get_backend() == "nccl"
+            didx = ExactAucIndex(window=n // 2, compact_every=INDEX_COMPACT,
+                                 count_kernel=True, mesh=dmesh)
+            sidx = ExactAucIndex(window=n // 2, compact_every=INDEX_COMPACT,
+                                 count_kernel=True)
+            drive_index_lockstep(scores, labels, n, [didx, sidx])
+            assert didx.n_major_merges > 0
+        finally:
+            dist.destroy_process_group()
+    log(f"[mesh serving] one-rank NCCL group: the sharded index (DistComm) "
+        f"over {n} events equal to the single-device index after every "
+        f"batch")
+
+
+def make_stream_fleet(n):
+    """A Zipf tenant stream of n events over FLEET_TENANTS (seed 4)."""
+    return fleet_stream(n, FLEET_TENANTS, seed=4)
+
+
+def mesh_row(name, args, kernel, plain, library, bound, shape, library_calls,
+             launches, plain_reps, reps=1000):
+    """A worker-axis kernel's timing row: device ms a launch
+    (torch.profiler), ms a call (CUDA events), its plain version and the
+    batched searchsorted twin on the same inputs, the sums over workers
+    held equal."""
+    times, timed_by = {}, "torch.profiler"
+    for label, fn, r in (("kernel", lambda: kernel(*args), reps),
+                         ("plain", lambda: plain(*args), plain_reps),
+                         ("library", lambda: library(*args), 200)):
+        if label != "plain":
+            fn()                                              # warm-up
+        call_ms, out = cuda_ms(fn, r)
+        dev_ms = sum(device_ms_by_kernel(fn, r).values())
+        if dev_ms <= 0:
+            # the profiler saw no device time (it has missed the ctypes
+            # kernels late in the script): the events' time a call, which
+            # bounds the device time from above
+            dev_ms, timed_by = call_ms, "CUDA events (no profile)"
+        times[label] = (call_ms, dev_ms, out)
+    got, want, lib = (times[k][2] for k in ("kernel", "plain", "library"))
+    err = max(int((got.long() - want.long()).abs().max()),
+              int((got.long() - lib.long()).abs().max()))
+    assert err == 0, (name, err)
+    bms, by, byts = bound
+    (call_ms, ms, _), (_, plain_ms, _), (lib_call_ms, lib_ms, _) = (
+        times["kernel"], times["plain"], times["library"])
+    replaces = {
+        "signed_count[mesh]": "tuplewise_tpu/ops/pallas_counts.py:173",
+        "tenant_count[mesh]": "tuplewise_tpu/ops/pallas_counts.py:295"}
+    row = dict(name=name, route="cuda", source=source_of(name),
+               replaces=replaces[name], launches=launches.get(name, 0),
+               max_abs_err=err, ms=ms, call_ms=call_ms, plain_ms=plain_ms,
+               bound_ms=bms, bound_by=by, bound_bytes=byts,
+               library_ms=lib_ms,
+               library_call_ms=lib_call_ms, library_calls=library_calls,
+               shape=shape, ms_by=timed_by)
+    log(f"[timing] {name} {shape}: {ms * 1e3:.2f} us of device time a "
+        f"launch by {timed_by} ({call_ms * 1e3:.2f} us a call by events; "
+        f"bound "
+        f"{bms * 1e3:.3f} us by {by}: {byts / 1e6:.3f} MB), plain "
+        f"{plain_ms:.3f} ms, batched searchsorted ({library_calls}) "
+        f"{lib_ms * 1e3:.2f} us ({lib_call_ms * 1e3:.2f} us a call); max "
+        f"|kernel - plain|, |kernel - searchsorted| over the worker sums' "
+        f"blocks = {err}")
+    return row
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -4272,12 +4820,24 @@ def main():
         assert elastic_launches.get(key, 0) > 0, f"{key} never launched"
     for r in rows:
         r["launches_elastic"] = elastic_launches.get(r["name"], 0)
+
+    pk.reset_launch_counts()
+    mesh_serving, ms_launches, ms_rows = timed(
+        "26 mesh serving", phase_mesh_serving)
+    log(f"[launches] mesh serving path {json.dumps(ms_launches)}")
+    for key in ("signed_count[mesh]", "tenant_count[mesh]",
+                "signed_count[flat]", "tenant_count"):
+        assert ms_launches.get(key, 0) > 0, f"{key} never launched"
+    for r in rows:
+        r["launches_mesh_serving"] = ms_launches.get(r["name"], 0)
+    rows += ms_rows
     log(f"[done] {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": rows, "train": train_rows,
                       "sim_learner_cell_s": sim_wall,
                       "triplet": triplet_main, "config4": config4,
                       "triplet_learner": learner, "designs": designs,
                       "mesh": mesh, "elastic": elastic,
+                      "mesh_serving": mesh_serving,
                       "serving": {"index": index, "engine": engine,
                                   "streaming_estimator": streaming,
                                   "fleet": fleet,

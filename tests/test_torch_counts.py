@@ -197,8 +197,12 @@ def test_argument_checks():
         ck.signed_count([r.double()], [1], [0], q, q)
     with pytest.raises(ValueError, match="one entry per run"):
         ck.signed_count([r], [1, 1], [0], q, q)
-    with pytest.raises(NotImplementedError, match="mesh"):
-        sc.signed_pair_counts(object(), [], [], np.zeros(1), np.zeros(1))
+    # the mesh form takes a 1-D mesh
+    from tuplewise_tpu_torch.parallel.mesh import make_mesh_2d
+
+    with pytest.raises(ValueError, match="1-D mesh"):
+        sc.signed_pair_counts(make_mesh_2d(2, 2, "cpu"), [], [],
+                              np.zeros(1), np.zeros(1))
     assert [sc.next_bucket(n) for n in (0, 1, 256, 257, 5000)] == [
         256, 256, 256, 512, 8192]
     placed = sc.place_run(np.asarray([1.0, 2.0], np.float32), 256, "cpu")

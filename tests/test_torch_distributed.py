@@ -240,3 +240,151 @@ def test_backoff_is_the_reference_backoff():
         b.delay_s(k) for k in range(1, 8)]
     with pytest.raises(ValueError):
         Backoff(jitter=2.0)
+
+
+_SERVE_WORKER = r"""
+import json, sys
+sys.path.insert(0, {repo!r})
+import numpy as np
+import torch.distributed as dist
+from tuplewise_tpu_torch.parallel.distributed import initialize
+from tuplewise_tpu_torch.parallel.mesh import make_mesh
+from tuplewise_tpu_torch.parallel.self_heal import WorkerDroppedError
+from tuplewise_tpu_torch.serving import ExactAucIndex
+from tuplewise_tpu_torch.testing import FaultInjector
+
+assert initialize(device="cpu", init_method=sys.argv[1])
+sys.path.insert(0, {tests!r})
+from test_torch_distributed import serve_stream
+
+if sys.argv[2] == "bg":
+    # the compactor thread would issue collectives: refused on a
+    # distributed mesh, for the index and the fleet
+    from tuplewise_tpu_torch.serving import TenantFleetIndex
+    refused = []
+    for cls in (ExactAucIndex, TenantFleetIndex):
+        try:
+            cls(mesh=make_mesh(distributed=True, device="cpu"),
+                bg_compact=True)
+        except ValueError as e:
+            refused.append(str(e))
+    print("RESULT", json.dumps({{"rank": dist.get_rank(),
+                                 "refused": refused}}), flush=True)
+    sys.exit(0)
+chaos = None
+if sys.argv[2] == "shrink":
+    chaos = FaultInjector.from_spec({{"faults": [
+        {{"point": "sharded_count", "on_call": 5, "action": "error",
+          "dropped": [1]}}]}})
+idx = ExactAucIndex(mesh=make_mesh(distributed=True, device="cpu"),
+                    chaos=chaos, retry_backoff_s=0.0, **serve_stream.kw)
+out = {{"rank": dist.get_rank(), "wins2": [], "dropped": False}}
+scores, labels = serve_stream()
+try:
+    for i in range(0, len(scores), 47):
+        idx.insert_batch(scores[i:i + 47], labels[i:i + 47])
+        out["wins2"].append(idx._wins2)
+except WorkerDroppedError:
+    out["dropped"] = True
+out["shards"] = idx.shards
+out["auc"] = idx.auc()
+m = idx.metrics.snapshot()
+out["bytes"] = [m["bytes_h2d"]["value"], m["bytes_h2d_saved"]["value"]]
+out["majors"] = idx.n_major_merges
+print("RESULT", json.dumps(out), flush=True)
+"""
+
+
+def serve_stream():
+    rng = np.random.default_rng(5)
+    labels = rng.random(900) < 0.45
+    scores = (rng.standard_normal(900) + labels).astype(np.float32)
+    return scores, labels
+
+
+serve_stream.kw = dict(compact_every=32, window=400, count_kernel=True,
+                       delta_fraction=0.25, max_delta_runs=3)
+
+
+def _serve_ranks(tmp_path, mode):
+    worker = tmp_path / "serve.py"
+    worker.write_text(_SERVE_WORKER.format(
+        repo=REPO, tests=os.path.join(REPO, "tests")))
+    store = f"file://{tmp_path / 'store'}"
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith(("TUPLEWISE_DIST_", "LOCAL_"))}
+    procs = [subprocess.Popen(
+        [sys.executable, str(worker), store, mode], stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True,
+        env=dict(env, TUPLEWISE_DIST_NUM_PROCESSES="2",
+                 TUPLEWISE_DIST_PROCESS_ID=str(r), OMP_NUM_THREADS="1"))
+        for r in range(2)]
+    recs = []
+    try:
+        for p in procs:
+            out, err = p.communicate(timeout=120)
+            assert p.returncode == 0, f"worker failed:\n{err[-3000:]}"
+            line = [ln for ln in out.splitlines() if ln.startswith("RESULT ")]
+            assert line, out
+            recs.append(json.loads(line[0][len("RESULT "):]))
+    finally:
+        for p in procs:
+            p.kill()
+    return sorted(recs, key=lambda r: r["rank"])
+
+
+def _single_wins2():
+    from tuplewise_tpu_torch.serving import ExactAucIndex
+
+    scores, labels = serve_stream()
+    idx = ExactAucIndex(device="cpu", compact_every=32, window=400)
+    out = []
+    for i in range(0, len(scores), 47):
+        idx.insert_batch(scores[i:i + 47], labels[i:i + 47])
+        out.append(idx._wins2)
+    return out, idx.auc()
+
+
+def test_two_gloo_ranks_serve_the_single_process_index(tmp_path):
+    """The sharded index on a DistComm mesh of two gloo processes (each
+    rank placing and counting its own row, the counts all-reduced, the
+    majors merged across the ranks) equals the single-process index after
+    every batch, and its byte counters equal the worker axis of two."""
+    from tuplewise_tpu_torch.serving import ExactAucIndex
+
+    recs = _serve_ranks(tmp_path, "plain")
+    want, auc = _single_wins2()
+    local = ExactAucIndex(shards=2, device="cpu", **serve_stream.kw)
+    scores, labels = serve_stream()
+    for i in range(0, len(scores), 47):
+        local.insert_batch(scores[i:i + 47], labels[i:i + 47])
+    m = local.metrics.snapshot()
+    for r in recs:
+        assert r["wins2"] == want and r["auc"] == auc
+        assert r["shards"] == 2 and r["majors"] == local.n_major_merges > 0
+        assert r["bytes"] == [m["bytes_h2d"]["value"],
+                              m["bytes_h2d_saved"]["value"]]
+
+
+def test_two_gloo_ranks_shrink_to_the_survivor(tmp_path):
+    """A drop of worker 1 declared by the chaos schedule, with both
+    processes alive: both ranks build the survivors' group, rank 1
+    leaves the loop (WorkerDroppedError), and rank 0 goes on alone at
+    S = 1 with every wins2 equal to the single-process index."""
+    recs = _serve_ranks(tmp_path, "shrink")
+    want, auc = _single_wins2()
+    assert recs[1]["dropped"] and not recs[0]["dropped"]
+    assert recs[0]["shards"] == 1
+    assert recs[0]["wins2"] == want and recs[0]["auc"] == auc
+    assert recs[1]["wins2"] == want[:len(recs[1]["wins2"])]
+
+
+def test_two_gloo_ranks_refuse_background_compaction(tmp_path):
+    """bg_compact on a DistComm mesh raises ValueError on every rank, for
+    the index and the fleet: the compactor thread's merge and heals would
+    issue collectives in an order that differs between ranks."""
+    recs = _serve_ranks(tmp_path, "bg")
+    assert [r["rank"] for r in recs] == [0, 1]
+    for r in recs:
+        assert len(r["refused"]) == 2
+        assert all("distributed mesh" in e for e in r["refused"])

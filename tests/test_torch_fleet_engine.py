@@ -113,9 +113,11 @@ class TestAdmissionControl:
             MultiTenantEngine(ServingConfig(device="cpu",
                                             snapshot_dir="/nonexistent"))
         with pytest.raises(NotImplementedError):
-            MultiTenantEngine(ServingConfig(device="cpu", mesh_shards=2))
-        with pytest.raises(NotImplementedError):
-            MultiTenantEngine(ServingConfig(device="cpu"), chaos=object())
+            MultiTenantEngine(ServingConfig(device="cpu"), tracer=object())
+        # mesh_shards and chaos are ported
+        with MultiTenantEngine(ServingConfig(device="cpu",
+                                             mesh_shards=2)) as eng:
+            assert eng.fleet.state()["shards"] == 2
         with pytest.raises(ValueError, match="exact AUC fleet"):
             MultiTenantEngine(ServingConfig(device="cpu", kernel="hinge"))
 
@@ -357,7 +359,7 @@ class TestReplayFleet:
 
     def test_unported_options_raise(self):
         scores, labels, tenants = make_tenant_stream(10, 2)
-        for kw in (dict(chaos={}), dict(slo_spec={}), dict(metrics_out="x"),
+        for kw in (dict(slo_spec={}), dict(metrics_out="x"),
                    dict(controller_spec={}), dict(flight_out="x")):
             with pytest.raises(NotImplementedError):
                 replay_fleet(scores, labels, tenants,

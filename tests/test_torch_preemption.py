@@ -182,8 +182,8 @@ class TestMeshHealer:
     def test_distributed_mesh_policies(self, tmp_path):
         """A one-rank gloo group: a declared drop cannot be backfilled
         inside the process (HealExhaustedError at once), a failure with
-        no drop retries on the same group, and the shrink policy is not
-        ported."""
+        no drop retries on the same group, and the shrink policy (ported
+        with the mesh form of serving) has no survivor to shrink to."""
         import torch.distributed as dist
 
         from tuplewise_tpu_torch.parallel import distributed
@@ -194,8 +194,10 @@ class TestMeshHealer:
         try:
             mesh = make_mesh(distributed=True, device="cpu")
             assert mesh.slots == mesh.pool == (0,)
-            with pytest.raises(NotImplementedError, match="serving"):
-                MeshHealer(mesh)
+            shrink = MeshHealer(mesh, chaos=_drop_spec("estimator", 1, [0]),
+                                backoff=_fast())
+            with pytest.raises(HealExhaustedError, match="every mesh"):
+                shrink.run(lambda: shrink.chaos.fire("estimator"))
             inj = _drop_spec("estimator", 1, [0])
             h = MeshHealer(mesh, fixed_width=1, chaos=inj, backoff=_fast())
 

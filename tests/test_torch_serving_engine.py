@@ -173,9 +173,12 @@ class TestRequestPath:
         with pytest.raises(NotImplementedError):
             MicroBatchEngine(_cfg(snapshot_dir="x"))
         with pytest.raises(NotImplementedError):
-            MicroBatchEngine(_cfg(mesh_shards=2))
-        with pytest.raises(NotImplementedError):
-            MicroBatchEngine(_cfg(), chaos=object())
+            MicroBatchEngine(_cfg(recover=True))
+        # mesh_shards and chaos are ported: their checks
+        with pytest.raises(ValueError, match="delta_fraction"):
+            _cfg(delta_fraction=-1.0)
+        with MicroBatchEngine(_cfg(engine="torch", mesh_shards=2)) as eng:
+            assert eng.index.state()["shards"] == 2
         with pytest.raises(NotImplementedError, match="tracing"):
             MicroBatchEngine(_cfg(), tracer=object())
         with pytest.raises(NotImplementedError, match="slo_spec"):

@@ -297,10 +297,12 @@ def test_remove_sorted_equals_jax(n, m, grid):
 
 
 def test_unported_options_raise():
-    with pytest.raises(NotImplementedError):
-        ExactAucIndex(device="cpu", shards=2)
-    with pytest.raises(NotImplementedError):
-        ExactAucIndex(device="cpu", chaos=object())
+    # shards and chaos are ported: their checks
+    with pytest.raises(ValueError, match="engine='torch'"):
+        ExactAucIndex(engine="numpy", shards=2)
+    with pytest.raises(ValueError, match="shards must be"):
+        ExactAucIndex(device="cpu", shards=0)
+    assert ExactAucIndex(device="cpu", shards=2).state()["shards"] == 2
     with pytest.raises(NotImplementedError, match="tracing"):
         ExactAucIndex(device="cpu", tracer=object())
     with pytest.raises(ValueError, match="engine"):

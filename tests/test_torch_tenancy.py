@@ -191,10 +191,12 @@ class TestLifecycle:
         assert fleet.idle_tenants(-1.0) == ["a"]
 
     def test_unported_options_raise(self):
-        for kw in (dict(shards=2), dict(mesh=object()), dict(chaos=object()),
-                   dict(tracer=object())):
-            with pytest.raises(NotImplementedError):
-                _fleet(**kw)
+        # shards, mesh and chaos are ported; tracer is not
+        with pytest.raises(NotImplementedError):
+            _fleet(tracer=object())
+        with pytest.raises(ValueError, match="shards must be"):
+            _fleet(shards=0)
+        assert _fleet(shards=2).state()["shards"] == 2
 
 
 class TestDirtyRowPlacement:

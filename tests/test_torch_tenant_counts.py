@@ -226,9 +226,14 @@ def test_argument_checks():
         ck.tenant_count(p, p, q, torch.zeros(8, 5))
     with pytest.raises(ValueError, match="contiguous"):
         ck.tenant_count(p, p, q, torch.zeros(4, 8).T)
-    with pytest.raises(NotImplementedError, match="mesh"):
-        sc.tenant_pack_counts(object(), p, 256, p, 256, 8, q.numpy(),
-                              q.numpy())
+    from tuplewise_tpu_torch.parallel.mesh import make_mesh, make_mesh_2d
+
+    with pytest.raises(ValueError, match="1-D mesh"):
+        sc.tenant_pack_counts(make_mesh_2d(2, 2, "cpu"), p, 256, p, 256, 8,
+                              q.numpy(), q.numpy())
+    with pytest.raises(ValueError, match="packs of shapes"):
+        sc.tenant_pack_counts(make_mesh(2, "cpu"), p, 256, p, 256, 8,
+                              q.numpy(), q.numpy())
     with pytest.raises(ValueError, match="t_bucket"):
         sc.tenant_pack_counts(None, p, 256, p, 256, 16, q.numpy(), q.numpy())
     assert [sc.tenant_bucket(n) for n in (0, 1, 8, 9, 37, 1024)] == [

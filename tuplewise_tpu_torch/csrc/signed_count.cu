@@ -1,7 +1,9 @@
 // Fused signed rank counts of the serving index on Hopper (sm_90a).
 //
 // Replaces the Pallas TPU kernel of tuplewise_tpu/ops/pallas_counts.py:
-//   _flat_kernel via _flat_call, reached through flat_signed_count_fn.
+//   _flat_kernel via _flat_call, reached through flat_signed_count_fn, and
+//   its mesh twin sharded_signed_count_fn (the same body on every device's
+//   shard, then one psum).
 //
 // What it computes. Up to kMaxRuns sorted float32 runs, run r with a sign
 // s_r in {+1, -1} and a query-set assignment a_r in {0, 1}, and two query
@@ -12,6 +14,16 @@
 // and 0 in the columns past a query set's length. A run may carry +inf
 // padding past its values (the bucket-padded placement of the index): for
 // a finite query the padding counts 0 in both rows.
+//
+// The worker axis (tw_signed_count_mesh). The mesh form of the index keeps
+// each run as S contiguous slices, one row of an [S, cap_r] tensor per
+// worker; the queries are the same for every worker. One launch counts
+// every worker's rows (grid.z = worker) and worker w writes its own block
+// out[w] of [S, 4, qcols]: the caller adds the blocks in worker order
+// (comm.all_reduce_sum), the psum of the TPU kernel's mesh twin. Counting
+// is additive over any partition of a run, so the sum is the flat count of
+// the whole runs. kMaxRuns stays a limit a worker: a launch takes up to
+// kMaxRuns runs, each with S rows.
 //
 // Bound. A call counts a few hundred queries against runs of 2^17-2^19
 // values (1-2 MB each, resident in the 50 MB L2): the bytes are a few
@@ -75,9 +87,11 @@ static_assert(kCellLanes <= 32 && 32 % kCellLanes == 0,
               "a cell's two lane groups fit in one warp");
 static_assert(kCells >= kMaxRuns, "a block holds every run of a query");
 
-// the runs of set 0 first, then those of set 1
+// the runs of set 0 first, then those of set 1; worker w's row of run r
+// starts at ptr[r] + w * stride[r]
 struct Runs {
   const float* ptr[kMaxRuns];
+  long long stride[kMaxRuns];
   int len[kMaxRuns];
   int sign[kMaxRuns];
   int first[2];
@@ -146,9 +160,19 @@ __device__ __forceinline__ void top_cut(const float* top, int len, float q,
   n = hi - lo;
 }
 
-// grid (column blocks of qpb queries, 2 query sets), kThreads threads.
-// Block (x, set) counts queries x qpb .. x qpb + qpb - 1 of its set against
-// each of the set's R runs, qpb R <= kCells.
+// worker blockIdx.z's row of run r (kWorkers false: one worker, row 0)
+template <bool kWorkers>
+__device__ __forceinline__ const float* run_row(const Runs& runs, int r) {
+  return kWorkers ? runs.ptr[r] + (long long)blockIdx.z * runs.stride[r]
+                  : runs.ptr[r];
+}
+
+// grid (column blocks of qpb queries, 2 query sets, workers), kThreads
+// threads. Block (x, set, w) counts queries x qpb .. x qpb + qpb - 1 of its
+// set against worker w's row of each of the set's R runs, qpb R <= kCells,
+// into out[w]. kWorkers false: one worker, whose offsets fold away (the
+// flat form's code).
+template <bool kWorkers>
 __global__ void __launch_bounds__(kThreads)
 signed_count_kernel(Runs runs, const float* __restrict__ qa, int la,
                     const float* __restrict__ qb, int lb,
@@ -160,6 +184,7 @@ signed_count_kernel(Runs runs, const float* __restrict__ qa, int la,
   const int len = set == 0 ? la : lb;
   const float* qs = set == 0 ? qa : qb;
   const int q0 = blockIdx.x * qpb;
+  if (kWorkers) out += (long long)blockIdx.z * 4 * qcols;
 
   // this thread's cell: query q0 + t against run r, slot t R + r; its
   // query is loaded beside the tops
@@ -168,14 +193,14 @@ signed_count_kernel(Runs runs, const float* __restrict__ qa, int la,
   const int r = R > 0 ? slot - t * R : 0;
   const bool live = R > 0 && t < qpb && q0 + t < len;
   const int n_run = live ? runs.len[r0 + r] : 0;
-  const float* run = live ? runs.ptr[r0 + r] : nullptr;
+  const float* run = live ? run_row<kWorkers>(runs, r0 + r) : nullptr;
   const float q = live ? qs[q0 + t] : 0.f;
 
   // every run's top: one round of independent loads
   for (int p = threadIdx.x; p < R * kTop; p += kThreads) {
     const int rr = p / kTop, i = p - rr * kTop + 1;
     const int s = splitter(0, runs.len[r0 + rr], i, kTop + 1);
-    if (s >= 0) top[rr][i - 1] = __ldg(runs.ptr[r0 + rr] + s);
+    if (s >= 0) top[rr][i - 1] = __ldg(run_row<kWorkers>(runs, r0 + rr) + s);
   }
   __syncthreads();
 
@@ -216,26 +241,30 @@ int tw_signed_count_max_runs() { return kMaxRuns; }
 int tw_signed_count_top_levels() { return kTopLevels; }
 int tw_signed_count_lanes() { return kLanes; }
 
-// Launches the signed-count kernel on `stream` and returns
-// cudaGetLastError(). ptrs/lens/signs/sets: k host arrays describing the
-// runs (device pointers to contiguous float32, their lengths, +1/-1, 0/1);
-// qa [la], qb [lb] float32 and out [4, qcols] int32 on the device, qcols =
-// max(la, lb) > 0. The wrapper checks every argument; k, a length or a set
-// out of range returns cudaErrorInvalidValue.
-int tw_signed_count(const unsigned long long* ptrs, const long long* lens,
-                    const int* signs, const int* sets, int k, const void* qa,
-                    int la, const void* qb, int lb, void* out, int qcols,
-                    void* stream) {
-  if (k < 0 || k > kMaxRuns || qcols <= 0) return (int)cudaErrorInvalidValue;
+// Launches the signed-count kernel on `stream` over `workers` rows of each
+// run and returns cudaGetLastError(). ptrs/lens/strides/signs/sets: k host
+// arrays describing the runs (device pointers to float32 rows, the length
+// of a row, the elements between two workers' rows, +1/-1, 0/1); qa [la],
+// qb [lb] float32 and out [workers, 4, qcols] int32 on the device, qcols =
+// max(la, lb) > 0. The wrapper checks every argument; k, a length, a set or
+// a worker count out of range returns cudaErrorInvalidValue.
+int tw_signed_count_mesh(const unsigned long long* ptrs,
+                         const long long* lens, const long long* strides,
+                         const int* signs, const int* sets, int k,
+                         int workers, const void* qa, int la, const void* qb,
+                         int lb, void* out, int qcols, void* stream) {
+  if (k < 0 || k > kMaxRuns || qcols <= 0 || workers < 1 || workers > 65535)
+    return (int)cudaErrorInvalidValue;
   Runs runs;
   int at = 0;
   for (int s = 0; s < 2; ++s) {
     runs.first[s] = at;
     for (int r = 0; r < k; ++r) {
       if (sets[r] != s) continue;
-      if (lens[r] < 0 || lens[r] >= (1LL << 31))
+      if (lens[r] < 0 || lens[r] >= (1LL << 31) || strides[r] < 0)
         return (int)cudaErrorInvalidValue;
       runs.ptr[at] = reinterpret_cast<const float*>(ptrs[r]);
+      runs.stride[at] = strides[r];
       runs.len[at] = (int)lens[r];
       runs.sign[at] = signs[r];
       ++at;
@@ -245,17 +274,34 @@ int tw_signed_count(const unsigned long long* ptrs, const long long* lens,
   if (at != k) return (int)cudaErrorInvalidValue;
   for (; at < kMaxRuns; ++at) {
     runs.ptr[at] = nullptr;
+    runs.stride[at] = 0;
     runs.len[at] = 0;
     runs.sign[at] = 0;
   }
   const int most = runs.count[0] > runs.count[1] ? runs.count[0]
                                                  : runs.count[1];
   const int qpb = kCells / (most > 0 ? most : 1);
-  const dim3 grid((unsigned)((qcols + qpb - 1) / qpb), 2);
-  signed_count_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  const dim3 grid((unsigned)((qcols + qpb - 1) / qpb), 2, (unsigned)workers);
+  auto kernel = workers == 1 ? signed_count_kernel<false>
+                             : signed_count_kernel<true>;
+  kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       runs, static_cast<const float*>(qa), la, static_cast<const float*>(qb),
       lb, static_cast<int*>(out), qcols, qpb);
   return (int)cudaGetLastError();
+}
+
+// The flat form: one worker, each run one row. Same arguments as
+// tw_signed_count_mesh without strides and workers; out is [4, qcols]. The
+// Python wrappers launch tw_signed_count_mesh only; this entry keeps the C
+// interface of earlier versions, which bench_torch_variants.py calls.
+int tw_signed_count(const unsigned long long* ptrs, const long long* lens,
+                    const int* signs, const int* sets, int k, const void* qa,
+                    int la, const void* qb, int lb, void* out, int qcols,
+                    void* stream) {
+  if (k < 0 || k > kMaxRuns) return (int)cudaErrorInvalidValue;
+  long long strides[kMaxRuns] = {0};
+  return tw_signed_count_mesh(ptrs, lens, strides, signs, sets, k, 1, qa, la,
+                              qb, lb, out, qcols, stream);
 }
 
 }  // extern "C"

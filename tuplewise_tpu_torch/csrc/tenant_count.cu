@@ -2,7 +2,8 @@
 //
 // Replaces the Pallas TPU kernel of tuplewise_tpu/ops/pallas_counts.py:
 //   _tenant_kernel via _tenant_call, reached through
-//   tenant_signed_count_local_fn.
+//   tenant_signed_count_local_fn, and its mesh twin tenant_signed_count_fn
+//   (the same body on every device's shard, then one psum).
 //
 // What it computes. Two packs of sorted float32 rows, one per class:
 // neg [T, cap_n] and pos [T, cap_p], row t holding tenant slot t's sorted
@@ -17,6 +18,14 @@
 // row counts 0 everywhere. This is the TPU kernel's function without its
 // transposes: the TPU took the queries as [qb, T] and returned
 // [4, qb, T] only to keep the pack rows on its lanes.
+//
+// The worker axis. The mesh form of the fleet keeps each tenant's run as S
+// contiguous slices: the packs are [S, T, cap] (worker w's slice of tenant
+// t in row [w, t]) and the query blocks, the same for every worker, stay
+// [T, qb]. One launch counts every worker's rows (grid.z = 2 S: worker and
+// side) and worker w writes its own block out[w] of [S, 4, T, qb]; the
+// caller adds the blocks in worker order (comm.all_reduce_sum), the psum of
+// the TPU kernel's mesh twin. A flat launch is the worker axis of one.
 //
 // Design. The TPU kernel counted by broadcast comparison: every (tenant,
 // query) against all cap values of its row. Here each cell binary-searches
@@ -105,9 +114,12 @@ __device__ __forceinline__ int upper_bound(const float* __restrict__ row,
   return lo;
 }
 
-// grid (column blocks of qb, T rows, 2 sides), kThreads threads of kCells
-// cells: cell (t, j) of side 0 counts qn[t][j] against neg[t], of side 1
-// qp[t][j] against pos[t].
+// grid (column blocks of qb, T rows, 2 sides x workers), kThreads threads
+// of kCells cells: cell (t, j) of side 0 of worker w counts qn[t][j]
+// against neg[w][t], of side 1 qp[t][j] against pos[w][t], into out[w].
+// kWorkers false: one worker, whose offsets fold away (the flat form's
+// code, as fast as before the worker axis).
+template <bool kWorkers>
 __global__ void __launch_bounds__(kThreads)
 tenant_count_kernel(const float* __restrict__ neg, int cap_n,
                     const float* __restrict__ pos, int cap_p,
@@ -115,12 +127,15 @@ tenant_count_kernel(const float* __restrict__ neg, int cap_n,
                     const float* __restrict__ qp, int qb,
                     int* __restrict__ out) {
   __shared__ float top[kTop];
-  const int side = blockIdx.z;
+  const int side = kWorkers ? (blockIdx.z & 1) : blockIdx.z;
+  const long long worker = kWorkers ? (blockIdx.z >> 1) : 0;
   const long long cells = (long long)gridDim.y * qb;
   const int cap = side == 0 ? cap_n : cap_p;
-  const float* row = (side == 0 ? neg : pos) + (long long)blockIdx.y * cap;
+  const float* row = (side == 0 ? neg : pos) +
+                     (worker * gridDim.y + blockIdx.y) * cap;
   const float* qrow = (side == 0 ? qn : qp) + (long long)blockIdx.y * qb;
-  int* less_out = out + (2 * side) * cells + (long long)blockIdx.y * qb;
+  int* less_out = out + (4 * worker + 2 * side) * cells +
+                  (long long)blockIdx.y * qb;
   int* leq_out = less_out + cells;
 
   // the window [base, base + n) of the lower bound shrinks by halvings of
@@ -220,27 +235,42 @@ extern "C" {
 int tw_tenant_top_levels() { return kTopLevels; }
 int tw_tenant_levels() { return kLevels; }
 
-// Launches the tenant-count kernel on `stream` and returns
-// cudaGetLastError(). neg [t_rows, cap_n], pos [t_rows, cap_p], qn and qp
-// [t_rows, qb] float32 and out [4, t_rows, qb] int32, all contiguous on
-// the device; t_rows * qb > 0. The wrapper checks every argument; a bad
-// size returns cudaErrorInvalidValue.
-int tw_tenant_count(const void* neg, long long cap_n, const void* pos,
-                    long long cap_p, const void* qn, const void* qp,
-                    int t_rows, int qb, void* out, void* stream) {
+// Launches the tenant-count kernel on `stream` over `workers` slices of
+// each pack and returns cudaGetLastError(). neg [workers, t_rows, cap_n],
+// pos [workers, t_rows, cap_p], qn and qp [t_rows, qb] float32 and out
+// [workers, 4, t_rows, qb] int32, all contiguous on the device; t_rows * qb
+// > 0. The wrapper checks every argument; a bad size returns
+// cudaErrorInvalidValue.
+int tw_tenant_count_mesh(const void* neg, long long cap_n, const void* pos,
+                         long long cap_p, const void* qn, const void* qp,
+                         int t_rows, int qb, int workers, void* out,
+                         void* stream) {
   if (t_rows <= 0 || t_rows > 65535 || qb <= 0 || cap_n < 0 || cap_p < 0 ||
-      cap_n >= (1LL << 31) || cap_p >= (1LL << 31))
+      cap_n >= (1LL << 31) || cap_p >= (1LL << 31) || workers < 1 ||
+      workers > 32767)
     return (int)cudaErrorInvalidValue;
   const int per_block = kThreads * kCells;
   const dim3 grid((unsigned)((qb + per_block - 1) / per_block),
-                  (unsigned)t_rows, 2);
-  tenant_count_kernel<<<grid, kThreads, 0,
-                        static_cast<cudaStream_t>(stream)>>>(
+                  (unsigned)t_rows, (unsigned)(2 * workers));
+  auto kernel = workers == 1 ? tenant_count_kernel<false>
+                             : tenant_count_kernel<true>;
+  kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(neg), (int)cap_n,
       static_cast<const float*>(pos), (int)cap_p,
       static_cast<const float*>(qn), static_cast<const float*>(qp), qb,
       static_cast<int*>(out));
   return (int)cudaGetLastError();
+}
+
+// The flat form: one worker; neg [t_rows, cap_n], pos [t_rows, cap_p] and
+// out [4, t_rows, qb]. The Python wrappers launch tw_tenant_count_mesh only;
+// this entry keeps the C interface of earlier versions, which
+// bench_torch_variants.py calls.
+int tw_tenant_count(const void* neg, long long cap_n, const void* pos,
+                    long long cap_p, const void* qn, const void* qp,
+                    int t_rows, int qb, void* out, void* stream) {
+  return tw_tenant_count_mesh(neg, cap_n, pos, cap_p, qn, qp, t_rows, qb, 1,
+                              out, stream);
 }
 
 }  // extern "C"

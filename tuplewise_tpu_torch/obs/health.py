@@ -11,6 +11,8 @@ A copy of ``EstimateHealth`` and ``DriftDetector`` from
   correlation.
 * :class:`DriftDetector` — a rolling mean of |live - oracle| between the
   budgeted estimate and the exact index, alerting above a threshold.
+* :func:`shard_balance` — skew statistics over the per-shard occupancy
+  of the mesh form of serving.
 """
 
 from __future__ import annotations
@@ -256,3 +258,23 @@ class DriftDetector:
             "drifting": self.drifting,
             "alerts": self.alerts,
         }
+
+
+def shard_balance(counts) -> dict:
+    """Skew statistics over per-shard occupancy counts (a copy of the JAX
+    function): ``skew`` = max / mean (1.0 is perfect balance; the
+    contiguous-slice placement keeps it within 1 + 1/per), ``cv`` the
+    population coefficient of variation."""
+    c = np.asarray(list(counts), dtype=np.float64)
+    if c.size == 0 or c.sum() == 0:
+        return {"shards": int(c.size), "max": 0, "min": 0,
+                "mean": 0.0, "skew": 1.0, "cv": 0.0}
+    mean = float(c.mean())
+    return {
+        "shards": int(c.size),
+        "max": int(c.max()),
+        "min": int(c.min()),
+        "mean": mean,
+        "skew": float(c.max() / mean) if mean else 1.0,
+        "cv": float(c.std() / mean) if mean else 0.0,
+    }

@@ -18,7 +18,9 @@ small communicator with one interface and two forms:
 Either way a rotation moves worker i's block to worker i + 1 along the
 axis (the JAX permutation ``[(i, (i + 1) % n)]`` of
 ``tuplewise_tpu.parallel.ring._ring_perm``), and an axis of one worker
-rotates to itself, as ``ppermute`` over a size-1 axis does.
+rotates to itself, as ``ppermute`` over a size-1 axis does; ``step=-1``
+moves it to worker i - 1 (the major merge's exchange with the right
+neighbour).
 :meth:`start_rotate` issues the rotation and returns a handle whose
 ``wait()`` gives the rotated blocks, so a ring issues the next visiting
 block before the current stop's kernel and waits after it (the double
@@ -84,11 +86,11 @@ class LocalComm:
         """This process's rows of an [N, ...] tensor every worker holds."""
         return t
 
-    def start_rotate(self, tensors, axis: int):
+    def start_rotate(self, tensors, axis: int, step: int = 1):
         out = []
         for t in tensors:
             v = t.reshape(self.shape + t.shape[1:])
-            out.append(torch.roll(v, 1, dims=axis).reshape(t.shape))
+            out.append(torch.roll(v, step, dims=axis).reshape(t.shape))
         return _Ready(out)
 
     def all_gather(self, t: torch.Tensor) -> torch.Tensor:
@@ -114,18 +116,22 @@ class LocalComm:
 
 
 class DistComm(LocalComm):
-    """One worker per rank of the default ``torch.distributed`` group;
-    rank r is worker r (row-major over the mesh shape)."""
+    """One worker per rank of a ``torch.distributed`` group (``group``;
+    None: the default group); the group's rank r is worker r (row-major
+    over the mesh shape). A subgroup is how a healed mesh of serving
+    drops a worker (``parallel.self_heal``)."""
 
-    def __init__(self, shape: Sequence[int]):
+    def __init__(self, shape: Sequence[int], group=None):
         import torch.distributed as dist
 
         super().__init__(shape)
-        world = dist.get_world_size()
+        self.group = group
+        on = () if group is None else (group,)
+        world = dist.get_world_size(*on)
         if world != self.n_workers:
             raise ValueError(f"a {self.shape} mesh needs {self.n_workers} "
                              f"ranks, the group has {world}")
-        self.rank = dist.get_rank()
+        self.rank = dist.get_rank(*on)
         self.n_local = 1
         self._coords = _unravel(self.rank, self.shape)
 
@@ -136,20 +142,25 @@ class DistComm(LocalComm):
         return t[self.rank:self.rank + 1]
 
     def _peer(self, axis: int, step: int) -> int:
+        """The global rank of the worker ``step`` along ``axis``."""
+        import torch.distributed as dist
+
         c = list(self._coords)
         c[axis] = (c[axis] + step) % self.shape[axis]
-        return _ravel(c, self.shape)
+        r = _ravel(c, self.shape)
+        return r if self.group is None else dist.get_global_rank(
+            self.group, r)
 
-    def start_rotate(self, tensors, axis: int):
+    def start_rotate(self, tensors, axis: int, step: int = 1):
         import torch.distributed as dist
 
         if self.shape[axis] == 1:
             return _Ready(tensors)
-        nxt, prv = self._peer(axis, 1), self._peer(axis, -1)
+        nxt, prv = self._peer(axis, step), self._peer(axis, -step)
         sends = [t.contiguous() for t in tensors]
         bufs = [torch.empty_like(t) for t in sends]
-        ops = ([dist.P2POp(dist.isend, t, nxt) for t in sends]
-               + [dist.P2POp(dist.irecv, b, prv) for b in bufs])
+        ops = ([dist.P2POp(dist.isend, t, nxt, self.group) for t in sends]
+               + [dist.P2POp(dist.irecv, b, prv, self.group) for b in bufs])
         return _InFlight(dist.batch_isend_irecv(ops), bufs)
 
     def sum_partials(self, t: torch.Tensor) -> torch.Tensor:
@@ -162,7 +173,7 @@ class DistComm(LocalComm):
 
         t = t.contiguous()
         parts = [torch.empty_like(t) for _ in range(self.n_workers)]
-        dist.all_gather(parts, t)
+        dist.all_gather(parts, t, group=self.group)
         return torch.cat(parts)
 
 

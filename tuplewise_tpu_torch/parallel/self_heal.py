@@ -29,9 +29,15 @@ Two reshard policies, chosen by who can tolerate a width change:
 On a distributed mesh (``DistComm``, one worker a rank) a failure with
 no dropped worker retries on the same group; a dropped worker under the
 fixed-width policy raises :class:`HealExhaustedError` (a rank cannot be
-backfilled inside the process: the job resumes from its checkpoint),
-and the shrink policy, whose only user is the mesh form of serving, is
-not ported yet (NotImplementedError).
+backfilled inside the process: the job resumes from its checkpoint).
+The shrink policy (the mesh form of serving) rebuilds the group over the
+survivors when the drop was declared by the chaos schedule with every
+process alive: every rank calls ``dist.new_group`` over the survivors
+(a collective of the whole default group), the survivors continue on a
+``DistComm`` of the subgroup, and the dropped rank leaves the loop with
+:class:`WorkerDroppedError`. A loss a probe found, not declared, raises
+:class:`HealExhaustedError` as on the fixed width: a process cannot
+tell a dead peer's group to rebuild.
 
 A retry re-runs the same computation on the same device with the same
 kernels: nothing here switches ``impl`` or the device, which would be a
@@ -55,6 +61,11 @@ from tuplewise_tpu_torch.utils.profiling import MetricsRegistry
 class HealExhaustedError(RuntimeError):
     """The slot pool can no longer sustain the required mesh width:
     resume the job from its checkpoint on a healthy pool instead."""
+
+
+class WorkerDroppedError(RuntimeError):
+    """This process's rank was dropped from a distributed mesh by a heal:
+    the survivors go on without it, and it leaves the serving loop."""
 
 
 class Backoff:
@@ -124,16 +135,13 @@ class MeshHealer:
         check_tracer(tracer)
         if fixed_width is not None and mesh is None:
             raise ValueError("fixed_width needs a mesh to keep at width")
-        if mesh is not None and mesh.distributed and fixed_width is None:
-            raise NotImplementedError(
-                "the shrink policy on a distributed mesh serves only the "
-                "mesh form of serving, which is not ported yet")
         self.mesh = mesh
         self.fixed_width = fixed_width
         self.chaos = chaos
         self.probe_timeout_s = probe_timeout_s
         self.backoff = backoff if backoff is not None else Backoff()
         self.flight = flight
+        self._declared = False
         self.metrics = metrics if metrics is not None else MetricsRegistry()
         self._c_reshard = self.metrics.counter("reshard_events")
         self._c_retries = self.metrics.counter("shard_retries_total")
@@ -163,9 +171,11 @@ class MeshHealer:
     # ------------------------------------------------------------------ #
     def _probe_dropped(self) -> tuple:
         """Dead-worker set: the chaos schedule's declared topology when
-        one is pending, else a real (wall-clock-bounded) mesh probe."""
+        one is pending, else a real (wall-clock-bounded) mesh probe.
+        ``self._declared`` records which of the two it was."""
         dropped = self.chaos.take_dropped() if self.chaos is not None \
             else None
+        self._declared = dropped is not None
         if dropped is not None:
             return tuple(dropped)
         from tuplewise_tpu_torch.parallel.faults import (
@@ -181,6 +191,24 @@ class MeshHealer:
             # the same mesh; if the fault was transient the retry
             # succeeds, else the retry bound surfaces the original error
             return ()
+
+    def lost_worker(self) -> bool:
+        """True when a probe of the mesh finds a dead worker: how a
+        caller tells a lost worker from a fault of its own code (the
+        index's major merge takes its host path only for the first). A
+        probe that cannot decide (every worker unreachable, a
+        distributed mesh) answers False."""
+        from tuplewise_tpu_torch.parallel.faults import (
+            detect_dropped_workers,
+        )
+
+        if self.mesh is None:
+            return False
+        try:
+            return bool(detect_dropped_workers(
+                self.mesh, timeout_s=self.probe_timeout_s))
+        except RuntimeError:     # every worker failed, or a distributed mesh
+            return False
 
     def _rebuilt(self, slots):
         """The mesh over ``slots``: the same shape at fixed width, a 1-D
@@ -201,6 +229,8 @@ class MeshHealer:
         if not dropped:
             return False
         if self.mesh.distributed:
+            if self.fixed_width is None and self._declared:
+                return self._shrink_group(dropped)
             raise HealExhaustedError(
                 f"workers {sorted(dropped)} of a distributed mesh dropped: "
                 "a rank cannot be backfilled inside the process; resume "
@@ -223,17 +253,46 @@ class MeshHealer:
         self.mesh = self._rebuilt(new_slots)
         return True
 
+    def _shrink_group(self, dropped) -> bool:
+        """The distributed shrink: a group of the surviving workers,
+        made by every rank of the default group (``dist.new_group`` is a
+        collective of it, so every process takes part, the dropped ones
+        too). Raises :class:`WorkerDroppedError` on a dropped rank."""
+        import torch.distributed as dist
+
+        from tuplewise_tpu_torch.parallel.comm import DistComm
+        from tuplewise_tpu_torch.parallel.mesh import Mesh, shard_axis_name
+
+        comm = self.mesh.comm
+        dead = {int(w) for w in dropped if 0 <= int(w) < comm.n_workers}
+        keep = [w for w in range(comm.n_workers) if w not in dead]
+        if not keep:
+            raise HealExhaustedError(
+                "every mesh worker failed; nothing to reshard over")
+        ranks = [w if comm.group is None
+                 else dist.get_global_rank(comm.group, w) for w in keep]
+        group = dist.new_group(ranks=ranks)
+        if comm.rank in dead:
+            raise WorkerDroppedError(
+                f"worker {comm.rank} was dropped from the mesh; "
+                f"{len(keep)} workers go on")
+        self.mesh = Mesh((len(keep),), (shard_axis_name,), self.mesh.device,
+                         DistComm((len(keep),), group=group))
+        self._pool = list(self.mesh.slots)
+        return True
+
     def resize(self, width: int) -> bool:
         """Deliberate mesh re-width, a control-plane actuation and not a
         recovery: rebuild the mesh at ``width`` workers over the pool's
         prefix. Returns True when the mesh changed; the CALLER re-places
         its state, as after ``heal``. Refused (False) for the
-        ``fixed_width`` policy, mesh-less healers, out-of-pool widths and
-        no-op widths. Counts as a ``reshard_events`` and records a
-        ``mesh_resize`` flight event."""
+        ``fixed_width`` policy, mesh-less and distributed healers,
+        out-of-pool widths and no-op widths. Counts as a
+        ``reshard_events`` and records a ``mesh_resize`` flight event."""
         from tuplewise_tpu_torch.parallel.mesh import make_mesh
 
-        if self.mesh is None or self.fixed_width is not None:
+        if (self.mesh is None or self.fixed_width is not None
+                or self.mesh.distributed):
             return False
         width = int(width)
         old = self.n_workers
@@ -272,21 +331,28 @@ class MeshHealer:
         return changed
 
     def run(self, fn: Callable[[], object], *, retries: int = 3,
-            on_heal: Optional[Callable] = None):
+            on_heal: Optional[Callable] = None, lock=None):
         """Execute ``fn()`` under the heal-and-retry protocol: on
         failure, heal (probe → reshard → ``on_heal`` re-placement →
         backoff) and retry, at most ``retries`` times; persistent
         failure re-raises rather than spinning. ``HealExhaustedError``
-        propagates at once (retrying cannot help)."""
+        and ``WorkerDroppedError`` propagate at once (retrying cannot
+        help). ``lock``: held across each heal round (not the attempts),
+        so a caller whose state other threads read can heal from a
+        thread that does not hold it."""
         attempt = 0
         while True:
             try:
                 return fn()
-            except HealExhaustedError:
+            except (HealExhaustedError, WorkerDroppedError):
                 raise
             except Exception:  # noqa: BLE001 — re-raised past the bound
                 attempt += 1
                 if attempt > retries:
                     raise
                 self._c_retries.inc()
-                self.heal(attempt, on_heal=on_heal)
+                if lock is None:
+                    self.heal(attempt, on_heal=on_heal)
+                else:
+                    with lock:
+                        self.heal(attempt, on_heal=on_heal)

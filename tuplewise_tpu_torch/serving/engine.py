@@ -32,10 +32,14 @@ unapplied requests, blocked producers included, with
 ``EngineClosedError``; per-request deadlines (``deadline_s``) fail stale
 requests with ``DeadlineExceededError``, at dispatch or from a reaper
 thread; NaN/inf scores and shape mismatches raise ``PoisonEventError``
-at the edge. Crash-safe recovery (``snapshot_dir``/``recover``), mesh
-sharding, fault injection and span tracing are not ported yet and raise
-``NotImplementedError``; the ``wal_append`` and ``snapshot`` stages stay
-in the attribution and measure no work.
+at the edge. ``mesh_shards`` shards the exact index over a mesh of that
+many workers (with its delta tiers, ``delta_fraction`` and
+``max_delta_runs``), and a ``chaos`` injector fires the ``batcher``
+point between batches (a crash there exercises the supervisor) and the
+index's points. Crash-safe recovery (``snapshot_dir``/``recover``) and
+span tracing are not ported yet and raise ``NotImplementedError``; the
+``wal_append`` and ``snapshot`` stages stay in the attribution and
+measure no work.
 """
 
 from __future__ import annotations
@@ -87,10 +91,9 @@ class DeadlineExceededError(RuntimeError):
 @dataclasses.dataclass(frozen=True)
 class ServingConfig:
     """Knobs of the online service: the JAX package's fields of the
-    single-device path, with ``engine="torch"`` and a ``device`` (the
-    card unless "cpu"). The fields of the tiers not ported yet
-    (``mesh_shards``, ``snapshot_dir``/``recover``) raise when set; the
-    delta-tier and WAL knobs are not ported yet."""
+    service, with ``engine="torch"`` and a ``device`` (the card unless
+    "cpu"). ``snapshot_dir``/``recover`` are not ported yet and raise
+    when set; the WAL knobs are not ported yet."""
 
     kernel: str = "auc"
     budget: int = 64               # incomplete-U pairs per arrival
@@ -100,8 +103,13 @@ class ServingConfig:
     compact_every: int = 512       # index buffer size triggering compaction
     engine: str = "torch"          # index count/compaction engine
     device: Optional[str] = None   # engine="torch": None = the card
-    mesh_shards: Optional[int] = None  # not ported yet
+    mesh_shards: Optional[int] = None  # shard the index over a mesh
     bg_compact: bool = False       # compact on a side thread
+    # the sharded index's delta tiers: > 0 ships O(buffer) delta runs a
+    # minor compaction and folds them back on the mesh once they exceed
+    # this fraction of the base; 0 = host merge and full re-placement
+    delta_fraction: float = 0.25
+    max_delta_runs: int = 64       # fold after this many minors merged
     # one fused count-kernel launch per insert micro-batch (False:
     # torch.searchsorted per query set); the integers are the same
     count_kernel: bool = False
@@ -148,6 +156,12 @@ class ServingConfig:
         if self.tail_exemplar_ms is not None and self.tail_exemplar_ms <= 0:
             raise ValueError(
                 f"tail_exemplar_ms must be > 0: {self.tail_exemplar_ms}")
+        if self.delta_fraction < 0:
+            raise ValueError(
+                f"delta_fraction must be >= 0: {self.delta_fraction}")
+        if self.max_delta_runs < 1:
+            raise ValueError(
+                f"max_delta_runs must be >= 1: {self.max_delta_runs}")
 
 
 class _Request:
@@ -177,23 +191,29 @@ class MicroBatchEngine:
             config = ServingConfig(**overrides)
         elif overrides:
             config = dataclasses.replace(config, **overrides)
-        if (config.snapshot_dir or config.recover
-                or config.mesh_shards is not None or chaos is not None):
+        if config.snapshot_dir or config.recover:
             raise NotImplementedError(
-                "crash-safe recovery (snapshot_dir/recover), mesh_shards "
-                "and chaos are not ported to tuplewise_tpu_torch yet")
+                "crash-safe recovery (snapshot_dir/recover) is not ported "
+                "to tuplewise_tpu_torch yet")
         check_tracer(tracer)
         self.config = config
+        self.chaos = chaos
         self.tracer = tracer
         self.metrics = MetricsRegistry()
         self.flight = FlightRecorder(capacity=config.flight_recorder_size)
+        if chaos is not None:
+            # every injected fault records a flight event
+            chaos.attach(flight=self.flight)
         # the index records compactions into the engine's registry, so
         # stats() carries the pause histogram
         self.index = ExactAucIndex(
             window=config.window, compact_every=config.compact_every,
             engine=config.engine, device=config.device,
-            bg_compact=config.bg_compact, metrics=self.metrics,
-            count_kernel=config.count_kernel, flight=self.flight,
+            shards=config.mesh_shards, bg_compact=config.bg_compact,
+            metrics=self.metrics, count_kernel=config.count_kernel,
+            flight=self.flight, chaos=chaos,
+            delta_fraction=config.delta_fraction,
+            max_delta_runs=config.max_delta_runs,
         ) if config.kernel == "auc" else None
         self._est_health = self._drift = None
         if config.health:
@@ -355,6 +375,11 @@ class MicroBatchEngine:
 
     def _run(self) -> None:
         while True:
+            if self.chaos is not None:
+                # fired between batches: no future is in flight here, so
+                # an injected crash exercises the supervisor's restart
+                # without stranding a request
+                self.chaos.fire("batcher")
             try:
                 first = self._q.get(timeout=0.05)
             except queue.Empty:

@@ -38,9 +38,44 @@ work runs on the caller's thread, on the default stream: the compactor
 touches host arrays only, and the device copy of a swapped base is made
 by the next count.
 
-Mesh sharding, the delta and major-merge tiers, self-healing and fault
-injection of the JAX index are not ported yet: ``shards``, ``mesh`` and
-``chaos`` raise ``NotImplementedError``.
+**Sharded base runs** (``shards=S`` or ``mesh=``): the runs are split
+into S contiguous slices over the workers of a 1-D ``parallel.mesh.Mesh``
+(on the card's worker axis, ``LocalComm``, or one worker a
+``torch.distributed`` rank, ``DistComm``), and a micro-batch's one fused
+count runs every worker's rows in one launch (kernel 6 over the worker
+axis, or one batched ``torch.searchsorted`` a run) and adds the
+per-worker counts over the mesh (``parallel.sharded_counts``). Counting
+is additive over any partition, so wins2 and every AUC equal the
+single-device index's bit for bit at every S. Placements happen when a
+run changes, on the thread that changed it (the compactor thread with
+``bg_compact``; the default stream orders them with the counts).
+
+With ``delta_fraction > 0`` (the default) a sharded index compacts in the
+JAX package's three tiers: a **minor** compaction splices the buffer into
+a small consolidated delta run and ships only the O(buffer) chunk, which
+each worker rank-merges into its delta row; evictions of values in the
+base or delta become a sorted tombstone multiset whose counts subtract
+(in the kernel, sign -1, with ``count_kernel``; on the host otherwise).
+A **major** merge folds the delta into the base on the mesh once it
+outgrows ``delta_fraction`` of the base (or ``max_delta_runs`` minors):
+the host plans, the workers exchange neighbour rows and build their
+slices, zero base bytes cross from the host. S = 1, or a plan past the
+one-hop exchange, merges on the host and re-places. A **full**
+compaction (``compact()``, or a tombstone multiset past the fraction)
+folds everything on the host.
+
+**Fault tolerance**: the host is authoritative for the runs, the device
+rows are a cache. A failed sharded count runs the shared heal-and-retry
+protocol (``parallel.self_heal.MeshHealer``, shrink policy): probe, drop
+the lost workers, re-place the runs over the survivors, back off, retry;
+the healed counts are the same integers. A crashed background build rolls
+back its claim and the watchdog restarts the compactor. A major merge
+that meets an injected fault, or a worker the healer finds lost, takes
+the host path (``major_merge_fallbacks``); any other exception
+propagates. Nothing falls back from a kernel: a kernel that fails
+raises. Chaos schedules (``testing.chaos.FaultInjector``) fire the
+``sharded_count``, ``place_base``, ``major_merge`` and
+``compactor_build`` points.
 
 Scores must be finite (the +inf padding relies on it).
 """
@@ -57,12 +92,18 @@ from typing import Deque, List, Optional, Tuple
 import numpy as np
 import torch
 
+from tuplewise_tpu_torch.obs.health import shard_balance
 from tuplewise_tpu_torch.obs.tracing import check_tracer, maybe_span
-from tuplewise_tpu_torch.parallel.sharded_counts import (
-    next_bucket, place_run, signed_pair_counts,
+from tuplewise_tpu_torch.parallel.self_heal import (
+    Backoff, HealExhaustedError, MeshHealer,
 )
+from tuplewise_tpu_torch.parallel.sharded_counts import (
+    delta_append, next_bucket, place_base, place_run, plan_major_merge,
+    sharded_major_merge, signed_pair_counts,
+)
+from tuplewise_tpu_torch.testing.chaos import InjectedFault
 from tuplewise_tpu_torch.utils.device import resolve_device
-from tuplewise_tpu_torch.utils.profiling import MetricsRegistry
+from tuplewise_tpu_torch.utils.profiling import BYTE_BUCKETS, MetricsRegistry
 
 
 def _splice_merge(base: np.ndarray, new_sorted: np.ndarray) -> np.ndarray:
@@ -104,12 +145,22 @@ def _remove_sorted(arr: np.ndarray, values: List[float]) -> np.ndarray:
 
 class _ClassSide:
     """One class's container: the sorted base run, the pending buffer and
-    the tombstones, and the device copy of the base.
+    the tombstones, and the device copies.
 
     ``snap_buf``/``snap_tomb`` mark the prefixes an in-flight background
     build has snapshotted (0 when idle): mutators treat them as
     immutable, and the swap trims exactly them. ``placed_base`` is the
     host array that ``base_dev`` mirrors.
+
+    The sharded tiers add ``delta_run`` (the consolidated sorted run of
+    inserts not yet folded into the base, mirrored by ``delta_dev`` /
+    ``delta_cap``, with ``delta_rows`` its per-worker row occupancy and
+    ``delta_minors`` the minors merged into it), ``tomb_run`` (the sorted
+    tombstone multiset, mirrored by ``tomb_dev`` in kernel mode, whose
+    counts subtract) and ``placed_tomb``. While a background job runs
+    (``building``) the worker owns base, delta_run, tomb_run and their
+    placements; mutators only append to buf/tomb and remove from the
+    unsnapshotted buffer suffix.
     """
 
     def __init__(self, dtype):
@@ -120,25 +171,42 @@ class _ClassSide:
         self.base_dev: Optional[torch.Tensor] = None
         self.cap = 0
         self.placed_base: Optional[np.ndarray] = None
+        self.delta_run = np.empty(0, dtype=dtype)
+        self.delta_dev: Optional[torch.Tensor] = None
+        self.delta_cap = 0
+        self.delta_rows: Optional[np.ndarray] = None
+        self.delta_minors = 0
+        self.tomb_run = np.empty(0, dtype=dtype)
+        self.tomb_dev: Optional[torch.Tensor] = None
+        self.tomb_cap = 0
+        self.placed_tomb: Optional[np.ndarray] = None
         self.building = False
         self.snap_buf = 0
         self.snap_tomb = 0
 
     @property
     def size(self) -> int:
-        return len(self.base) + len(self.buf) - len(self.tomb)
+        return (len(self.base) + len(self.delta_run) + len(self.buf)
+                - len(self.tomb) - len(self.tomb_run))
 
     @property
     def pending(self) -> Tuple[int, int]:
         """(buf, tomb) entries not claimed by an in-flight build."""
         return len(self.buf) - self.snap_buf, len(self.tomb) - self.snap_tomb
 
+    def clear_delta(self) -> None:
+        self.delta_run = np.empty(0, dtype=self.dtype)
+        self.delta_dev, self.delta_cap = None, 0
+        self.delta_rows = None
+        self.delta_minors = 0
+
     def values(self) -> np.ndarray:
         """Current multiset as a sorted array (oracle path, O(n))."""
         out = np.concatenate(
-            [self.base, np.asarray(self.buf, dtype=self.dtype)])
+            [self.base, self.delta_run,
+             np.asarray(self.buf, dtype=self.dtype)])
         out = np.sort(out, kind="stable")
-        return _remove_sorted(out, self.tomb)
+        return _remove_sorted(out, self.tomb_run.tolist() + self.tomb)
 
 
 class ExactAucIndex:
@@ -154,16 +222,35 @@ class ExactAucIndex:
         caller asks for the CPU (``device="cpu"``), where the plain
         versions run. With no card and no device it raises.
       bg_compact: merge on a side thread; the insert path pays only the
-        swap.
+        swap. Not on a distributed mesh (ValueError): its collectives stay
+        on the caller's thread, in one order on every rank.
       count_kernel: ``engine="torch"`` only: each insert micro-batch's
         one fused count launches the signed-count kernel; False counts
         with ``torch.searchsorted``. The integers are the same.
       metrics: a ``MetricsRegistry`` receiving ``compactions_total``,
         ``compaction_pause_s``, ``bytes_h2d`` and the count counters;
         None = a private one.
-      flight: optional ``FlightRecorder`` receiving compaction events.
-      shards, mesh, chaos, tracer: not ported yet; anything but None
-        raises.
+      flight: optional ``FlightRecorder`` receiving compaction and heal
+        events.
+      shards: None = single-device runs; an int S >= 1 shards the runs
+        over a mesh of S workers on ``device``'s worker axis
+        (``engine="torch"`` only; S = 1 runs the mesh path on one
+        worker). Counts equal the single-device index's at every S.
+      mesh: an existing 1-D ``parallel.mesh.Mesh`` (overrides ``shards``
+        and ``device``), local or distributed.
+      chaos: a ``testing.chaos.FaultInjector`` fired at the
+        ``sharded_count``, ``place_base``, ``major_merge`` and
+        ``compactor_build`` points.
+      shard_retries / retry_backoff_s / probe_timeout_s: the bounded
+        heal-and-retry of a sharded count, its backoff base and the
+        health probe's wall-clock bound.
+      delta_fraction: sharded mode only: > 0 (default 0.25) compacts in
+        the delta tiers, a major merge once ``|delta|`` exceeds this
+        fraction of the base; 0 is the host-merge path with full
+        re-placement.
+      max_delta_runs: fold the delta into the base after this many minor
+        compactions, whatever its size.
+      tracer: not ported yet; anything but None raises.
     """
 
     def __init__(self, window: Optional[int] = None,
@@ -171,26 +258,64 @@ class ExactAucIndex:
                  device=None, bg_compact: bool = False, metrics=None,
                  count_kernel: bool = False, flight=None,
                  shards: Optional[int] = None, mesh=None, chaos=None,
-                 tracer=None):
+                 shard_retries: int = 3, retry_backoff_s: float = 0.02,
+                 probe_timeout_s: float = 5.0, delta_fraction: float = 0.25,
+                 max_delta_runs: int = 64, tracer=None):
         if engine not in ("torch", "numpy"):
             raise ValueError(f"engine must be 'torch' or 'numpy': {engine!r}")
         if window is not None and window < 2:
             raise ValueError(f"window must be >= 2, got {window}")
         if compact_every < 1:
             raise ValueError(f"compact_every must be >= 1: {compact_every}")
-        if shards is not None or mesh is not None or chaos is not None:
-            raise NotImplementedError(
-                "mesh-sharded base runs, the delta tiers, self-healing and "
-                "fault injection are not ported to tuplewise_tpu_torch yet")
+        if mesh is not None:
+            if len(mesh.shape) != 1:
+                raise ValueError("the sharded index takes a 1-D mesh, got "
+                                 f"shape {mesh.shape}")
+            shards = mesh.n_workers
+        if shards is not None and shards < 1:
+            raise ValueError(f"shards must be >= 1, got {shards}")
+        if shards is not None and engine != "torch":
+            raise ValueError("sharded base runs need engine='torch'")
+        if delta_fraction < 0:
+            raise ValueError(
+                f"delta_fraction must be >= 0: {delta_fraction}")
+        if max_delta_runs < 1:
+            raise ValueError(
+                f"max_delta_runs must be >= 1: {max_delta_runs}")
         check_tracer(tracer)
         self.window = window
         self.compact_every = compact_every
         self.engine = engine
+        self.shards = shards
         self.bg_compact = bg_compact
+        self.delta_fraction = float(delta_fraction)
+        self.max_delta_runs = int(max_delta_runs)
+        # the delta tiers need the mesh: they cut host-to-device bytes
+        self._delta = shards is not None and self.delta_fraction > 0
         self.count_kernel = bool(count_kernel)
         self._ck = self.count_kernel and engine == "torch"
-        self.device = resolve_device(device) if engine == "torch" else None
+        if shards is not None and mesh is None:
+            from tuplewise_tpu_torch.parallel.mesh import make_mesh
+
+            mesh = make_mesh(shards, device)
+        if bg_compact and mesh is not None and mesh.distributed:
+            # the compactor thread's major merge and heals issue
+            # collectives; beside the caller's counts their order would
+            # differ from rank to rank
+            raise ValueError(
+                "bg_compact=True is not taken on a distributed mesh: the "
+                "compactor thread's collectives would interleave with the "
+                "caller's in an order that differs between ranks")
+        self._mesh = mesh
+        if mesh is not None:
+            self.device = mesh.device
+        else:
+            self.device = resolve_device(device) if engine == "torch" else None
         self.dtype = np.float32 if engine == "torch" else np.float64
+        self.chaos = chaos
+        self.shard_retries = shard_retries
+        self.retry_backoff_s = retry_backoff_s
+        self.probe_timeout_s = probe_timeout_s
         self.tracer = tracer
         self.flight = flight
         self._pos = _ClassSide(self.dtype)
@@ -199,19 +324,46 @@ class ExactAucIndex:
         self._log: Deque[Tuple[float, bool]] = collections.deque()
         self._wins2 = 0          # exact: a Python int never overflows
         self.n_compactions = 0
+        self.n_major_merges = 0
         self.n_evicted = 0
         self.metrics = metrics if metrics is not None else MetricsRegistry()
         self._c_compactions = self.metrics.counter("compactions_total")
         self._h_pause = self.metrics.histogram("compaction_pause_s")
+        self._g_delta = self.metrics.gauge("delta_run_events")
         self._g_tomb = self.metrics.gauge("tombstone_occupancy")
-        self.metrics.gauge("mesh_width").set(0)
-        # host-to-device bytes of base placements
+        self._g_mesh = self.metrics.gauge("mesh_width")
+        self._g_mesh.set(shards if shards is not None else 0)
+        # shard balance over the per-shard occupancy (base + delta rows)
+        self._g_skew = self.metrics.gauge("shard_skew")
+        self._g_skew_cv = self.metrics.gauge("shard_balance_cv")
+        self._c_heal_exhausted = self.metrics.counter("heal_exhausted_total")
+        # host-to-device bytes of placements (the whole mesh's)
         self._c_bytes = self.metrics.counter("bytes_h2d")
+        self._c_bytes_saved = self.metrics.counter("bytes_h2d_saved")
+        self._h_compaction_bytes = self.metrics.histogram(
+            "compaction_bytes", buckets=BYTE_BUCKETS)
+        self._h_major = self.metrics.histogram("major_merge_s")
+        self._c_major = self.metrics.counter("major_merges_total")
+        self._c_major_fb = self.metrics.counter("major_merge_fallbacks")
+        self.last_major_merge_error = None
+        # the healer records into these (create-or-return)
+        self.metrics.counter("reshard_events")
+        self.metrics.counter("shard_retries_total")
+        self.metrics.histogram("recovery_time_s")
         self._c_bg_restarts = self.metrics.counter("bg_compactor_restarts")
         # calls = fused-kernel dispatches, one per insert micro-batch;
         # fallbacks stays 0: nothing falls back from the kernel
         self.metrics.counter("count_kernel_calls_total")
         self.metrics.counter("count_kernel_fallbacks_total")
+        # shrink policy: counts are additive over any partition, so a
+        # narrower mesh gives the same integers
+        self._healer = None
+        if mesh is not None:
+            self._healer = MeshHealer(
+                mesh, chaos=chaos, probe_timeout_s=probe_timeout_s,
+                metrics=self.metrics,
+                backoff=Backoff(base_s=retry_backoff_s, cap_s=1.0),
+                flight=flight)
         # one re-entrant lock guards all container structure; the
         # condition signals build completion
         self._cv = threading.Condition(threading.RLock())
@@ -229,9 +381,23 @@ class ExactAucIndex:
     # counting primitives (all integer-exact)                            #
     # ------------------------------------------------------------------ #
     def _runs(self, side: _ClassSide) -> list:
-        """The side's runs for a device count: its base run, +1, from the
-        device copy, which is re-placed only when the host run was
-        replaced (caller holds the lock)."""
+        """The side's runs for a device count (caller holds the lock).
+
+        Single device: its base run, +1, from the device copy, re-placed
+        only when the host run was replaced. Sharded: the placed base and
+        delta runs (+1) and, in kernel mode, the tombstone multiset (-1),
+        whose mirror is refreshed here when stale."""
+        if self.shards is not None:
+            if self._ck and side.placed_tomb is not side.tomb_run:
+                self._replace_tomb(side)
+            runs = []
+            if side.base_dev is not None:
+                runs.append((side.base_dev, side.cap, 1))
+            if side.delta_dev is not None:
+                runs.append((side.delta_dev, side.delta_cap, 1))
+            if side.tomb_dev is not None:
+                runs.append((side.tomb_dev, side.tomb_cap, -1))
+            return runs
         if len(side.base) == 0:
             return []
         if side.placed_base is not side.base:
@@ -241,22 +407,52 @@ class ExactAucIndex:
             self._c_bytes.inc(side.cap * 4)
         return [(side.base_dev, side.cap, 1)]
 
-    def _signed_counts(self, runs_a, runs_b, q_a: np.ndarray,
+    def _healed(self, fn):
+        """``fn()`` under the heal-and-retry protocol when sharded (the
+        lock held across each heal round, whichever thread heals)."""
+        if self._healer is None:
+            return fn()
+        try:
+            return self._healer.run(fn, retries=self.shard_retries,
+                                    on_heal=self._on_heal, lock=self._cv)
+        except HealExhaustedError as e:
+            # terminal for this mesh: dump the flight ring now
+            self._c_heal_exhausted.inc()
+            if self.flight is not None:
+                self.flight.record("heal_exhausted", error=repr(e))
+                self.flight.auto_dump()
+            raise
+
+    def _signed_counts(self, sides_a, sides_b, q_a: np.ndarray,
                        q_b: np.ndarray):
-        return signed_pair_counts(
-            None, runs_a, runs_b, q_a, q_b, self.dtype,
-            kernel=True if self._ck else None, metrics=self.metrics,
-            device=self.device)
+        """One fused count of ``q_a`` against the runs of the sides
+        ``sides_a`` and ``q_b`` against those of ``sides_b`` (each a
+        tuple of at most one side). Sharded, under the heal-and-retry
+        protocol: each attempt re-reads the placements, so a heal's
+        re-placement is picked up."""
+        def attempt():
+            runs_a = [r for sd in sides_a for r in self._runs(sd)]
+            runs_b = [r for sd in sides_b for r in self._runs(sd)]
+            return signed_pair_counts(
+                self._mesh, runs_a, runs_b, q_a, q_b, self.dtype,
+                kernel=True if self._ck else None, metrics=self.metrics,
+                device=self.device,
+                chaos=self.chaos if self._mesh is not None else None)
+
+        with maybe_span(self.tracer, "index.sharded_count"):
+            return self._healed(attempt)
 
     def _base_counts(self, side: _ClassSide,
                      q: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
-        """(less, leq) counts of each query against side.base."""
+        """(less, leq) counts of each query against the side's device
+        runs (the base, and sharded the delta run and in kernel mode the
+        tombstone multiset)."""
         if len(q) == 0:
             z = np.zeros(0, dtype=np.int64)
             return z, z
         if self.engine == "torch":
             less, leq, _, _ = self._signed_counts(
-                self._runs(side), (), q, np.zeros(0, self.dtype))
+                (side,), (), q, np.zeros(0, self.dtype))
             return less, leq
         less = np.searchsorted(side.base, q, side="left")
         leq = np.searchsorted(side.base, q, side="right")
@@ -273,8 +469,9 @@ class ExactAucIndex:
                      base_less: np.ndarray, base_leq: np.ndarray
                      ) -> Tuple[np.ndarray, np.ndarray]:
         """(less, eq) against the side's current multiset given its
-        base-run counts: the pending buffer (+) and the tombstones (-)
-        adjust on the host."""
+        device counts: the pending buffer (+) and the tombstones (-)
+        adjust on the host, and the tombstone multiset too unless the
+        kernel already subtracted it."""
         less = np.asarray(base_less, dtype=np.int64).copy()
         eq = np.asarray(base_leq, dtype=np.int64) - less
         for vals, sign in ((side.buf, 1), (side.tomb, -1)):
@@ -285,7 +482,109 @@ class ExactAucIndex:
             r2 = np.searchsorted(arr, q, side="right").astype(np.int64)
             less += sign * l2
             eq += sign * (r2 - l2)
+        if len(side.tomb_run) and not self._ck:
+            l2 = np.searchsorted(side.tomb_run, q,
+                                 side="left").astype(np.int64)
+            r2 = np.searchsorted(side.tomb_run, q,
+                                 side="right").astype(np.int64)
+            less -= l2
+            eq -= r2 - l2
         return less, eq
+
+    # ------------------------------------------------------------------ #
+    # device placement of the sharded tiers                              #
+    # ------------------------------------------------------------------ #
+    def _place(self, side: _ClassSide, heal: bool = True) -> int:
+        """(Re)place a sharded base run after it changed; returns the
+        bytes shipped (unchanged rows are reused when the geometry
+        holds). A failed placement heals and retries like a count; the
+        heal's own re-placement (``heal=False``) fires no hook.
+        Single device: a no-op, ``_runs`` places lazily."""
+        if self.shards is None:
+            return 0
+        if len(side.base) == 0:
+            side.base_dev, side.cap = None, 0
+            side.placed_base = None
+            return 0
+
+        def attempt():
+            return place_base(
+                self._mesh, side.base, self.dtype,
+                prev=(side.placed_base, side.base_dev, side.cap),
+                metrics=self.metrics, chaos=self.chaos if heal else None)
+
+        side.base_dev, side.cap, shipped = (
+            self._healed(attempt) if heal else attempt())
+        side.placed_base = side.base
+        return shipped
+
+    def _place_healed(self, arr: np.ndarray, prev=None):
+        """Place ``arr`` on the current mesh under the heal-and-retry
+        protocol, from any thread; returns (tensor, cap, bytes, mesh),
+        the mesh it was placed on (a commit re-places it when a heal has
+        replaced that mesh since)."""
+        def attempt():
+            with self._cv:
+                mesh = self._mesh
+            return (*place_base(mesh, arr, self.dtype, prev=prev,
+                                metrics=self.metrics, chaos=self.chaos),
+                    mesh)
+
+        return self._healed(attempt)
+
+    def _current(self, dev, cap: int, mesh, arr: np.ndarray):
+        """(tensor, cap) of ``arr`` valid on the current mesh (lock held):
+        a placement made on a mesh a heal has replaced is placed again."""
+        if dev is not None and mesh is not self._mesh:
+            dev, cap, _ = place_base(self._mesh, arr, self.dtype,
+                                     metrics=self.metrics)
+        return dev, cap
+
+    def _replace_deltas(self, side: _ClassSide) -> None:
+        """Rebuild the delta run's placement (a mesh change or a seeded
+        state)."""
+        if self.shards is None or len(side.delta_run) == 0:
+            side.delta_dev, side.delta_cap = None, 0
+            side.delta_rows = None
+            return
+        side.delta_dev, side.delta_cap, _ = place_base(
+            self._mesh, side.delta_run, self.dtype, metrics=self.metrics)
+        S = self._mesh.n_workers
+        per = -(-len(side.delta_run) // S)
+        side.delta_rows = np.clip(
+            len(side.delta_run) - per * np.arange(S), 0, per
+        ).astype(np.int64)
+
+    def _replace_tomb(self, side: _ClassSide) -> None:
+        """(Re)place the tombstone multiset's mirror: kernel mode only
+        (the searchsorted route subtracts it on the host), reusing rows
+        as ``place_base`` allows."""
+        if (not self._ck or self.shards is None
+                or len(side.tomb_run) == 0):
+            side.tomb_dev, side.tomb_cap = None, 0
+            side.placed_tomb = None
+            return
+        side.tomb_dev, side.tomb_cap, _ = place_base(
+            self._mesh, side.tomb_run, self.dtype,
+            prev=(side.placed_tomb, side.tomb_dev, side.tomb_cap),
+            metrics=self.metrics)
+        side.placed_tomb = side.tomb_run
+
+    def _on_heal(self, healer) -> None:
+        """After a heal round (the lock is held): adopt the possibly
+        narrower mesh and rebuild every placement, base, delta and
+        tombstones, from the host copies."""
+        self._mesh = healer.mesh
+        self.shards = healer.n_workers
+        self._g_mesh.set(self.shards)
+        with maybe_span(self.tracer, "heal.replace"):
+            for side in (self._pos, self._neg):
+                side.placed_base = None   # another mesh: no row reuse
+                self._place(side, heal=False)
+                self._replace_deltas(side)
+                side.placed_tomb = None
+                side.tomb_dev, side.tomb_cap = None, 0
+                self._replace_tomb(side)
 
     def _cross2(self, p_vals: np.ndarray, n_side: _ClassSide) -> int:
         """Sum over p of 2*count_less(p in negs) + count_eq: the wins2
@@ -377,7 +676,7 @@ class ExactAucIndex:
         n_out_arr = np.asarray(n_out, dtype=self.dtype)
         # queries against the negatives (set a) and the positives (set b)
         ln, lqn, lp, lqp = self._signed_counts(
-            self._runs(self._neg), self._runs(self._pos),
+            (self._neg,), (self._pos,),
             np.concatenate([p_new, p_out_arr]),
             np.concatenate([n_new, n_out_arr]))
         kp, kn = len(p_new), len(n_new)
@@ -446,7 +745,32 @@ class ExactAucIndex:
         return "pos" if side is self._pos else "neg"
 
     def _update_gauges(self) -> None:
-        self._g_tomb.set(len(self._pos.tomb) + len(self._neg.tomb))
+        """Refresh the container gauges (caller holds the lock or owns
+        the containers)."""
+        self._g_delta.set(len(self._pos.delta_run)
+                          + len(self._neg.delta_run))
+        self._g_tomb.set(len(self._pos.tomb_run) + len(self._neg.tomb_run)
+                         + len(self._pos.tomb) + len(self._neg.tomb))
+        if self.shards is not None:
+            bal = shard_balance(self.shard_occupancy())
+            self._g_skew.set(bal["skew"])
+            self._g_skew_cv.set(bal["cv"])
+
+    def shard_occupancy(self) -> list:
+        """Per-shard placed row counts (base + delta), both classes
+        summed: shard s of an n-row run holds ``clip(n - s*ceil(n/S), 0,
+        ceil(n/S))`` rows (the skew gauges read it)."""
+        S = self.shards or 1
+        counts = np.zeros(S, dtype=np.int64)
+        for side in (self._pos, self._neg):
+            for arr in (side.placed_base
+                        if side.placed_base is not None else side.base,
+                        side.delta_run):
+                n = len(arr)
+                if n:
+                    per = -(-n // S)
+                    counts += np.clip(n - per * np.arange(S), 0, per)
+        return counts.tolist()
 
     def _flight_event(self, kind: str, **fields) -> None:
         if self.flight is not None:
@@ -465,7 +789,7 @@ class ExactAucIndex:
                     # crashed build): compact inline rather than let the
                     # buffer grow without bound; a side mid-build is left
                     # to the restarted worker
-                    self._full_compact(side)
+                    self._compact_side(side)
 
     def _ensure_compactor(self) -> bool:
         """Watchdog (caller holds the lock): True when the background
@@ -504,46 +828,242 @@ class ExactAucIndex:
         with self._cv:
             self._drain_builds(30.0, "background compaction stuck")
             for side in (self._pos, self._neg):
-                if side.buf or side.tomb:
+                if (side.buf or side.tomb or len(side.delta_run)
+                        or len(side.tomb_run)):
                     self._full_compact(side)
 
     def _merge(self, side_base: np.ndarray, buf: List[float],
                tomb: List[float], on_thread: bool) -> np.ndarray:
         """Pure merge: sorted(base + buf) minus tombstones.
 
-        ``on_thread`` (synchronous ``engine="torch"`` compaction) sorts
-        on the device: the caller's thread already owns it. The
-        background merge stays on the host: a device sort there would
-        queue behind the batcher's counts on the same stream. The host
-        path sorts only the buffer and splices it in, O(n + b log b).
-        The values are the same either way."""
+        ``on_thread`` (synchronous single-device ``engine="torch"``
+        compaction) sorts on the device: the caller's thread already owns
+        it. The background and sharded merges stay on the host: a device
+        sort there would queue behind the batcher's counts on the same
+        stream. The host path sorts only the buffer and splices it in,
+        O(n + b log b). The values are the same either way."""
         buf_sorted = np.sort(np.asarray(buf, dtype=self.dtype))
         if len(buf_sorted) == 0:
             merged = side_base
-        elif on_thread and self.engine == "torch":
+        elif on_thread and self.engine == "torch" and self.shards is None:
             t = torch.from_numpy(np.concatenate([side_base, buf_sorted]))
             merged = torch.sort(t.to(self.device)).values.cpu().numpy()
         else:
             merged = _splice_merge(side_base, buf_sorted)
         return _remove_sorted(merged, tomb)
 
+    # ------------------------------------------------------------------ #
+    # compaction tiers                                                   #
+    # ------------------------------------------------------------------ #
+    def _compact_side(self, side: _ClassSide) -> None:
+        """Synchronous compaction (caller holds the lock), its pause
+        billed inline. In the delta tiers that pause is O(buffer): a
+        minor compaction, then whatever heavier tier falls due."""
+        if not self._delta:
+            self._full_compact(side)
+            return
+        with maybe_span(self.tracer, "compaction.sync",
+                        side=self._side_name(side)):
+            buf_vals, tomb_vals = list(side.buf), list(side.tomb)
+            t0 = time.perf_counter()
+            new_delta, placed = self._healed(
+                lambda: self._build_delta(side, buf_vals))
+            side.buf = []
+            side.tomb = []
+            self._commit_minor(side, new_delta, placed, tomb_vals, t0)
+            todo = self._followup(side)
+            if todo == "major":
+                t0 = time.perf_counter()
+                self._commit_major(side, self._major_build(side), t0, t0)
+            elif todo == "full":
+                self._full_compact(side)
+
+    def _build_delta(self, side: _ClassSide, buf_vals: List[float]):
+        """Merge the pending buffer into the consolidated delta run: the
+        host copy by a splice, the device copy by shipping only the
+        sorted chunk and rank-merging it into each worker's delta row
+        (counting is additive over any partition into sorted runs, so
+        the rows need no rebalancing). Returns (new_delta_host, (tensor,
+        cap, bytes, rows, mesh) or None). Caller owns the delta state; the
+        mesh and the placement are read together under the lock (a heal
+        on another thread replaces both)."""
+        chunk = np.sort(np.asarray(buf_vals, dtype=self.dtype))
+        if len(chunk) == 0:
+            return side.delta_run, None     # a tombstone-only minor
+        new_delta = _splice_merge(side.delta_run, chunk)
+        with self._cv:
+            mesh, delta_dev = self._mesh, side.delta_dev
+            delta_cap, delta_rows = side.delta_cap, side.delta_rows
+        S = mesh.n_workers
+        if delta_dev is None:
+            # the first minor after a fold: place the fresh run
+            dev, cap, shipped = place_base(
+                mesh, new_delta, self.dtype, metrics=self.metrics,
+                chaos=self.chaos)
+            per = -(-len(new_delta) // S)
+            rows = np.clip(len(new_delta) - per * np.arange(S),
+                           0, per).astype(np.int64)
+            return new_delta, (dev, cap, shipped, rows, mesh)
+        chunk_dev, chunk_cap, shipped = place_base(
+            mesh, chunk, self.dtype, metrics=self.metrics, chaos=self.chaos)
+        per_c = -(-len(chunk) // S)
+        rows = delta_rows + np.clip(
+            len(chunk) - per_c * np.arange(S), 0, per_c)
+        cap_new = next_bucket(int(rows.max()))
+        dev = delta_append(delta_dev, delta_cap, chunk_dev, chunk_cap,
+                           cap_new)
+        return new_delta, (dev, cap_new, shipped, rows, mesh)
+
+    def _commit_minor(self, side: _ClassSide, new_delta: np.ndarray,
+                      placed, tomb_vals: List[float], t0: float) -> None:
+        """Adopt a minor compaction (lock held): swap in the delta run,
+        fold fresh tombstones into the tombstone multiset. Counts are
+        unchanged: the same values moved between containers whose counts
+        add and subtract."""
+        if placed is not None:
+            dev, cap, shipped, rows, mesh = placed
+            side.delta_run = new_delta
+            side.delta_dev, side.delta_cap = dev, cap
+            side.delta_rows = rows
+            if mesh is not self._mesh:
+                # healed meanwhile: the rows belong to the old mesh
+                self._replace_deltas(side)
+            side.delta_minors += 1
+            self._h_compaction_bytes.observe(shipped)
+        if tomb_vals:
+            side.tomb_run = _splice_merge(
+                side.tomb_run,
+                np.sort(np.asarray(tomb_vals, dtype=self.dtype)))
+            self._replace_tomb(side)
+        self.n_compactions += 1
+        self._c_compactions.inc()
+        self._update_gauges()
+        self._flight_event(
+            "compaction", tier="minor", side=self._side_name(side),
+            delta_events=len(side.delta_run),
+            bytes_shipped=(placed[2] if placed is not None else 0))
+        self._h_pause.observe(time.perf_counter() - t0)
+
+    def _followup(self, side: _ClassSide) -> Optional[str]:
+        """The heavier tier a minor compaction leaves due, if any: "full"
+        when the tombstone multiset outgrew the base fraction (only a
+        host rebuild drops tombstones), "major" when the delta outgrew
+        ``delta_fraction`` of the base or ``max_delta_runs`` minors were
+        merged into it."""
+        if len(side.tomb_run) >= max(
+                self.compact_every,
+                int(self.delta_fraction * len(side.base))):
+            return "full"
+        if len(side.delta_run) and (
+                len(side.delta_run)
+                > self.delta_fraction * max(len(side.base), 1)
+                or side.delta_minors >= self.max_delta_runs):
+            return "major"
+        return None
+
+    def _major_build(self, side: _ClassSide):
+        """Fold the delta run into the base; returns (merged_host,
+        tensor, cap). The host copy is a splice; the device copy is
+        built on the mesh (zero run bytes from the host) when the plan
+        fits the one-hop exchange, else by a full re-placement. An
+        injected fault, or a failure the healer finds to be a lost
+        worker, takes the re-placement and counts in
+        ``major_merge_fallbacks``; any other exception propagates.
+        Caller owns base and delta; the mesh and the placements are read
+        together under the lock, and the mesh is returned with the
+        result (a heal on another thread replaces both)."""
+        with self._cv:
+            mesh, base_dev, cap = self._mesh, side.base_dev, side.cap
+            delta_dev, delta_cap = side.delta_dev, side.delta_cap
+        base = side.base
+        merged = _splice_merge(base, side.delta_run)
+        S = mesh.n_workers
+        if (len(base) and base_dev is not None and delta_dev is not None
+                and S >= 2):
+            plan = plan_major_merge(base, side.delta_run, S)
+            if plan.ok:
+                try:
+                    dev, cap_out = sharded_major_merge(
+                        mesh, base_dev, cap, ((delta_dev, delta_cap),),
+                        plan, chaos=self.chaos)
+                    # the bytes a host merge would have re-shipped
+                    self._c_bytes_saved.inc(S * cap_out * 4)
+                    return merged, dev, cap_out, mesh
+                except InjectedFault as e:
+                    self._major_fallback(side, e)
+                except Exception as e:  # noqa: BLE001 — unless lost
+                    if not self._healer.lost_worker():
+                        raise
+                    self._major_fallback(side, e)
+        # S = 1, an empty base, a plan past one hop, or a fallback: the
+        # host merge, re-placed in full
+        dev, cap_out, _ = place_base(mesh, merged, self.dtype,
+                                     metrics=self.metrics)
+        return merged, dev, cap_out, mesh
+
+    def _major_fallback(self, side: _ClassSide, e: Exception) -> None:
+        self._c_major_fb.inc()
+        self.last_major_merge_error = repr(e)
+        self._flight_event("major_merge_fallback",
+                           side=self._side_name(side), error=repr(e))
+
+    def _commit_major(self, side: _ClassSide, built, t_build0: float,
+                      t_pause0: float) -> None:
+        """Swap a major merge in (lock held): rebind the base, clear the
+        folded delta run, keep the tombstones (their counts still
+        subtract). A merge built on a mesh a heal has since replaced is
+        re-placed on the current one."""
+        merged, dev, cap, mesh = built
+        dev, cap = self._current(dev, cap, mesh, merged)
+        side.base = merged
+        side.placed_base = merged
+        side.base_dev, side.cap = dev, cap
+        side.clear_delta()
+        self.n_compactions += 1
+        self._c_compactions.inc()
+        self.n_major_merges += 1
+        self._c_major.inc()
+        self._update_gauges()
+        now = time.perf_counter()
+        self._flight_event("major_merge", side=self._side_name(side),
+                           base_events=len(merged), build_s=now - t_build0)
+        self._h_major.observe(now - t_build0)
+        self._h_pause.observe(now - t_pause0)
+
     def _full_compact(self, side: _ClassSide) -> None:
-        """Fold the buffer into the base and drop the tombstones (caller
-        holds the lock); the work and its pause run inline."""
+        """Fold everything (base, delta run, buffer) into one sorted base
+        run, dropping the tombstones, and re-place it (caller holds the
+        lock); the work and its pause run inline."""
         t0 = time.perf_counter()
         with maybe_span(self.tracer, "compaction.sync",
                         side=self._side_name(side)):
-            merged = self._merge(side.base, side.buf, side.tomb,
-                                 on_thread=True)
+            tombs = side.tomb_run.tolist() + side.tomb
+            if len(side.delta_run):
+                merged = _remove_sorted(
+                    _splice_merge(
+                        _splice_merge(side.base, side.delta_run),
+                        np.sort(np.asarray(side.buf, dtype=self.dtype))),
+                    tombs)
+            else:
+                merged = self._merge(side.base, side.buf, tombs,
+                                     on_thread=True)
             side.base = merged
             side.buf = []
             side.tomb = []
+            side.clear_delta()
+            side.tomb_run = np.empty(0, dtype=self.dtype)
+            self._replace_tomb(side)    # clears the device mirror
+            shipped = self._place(side)
+        if not self._delta:
+            # the host-merge mode's compaction: the bytes the delta tiers
+            # are judged against
+            self._h_compaction_bytes.observe(shipped)
         self.n_compactions += 1
         self._c_compactions.inc()
         self._update_gauges()
         self._flight_event("compaction", tier="full",
                            side=self._side_name(side),
-                           base_events=len(merged))
+                           base_events=len(merged), bytes_shipped=shipped)
         self._h_pause.observe(time.perf_counter() - t0)
 
     # ------------------------------------------------------------------ #
@@ -581,18 +1101,32 @@ class ExactAucIndex:
     def _build_and_swap(self, side: _ClassSide) -> None:
         if self._bg_test_hook is not None:
             self._bg_test_hook(side)
+        if self.chaos is not None:
+            self.chaos.fire("compactor_build")
+        if self._delta:
+            self._bg_delta_build(side)
+            return
         with self._cv:
             base = side.base
+            prev = (side.placed_base, side.base_dev, side.cap)
             buf_snap = list(side.buf[: side.snap_buf])
             tomb_snap = list(side.tomb[: side.snap_tomb])
-        # the merge runs with the lock released; inserts keep landing in
-        # the buffer
+        # the merge (and, sharded, the placement) runs with the lock
+        # released; inserts keep landing in the buffer
         with maybe_span(self.tracer, "compactor.merge",
                         n_buf=len(buf_snap)):
             merged = self._merge(base, buf_snap, tomb_snap, on_thread=False)
+        base_dev, cap, shipped, mesh = None, 0, 0, None
+        if self.shards is not None and len(merged):
+            base_dev, cap, shipped, mesh = self._place_healed(merged, prev)
         with self._cv:
             t0 = time.perf_counter()
             side.base = merged
+            if self.shards is not None:
+                side.base_dev, side.cap = self._current(base_dev, cap, mesh,
+                                                        merged)
+                side.placed_base = merged if base_dev is not None else None
+                self._h_compaction_bytes.observe(shipped)
             del side.buf[: side.snap_buf]
             del side.tomb[: side.snap_tomb]
             side.snap_buf = side.snap_tomb = 0
@@ -602,16 +1136,78 @@ class ExactAucIndex:
             self._update_gauges()
             self._flight_event("compaction", tier="bg_merge",
                                side=self._side_name(side),
-                               base_events=len(merged))
+                               base_events=len(merged),
+                               bytes_shipped=shipped)
             # the swap is the only pause the request path can observe
             self._h_pause.observe(time.perf_counter() - t0)
-            # keep draining if the buffer outgrew the threshold meanwhile
-            buf_pending, tomb_pending = side.pending
-            if (not self._closed
-                    and (buf_pending >= self.compact_every
-                         or tomb_pending >= self.compact_every)):
-                self._submit_compact(side)
-            self._cv.notify_all()
+            self._resubmit(side)
+
+    def _resubmit(self, side: _ClassSide) -> None:
+        """Keep draining if the buffer outgrew the threshold while a
+        build ran (lock held)."""
+        buf_pending, tomb_pending = side.pending
+        if (not self._closed
+                and (buf_pending >= self.compact_every
+                     or tomb_pending >= self.compact_every)):
+            self._submit_compact(side)
+        self._cv.notify_all()
+
+    def _bg_delta_build(self, side: _ClassSide) -> None:
+        """A delta-tier background job: an O(buffer) minor build and
+        swap, then, still on the worker thread with the side claimed,
+        whatever heavier tier fell due. The request path's only pauses
+        are the swaps."""
+        with self._cv:
+            buf_snap = list(side.buf[: side.snap_buf])
+            tomb_snap = list(side.tomb[: side.snap_tomb])
+        with maybe_span(self.tracer, "compactor.minor_build",
+                        n_buf=len(buf_snap)):
+            new_delta, placed = self._healed(
+                lambda: self._build_delta(side, buf_snap))
+        with self._cv:
+            t0 = time.perf_counter()
+            self._commit_minor(side, new_delta, placed, tomb_snap, t0)
+            del side.buf[: side.snap_buf]
+            del side.tomb[: side.snap_tomb]
+            side.snap_buf = side.snap_tomb = 0
+            todo = self._followup(side)
+        # base, delta_run and tomb_run stay the worker's until the job
+        # ends: _submit_compact refuses a new claim while building, and
+        # the watchdog's synchronous fallback skips a building side
+        if todo == "major":
+            t0 = time.perf_counter()
+            built = self._major_build(side)
+            with self._cv:
+                self._commit_major(side, built, t0, time.perf_counter())
+        elif todo == "full":
+            # tombstone overflow: base + delta minus the tombstone
+            # multiset on the host, leaving the (unclaimed) buffer and
+            # pending tombstones alone
+            merged = _remove_sorted(
+                _splice_merge(side.base, side.delta_run),
+                side.tomb_run.tolist())
+            dev, cap, mesh = None, 0, None
+            if len(merged):
+                dev, cap, _, mesh = self._place_healed(merged)
+            with self._cv:
+                t0 = time.perf_counter()
+                side.base = merged
+                side.base_dev, side.cap = self._current(dev, cap, mesh,
+                                                        merged)
+                side.placed_base = merged if dev is not None else None
+                side.clear_delta()
+                side.tomb_run = np.empty(0, dtype=self.dtype)
+                self._replace_tomb(side)    # clears the device mirror
+                self.n_compactions += 1
+                self._c_compactions.inc()
+                self._update_gauges()
+                self._flight_event("compaction", tier="full",
+                                   side=self._side_name(side),
+                                   base_events=len(merged))
+                self._h_pause.observe(time.perf_counter() - t0)
+        with self._cv:
+            side.building = False
+            self._resubmit(side)
 
     def close(self, timeout: float = 10.0) -> None:
         """Stop the background compactor (a no-op in synchronous mode)."""
@@ -687,6 +1283,11 @@ class ExactAucIndex:
             self._log = collections.deque(log)
             self._wins2 = int(wins2)
             self.n_evicted = int(n_evicted)
+            for side in (self._pos, self._neg):
+                side.placed_base = None
+                self._place(side)
+                self._replace_deltas(side)
+                self._replace_tomb(side)
             self._update_gauges()
 
     def export_state(self) -> Tuple[np.ndarray, np.ndarray, list, int,
@@ -700,8 +1301,8 @@ class ExactAucIndex:
                     list(self._log), self._wins2, self.n_evicted)
 
     def state(self) -> dict:
-        """The JAX index's state keys; the tiers not ported yet report
-        their idle values."""
+        """The JAX index's state keys, and the port's ``count_kernel``
+        and ``device``."""
         with self._cv:
             return {
                 "n_pos": self._pos.size,
@@ -714,15 +1315,19 @@ class ExactAucIndex:
                 "buf_neg": len(self._neg.buf),
                 "engine": self.engine,
                 "window": self.window,
-                "shards": None,
+                "shards": self.shards,
                 "bg_compact": self.bg_compact,
                 "last_compactor_error": self.last_compactor_error,
-                "delta_compact": False,
-                "delta_runs": 0,
-                "delta_events": 0,
-                "tombstones": len(self._pos.tomb) + len(self._neg.tomb),
-                "n_major_merges": 0,
-                "last_major_merge_error": None,
+                "delta_compact": self._delta,
+                "delta_runs": (self._pos.delta_minors
+                               + self._neg.delta_minors),
+                "delta_events": (len(self._pos.delta_run)
+                                 + len(self._neg.delta_run)),
+                "tombstones": (len(self._pos.tomb_run)
+                               + len(self._neg.tomb_run)
+                               + len(self._pos.tomb) + len(self._neg.tomb)),
+                "n_major_merges": self.n_major_merges,
+                "last_major_merge_error": self.last_major_merge_error,
                 "count_kernel": self._ck,
                 "device": None if self.device is None else str(self.device),
             }

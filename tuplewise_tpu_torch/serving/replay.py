@@ -23,7 +23,7 @@ import numpy as np
 
 from tuplewise_tpu_torch.models.metrics import auc_score
 from tuplewise_tpu_torch.obs.report import (
-    service_report, stage_attribution, stage_p99_ms,
+    recovery_counters, service_report, stage_attribution, stage_p99_ms,
 )
 from tuplewise_tpu_torch.serving.engine import (
     BackpressureError, EngineClosedError, MicroBatchEngine,
@@ -76,6 +76,17 @@ def config_digest(config) -> str:
     return hashlib.sha256(blob.encode("utf-8")).hexdigest()[:12]
 
 
+def _injector(chaos):
+    """A ``FaultInjector`` from an injector or a spec (None: none)."""
+    if chaos is None:
+        return None
+    from tuplewise_tpu_torch.testing.chaos import FaultInjector
+
+    if isinstance(chaos, FaultInjector):
+        return chaos
+    return FaultInjector.from_spec(chaos)
+
+
 def replay(scores, labels, config: Optional[ServingConfig] = None,
            score_every: int = 0, query_every: int = 0,
            chunk: int = 1, warmup: bool = False,
@@ -100,13 +111,21 @@ def replay(scores, labels, config: Optional[ServingConfig] = None,
     ``flight_out``: dump the engine's flight recorder after the run.
     ``run_id``: a caller-chosen identity stamped into the record.
 
-    Fault injection (``chaos``), span tracing (``tracer``,
-    ``trace_out``), metrics export (``metrics_out``), profiling
-    (``profile_dir``, ``prof``, ``prof_out``), SLOs and the control plane
-    (``slo_spec``, ``controller_spec``) are not ported yet: anything but
-    None raises ``NotImplementedError``.
+    ``chaos``: a ``testing.chaos.FaultInjector`` (or a spec
+    ``FaultInjector.from_spec`` takes) threaded through the engine's hook
+    points; its ``poison`` schedule corrupts the stream at the scheduled
+    event positions before submission (the engine's edge validation
+    rejects them). The record then carries a ``faults`` block with the
+    recovery counters, and the oracle check runs over the admitted events
+    only. The warmup run stays chaos-free.
+
+    Span tracing (``tracer``, ``trace_out``), metrics export
+    (``metrics_out``), profiling (``profile_dir``, ``prof``,
+    ``prof_out``), SLOs and the control plane (``slo_spec``,
+    ``controller_spec``) are not ported yet: anything but None raises
+    ``NotImplementedError``.
     """
-    unported = dict(chaos=chaos, tracer=tracer, trace_out=trace_out,
+    unported = dict(tracer=tracer, trace_out=trace_out,
                     metrics_out=metrics_out, profile_dir=profile_dir,
                     slo_spec=slo_spec, controller_spec=controller_spec,
                     prof=prof, prof_out=prof_out)
@@ -118,6 +137,7 @@ def replay(scores, labels, config: Optional[ServingConfig] = None,
     labels = np.asarray(labels).ravel().astype(bool)
     n = len(scores)
     cfg = config or ServingConfig(**overrides)
+    injector = _injector(chaos)
     if warmup:
         replay(scores, labels, config=cfg, score_every=score_every,
                query_every=query_every, chunk=chunk, warmup=False,
@@ -126,12 +146,15 @@ def replay(scores, labels, config: Optional[ServingConfig] = None,
     poison_rejected = 0
     admitted = np.ones(n, dtype=bool)
     futures = []
-    with MicroBatchEngine(cfg) as eng:
+    with MicroBatchEngine(cfg, chaos=injector) as eng:
         t0 = time.perf_counter()
         for i in range(0, n, chunk):
             j = min(i + chunk, n)
+            sub = scores[i:j]
+            if injector is not None:
+                sub, _ = injector.poison_batch(i, sub)
             try:
-                futures.append(eng.insert(scores[i:j], labels[i:j]))
+                futures.append(eng.insert(sub, labels[i:j]))
             except PoisonEventError:
                 poison_rejected += j - i
                 admitted[i:j] = False
@@ -234,6 +257,11 @@ def replay(scores, labels, config: Optional[ServingConfig] = None,
         rec["run_id"] = run_id
     rec["report"] = service_report(m)
     rec["host_tax"] = rec["report"]["host_tax"]
+    if injector is not None:
+        rec["faults"] = dict(recovery_counters(m),
+                             chaos=injector.snapshot())
+        rec["n_admitted"] = int(admitted.sum())
+        rec["shed_events"] = np.nonzero(~admitted)[0].tolist()
 
     # oracle parity of the final exact estimate (windowed: the oracle of
     # the retained suffix of the admitted events)
@@ -268,19 +296,19 @@ def replay_fleet(scores, labels, tenants,
     out of the oracle. With ``oracle_check`` and nothing shed, every
     tenant's final exact AUC is compared with the float32 batch oracle of
     its own admitted (windowed) events: ``tenant_auc_max_abs_err``.
+    ``chaos``: as in :func:`replay` (the fleet engine's points, the
+    stream's poison schedule, a ``faults`` block in the record).
 
-    Fault injection (``chaos``), SLOs and the control plane
-    (``slo_spec``, ``controller_spec``), metrics export (``metrics_out``)
-    and the flight dump (``flight_out``) are not ported yet: anything but
-    None raises ``NotImplementedError``.
+    SLOs and the control plane (``slo_spec``, ``controller_spec``),
+    metrics export (``metrics_out``) and the flight dump (``flight_out``)
+    are not ported yet: anything but None raises ``NotImplementedError``.
     """
     from tuplewise_tpu_torch.serving.tenancy import (
         MultiTenantEngine, TenancyConfig, TenantRejectedError,
         TenantThrottledError,
     )
 
-    unported = dict(chaos=chaos, slo_spec=slo_spec,
-                    controller_spec=controller_spec,
+    unported = dict(slo_spec=slo_spec, controller_spec=controller_spec,
                     metrics_out=metrics_out, flight_out=flight_out)
     named = sorted(k for k, v in unported.items() if v is not None)
     if named:
@@ -296,6 +324,7 @@ def replay_fleet(scores, labels, tenants,
             f"tenants/scores length mismatch: {len(tenants)} vs {n}")
     cfg = config or ServingConfig(**overrides)
     ten_cfg = tenancy if tenancy is not None else TenancyConfig()
+    injector = _injector(chaos)
     if warmup:
         replay_fleet(scores, labels, tenants, config=cfg, tenancy=ten_cfg,
                      chunk=chunk, max_inflight=max_inflight,
@@ -303,7 +332,7 @@ def replay_fleet(scores, labels, tenants,
     admitted = np.ones(n, dtype=bool)
     rejected = poison_rejected = tenant_rejected = tenant_throttled = 0
     futures = []
-    with MultiTenantEngine(cfg, ten_cfg) as eng:
+    with MultiTenantEngine(cfg, ten_cfg, chaos=injector) as eng:
         t0 = time.perf_counter()
         i = 0
         while i < n:
@@ -313,8 +342,11 @@ def replay_fleet(scores, labels, tenants,
             tid = tenants[i]
             while j > i + 1 and not np.all(tenants[i:j] == tid):
                 j -= 1
+            sub = scores[i:j]
+            if injector is not None:
+                sub, _ = injector.poison_batch(i, sub)
             try:
-                futures.append(eng.insert(tid, scores[i:j], labels[i:j]))
+                futures.append(eng.insert(tid, sub, labels[i:j]))
             except PoisonEventError:
                 poison_rejected += j - i
                 admitted[i:j] = False
@@ -423,6 +455,9 @@ def replay_fleet(scores, labels, tenants,
         rec["run_id"] = run_id
     rec["report"] = service_report(m)
     rec["host_tax"] = rec["report"]["host_tax"]
+    if injector is not None:
+        rec["faults"] = dict(recovery_counters(m),
+                             chaos=injector.snapshot())
 
     # per-tenant oracle parity: each tenant's exact AUC against the batch
     # oracle of its own admitted (windowed) events

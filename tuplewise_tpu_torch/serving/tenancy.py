@@ -37,10 +37,24 @@ The single-device counterpart of ``tuplewise_tpu.serving.tenancy``.
   :func:`tenant_seed`, and per-tenant labeled metrics with a cardinality
   cap.
 
-Not ported yet: the mesh form (``shards``/``mesh``), fault injection
-(``chaos``) and the healer, span tracing (``tracer``), and crash-safe
-recovery (``snapshot_dir``/``recover``); they raise
-``NotImplementedError``.
+The mesh form (``shards=S`` / ``mesh=``, ``mesh_shards`` on the engine)
+splits every tenant's run into S contiguous slices over the workers of a
+1-D ``parallel.mesh.Mesh``: the packs become ``[S, T_bucket, cap]``
+(worker w's slice of slot t in row ``[w, t]``), a fleet count is one
+launch of kernel 7 over the worker axis (or one batched searchsorted a
+side and bound) whose per-worker blocks are added over the mesh, and a
+dirty-row update ships each worker's rows of the dirty slots. Counting is
+additive over any partition, so every tenant's counts are the same
+integers at every S. A failed count heals (``parallel.self_heal.
+MeshHealer``, shrink policy: the lost workers dropped, the packs
+re-placed from the host runs) and retries; :meth:`TenantFleetIndex.
+resize_shards` re-widths the mesh on purpose. Whales promoted from a
+mesh fleet get a sharded index on the fleet's mesh. A ``chaos`` injector
+fires the ``sharded_count``, ``place_base``, ``compactor_build`` and
+(engine) ``batcher`` points.
+
+Not ported yet: span tracing (``tracer``) and crash-safe recovery
+(``snapshot_dir``/``recover``); they raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -60,6 +74,9 @@ import numpy as np
 from tuplewise_tpu_torch.obs.flight import FlightRecorder
 from tuplewise_tpu_torch.obs.ledger import WaveLedger
 from tuplewise_tpu_torch.obs.tracing import check_tracer, maybe_span
+from tuplewise_tpu_torch.parallel.self_heal import (
+    Backoff, HealExhaustedError, MeshHealer,
+)
 from tuplewise_tpu_torch.parallel.sharded_counts import (
     next_bucket, place_tenant_pack, tenant_bucket, tenant_pack_counts,
 )
@@ -71,6 +88,7 @@ from tuplewise_tpu_torch.serving.index import (
     ExactAucIndex, _remove_sorted, _splice_merge,
 )
 from tuplewise_tpu_torch.serving.streaming import StreamingIncompleteU
+from tuplewise_tpu_torch.testing.chaos import InjectedFault
 from tuplewise_tpu_torch.utils.device import resolve_device
 from tuplewise_tpu_torch.utils.profiling import MetricsRegistry
 
@@ -259,6 +277,10 @@ class _Pack:
         if not self.dirty_all:
             self.dirty_slots.add(slot)
 
+    def mark_all(self) -> None:
+        self.dirty_all = True
+        self.dirty_slots.clear()
+
 
 class TenantFleetIndex:
     """Exact per-tenant AUC for a fleet, counted through shared packs.
@@ -273,15 +295,26 @@ class TenantFleetIndex:
       count_kernel: each fleet count is one launch of kernel 7; False
         counts with batched ``torch.searchsorted``. Same integers.
       min_tenant_bucket: floor of the packs' T axis.
-      bg_compact: tenant compactions run on a side thread.
+      bg_compact: tenant compactions run on a side thread. Not on a
+        distributed mesh (ValueError): its collectives stay on the
+        caller's thread, in one order on every rank.
       whale_threshold / whale_demote_fraction: whale promotion and its
         demotion floor (None = never promote).
       incremental_placement: ship only dirty pack rows when the geometry
         allows (False: every placement ships the whole pack).
       metrics / flight: a ``MetricsRegistry`` (None = a private one) and
         an optional ``FlightRecorder``.
-      shards, mesh, chaos, tracer: not ported yet; anything but None
-        raises.
+      shards: None = single-device packs; an int S >= 1 shards every
+        tenant's runs over a mesh of S workers on ``device``'s worker
+        axis; the counts are the same integers at every S.
+      mesh: an existing 1-D ``parallel.mesh.Mesh`` (overrides ``shards``
+        and ``device``).
+      chaos: a ``testing.chaos.FaultInjector``: counts fire
+        ``sharded_count``, placements ``place_base``, compactions
+        ``compactor_build``.
+      shard_retries / retry_backoff_s / probe_timeout_s: the heal-and-
+        retry of a mesh count.
+      tracer: not ported yet; anything but None raises.
     """
 
     def __init__(self, window: Optional[int] = None,
@@ -292,7 +325,9 @@ class TenantFleetIndex:
                  whale_demote_fraction: float = 0.5,
                  incremental_placement: bool = True, metrics=None,
                  flight=None, shards: Optional[int] = None, mesh=None,
-                 chaos=None, tracer=None):
+                 chaos=None, shard_retries: int = 3,
+                 retry_backoff_s: float = 0.02,
+                 probe_timeout_s: float = 5.0, tracer=None):
         if window is not None and window < 2:
             raise ValueError(f"window must be >= 2, got {window}")
         if compact_every < 1:
@@ -300,15 +335,34 @@ class TenantFleetIndex:
         if whale_threshold is not None and whale_threshold < 2:
             raise ValueError(
                 f"whale_threshold must be >= 2: {whale_threshold}")
-        if shards is not None or mesh is not None or chaos is not None:
-            raise NotImplementedError(
-                "mesh-sharded packs, the healer and fault injection are "
-                "not ported to tuplewise_tpu_torch yet")
+        if mesh is not None:
+            if len(mesh.shape) != 1:
+                raise ValueError("the sharded fleet takes a 1-D mesh, got "
+                                 f"shape {mesh.shape}")
+            shards = mesh.n_workers
+        if shards is not None and shards < 1:
+            raise ValueError(f"shards must be >= 1, got {shards}")
         check_tracer(tracer)
-        self.device = resolve_device(device)
+        if shards is not None and mesh is None:
+            from tuplewise_tpu_torch.parallel.mesh import make_mesh
+
+            mesh = make_mesh(shards, device)
+        if bg_compact and mesh is not None and mesh.distributed:
+            # the compactor thread's heals issue
+            # collectives; beside the caller's counts their order would
+            # differ from rank to rank
+            raise ValueError(
+                "bg_compact=True is not taken on a distributed mesh: the "
+                "compactor thread's collectives would interleave with the "
+                "caller's in an order that differs between ranks")
+        self._mesh = mesh
+        self.device = mesh.device if mesh is not None \
+            else resolve_device(device)
         self.window = window
         self.compact_every = compact_every
-        self.shards = None
+        self.shards = shards
+        self.chaos = chaos
+        self.shard_retries = shard_retries
         self.min_tenant_bucket = min_tenant_bucket
         self.bg_compact = bg_compact
         self.whale_threshold = whale_threshold
@@ -341,10 +395,12 @@ class TenantFleetIndex:
             "fleet_compact_aborts")
         self._h_pause = self.metrics.histogram("compaction_pause_s")
         self._g_tenants = self.metrics.gauge("fleet_tenants")
-        self.metrics.gauge("mesh_width").set(0)
-        self.metrics.counter("heal_exhausted_total")
+        self._g_mesh = self.metrics.gauge("mesh_width")
+        self._g_mesh.set(shards if shards is not None else 0)
+        self._c_heal_exhausted = self.metrics.counter("heal_exhausted_total")
         self.metrics.counter("reshard_events")
         self.metrics.counter("shard_retries_total")
+        self.metrics.histogram("recovery_time_s")
         # every pack placement counts, full ships separately: the
         # dirty-row saving is (replaces - full) with bytes_h2d_saved > 0
         self._c_replaces = self.metrics.counter("pack_replaces_total")
@@ -365,6 +421,19 @@ class TenantFleetIndex:
         self.metrics.counter("count_kernel_calls_total")
         self.metrics.counter("count_kernel_fallbacks_total")
         self.last_compactor_error = None
+        self._healer = None
+        if mesh is not None:
+            # pool: the mesh's slots first (a shrink and regrow restores
+            # them), its spares after; they let resize_shards grow the
+            # mesh past its first width. A heal still shrinks over the
+            # current mesh's survivors
+            pool = list(mesh.slots) + [x for x in mesh.pool
+                                       if x not in mesh.slots]
+            self._healer = MeshHealer(
+                mesh, pool=pool, chaos=chaos,
+                probe_timeout_s=probe_timeout_s, metrics=self.metrics,
+                backoff=Backoff(base_s=retry_backoff_s, cap_s=1.0),
+                flight=flight)
         self._closed = False
         if bg_compact:
             self._jobs: "queue.Queue[Optional[_TenantStat]]" = queue.Queue()
@@ -490,17 +559,45 @@ class TenantFleetIndex:
                 dirty = sorted(pack.dirty_slots)
             with maybe_span(self.tracer, "fleet.place_pack"):
                 pack.dev, pack.cap, shipped = place_tenant_pack(
-                    None, runs, tb, self.dtype,
+                    self._mesh, runs, tb, self.dtype,
                     prev=(pack.dev, pack.cap, pack.t_bucket),
-                    dirty=dirty, metrics=self.metrics, device=self.device)
+                    dirty=dirty, metrics=self.metrics, device=self.device,
+                    chaos=self.chaos)
             self._c_replaces.inc()
-            if shipped >= tb * pack.cap * np.dtype(self.dtype).itemsize:
+            if shipped >= ((self.shards or 1) * tb * pack.cap
+                           * np.dtype(self.dtype).itemsize):
                 self._c_full_replaces.inc()
             pack.t_bucket = tb
             pack.dirty_all = False
             pack.dirty_slots.clear()
             pack.row_events = [len(r) for r in runs]
         self._refresh_pack_gauges()
+
+    def _on_heal(self, healer) -> None:
+        """Adopt the (possibly narrower) healed mesh and mark both packs
+        for a full re-place from the host runs (lock held)."""
+        self._mesh = healer.mesh
+        self.shards = healer.n_workers
+        self._g_mesh.set(self.shards)
+        self._pos_pack.mark_all()
+        self._neg_pack.mark_all()
+
+    def resize_shards(self, shards: int) -> bool:
+        """Re-width the mesh on purpose (a control-plane actuation, not a
+        recovery): rebuild it at ``shards`` workers from the healer's
+        pool and re-place the packs at the next count. Counts are
+        additive over any partition, so every tenant's results are the
+        same integers at every width. True when the width changed; False
+        for an unsharded or distributed fleet, a no-op width or one the
+        pool cannot supply. Promoted whales keep their mesh; new whales
+        take the resized one."""
+        with self._lock:
+            if self._healer is None:
+                return False
+            if not self._healer.resize(shards):
+                return False
+            self._on_heal(self._healer)
+            return True
 
     def _fleet_base_counts(self, q_vs_neg: List[np.ndarray],
                            q_vs_pos: List[np.ndarray], slots: List[int]):
@@ -521,13 +618,30 @@ class TenantFleetIndex:
                 qn[slot, : len(q_vs_neg[i])] = q_vs_neg[i]
             if len(q_vs_pos[i]):
                 qp[slot, : len(q_vs_pos[i])] = q_vs_pos[i]
-        with maybe_span(self.tracer, "fleet.count"):
+        def attempt():
+            # a placement onto a lost worker heals like a count would
             self._ensure_packs()
-            less_n, leq_n, less_p, leq_p = tenant_pack_counts(
-                None, self._pos_pack.dev, self._pos_pack.cap,
+            return tenant_pack_counts(
+                self._mesh, self._pos_pack.dev, self._pos_pack.cap,
                 self._neg_pack.dev, self._neg_pack.cap, tb, qn, qp,
                 self.dtype, kernel=True if self.count_kernel else None,
-                metrics=self.metrics)
+                metrics=self.metrics, chaos=self.chaos)
+
+        try:
+            with maybe_span(self.tracer, "fleet.count"):
+                if self._healer is not None:
+                    out = self._healer.run(attempt,
+                                           retries=self.shard_retries,
+                                           on_heal=self._on_heal)
+                else:
+                    out = attempt()
+        except HealExhaustedError as e:
+            self._c_heal_exhausted.inc()
+            if self.flight is not None:
+                self.flight.record("heal_exhausted", error=repr(e))
+                self.flight.auto_dump()
+            raise
+        less_n, leq_n, less_p, leq_p = out
         self._c_count_calls.inc()
         self._c_count_tenants.inc(len(slots))
         ln, qn_out, lp, qp_out = [], [], [], []
@@ -735,7 +849,20 @@ class TenantFleetIndex:
     def _compact_tenant(self, st: _TenantStat) -> None:
         """Synchronous tenant compaction (lock held): fold the buffers
         and tombstones into the sorted bases and mark the slot dirty in
-        the packs it touched; the next count ships only its rows."""
+        the packs it touched; the next count ships only its rows. An
+        injected ``compactor_build`` crash aborts cleanly: the containers
+        are untouched (compaction never touches wins2) and the next
+        trigger retries."""
+        if self.chaos is not None:
+            try:
+                self.chaos.fire("compactor_build")
+            except InjectedFault as e:
+                self._c_compact_aborts.inc()
+                self.last_compactor_error = repr(e)
+                if self.flight is not None:
+                    self.flight.record("compaction_abort", tenant=st.tid,
+                                       error=repr(e))
+                return
         t0 = time.perf_counter()
         with maybe_span(self.tracer, "fleet.compact"):
             for pos in (True, False):
@@ -814,6 +941,8 @@ class TenantFleetIndex:
         fresh host bases with the lock released, then swap them in and
         mark the slot dirty. The device copy is made by the next count,
         on the caller's thread."""
+        if self.chaos is not None:
+            self.chaos.fire("compactor_build")
         with self._cv:
             pos_base, neg_base = st.pos_base, st.neg_base
             buf_p = list(st.pos_buf[: st.snap_pos_buf])
@@ -883,12 +1012,17 @@ class TenantFleetIndex:
     # ------------------------------------------------------------------ #
     def _make_whale_index(self) -> ExactAucIndex:
         """A dedicated exact index for one promoted tenant on the fleet's
-        device, sharing its registry and flight recorder."""
-        return ExactAucIndex(
-            window=self.window, compact_every=self.compact_every,
-            engine="torch", device=self.device, metrics=self.metrics,
-            bg_compact=self.bg_compact, count_kernel=self.count_kernel,
-            flight=self.flight)
+        device, sharing its registry, flight recorder and injector; on a
+        mesh fleet, a sharded index (the delta tiers) on the fleet's
+        mesh."""
+        kw = dict(window=self.window, compact_every=self.compact_every,
+                  engine="torch", device=self.device, metrics=self.metrics,
+                  bg_compact=self.bg_compact, count_kernel=self.count_kernel,
+                  flight=self.flight, chaos=self.chaos,
+                  shard_retries=self.shard_retries)
+        if self._mesh is not None:
+            kw["mesh"] = self._mesh
+        return ExactAucIndex(**kw)
 
     def promote(self, tid: str) -> bool:
         """Promote a tenant explicitly; False when absent or already
@@ -1060,7 +1194,7 @@ class TenantFleetIndex:
                 "tenants": len(self._by_tid),
                 "slots": len(self._slots),
                 "t_bucket": self._t_bucket(),
-                "shards": None,
+                "shards": self.shards,
                 "window": self.window,
                 "pack_caps": {"pos": self._pos_pack.cap,
                               "neg": self._neg_pack.cap},
@@ -1115,8 +1249,10 @@ class MultiTenantEngine:
     ``config.device`` places the fleet (the card unless "cpu");
     ``config.engine`` is not read (the fleet is the float32 device path).
     ``close()`` fails every unapplied request with an
-    ``EngineClosedError`` naming its tenant. ``mesh_shards``,
-    ``snapshot_dir``/``recover``, ``chaos`` and ``tracer`` are not ported
+    ``EngineClosedError`` naming its tenant. ``config.mesh_shards``
+    shards the fleet over a mesh of that many workers; a ``chaos``
+    injector fires the ``batcher`` point between batches and the fleet's
+    points. ``snapshot_dir``/``recover`` and ``tracer`` are not ported
     yet and raise.
     """
 
@@ -1133,21 +1269,23 @@ class MultiTenantEngine:
             raise ValueError(
                 "MultiTenantEngine serves the exact AUC fleet; "
                 f"kernel={config.kernel!r} is not supported")
-        if (config.snapshot_dir or config.recover
-                or config.mesh_shards is not None or chaos is not None):
+        if config.snapshot_dir or config.recover:
             raise NotImplementedError(
-                "crash-safe fleet recovery (snapshot_dir/recover), "
-                "mesh_shards and chaos are not ported to "
-                "tuplewise_tpu_torch yet")
+                "crash-safe fleet recovery (snapshot_dir/recover) is not "
+                "ported to tuplewise_tpu_torch yet")
         check_tracer(tracer)
         self.config = config
         self.tenancy = tenancy if tenancy is not None else TenancyConfig()
+        self.chaos = chaos
         self.tracer = tracer
         self.metrics = MetricsRegistry()
         self.flight = FlightRecorder(capacity=config.flight_recorder_size)
+        if chaos is not None:
+            chaos.attach(flight=self.flight)
         self.fleet = TenantFleetIndex(
             window=config.window, compact_every=config.compact_every,
             device=config.device, count_kernel=config.count_kernel,
+            shards=config.mesh_shards, chaos=chaos,
             min_tenant_bucket=self.tenancy.min_tenant_bucket,
             bg_compact=config.bg_compact,
             whale_threshold=self.tenancy.whale_threshold,
@@ -1518,6 +1656,8 @@ class MultiTenantEngine:
 
     def _run(self) -> None:
         while True:
+            if self.chaos is not None:
+                self.chaos.fire("batcher")
             batch = self._next_batch()
             if batch is None:
                 self._fail_pending()
