@@ -6,7 +6,8 @@ NVIDIA H100:
 
     python3 chip_smoke.py
 
-It builds the CUDA kernels from tuplewise_tpu_torch/csrc with nvcc (one
+(``python3 chip_smoke.py --phase27`` builds the kernels and runs phase 27
+alone, printing its record as one JSON line.) It builds the CUDA kernels from tuplewise_tpu_torch/csrc with nvcc (one
 nvcc per source, all started together), then runs the phases below. Each
 phase asserts what it checks, and nothing is caught: any failure exits
 nonzero. Each phase prints its seconds.
@@ -338,6 +339,42 @@ nonzero. Each phase prints its seconds.
    at the mesh index's final runs and one batch's queries, kernel 7 at
    phase 21's packs split over 8 ([8, 1024, 2^14]) and one apply's
    queries.
+27. Crash-safe serving and its observability (snapshots and the WAL,
+   serving/recovery.py; the tracer, metrics export, sampling profiler and
+   SLOs, obs/). (a) MicroBatchEngine with count_kernel on phase 17's
+   stream cut to 7.5e5 events (window 5e5, requests of 256, snapshot_every
+   4096), abandoned at 5e5 events with no close(), recovered and finished
+   one request a batch beside the uninterrupted run's index (the engine
+   without recovery over the same first half, then driven directly):
+   wins2 and the AUC recorded after every batch equal, the final AUC the
+   float32 oracle; events/s with recovery against the same half without it, the
+   snapshots landed, capture and write ms (the recovery manager's spans),
+   the wal_append and snapshot stage p99s, restore and tail replay
+   seconds. (b) The sharded index (S = 8 on the card's worker axis,
+   count_kernel) on phase 26(a)'s stream cut to 2e5 events (window 1e5),
+   abandoned at 1.5e5 with a delta run and tombstones in its snapshot,
+   recovered and finished in lockstep with the single-device index, one
+   worker-axis launch of kernel 6 a recovered batch. (c) MultiTenantEngine
+   with count_kernel on phase 21's stream cut to 1e5 events (T = 1024,
+   Zipf 1.1, whale threshold 2048), abandoned after half its applies with
+   a whale promoted, recovered and finished: every tenant's wins2 equal
+   to an uninterrupted TenantFleetIndex's; snapshot keys and write ms.
+   (d) A child process (tuplewise_tpu_torch/testing/serve_child.py,
+   started before (b) so that its start overlaps (b) and (c)) serves the
+   index engine on the card and acknowledges each insert; SIGKILLed
+   after 12000 of 20000 events, the engine recovers in this process and
+   finishes: the final AUC equals the float32 oracle. Each recovered
+   engine's launches are read around its own work: one launch of kernel
+   6 (flat in (a) and (d), over the worker axis in (b)) a replayed WAL
+   record and a batch after; in (c) one launch of kernel 7 a fleet count
+   (an apply holding a pack tenant) and one of kernel 6 a whale's count,
+   each equal to the engine's own count of its kernel calls; the
+   uninterrupted references' launches are counted apart. (e) replay over 10^5 events in requests of 16 with
+   a Tracer, metrics_out, the sampling profiler and an SLO spec, against
+   the same replay untraced (events/s, spans, the profiler's overhead
+   fraction, the SLO verdicts); replay with profile_dir over 5000 events,
+   and the torch.profiler trace's kernel names holding the count
+   kernel's.
 
 The launch counters are set to 0 before phase 3 and read after phase 4,
 set to 0 again before phase 7 and read after it, before phase 12 and
@@ -346,7 +383,9 @@ before phase 18 and after it, before each of phases 21, 21b and 22 and
 after it, before phase 23 and after it, before phase 24 and after
 its estimator calls (before its timing), and before phase 25 and after
 it (less the references' own launches), and before phase 26 and after
-its drives (before its timing): every kernel must have been launched on
+its drives (before its timing), and before phase 27 and after it (the
+recovered engines' own launches, read around their work): every
+kernel must have been launched on
 its path (pair sums on the estimator's, gradient kernels on
 the trainer's, the triplet kernel on the degree-3 estimator's and on the
 triplet learner's evaluations, the count kernel on the serving index's
@@ -360,7 +399,9 @@ elastic path kernels 3 and 4 for both bodies in the mesh trainers,
 kernels 1 and 2's auc in the mesh Monte-Carlo and the healed Estimator
 and kernel 5's indicator in the mesh triplet trainer's evaluations; on
 the mesh serving path kernels 6 and 7 over the worker axis and, on the
-single-device twins in lockstep, their flat forms). The script
+single-device twins in lockstep, their flat forms; on the recovery path
+kernel 6 flat and over the worker axis and kernel 7, after every
+recovery). The script
 prints one JSON line of kernels,
 the card's name and power limit as nvidia-smi reports them, and, last,
 {"ok": true, "device": {...}}. Without a CUDA device, or without the
@@ -485,6 +526,22 @@ MESH_SERVE_WORKERS = 8
 MESH_FLEET_EVENTS, MESH_HEAL_EVENTS = 200_000, 100_000
 MESH_ENGINE_EVENTS, MESH_FLEET_ENGINE_EVENTS = 10_000, 6_000
 MESH_NCCL_EVENTS = 20_000
+# crash-safe serving and its observability (phase 27): (a) phase 17's
+# stream and window (5e5), abandoned at 5e5 events and finished to 7.5e5
+# (the whole 10^6 took 48-78 s alone: a capture at the full window costs
+# 40-110 ms every 4096 events); (b) phase 26(a)'s stream cut to 2e5 events,
+# abandoned at 1.5e5 (window 1e5: the tombstones are live); (c) phase
+# 21's fleet cut to 1e5 events with whales past 2048 events; (d) a
+# killed child at 12000 of 20000 events, started before (b); (e) traced
+# replays of 1e5 events in requests of 16 and a torch.profiler trace of
+# 5000 (2e4 took 14 s)
+RECOVERY_WINDOW = INDEX_EVENTS // 2
+RECOVERY_EVENTS, RECOVERY_CRASH_AT = 750_000, RECOVERY_WINDOW
+RECOVERY_MESH_EVENTS, RECOVERY_MESH_CRASH_AT = 200_000, 150_000
+RECOVERY_FLEET_EVENTS, RECOVERY_WHALE = 100_000, 2048
+RECOVERY_KILL_EVENTS, RECOVERY_KILL_AT = 20_000, 12_000
+RECOVERY_TRACED_EVENTS, RECOVERY_TRACED_CHUNK = 100_000, 16
+RECOVERY_PROFILED_EVENTS = 5_000
 
 
 def log(*a):
@@ -4663,7 +4720,675 @@ def mesh_row(name, args, kernel, plain, library, bound, shape, library_calls,
     return row
 
 
-def main():
+# --------------------------------------------------------------------- #
+# slice 16: crash-safe serving and its observability                    #
+# --------------------------------------------------------------------- #
+
+# the count kernels' launch counters that phase 27 reads
+RECOVERY_KEYS = ("signed_count[flat]", "signed_count[mesh]", "tenant_count")
+
+# the SLO spec of phase 27(e): a latency quantile, an availability burn
+# rate, a counter cap and a saturation objective
+RECOVERY_SLO = {"objectives": [
+    {"name": "insert_p99", "type": "latency", "metric": "insert_latency_s",
+     "quantile": "p99", "threshold_ms": 50.0},
+    {"name": "availability", "type": "error_rate",
+     "errors": ["poison_rejects", "deadline_expired_total",
+                "rejected_total", "dropped_total"],
+     "total": "requests_insert_total", "objective": 0.999,
+     "windows": [{"window_s": 1.0, "burn": 10.0},
+                 {"window_s": 5.0, "burn": 2.0}]},
+    {"name": "no_heal_exhaustion", "type": "counter_max",
+     "metric": "heal_exhausted_total", "max": 0},
+    {"name": "queue_saturation", "type": "saturation",
+     "metric": "queue_depth_live", "capacity": "queue_size",
+     "max_fraction": 0.9}]}
+
+
+def count_launches():
+    """The count kernels' launch counters now."""
+    from tuplewise_tpu_torch.ops import pair_kernels as pk
+
+    return {k: pk.LAUNCHES.get(k, 0) for k in RECOVERY_KEYS}
+
+
+def launched_since(before, into=None):
+    """The count kernels' launches since ``before`` (a count_launches()),
+    added into ``into`` when given; returns them."""
+    now = count_launches()
+    out = into if into is not None else dict.fromkeys(RECOVERY_KEYS, 0)
+    for k in RECOVERY_KEYS:
+        out[k] += now[k] - before[k]
+    return out
+
+
+def kernel_calls(metrics, name="count_kernel_calls_total"):
+    """A registry's count of the count-kernel calls that reached their
+    kernel (its plain version on the CPU)."""
+    return metrics.snapshot().get(name, {}).get("value", 0)
+
+
+def abandon(eng):
+    """A crash in miniature: the batcher parked with no close() and no
+    final snapshot. The writer thread's in-flight snapshot is let land,
+    as if the process died just after it."""
+    eng._closed = True
+    eng._worker.join(timeout=30)
+    eng._recovery._drain_writer()
+
+
+def recovery_spans(tracer):
+    """{span name: [ms, ...]} of a recovery manager's tracer."""
+    out = {}
+    for s in tracer.spans():
+        out.setdefault(s["name"], []).append(s["dur_s"] * 1e3)
+    return out
+
+
+def recover_engine(make):
+    """make() constructs a recovering engine: returns (engine, its
+    manager's recovery record: the snapshot's seq, the records and
+    events replayed, the restore and replay seconds, and the count
+    kernels' launches of the restore and the replay, this process's
+    alone)."""
+    before = count_launches()
+    eng = make()
+    return eng, dict(eng._recovery.last_recovery,
+                     launches=launched_since(before))
+
+
+def spans_of(lo, hi, chunk):
+    """(i, j) bounds of ``chunk``-event requests covering [lo, hi)."""
+    return [(i, min(i + chunk, hi)) for i in range(lo, hi, chunk)]
+
+
+def pipelined(eng, scores, labels, lo, hi, chunk, inflight=64):
+    """Inserts of ``chunk`` events from lo to hi, at most ``inflight``
+    outstanding; returns the seconds until every one is applied."""
+    futs = []
+    t = time.perf_counter()
+    for i, j in spans_of(lo, hi, chunk):
+        futs.append(eng.insert(scores[i:j], labels[i:j]))
+        if len(futs) >= inflight:
+            futs[len(futs) - inflight].result(120)
+    for f in futs:
+        f.result(120)
+    return time.perf_counter() - t
+
+
+def snapshot_record(eng, tracer):
+    """The snapshots a recovery manager's run landed and their costs."""
+    spans = recovery_spans(tracer)
+    cap, wr = spans.get("snapshot.capture", []), spans.get(
+        "snapshot.write", [])
+    from tuplewise_tpu_torch.obs.report import stage_metric
+
+    m = eng.metrics.snapshot()
+    return dict(
+        snapshots_landed=eng.flight.counts().get("snapshot_landed", 0),
+        captures=len(cap),
+        capture_ms_p50=float(np.percentile(cap, 50)) if cap else None,
+        capture_ms_max=max(cap) if cap else None,
+        write_ms_p50=float(np.percentile(wr, 50)) if wr else None,
+        write_ms_max=max(wr) if wr else None,
+        **{f"{st}_p99_ms": m[stage_metric(st)]["p99"] * 1e3
+           for st in ("wal_append", "snapshot")
+           if stage_metric(st) in m},     # the fleet has no stages
+        last_snapshot_error=eng._recovery.last_snapshot_error)
+
+
+def recording(idx):
+    """Wraps an index's insert_batch to record (wins2, auc) after each
+    call: returns the list."""
+    seen = []
+    real = idx.insert_batch
+
+    def insert_batch(scores, labels):
+        real(scores, labels)
+        seen.append((idx._wins2, idx.auc()))
+
+    idx.insert_batch = insert_batch
+    return seen
+
+
+def check_recovered_launches(part, launches, calls, want, device):
+    """A recovered engine's own count-kernel calls (its registry's
+    counts, ``calls``) equal ``want`` for each key given there; on the
+    card each of its calls is one launch of that kernel."""
+    for key, n in calls.items():
+        if key in want:
+            assert n == want[key], (part, key, n, want[key])
+        if device is None:
+            assert launches[key] == n, (part, key, launches[key], n)
+
+
+def recovery_index_crash(tmp, device=None):
+    """Phase 27(a): the index engine (kernel 6) on phase 17's stream,
+    abandoned halfway, recovered and finished beside an uninterrupted
+    engine's index, batch by batch."""
+    from tuplewise_tpu_torch.models.metrics import auc_score
+    from tuplewise_tpu_torch.obs.tracing import Tracer
+    from tuplewise_tpu_torch.serving import (
+        MicroBatchEngine, ServingConfig, make_stream,
+    )
+
+    n, cut, c = RECOVERY_EVENTS, RECOVERY_CRASH_AT, INDEX_CHUNK
+    w = RECOVERY_WINDOW
+    flat = "signed_count[flat]"
+    # phase 17's stream, its first n events
+    scores, labels = make_stream(INDEX_EVENTS, pos_frac=0.5, separation=1.0,
+                                 seed=0)
+    scores, labels = scores[:n].astype(np.float32), labels[:n]
+    d = os.path.join(tmp, "index")
+    # max_batch counts requests: one request of c events a micro-batch
+    kw = dict(window=w, compact_every=INDEX_COMPACT, count_kernel=True,
+              policy="block", device=device, max_batch=1)
+    # the same stream's first half without recovery: the events/s the
+    # WAL and the snapshots are held against; its index goes on as the
+    # uninterrupted run
+    launches = {}
+    before = count_launches()
+    base = MicroBatchEngine(ServingConfig(**kw))
+    base_s = pipelined(base, scores, labels, 0, cut, c)
+    launched_since(before, launches.setdefault(
+        "reference", dict.fromkeys(RECOVERY_KEYS, 0)))
+    before = count_launches()
+    eng = MicroBatchEngine(ServingConfig(snapshot_dir=d, **kw))
+    eng._recovery.tracer = tracer = Tracer()
+    rec_s = pipelined(eng, scores, labels, 0, cut, c)
+    abandon(eng)
+    launches["pre_crash"] = launched_since(before)
+    out = dict(events_per_s_recovery=cut / rec_s,
+               events_per_s_plain=cut / base_s,
+               **snapshot_record(eng, tracer))
+    out["ratio"] = out["events_per_s_recovery"] / out["events_per_s_plain"]
+    assert out["last_snapshot_error"] is None, out
+    assert out["snapshots_landed"] > 0, out
+    del eng
+    eng2, times = recover_engine(lambda: MicroBatchEngine(ServingConfig(
+        snapshot_dir=d, recover=True, **kw)))
+    launches["recovery"] = times.pop("launches")
+    assert times["seq"] == cut and times["records"] > 0, times
+    assert eng2.index._wins2 == base.index._wins2
+    # every replayed WAL record one count of the restored runs
+    check_recovered_launches(
+        "(a) recovery", launches["recovery"],
+        {flat: kernel_calls(eng2.index.metrics)}, {flat: times["records"]},
+        device)
+    # one request a batch on both: the recorded (wins2, auc) of each
+    # batch after the recovery, held against the uninterrupted run's
+    got, want = recording(eng2.index), recording(base.index)
+    calls0 = kernel_calls(eng2.index.metrics)
+    before = count_launches()
+    t = time.perf_counter()
+    pipelined(eng2, scores, labels, cut, n, c)
+    times["finish_s"] = time.perf_counter() - t
+    launches["after"] = launched_since(before)
+    checked = len(spans_of(cut, n, c))
+    # one launch a batch of the recovered engine, this run's alone
+    check_recovered_launches(
+        "(a) after", launches["after"],
+        {flat: kernel_calls(eng2.index.metrics) - calls0}, {flat: checked},
+        device)
+    before = count_launches()
+    with base._lock:    # the idle engine's index, driven directly
+        for i, j in spans_of(cut, n, c):
+            base.index.insert_batch(scores[i:j], labels[i:j])
+    launched_since(before, launches["reference"])
+    assert len(got) == len(want) == checked, (len(got), len(want))
+    assert got == want, next(k for k, (a, b) in enumerate(zip(got, want))
+                             if a != b)
+    tail_s, tail_l = scores[n - w:], labels[n - w:]
+    oracle = auc_score(tail_s[tail_l], tail_s[~tail_l])
+    assert got[-1][1] == oracle, (got[-1], oracle)
+    base.close()
+    t = time.perf_counter()
+    eng2.close()
+    times["close_s"] = time.perf_counter() - t
+    out.update(times, aucs_checked=checked, auc=oracle, launches=launches)
+    log(f"[recovery] (a) index engine, kernel 6, n={n} window={w} "
+        f"batches of {c}, snapshot_every 4096, abandoned at {cut}: "
+        f"{out['events_per_s_recovery']:.0f} events/s with recovery, "
+        f"{out['events_per_s_plain']:.0f} without ({out['ratio']:.3f}x); "
+        f"{out['snapshots_landed']} snapshots landed ({out['captures']} "
+        f"captures: {out['capture_ms_p50']:.2f} ms p50, "
+        f"{out['capture_ms_max']:.2f} ms max; writes "
+        f"{out['write_ms_p50']:.2f} ms p50, {out['write_ms_max']:.2f} ms "
+        f"max); stage p99 wal_append {out['wal_append_p99_ms']:.4f} ms, "
+        f"snapshot {out['snapshot_p99_ms']:.4f} ms")
+    log(f"[recovery] (a) recovered to seq {times['seq']} in "
+        f"{times['restore_s'] + times['replay_s']:.3f} s: restore "
+        f"{times['restore_s']:.3f} s (snapshot at {times['snapshot_seq']}), "
+        f"tail replay {times['replay_s']:.3f} s ({times['events']} events, "
+        f"{times['records']} records, {launches['recovery'][flat]} "
+        f"launches); wins2 and the AUC equal the uninterrupted run's after "
+        f"each of {checked} batches ({launches['after'][flat]} launches of "
+        f"the recovered engine, in {times['finish_s']:.2f} s); final auc "
+        f"{oracle!r} = the float32 oracle; close (final snapshot) "
+        f"{times['close_s']:.3f} s; launches by step {json.dumps(launches)}")
+    return out
+
+
+def recovery_mesh_crash(tmp, device=None):
+    """Phase 27(b): the sharded index (S workers, kernel 6 over the
+    worker axis) recovered mid-delta, each replayed record and each
+    recovered batch one worker-axis launch."""
+    from tuplewise_tpu_torch import ExactAucIndex
+    from tuplewise_tpu_torch.serving import (
+        MicroBatchEngine, ServingConfig, make_stream,
+    )
+    from tuplewise_tpu_torch.serving.recovery import SNAPSHOT_FILE
+    from tuplewise_tpu_torch.utils.checkpoint import load_checkpoint
+
+    n, cut, c = RECOVERY_MESH_EVENTS, RECOVERY_MESH_CRASH_AT, INDEX_CHUNK
+    S, mesh = MESH_SERVE_WORKERS, "signed_count[mesh]"
+    scores, labels = make_stream(n, pos_frac=0.5, separation=1.0, seed=0)
+    scores = scores.astype(np.float32)
+    d = os.path.join(tmp, "mesh")
+    # TestDeltaRecovery's tiers: majors wait for 64 minors, so the crash
+    # lands with a delta run and a tombstone multiset live
+    kw = dict(window=n // 2, compact_every=INDEX_COMPACT, count_kernel=True,
+              mesh_shards=S, delta_fraction=4.0, max_delta_runs=64,
+              policy="block", device=device, max_batch=1)
+    before = count_launches()
+    eng = MicroBatchEngine(ServingConfig(snapshot_dir=d, **kw))
+    pipelined(eng, scores, labels, 0, cut, c)
+    live = eng.index.state()
+    abandon(eng)
+    launches = dict(pre_crash=launched_since(before))
+    del eng
+    snap = load_checkpoint(os.path.join(d, SNAPSHOT_FILE))
+    held = {k: sum(len(snap["extra"][f"{s}_{k}"]) for s in ("pos", "neg"))
+            for k in ("delta_run", "tomb_run")}
+    assert held["delta_run"] > 0 and held["tomb_run"] > 0, held
+    before = count_launches()
+    ref = ExactAucIndex(window=n // 2, compact_every=INDEX_COMPACT,
+                        count_kernel=True, device=device)
+    for i, j in spans_of(0, cut, c):
+        ref.insert_batch(scores[i:j], labels[i:j])
+    launches["reference"] = launched_since(before)
+    eng2, times = recover_engine(lambda: MicroBatchEngine(ServingConfig(
+        snapshot_dir=d, recover=True, **kw)))
+    launches["recovery"] = times.pop("launches")
+    assert times["seq"] == cut and eng2.index._wins2 == ref._wins2
+    assert eng2.index.state()["delta_events"] > 0
+    check_recovered_launches(
+        "(b) recovery", launches["recovery"],
+        {mesh: kernel_calls(eng2.index.metrics)}, {mesh: times["records"]},
+        device)
+    launches["after"] = dict.fromkeys(RECOVERY_KEYS, 0)
+    batches = 0
+    for i, j in spans_of(cut, n, c):
+        calls0, before = kernel_calls(eng2.index.metrics), count_launches()
+        eng2.insert(scores[i:j], labels[i:j]).result(60)
+        one = launched_since(before)
+        check_recovered_launches(
+            f"(b) batch at {i}", one,
+            {mesh: kernel_calls(eng2.index.metrics) - calls0}, {mesh: 1},
+            device)
+        launched_since(before, launches["after"])
+        before = count_launches()
+        ref.insert_batch(scores[i:j], labels[i:j])
+        launched_since(before, launches["reference"])
+        assert eng2.index._wins2 == ref._wins2, i
+        assert eng2.index.auc() == ref.auc(), i
+        batches += 1
+    eng2.close()
+    out = dict(times, snapshot_delta_events=held["delta_run"],
+               snapshot_tombstones=held["tomb_run"], batches=batches,
+               live_at_crash={k: live[k] for k in ("delta_events",
+                                                   "tombstones")},
+               launches=launches)
+    log(f"[recovery] (b) sharded index S={S} n={n} window={n // 2}, "
+        f"abandoned at {cut} (live delta {live['delta_events']}, tombstones "
+        f"{live['tombstones']}; the snapshot holds a delta run of "
+        f"{held['delta_run']} and {held['tomb_run']} tombstones): restore "
+        f"{times['restore_s']:.3f} s, tail {times['replay_s']:.3f} s "
+        f"({times['events']} events, {times['records']} records, "
+        f"{launches['recovery'][mesh]} worker-axis launches); {batches} "
+        f"recovered batches equal to the single-device index, one "
+        f"worker-axis launch each; launches by step {json.dumps(launches)}")
+    return out
+
+
+def counting_applies(fleet):
+    """Wraps a fleet's apply_inserts to count the applies that hold a
+    pack tenant (one kernel 7 call each) and the whale items whose index
+    has a base run to count (one kernel 6 call each): returns the
+    counts."""
+    seen = {"applies": 0, "pack_applies": 0, "whale_counts": 0}
+    real = fleet.apply_inserts
+
+    def apply_inserts(items):
+        seen["applies"] += 1
+        whales = [fleet._by_tid[t].idx for t, _, _ in items
+                  if fleet.is_whale(t)]
+        seen["pack_applies"] += len(whales) < len(items)
+        seen["whale_counts"] += sum(
+            1 for idx in whales if len(idx._pos.base) or len(idx._neg.base))
+        return real(items)
+
+    fleet.apply_inserts = apply_inserts
+    return seen
+
+
+def recovery_fleet_crash(tmp, device=None):
+    """Phase 27(c): the fleet engine (kernel 7, whales on kernel 6) on
+    phase 21's stream cut, abandoned halfway, recovered and finished;
+    every tenant equal to the uninterrupted fleet."""
+    from tuplewise_tpu_torch import TenantFleetIndex
+    from tuplewise_tpu_torch.obs.tracing import Tracer
+    from tuplewise_tpu_torch.serving import (
+        MultiTenantEngine, ServingConfig, TenancyConfig,
+    )
+    from tuplewise_tpu_torch.serving.recovery import SNAPSHOT_FILE
+    from tuplewise_tpu_torch.utils.checkpoint import load_checkpoint
+
+    n = RECOVERY_FLEET_EVENTS
+    flat, tenant = "signed_count[flat]", "tenant_count"
+    scores, labels, tids = fleet_stream(n, FLEET_TENANTS)
+    chunks = fleet_chunks(scores, labels, tids, FLEET_CHUNK)
+    half = len(chunks) // 2
+    d = os.path.join(tmp, "fleet")
+    cfg = dict(compact_every=FLEET_COMPACT, count_kernel=True,
+               policy="block", device=device, max_batch=FLEET_CHUNK)
+    ten = TenancyConfig(max_tenants=FLEET_TENANTS,
+                        whale_threshold=RECOVERY_WHALE)
+
+    def feed(eng, part):
+        for groups in part:
+            futs = [eng.insert(t, s, lab) for t, s, lab in groups]
+            for f in futs:
+                f.result(120)
+
+    steps, clock = {}, [time.perf_counter()]
+
+    def lap(name):
+        now = time.perf_counter()
+        steps[name] = now - clock[0]
+        clock[0] = now
+
+    # the uninterrupted fleet first, alone on the host
+    before = count_launches()
+    ref = TenantFleetIndex(compact_every=FLEET_COMPACT, count_kernel=True,
+                           whale_threshold=RECOVERY_WHALE, device=device)
+    for groups in chunks:
+        ref.apply_inserts(groups)
+    want = {t: ref.wins2(t) for t in ref.tenants()}
+    want_whales = {t for t in ref.tenants() if ref.is_whale(t)}
+    ref.close()
+    launches = dict(reference=launched_since(before))
+    lap("reference_s")
+    before = count_launches()
+    eng = MultiTenantEngine(ServingConfig(snapshot_dir=d, **cfg), ten)
+    eng._recovery.tracer = tracer = Tracer()
+    feed(eng, chunks[:half])
+    lap("first_half_s")
+    abandon(eng)
+    launches["pre_crash"] = launched_since(before)
+    lap("abandon_s")
+    snaps = snapshot_record(eng, tracer)
+    assert snaps["last_snapshot_error"] is None, snaps
+    del eng
+    keys = len(load_checkpoint(os.path.join(d, SNAPSHOT_FILE))["extra"])
+    eng2, times = recover_engine(lambda: MultiTenantEngine(ServingConfig(
+        snapshot_dir=d, recover=True, **cfg), ten))
+    launches["recovery"] = times.pop("launches")
+    lap("recover_s")
+    m = eng2.fleet.metrics
+    # each replayed record one apply of one tenant: a fleet count of the
+    # re-placed packs, or its whale's count
+    rec = launches["recovery"]
+    fleet_calls = kernel_calls(m, "fleet_count_calls_total")
+    assert 0 < fleet_calls <= times["records"], (fleet_calls, times)
+    check_recovered_launches(
+        "(c) recovery", rec,
+        {tenant: fleet_calls, flat: kernel_calls(m) - fleet_calls}, {},
+        device)
+    if device is None:
+        assert rec[tenant] + rec[flat] <= times["records"], (rec, times)
+    whales = [t for t in eng2.fleet.tenants() if eng2.fleet.is_whale(t)]
+    assert whales, "no whale promoted before the crash"
+    applies = counting_applies(eng2.fleet)
+    calls0 = (kernel_calls(m, "fleet_count_calls_total"), kernel_calls(m))
+    before = count_launches()
+    feed(eng2, chunks[half:])
+    eng2.flush()
+    launches["after"] = launched_since(before)
+    lap("second_half_s")
+    # one kernel 7 launch an apply with a pack tenant, one kernel 6
+    # launch a counted whale item: the recovered engine's own
+    fc = kernel_calls(m, "fleet_count_calls_total") - calls0[0]
+    check_recovered_launches(
+        "(c) after", launches["after"],
+        {tenant: fc, flat: kernel_calls(m) - calls0[1] - fc},
+        {tenant: applies["pack_applies"], flat: applies["whale_counts"]},
+        device)
+    got = {t: eng2.fleet.wins2(t) for t in eng2.fleet.tenants()}
+    assert got == want, "tenant wins2 diverged"
+    assert want_whales == {t for t in eng2.fleet.tenants()
+                           if eng2.fleet.is_whale(t)}
+    eng2.close()
+    lap("close_s")
+    out = dict(times, **snaps, tenants=len(got), whales_at_crash=len(whales),
+               snapshot_keys=keys, steps=steps, applies_after=applies,
+               launches=launches, first_half_events_per_s=(
+                   sum(len(s) for g in chunks[:half] for _, s, _ in g)
+                   / steps["first_half_s"]))
+    log(f"[recovery] (c) fleet T={FLEET_TENANTS} Zipf {FLEET_SKEW} "
+        f"n={n}, whale threshold {RECOVERY_WHALE}: abandoned after "
+        f"{half} of {len(chunks)} applies ({len(whales)} whales), "
+        f"{snaps['snapshots_landed']} snapshots landed, a snapshot "
+        f"{keys} keys, written in {snaps['write_ms_p50']:.1f} ms p50 "
+        f"({snaps['write_ms_max']:.1f} ms max), captured in "
+        f"{snaps['capture_ms_p50']:.1f} ms p50; restore "
+        f"{times['restore_s']:.3f} s, tail {times['replay_s']:.3f} s "
+        f"({times['events']} events, {times['records']} records: "
+        f"{rec[tenant]} kernel 7 and {rec[flat]} kernel 6 launches); "
+        f"after it {applies['applies']} applies, {launches['after'][tenant]} "
+        f"kernel 7 launches (one an apply with a pack tenant) and "
+        f"{launches['after'][flat]} kernel 6 (the whales'); all {len(got)} "
+        f"tenants' wins2 equal to the uninterrupted fleet's; seconds by "
+        f"step {json.dumps({k: round(v, 2) for k, v in steps.items()})}; "
+        f"launches by step {json.dumps(launches)}")
+    return out
+
+
+def start_serving_child(tmp, device=None):
+    """Phase 27(d)'s child: the index engine on the card behind the
+    port's line-protocol serving child, started early so that its start
+    on the card overlaps the parts before (d). Returns (process, spec)."""
+    d = os.path.join(tmp, "killed")
+    kw = dict(window=RECOVERY_KILL_EVENTS // 2, compact_every=INDEX_COMPACT,
+              count_kernel=True, policy="block", snapshot_dir=d,
+              snapshot_every=2048, max_batch=1, device=device)
+    code = ("import sys; from tuplewise_tpu_torch.testing.serve_child "
+            "import main; main(sys.argv[1])")
+    env = dict(os.environ, PYTHONPATH=ROOT + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    child = subprocess.Popen(
+        [sys.executable, "-c", code, json.dumps({"config": kw})],
+        stdin=subprocess.PIPE, stdout=subprocess.PIPE, text=True, cwd=ROOT,
+        env=env)
+    return child, kw
+
+
+def recovery_sigkill(tmp, child, kw, device=None):
+    """Phase 27(d): a child process serves the index engine on the card
+    and acknowledges each insert; killed with SIGKILL after its
+    acknowledgements, the engine recovers here and finishes; the final
+    AUC equals the float32 oracle."""
+    import signal
+
+    from tuplewise_tpu_torch.models.metrics import auc_score
+    from tuplewise_tpu_torch.serving import (
+        MicroBatchEngine, ServingConfig, make_stream,
+    )
+
+    n, cut, c = RECOVERY_KILL_EVENTS, RECOVERY_KILL_AT, INDEX_CHUNK
+    flat = "signed_count[flat]"
+    scores, labels = make_stream(n, pos_frac=0.5, separation=1.0, seed=3)
+    scores = scores.astype(np.float32)
+    try:
+        acked = 0
+        for i, j in spans_of(0, cut, c):
+            child.stdin.write(json.dumps(
+                {"op": "insert", "score": scores[i:j].tolist(),
+                 "label": labels[i:j].astype(int).tolist()}) + "\n")
+            child.stdin.flush()
+            reply = json.loads(child.stdout.readline())
+            assert reply["ok"], reply
+            acked += reply["n"]
+    finally:
+        os.kill(child.pid, signal.SIGKILL)
+        child.wait(timeout=60)
+    assert acked == cut and child.returncode == -signal.SIGKILL
+    eng, times = recover_engine(lambda: MicroBatchEngine(ServingConfig(
+        recover=True, **kw)))
+    launches = dict(recovery=times.pop("launches"))
+    assert times["seq"] == cut, times
+    check_recovered_launches(
+        "(d) recovery", launches["recovery"],
+        {flat: kernel_calls(eng.index.metrics)}, {flat: times["records"]},
+        device)
+    calls0, before = kernel_calls(eng.index.metrics), count_launches()
+    for i, j in spans_of(cut, n, c):
+        eng.insert(scores[i:j], labels[i:j]).result(60)
+    eng.flush()
+    launches["after"] = launched_since(before)
+    check_recovered_launches(
+        "(d) after", launches["after"],
+        {flat: kernel_calls(eng.index.metrics) - calls0},
+        {flat: len(spans_of(cut, n, c))}, device)
+    tail_s, tail_l = scores[n - n // 2:], labels[n - n // 2:]
+    oracle = auc_score(tail_s[tail_l], tail_s[~tail_l])
+    assert eng.index.auc() == oracle, (eng.index.auc(), oracle)
+    eng.close()
+    log(f"[recovery] (d) SIGKILL: a child served {cut} acknowledged events "
+        f"on the card and was killed; recovered here (restore "
+        f"{times['restore_s']:.3f} s, tail {times['replay_s']:.3f} s, "
+        f"{times['events']} events in {times['records']} records, "
+        f"{launches['recovery'][flat]} launches) and finished {n} "
+        f"({launches['after'][flat]} launches, one a batch): auc "
+        f"{oracle!r} = the float32 oracle")
+    return dict(times, acked=acked, auc=oracle, launches=launches)
+
+
+def recovery_traced_replay(tmp, device=None):
+    """Phase 27(e): replay with the span tracer, metrics export, the
+    sampling profiler and an SLO spec, against the same replay untraced;
+    then a torch.profiler trace (profile_dir) of a shorter prefix."""
+    from tuplewise_tpu_torch.serving import ServingConfig, make_stream, replay
+
+    scores, labels = make_stream(RECOVERY_TRACED_EVENTS, pos_frac=0.5,
+                                 separation=1.0, seed=0)
+    cfg = ServingConfig(budget=64, max_batch=256, policy="block",
+                        flush_timeout_s=0.0005, compact_every=INDEX_COMPACT,
+                        count_kernel=True, device=device)
+    kw = dict(config=cfg, chunk=RECOVERY_TRACED_CHUNK, max_inflight=64)
+    steps = {}
+    t = time.perf_counter()
+    plain = replay(scores, labels, **kw)
+    steps["untraced_s"] = time.perf_counter() - t
+    from tuplewise_tpu_torch.obs.tracing import Tracer
+
+    tracer = Tracer(capacity=1 << 17)
+    t = time.perf_counter()
+    traced = replay(scores, labels, tracer=tracer,
+                    trace_out=os.path.join(tmp, "spans.json"),
+                    metrics_out=os.path.join(tmp, "metrics.jsonl"),
+                    metrics_every_s=0.25, prof=True,
+                    prof_out=os.path.join(tmp, "prof.collapsed"),
+                    slo_spec=RECOVERY_SLO, **kw)
+    steps["traced_s"] = time.perf_counter() - t
+    for rec in (plain, traced):
+        assert rec["auc_abs_err"] == 0, rec["auc_abs_err"]
+    rows = open(os.path.join(tmp, "metrics.jsonl")).read().splitlines()
+    spans = tracer.spans()
+    names = {s["name"] for s in spans}
+    assert {"request.insert", "insert.apply", "insert.index_insert"} <= names
+    n_p = RECOVERY_PROFILED_EVENTS
+    pdir = os.path.join(tmp, "torch_profile")
+    t = time.perf_counter()
+    profiled = replay(scores[:n_p], labels[:n_p], profile_dir=pdir, **kw)
+    steps["profiled_s"] = time.perf_counter() - t
+    with open(os.path.join(pdir, "trace.json")) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = sorted({e["name"] for e in events
+                      if e.get("cat") == "kernel"})
+    named = [k for k in kernels if "signed_count" in k]
+    slo = traced["slo"]
+    verdicts = {name: dict(breaches=o["breaches_total"], worst=o["worst"])
+                for name, o in slo["objectives"].items()}
+    out = dict(spans=len(tracer), spans_dropped=tracer.dropped,
+               traced_events_per_s=traced["events_per_s"],
+               untraced_events_per_s=plain["events_per_s"],
+               prof_overhead_fraction=traced["prof_overhead_fraction"],
+               prof_samples=traced["prof_samples"], metrics_rows=len(rows),
+               slo_healthy=slo["healthy"], slo_evaluations=slo["evaluations"],
+               slo_objectives=verdicts,
+               profiled_events_per_s=profiled["events_per_s"],
+               profile_kernels=kernels, profile_names_count_kernel=named,
+               steps=steps)
+    log(f"[recovery] (e) traced replay n={RECOVERY_TRACED_EVENTS} chunk "
+        f"{RECOVERY_TRACED_CHUNK}: {len(tracer)} spans ({tracer.dropped} "
+        f"dropped), {traced['events_per_s']:.0f} events/s traced against "
+        f"{plain['events_per_s']:.0f} untraced; sampling profiler "
+        f"{traced['prof_samples']} samples, overhead fraction "
+        f"{traced['prof_overhead_fraction']:.4f}; {len(rows)} metrics rows; "
+        f"SLO healthy {slo['healthy']} over {slo['evaluations']} "
+        f"evaluations, by objective {verdicts}")
+    log(f"[recovery] (e) torch.profiler over {n_p} events "
+        f"({profiled['events_per_s']:.0f} events/s): {len(kernels)} kernel "
+        f"names, the count kernel named: {named}; seconds by step "
+        f"{json.dumps({k: round(v, 2) for k, v in steps.items()})}")
+    return out
+
+
+def phase_recovery(device=None):
+    """Phase 27: crash-safe serving and its observability on the card.
+    Returns the record, with the count kernels' launches of the
+    recovered engines (their restores, tails and batches after) and of
+    the uninterrupted references apart."""
+    out = {"part_s": {}}
+    with tempfile.TemporaryDirectory() as tmp:
+        def part(name, fn, *args):
+            t = time.perf_counter()
+            sub = os.path.join(tmp, name)
+            os.makedirs(sub)
+            out[name] = fn(sub, *args, device)
+            out["part_s"][name] = time.perf_counter() - t
+
+        part("a", recovery_index_crash)
+        # (d)'s child reaches the card while (b) and (c) run
+        child, kw = start_serving_child(tmp, device)
+        try:
+            part("b", recovery_mesh_crash)
+            part("c", recovery_fleet_crash)
+            part("d", recovery_sigkill, child, kw)
+        finally:
+            if child.poll() is None:
+                child.kill()
+                child.wait(timeout=60)
+        part("e", recovery_traced_replay)
+    recovered = dict.fromkeys(RECOVERY_KEYS, 0)
+    reference = dict.fromkeys(RECOVERY_KEYS, 0)
+    for p in "abcd":
+        for step, counts in out[p]["launches"].items():
+            into = (recovered if step in ("recovery", "after") else
+                    reference if step == "reference" else None)
+            for k in RECOVERY_KEYS if into is not None else ():
+                into[k] += counts[k]
+    out["launches_recovered"], out["launches_reference"] = (recovered,
+                                                            reference)
+    log(f"[recovery] launches of the recovered engines (restores, tails "
+        f"and the batches after) {json.dumps(recovered)}; of the "
+        f"uninterrupted references {json.dumps(reference)}; seconds by "
+        f"part {json.dumps({k: round(v, 1) for k, v in out['part_s'].items()})}")
+    return out
+
+
+def main(argv=()):
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
@@ -4674,6 +5399,19 @@ def main():
               f"({', '.join(sorted(set(missing)))} missing)", file=sys.stderr)
         return 3
     sys.path.insert(0, ROOT)
+    if list(argv) == ["--phase27"]:
+        # phase 27 alone, after the build: its record as one JSON line
+        log(f"[card] {card_line()}")
+        phase_build()
+        t = time.perf_counter()
+        out = phase_recovery()
+        log(f"[phase] 27 recovery and tracing: {time.perf_counter() - t:.1f} s")
+        print(json.dumps(out), flush=True)
+        return 0
+    if argv:
+        print(f"chip_smoke: unknown arguments {list(argv)} (none, or "
+              "--phase27)", file=sys.stderr)
+        return 2
     from tuplewise_tpu_torch.ops import pair_kernels as pk
 
     # before the first CUDA call: reproducible cuBLAS for phase 8
@@ -4831,13 +5569,23 @@ def main():
     for r in rows:
         r["launches_mesh_serving"] = ms_launches.get(r["name"], 0)
     rows += ms_rows
+
+    pk.reset_launch_counts()
+    recovery = timed("27 recovery and tracing", phase_recovery)
+    rec_launches = recovery["launches_recovered"]
+    log(f"[launches] recovery phase {json.dumps(dict(pk.LAUNCHES))}; the "
+        f"recovered engines' {json.dumps(rec_launches)}")
+    for key in RECOVERY_KEYS:
+        assert rec_launches[key] > 0, f"{key} never launched on recovery"
+    for r in rows:
+        r["launches_recovery"] = rec_launches.get(r["name"], 0)
     log(f"[done] {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": rows, "train": train_rows,
                       "sim_learner_cell_s": sim_wall,
                       "triplet": triplet_main, "config4": config4,
                       "triplet_learner": learner, "designs": designs,
                       "mesh": mesh, "elastic": elastic,
-                      "mesh_serving": mesh_serving,
+                      "mesh_serving": mesh_serving, "recovery": recovery,
                       "serving": {"index": index, "engine": engine,
                                   "streaming_estimator": streaming,
                                   "fleet": fleet,
@@ -4852,4 +5600,4 @@ def main():
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -12,6 +12,7 @@ import pytest
 
 from tuplewise_tpu.testing import chaos as jchaos
 from tuplewise_tpu_torch.obs.flight import FlightRecorder
+from tuplewise_tpu_torch.obs.tracing import Tracer
 from tuplewise_tpu_torch.testing import (
     FaultInjector, InjectedDeviceError, InjectedFault,
 )
@@ -144,5 +145,15 @@ def test_flight_recorder_witnesses_faults_and_tracer_is_not_ported():
     ev = flight.events("chaos_inject")[0]
     assert (ev["point"], ev["action"], ev["on_call"]) == (
         "train_step", "error", 1)
-    with pytest.raises(NotImplementedError, match="tracing"):
+    assert ev["trace_id"] is None       # no tracer attached
+    # tracing is ported: an attached tracer correlates the injection
+    # with the active span, or a fresh trace outside any span
+    tr = Tracer()
+    inj2 = FaultInjector.from_spec(SPEC)
+    inj2.attach(flight=flight, tracer=tr)
+    with tr.span("outer") as sp:
+        with pytest.raises(InjectedDeviceError):
+            inj2.fire("train_step")
+    assert flight.events("chaos_inject")[-1]["trace_id"] == sp.trace_id
+    with pytest.raises(TypeError, match="Tracer"):
         inj.attach(tracer=object())

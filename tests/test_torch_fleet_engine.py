@@ -27,6 +27,7 @@ from tuplewise_tpu_torch.serving import (
     StreamingIncompleteU, TenancyConfig, TenantRejectedError,
     TenantThrottledError, make_tenant_stream, replay_fleet, tenant_seed,
 )
+from tuplewise_tpu_torch.obs.tracing import Tracer
 from tuplewise_tpu_torch.serving.tenancy import _FleetRequest
 
 
@@ -108,11 +109,18 @@ class TestAdmissionControl:
             for f in futs:
                 f.result(10.0)
 
-    def test_unported_options_raise(self):
-        with pytest.raises(NotImplementedError):
-            MultiTenantEngine(ServingConfig(device="cpu",
-                                            snapshot_dir="/nonexistent"))
-        with pytest.raises(NotImplementedError):
+    def test_unported_options_raise(self, tmp_path):
+        # recovery and tracing are ported: a snapshot directory is made
+        # and owned, a tracer gives every request a root span
+        tr = Tracer()
+        d = tmp_path / "snap"
+        with MultiTenantEngine(ServingConfig(device="cpu",
+                                             snapshot_dir=str(d)),
+                               tracer=tr) as eng:
+            eng.insert("a", [0.5, 0.25], [1, 0]).result(10.0)
+        assert (d / "snapshot.npz").exists() and (d / "events.wal").exists()
+        assert "request.insert" in {s["name"] for s in tr.spans()}
+        with pytest.raises(TypeError, match="Tracer"):
             MultiTenantEngine(ServingConfig(device="cpu"), tracer=object())
         # mesh_shards and chaos are ported
         with MultiTenantEngine(ServingConfig(device="cpu",
@@ -357,13 +365,25 @@ class TestReplayFleet:
         assert set(jrec["report"]["tenancy"]) == set(rec["report"]["tenancy"])
         assert rec["tenants_live"] == jrec["tenants_live"]
 
-    def test_unported_options_raise(self):
+    def test_unported_options_raise(self, tmp_path):
         scores, labels, tenants = make_tenant_stream(10, 2)
-        for kw in (dict(slo_spec={}), dict(metrics_out="x"),
-                   dict(controller_spec={}), dict(flight_out="x")):
-            with pytest.raises(NotImplementedError):
-                replay_fleet(scores, labels, tenants,
-                             config=ServingConfig(device="cpu"), **kw)
+        # only the control plane is still unported
+        with pytest.raises(NotImplementedError, match="controller_spec"):
+            replay_fleet(scores, labels, tenants,
+                         config=ServingConfig(device="cpu"),
+                         controller_spec={})
+        rec = replay_fleet(
+            scores, labels, tenants, config=ServingConfig(device="cpu"),
+            slo_spec={"objectives": [{"name": "p99", "type": "latency",
+                                      "metric": "insert_latency_s",
+                                      "quantile": "p99",
+                                      "threshold_ms": 1e6}]},
+            metrics_out=str(tmp_path / "m.jsonl"),
+            flight_out=str(tmp_path / "f.jsonl"))
+        assert rec["slo"]["healthy"] and rec["report"]["slo"]["healthy"]
+        assert rec["metrics_out"] == str(tmp_path / "m.jsonl")
+        assert (tmp_path / "m.jsonl").exists()
+        assert (tmp_path / "f.jsonl").exists()
 
     def test_engine_wins2_equal_jax_engine(self):
         """Both engines fed the same submissions end with the same

@@ -237,10 +237,16 @@ def test_tradeoff_curves_and_write_jsonl(tmp_path):
     assert lines[0] == json.loads(json.dumps(rounds[0]))
 
 
-def test_unported_options_and_errors_raise():
+def test_unported_options_and_errors_raise(tmp_path):
     cfg = _cfg(n_reps=4)
-    with pytest.raises(NotImplementedError, match="slice 8"):
-        H.run_variance_experiment(cfg, trace_dir="t", device="cpu")
+    # trace_dir is ported: a torch.profiler trace of the sweep, each
+    # chunk a named range
+    r = H.run_variance_experiment(cfg, trace_dir=str(tmp_path),
+                                  device="cpu")
+    assert r["trace_dir"] == str(tmp_path)
+    events = json.loads((tmp_path / "trace.json").read_text())
+    assert any(e.get("name") == "mc_reps[0:4]"
+               for e in events["traceEvents"])
     # chaos and heal_retries are ported: a fault-free injector fires at
     # every chunk and no retry runs
     r = H.run_variance_experiment(cfg, chaos=FaultInjector(),

@@ -34,6 +34,7 @@ from tuplewise_tpu_torch.data import make_gaussians
 from tuplewise_tpu_torch.models import pairwise_sgd as T
 from tuplewise_tpu_torch.models import triplet_sgd as TT
 from tuplewise_tpu_torch.models.scorers import LinearScorer
+from tuplewise_tpu_torch.obs.tracing import Tracer
 from tuplewise_tpu_torch.parallel.device_partition import (
     ShardedRows, draw_blocks,
 )
@@ -149,7 +150,7 @@ def test_follows_the_reference_oracle(data, kernel, n_workers, monkeypatch):
     np.testing.assert_allclose(hg["loss"], hw["loss"], rtol=1e-4)
 
 
-def test_mesh_must_match_the_config(data):
+def test_mesh_must_match_the_config(data, tmp_path):
     Xp, Xn = data
     s = LinearScorer(dim=4)
     with pytest.raises(ValueError, match="conflicts"):
@@ -159,9 +160,19 @@ def test_mesh_must_match_the_config(data):
         TT.train_triplet(TT.init_embed(4, 2), Xp, Xn,
                          TT.TripletTrainConfig(n_workers=2),
                          mesh=make_mesh(2, device="cpu"), device="cuda")
-    with pytest.raises(NotImplementedError, match="tracing"):
+    with pytest.raises(TypeError, match="Tracer"):
         T.train_pairwise(s, None, Xp, Xn, T.TrainConfig(steps=1),
                          tracer=object(), device="cpu")
+    # tracing is ported: the run is a span, each chunk and save its child
+    tr = Tracer()
+    T.train_pairwise(s, None, Xp, Xn, T.TrainConfig(steps=2, n_workers=2),
+                     checkpoint_path=str(tmp_path / "ck.npz"),
+                     checkpoint_every=1, tracer=tr, device="cpu")
+    spans = tr.spans()
+    run = [x for x in spans if x["name"] == "train.run"]
+    kids = [x["name"] for x in spans
+            if x["parent_id"] == run[0]["span_id"]]
+    assert len(run) == 1 and kids == ["train.chunk", "train.checkpoint"] * 2
 
 
 # --------------------------------------------------------------------- #

@@ -39,6 +39,7 @@ from tuplewise_tpu_torch.models.triplet_sgd import (
     TripletTrainConfig, init_embed, train_triplet,
 )
 from tuplewise_tpu_torch.obs.flight import FlightRecorder
+from tuplewise_tpu_torch.obs.tracing import Tracer
 from tuplewise_tpu_torch.parallel.mesh import make_mesh
 from tuplewise_tpu_torch.parallel.self_heal import (
     Backoff, HealExhaustedError, MeshHealer,
@@ -160,8 +161,16 @@ class TestMeshHealer:
             MeshHealer(None, fixed_width=2)
         with pytest.raises(ValueError, match="fixed_width=3"):
             MeshHealer(make_mesh(2, device="cpu"), fixed_width=3)
-        with pytest.raises(NotImplementedError, match="tracing"):
+        with pytest.raises(TypeError, match="Tracer"):
             MeshHealer(None, tracer=object())
+        # tracing is ported: a heal round is a span with its probe child
+        tr = Tracer()
+        h = MeshHealer(make_mesh(2, device="cpu"), tracer=tr,
+                       backoff=_fast())
+        h.heal(1)
+        spans = {s["name"]: s for s in tr.spans()}
+        assert spans["heal.probe_reshard"]["parent_id"] == \
+            spans["heal.round"]["span_id"]
 
     def test_healthy_probe_retries_on_the_same_mesh(self):
         """A failure with no declared drop: the real probe finds every

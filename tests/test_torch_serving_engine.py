@@ -169,20 +169,31 @@ class TestRequestPath:
         assert m["incomplete_pairs_total"]["value"] > 0
         assert m["host_tax_waves_total"]["value"] >= 1
 
-    def test_unported_options_raise(self):
-        with pytest.raises(NotImplementedError):
-            MicroBatchEngine(_cfg(snapshot_dir="x"))
-        with pytest.raises(NotImplementedError):
+    def test_unported_options_raise(self, tmp_path):
+        # recovery is ported: a fresh start owns its directory, recover
+        # needs one, and the WAL knobs are validated
+        with MicroBatchEngine(_cfg(snapshot_dir=str(tmp_path))) as eng:
+            eng.insert([0.5, 0.25], [1, 0]).result(T)
+        assert (tmp_path / "snapshot.npz").exists()
+        with pytest.raises(ValueError, match="snapshot_dir"):
             MicroBatchEngine(_cfg(recover=True))
+        with pytest.raises(ValueError, match="wal_fsync"):
+            _cfg(wal_fsync="never")
+        with pytest.raises(ValueError, match="snapshot_every"):
+            _cfg(snapshot_every=0)
         # mesh_shards and chaos are ported: their checks
         with pytest.raises(ValueError, match="delta_fraction"):
             _cfg(delta_fraction=-1.0)
         with MicroBatchEngine(_cfg(engine="torch", mesh_shards=2)) as eng:
             assert eng.index.state()["shards"] == 2
-        with pytest.raises(NotImplementedError, match="tracing"):
+        with pytest.raises(TypeError, match="Tracer"):
             MicroBatchEngine(_cfg(), tracer=object())
-        with pytest.raises(NotImplementedError, match="slo_spec"):
+        # slo_spec is ported (a malformed spec is refused by the spec
+        # parser); the control plane is not
+        with pytest.raises(ValueError, match="objectives"):
             replay([0.0], [1], config=_cfg(), slo_spec={"x": 1})
+        with pytest.raises(NotImplementedError, match="controller_spec"):
+            replay([0.0], [1], config=_cfg(), controller_spec={})
         with pytest.raises(ValueError, match="engine"):
             ServingConfig(engine="jax")
 

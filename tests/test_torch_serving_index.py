@@ -13,6 +13,7 @@ import pytest
 
 from tuplewise_tpu.serving.index import ExactAucIndex as JaxIndex
 from tuplewise_tpu_torch.models.metrics import auc_score
+from tuplewise_tpu_torch.obs.tracing import Tracer
 from tuplewise_tpu_torch.serving import ExactAucIndex, make_stream
 
 
@@ -303,8 +304,13 @@ def test_unported_options_raise():
     with pytest.raises(ValueError, match="shards must be"):
         ExactAucIndex(device="cpu", shards=0)
     assert ExactAucIndex(device="cpu", shards=2).state()["shards"] == 2
-    with pytest.raises(NotImplementedError, match="tracing"):
+    with pytest.raises(TypeError, match="Tracer"):
         ExactAucIndex(device="cpu", tracer=object())
+    # tracing is ported: a synchronous compaction is a span
+    tr = Tracer()
+    idx = ExactAucIndex(device="cpu", compact_every=4, tracer=tr)
+    idx.insert_batch(np.arange(8.0), np.arange(8) % 2 == 0)
+    assert {s["name"] for s in tr.spans()} == {"compaction.sync"}
     with pytest.raises(ValueError, match="engine"):
         ExactAucIndex(engine="jax", device="cpu")
     state = ExactAucIndex(engine="numpy").state()

@@ -14,6 +14,7 @@ import torch
 
 from tuplewise_tpu.serving.tenancy import TenantFleetIndex as JaxFleet
 from tuplewise_tpu_torch.obs.flight import FlightRecorder
+from tuplewise_tpu_torch.obs.tracing import Tracer
 from tuplewise_tpu_torch.serving.index import ExactAucIndex
 from tuplewise_tpu_torch.serving.tenancy import TenantFleetIndex
 
@@ -191,9 +192,15 @@ class TestLifecycle:
         assert fleet.idle_tenants(-1.0) == ["a"]
 
     def test_unported_options_raise(self):
-        # shards, mesh and chaos are ported; tracer is not
-        with pytest.raises(NotImplementedError):
+        # shards, mesh, chaos and the tracer are ported
+        with pytest.raises(TypeError, match="Tracer"):
             _fleet(tracer=object())
+        tr = Tracer()
+        fleet = _fleet(tracer=tr, compact_every=4)
+        s, lab = _stream(16)
+        fleet.apply_inserts([("a", s[:8], lab[:8]), ("b", s[8:], lab[8:])])
+        assert {"fleet.count", "fleet.compact"} <= {
+            x["name"] for x in tr.spans()}
         with pytest.raises(ValueError, match="shards must be"):
             _fleet(shards=0)
         assert _fleet(shards=2).state()["shards"] == 2

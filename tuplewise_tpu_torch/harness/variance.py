@@ -27,8 +27,9 @@ kernels (all four schemes) and the degree-3 incomplete estimator: each
 local round of all reps and all workers is ONE batched pair-kernel launch
 over [M * N, m] blocks (a complete statistic is one launch over [M, n]),
 and each draw (data, blocks, designs) is one batched call a block of 64
-reps. The other degree-3 schemes loop the public
-Estimator over numpy Gaussian clouds, as the JAX harness does.
+reps. The other degree-3 schemes and the pair-feature kernels
+(``scatter``, every scheme) loop the public Estimator over numpy
+Gaussian clouds, rep by rep in rep order, as the JAX harness does.
 
 ``backend="mesh"`` runs every kernel kind and scheme on a mesh of
 ``n_workers`` workers through ``harness.mesh_mc.make_mesh_mc_runner``
@@ -44,7 +45,9 @@ sweep equals a fault-free one bit for bit. ``chaos`` fires at
 ``"mc_chunk"`` (a chunk), ``"mesh_mc"`` (a block of reps of the mesh
 runner) and ``"checkpoint"`` (after each save).
 
-Not ported here: the tracer (``trace_dir``, slice 8).
+``trace_dir`` brackets the sweep in a ``torch.profiler`` trace
+(``utils.profiling.trace``), each chunk a named range
+``mc_reps[m:m+chunk]``.
 """
 
 from __future__ import annotations
@@ -71,6 +74,7 @@ from tuplewise_tpu_torch.utils.checkpoint import (
     iter_chunks, resume_progress, save_checkpoint,
 )
 from tuplewise_tpu_torch.utils.device import resolve_device
+from tuplewise_tpu_torch.utils.profiling import annotate, trace
 from tuplewise_tpu_torch.utils.rng import generator
 
 SCHEMES = ("complete", "local", "repartitioned", "incomplete")
@@ -116,12 +120,6 @@ def _validate(cfg: VarianceConfig) -> None:
     if cfg.backend not in BACKENDS:
         raise ValueError(f"unknown backend {cfg.backend!r}; choose one of "
                          f"{BACKENDS}")
-    if (cfg.backend == "torch"
-            and get_kernel(cfg.kernel).kind not in ("diff", "triplet")):
-        raise NotImplementedError(
-            "the port's single-device harness runs score-difference and "
-            "triplet kernels only (backend='mesh' runs every kind)"
-        )
     if (cfg.scheme in ("local", "repartitioned")
             and cfg.n_workers > min(cfg.n_pos, cfg.n_neg)):
         raise ValueError(
@@ -135,11 +133,12 @@ def _validate(cfg: VarianceConfig) -> None:
 
 
 def _looped(cfg: VarianceConfig) -> bool:
-    """Single-device degree-3 schemes other than incomplete loop the
-    Estimator."""
+    """Single-device pair-feature kernels (every scheme) and degree-3
+    schemes other than incomplete loop the Estimator."""
+    kind = get_kernel(cfg.kernel).kind
     return (cfg.backend == "torch"
-            and get_kernel(cfg.kernel).kind == "triplet"
-            and cfg.scheme != "incomplete")
+            and (kind == "pair"
+                 or (kind == "triplet" and cfg.scheme != "incomplete")))
 
 
 def _draw_data(cfg: VarianceConfig, g: torch.Generator, batch=()):
@@ -183,8 +182,8 @@ def batched_estimates(cfg: VarianceConfig, device=None,
     range ``reps`` (default range(cfg.n_reps)), every rep batched."""
     _validate(cfg)
     if _looped(cfg):
-        raise ValueError(f"the {cfg.scheme} degree-3 scheme is looped; "
-                         "use run_variance_experiment")
+        raise ValueError(f"the {cfg.scheme} scheme of {cfg.kernel!r} is "
+                         "looped; use run_variance_experiment")
     dev = resolve_device(device)
     kernel = get_kernel(cfg.kernel)
     reps = range(cfg.n_reps) if reps is None else reps
@@ -246,19 +245,28 @@ def batched_estimates(cfg: VarianceConfig, device=None,
 
 
 def _estimate_once(est: Estimator, cfg: VarianceConfig, rep: int) -> float:
-    """One looped degree-3 estimate: numpy Gaussian clouds of rep (the
-    JAX harness's data, seed ``cfg.seed * 1_000_003 + rep``, or + 0 with
-    fix_data) through the public Estimator."""
+    """One looped estimate: numpy Gaussian clouds of rep (the JAX
+    harness's data, seed ``cfg.seed * 1_000_003 + rep``, or + 0 with
+    fix_data) through the public Estimator. Feature kernels take [n, d]
+    rows; a one-sample kernel (``scatter``) takes the first class only."""
     X, Y = make_gaussians(
         cfg.n_pos, cfg.n_neg, cfg.dim, cfg.separation,
         seed=cfg.seed * 1_000_003 + (0 if cfg.fix_data else rep),
     )
+    kern = get_kernel(cfg.kernel)
+    s1, s2 = (X[:, 0], Y[:, 0]) if kern.kind == "diff" else (X, Y)
+    if not kern.two_sample:
+        s2 = None
     if cfg.scheme == "complete":
-        return est.complete(X, Y)
+        return est.complete(s1, s2)
     if cfg.scheme == "local":
-        return est.local_average(X, Y, seed=rep, scheme=cfg.partition_scheme)
-    return est.repartitioned(X, Y, n_rounds=cfg.n_rounds, seed=rep,
-                             scheme=cfg.partition_scheme)
+        return est.local_average(s1, s2, seed=rep,
+                                 scheme=cfg.partition_scheme)
+    if cfg.scheme == "repartitioned":
+        return est.repartitioned(s1, s2, n_rounds=cfg.n_rounds, seed=rep,
+                                 scheme=cfg.partition_scheme)
+    return est.incomplete(s1, s2, n_pairs=cfg.n_pairs, seed=rep,
+                          design=cfg.design)
 
 
 @functools.lru_cache(maxsize=16)
@@ -328,12 +336,10 @@ def run_variance_experiment(
     estimates reach the host.
 
     ``chaos`` and ``heal_retries``: see the module docstring; a chunk is
-    retried at most ``heal_retries`` times. ``trace_dir`` (the tracer,
-    slice 8) raises NotImplementedError.
+    retried at most ``heal_retries`` times. ``trace_dir``: a
+    ``torch.profiler`` trace of the sweep written there (the result
+    carries ``trace_dir``).
     """
-    if trace_dir is not None:
-        raise NotImplementedError("trace_dir: the tracer is not ported yet "
-                                  "(slice 8)")
     _validate(cfg)
     dev = resolve_device(device)
     looped = _looped(cfg)
@@ -376,32 +382,36 @@ def run_variance_experiment(
         if h.mesh is not None:
             build(h.mesh)
 
-    for m, chunk in iter_chunks(start, cfg.n_reps, checkpoint_every):
-        def attempt(m=m, chunk=chunk):
-            if chaos is not None:
-                chaos.fire("mc_chunk")
-            t0 = time.perf_counter()
-            out = state["run"](range(m, m + chunk))
-            return out, time.perf_counter() - t0
+    with trace(trace_dir):
+        for m, chunk in iter_chunks(start, cfg.n_reps, checkpoint_every):
+            def attempt(m=m, chunk=chunk):
+                if chaos is not None:
+                    chaos.fire("mc_chunk")
+                t0 = time.perf_counter()
+                # a named range a chunk, so a trace attributes time to
+                # rep ranges
+                with annotate(f"mc_reps[{m}:{m + chunk}]"):
+                    out = state["run"](range(m, m + chunk))
+                return out, time.perf_counter() - t0
 
-        if healer is not None:
-            out, secs = healer.run(attempt, retries=heal_retries,
-                                   on_heal=on_heal)
-        else:
-            out, secs = attempt()
-        wallclock += secs
-        parts.append(out)
-        if checkpoint_path:
-            save_checkpoint(
-                checkpoint_path, step=m + chunk,
-                extra={"estimates": np.concatenate(parts),
-                       "wallclock_s": np.asarray(wallclock)},
-                config=cfg.to_json(),
-            )
-            if chaos is not None:
-                # durable-state preemption point: a 'sigkill' here dies
-                # with exactly m + chunk reps recoverable
-                chaos.fire("checkpoint")
+            if healer is not None:
+                out, secs = healer.run(attempt, retries=heal_retries,
+                                       on_heal=on_heal)
+            else:
+                out, secs = attempt()
+            wallclock += secs
+            parts.append(out)
+            if checkpoint_path:
+                save_checkpoint(
+                    checkpoint_path, step=m + chunk,
+                    extra={"estimates": np.concatenate(parts),
+                           "wallclock_s": np.asarray(wallclock)},
+                    config=cfg.to_json(),
+                )
+                if chaos is not None:
+                    # durable-state preemption point: a 'sigkill' here
+                    # dies with exactly m + chunk reps recoverable
+                    chaos.fire("checkpoint")
     est = np.concatenate(parts) if parts else np.empty(0)
     recovery = {"resumed_from": int(start),
                 "reshard_events": healer.reshard_events if healer else 0,
@@ -423,6 +433,8 @@ def run_variance_experiment(
         "batched": not looped,
         "recovery": recovery,
     }
+    if trace_dir:
+        result["trace_dir"] = trace_dir
     if cfg.kernel == "auc" and cfg.dim == 1:
         result["population_value"] = true_gaussian_auc(cfg.separation)
     return result

@@ -56,7 +56,7 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from tuplewise_tpu_torch.obs.tracing import check_tracer
+from tuplewise_tpu_torch.obs.tracing import check_tracer, maybe_span
 from tuplewise_tpu_torch.ops import device_design, pair_tiles
 from tuplewise_tpu_torch.ops.kernels import Kernel, get_kernel
 from tuplewise_tpu_torch.ops.rank_auc import rank_auc
@@ -329,7 +329,9 @@ def train_pairwise(
     (``HealExhaustedError``) the job is left to checkpoint/resume.
     ``chaos`` (a ``testing.chaos.FaultInjector``) fires at
     ``"train_step"`` before each chunk and ``"checkpoint"`` after each
-    save. ``tracer`` must be None (span tracing is not ported).
+    save. ``tracer`` (an ``obs.tracing.Tracer``): the run is a
+    ``train.run`` span with a ``train.chunk`` child a chunk and a
+    ``train.checkpoint`` child a save; the healer's rounds are spans too.
     ``metrics``: a ``utils.profiling.MetricsRegistry`` that receives the
     gauges ``train_step``, ``train_loss_last`` and ``mesh_width``, the
     ``train_chunk_s`` histogram and the healer's counters.
@@ -361,7 +363,7 @@ def train_pairwise(
         healer = MeshHealer(
             mesh, fixed_width=N, pool=mesh.pool, chaos=chaos,
             backoff=Backoff(base_s=retry_backoff_s, seed=cfg.seed),
-            metrics=metrics)
+            metrics=metrics, tracer=tracer)
     if metrics is not None:
         g_step = metrics.gauge("train_step")
         g_loss = metrics.gauge("train_loss_last")
@@ -373,6 +375,10 @@ def train_pairwise(
         nonlocal rows
         rows = (ShardedRows(Xp, h.mesh), ShardedRows(Xn, h.mesh))
 
+    run_span = None
+    if tracer is not None:
+        run_span = tracer.start("train.run", parent=None,
+                                steps=cfg.steps, n_workers=N)
     for t, chunk in iter_chunks(start, cfg.steps, checkpoint_every):
         def attempt(t=t, chunk=chunk):
             if chaos is not None:
@@ -381,11 +387,13 @@ def train_pairwise(
                              t, chunk, impl, rows[0].comm)
 
         t_chunk0 = time.perf_counter()
-        if healer is not None:
-            params, losses = healer.run(attempt, retries=heal_retries,
-                                        on_heal=on_heal)
-        else:
-            params, losses = attempt()
+        with maybe_span(tracer, "train.chunk", parent=run_span,
+                        step=t, steps=chunk):
+            if healer is not None:
+                params, losses = healer.run(attempt, retries=heal_retries,
+                                            on_heal=on_heal)
+            else:
+                params, losses = attempt()
         loss_parts.append(losses[0].cpu().numpy())
         if metrics is not None:
             h_chunk.observe(time.perf_counter() - t_chunk0)
@@ -394,17 +402,22 @@ def train_pairwise(
             if np.isfinite(last):
                 g_loss.set(float(last))
         if checkpoint_path:
-            save_checkpoint(
-                checkpoint_path,
-                step=t + chunk,
-                params=state_to_params({k: v[0] for k, v in params.items()}),
-                extra={"loss": np.concatenate(loss_parts)},
-                config=dataclasses.asdict(cfg),
-            )
+            with maybe_span(tracer, "train.checkpoint", parent=run_span,
+                            step=t + chunk):
+                save_checkpoint(
+                    checkpoint_path,
+                    step=t + chunk,
+                    params=state_to_params(
+                        {k: v[0] for k, v in params.items()}),
+                    extra={"loss": np.concatenate(loss_parts)},
+                    config=dataclasses.asdict(cfg),
+                )
             if chaos is not None:
                 # the checkpoint above is durable: a 'sigkill' scheduled
                 # here dies with exactly t + chunk steps recoverable
                 chaos.fire("checkpoint")
+    if tracer is not None:
+        tracer.finish(run_span)
     loss = (np.concatenate(loss_parts) if loss_parts
             else np.zeros(0, np.float32))
     history = {"loss": loss}

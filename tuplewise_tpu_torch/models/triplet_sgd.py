@@ -49,7 +49,7 @@ from tuplewise_tpu_torch.models.pairwise_sgd import (
     _sum_over_processes, recovery_record, to_device_rows, trainer_mesh,
 )
 from tuplewise_tpu_torch.models.scorers import LinearEmbed
-from tuplewise_tpu_torch.obs.tracing import check_tracer
+from tuplewise_tpu_torch.obs.tracing import check_tracer, maybe_span
 from tuplewise_tpu_torch.ops import device_design
 from tuplewise_tpu_torch.ops.kernels import Kernel, get_kernel
 from tuplewise_tpu_torch.parallel.device_partition import (
@@ -299,7 +299,7 @@ def train_triplet(
         healer = MeshHealer(
             mesh, fixed_width=N, pool=mesh.pool, chaos=chaos,
             backoff=Backoff(base_s=retry_backoff_s, seed=cfg.seed),
-            metrics=metrics)
+            metrics=metrics, tracer=tracer)
     g_step = None
     if metrics is not None:
         g_step = metrics.gauge("train_step")
@@ -319,11 +319,12 @@ def train_triplet(
             return run_chunk(embedder, kernel, cfg, params, *rows, t0,
                              t1 - t0, rows[0].comm)
 
-        if healer is not None:
-            params, losses = healer.run(attempt, retries=heal_retries,
-                                        on_heal=on_heal)
-        else:
-            params, losses = attempt()
+        with maybe_span(tracer, "train.chunk", step=t0, steps=t1 - t0):
+            if healer is not None:
+                params, losses = healer.run(attempt, retries=heal_retries,
+                                            on_heal=on_heal)
+            else:
+                params, losses = attempt()
         loss_parts.append(losses.cpu().numpy())
         if g_step is not None:
             g_step.set(t1)
@@ -334,12 +335,14 @@ def train_triplet(
                 params, *eval_data, embedder=embedder, device=device))
         if checkpoint_path and (ckpt_every is None or t1 % ckpt_every == 0
                                 or t1 == cfg.steps):
-            save_checkpoint(
-                checkpoint_path, step=t1, params=state_to_params(params),
-                extra={"loss": np.concatenate(loss_parts),
-                       "curve_steps": np.asarray(curve_steps),
-                       "curve_acc": np.asarray(curve_acc)},
-                config=ck_config)
+            with maybe_span(tracer, "train.checkpoint", step=t1):
+                save_checkpoint(
+                    checkpoint_path, step=t1,
+                    params=state_to_params(params),
+                    extra={"loss": np.concatenate(loss_parts),
+                           "curve_steps": np.asarray(curve_steps),
+                           "curve_acc": np.asarray(curve_acc)},
+                    config=ck_config)
             if chaos is not None:
                 # durable-state preemption point ('sigkill' dies here)
                 chaos.fire("checkpoint")

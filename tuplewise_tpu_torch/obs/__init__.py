@@ -1,12 +1,26 @@
-"""Observability of the serving path: the parts the single-tenant engine
-and ``replay`` use.
+"""Observability of the serving and batch paths.
 
-* ``tracing.maybe_span``    — the guard every instrumented call site
-                              uses; span tracing itself (``Tracer``) is
-                              not ported yet, so a tracer must be None.
+* ``tracing.Tracer``        — span tracing: monotonic clocks, explicit
+                              parent/child ids, a bounded thread-safe
+                              ring, hard-off by default (call sites hold
+                              None and pay one ``is not None`` check);
+                              span JSONL and Chrome trace-event exports.
 * ``flight.FlightRecorder`` — a bounded ring of lifecycle events
-                              (compactions, restarts, poison rejects,
-                              deadline expiries), dumped as JSONL.
+                              (compactions, restarts, snapshots, heals,
+                              chaos injections), trace-id correlated,
+                              dumped as JSONL (next to the recovery
+                              snapshots when recovery is on).
+* ``metrics_export.MetricsFlusher`` — a side thread appending registry
+                              snapshots to JSONL at a fixed cadence, with
+                              rotation and row observers.
+* ``slo.SloMonitor``        — declarative SLO objectives (latency
+                              quantiles, burn-rate error budgets, counter
+                              caps, saturation, label wildcards) judged
+                              on each flushed row, with observer and
+                              actuator hooks.
+* ``prof.SamplingProfiler`` — hard-off folded-stack sampler with a
+                              guarded overhead; collapsed and speedscope
+                              exports.
 * ``ledger.WaveLedger``     — the host-tax split of every insert
                               micro-batch into queue wait, lock wait,
                               host Python, dispatch, device compute,
@@ -17,3 +31,23 @@ and ``replay`` use.
 * ``report``                — the functions that build ``replay``'s
                               report.
 """
+
+from tuplewise_tpu_torch.obs.flight import FlightRecorder
+from tuplewise_tpu_torch.obs.metrics_export import (
+    MetricsFlusher, config_digest,
+)
+from tuplewise_tpu_torch.obs.prof import SamplingProfiler
+from tuplewise_tpu_torch.obs.slo import SloMonitor, SloSpec, evaluate_history
+from tuplewise_tpu_torch.obs.tracing import Span, Tracer
+
+__all__ = [
+    "FlightRecorder",
+    "MetricsFlusher",
+    "SamplingProfiler",
+    "SloMonitor",
+    "SloSpec",
+    "Span",
+    "Tracer",
+    "config_digest",
+    "evaluate_history",
+]

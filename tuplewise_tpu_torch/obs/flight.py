@@ -26,15 +26,19 @@ class FlightRecorder:
 
     Args:
       capacity: events retained (oldest evicted first).
+      tracer: optional ``obs.tracing.Tracer``; when attached, each event
+        records the trace id active on the recording thread (an explicit
+        ``trace_id=`` wins).
       dump_path: where ``auto_dump()`` writes; None disables auto dumps
         (``dump_to`` still works).
     """
 
-    def __init__(self, capacity: int = 4096,
+    def __init__(self, capacity: int = 4096, tracer=None,
                  dump_path: Optional[str] = None):
         if capacity < 1:
             raise ValueError(f"capacity must be >= 1: {capacity}")
         self.capacity = capacity
+        self.tracer = tracer
         self.dump_path = dump_path
         self._lock = threading.Lock()
         self._ring: List[dict] = []
@@ -47,6 +51,8 @@ class FlightRecorder:
                **fields) -> int:
         """Record one event; returns its sequence number. ``fields``
         must be JSON-able."""
+        if trace_id is None and self.tracer is not None:
+            trace_id = self.tracer.current_trace_id()
         ev = {
             "kind": kind,
             "t_wall": time.time(),

@@ -1,7 +1,7 @@
 """The functions that build the report of ``replay`` records.
 
-A copy of ``tuplewise_tpu.obs.report`` without the SLO verdicts and the
-control-plane block (not ported yet): every input is the plain-dict
+A copy of ``tuplewise_tpu.obs.report`` without the control-plane block
+(the controller is not ported yet): every input is the plain-dict
 output of ``MetricsRegistry.snapshot()``, so the functions also work on
 a saved snapshot. A fleet's metrics add the ``tenancy`` block.
 """
@@ -123,11 +123,15 @@ def host_tax_block(metrics: dict) -> Optional[dict]:
     }
 
 
-def service_report(metrics: dict, flight=None) -> dict:
+def service_report(metrics: dict, chaos=None, flight=None,
+                   slo=None) -> dict:
     """The shared serving report: load shedding, compaction, transfer,
     latency with per-stage p99 attribution, the host-tax block and the
-    recovery counters. ``flight``: an optional ``FlightRecorder`` whose
-    per-kind event counts ride along."""
+    recovery counters. ``chaos``: an optional ``FaultInjector`` whose
+    ``snapshot()`` rides along; ``flight``: an optional
+    ``FlightRecorder`` whose per-kind event counts ride along; ``slo``:
+    an optional ``obs.slo.SloMonitor`` (or a report dict) whose verdicts
+    ride along under ``"slo"``."""
     report = {
         "rejected_total": _v(metrics, "rejected_total"),
         "dropped_total": _v(metrics, "dropped_total"),
@@ -166,6 +170,10 @@ def service_report(metrics: dict, flight=None) -> dict:
             "tenant_metric_collapsed": _v(metrics,
                                           "tenant_metric_collapsed"),
         }
+    if chaos is not None:
+        report["chaos"] = chaos.snapshot()
     if flight is not None:
         report["flight_events"] = flight.counts()
+    if slo is not None:
+        report["slo"] = slo.report() if hasattr(slo, "report") else slo
     return report

@@ -54,7 +54,7 @@ from typing import Callable, Optional, Sequence
 
 import numpy as np
 
-from tuplewise_tpu_torch.obs.tracing import check_tracer
+from tuplewise_tpu_torch.obs.tracing import check_tracer, maybe_span
 from tuplewise_tpu_torch.utils.profiling import MetricsRegistry
 
 
@@ -122,7 +122,8 @@ class MeshHealer:
         ``reshard_events`` / ``shard_retries_total`` / ``recovery_time_s``
         into (create-or-return); None = a private one.
       backoff: a :class:`Backoff`; None = defaults.
-      tracer: must be None (span tracing is not ported).
+      tracer: an ``obs.tracing.Tracer``: each heal round becomes a
+        ``heal.round`` span with a ``heal.probe_reshard`` child.
       flight: an ``obs.flight.FlightRecorder``: every heal round and
         resize records a lifecycle event; None = no events.
     """
@@ -133,6 +134,7 @@ class MeshHealer:
                  backoff: Optional[Backoff] = None, tracer=None,
                  flight=None):
         check_tracer(tracer)
+        self.tracer = tracer
         if fixed_width is not None and mesh is None:
             raise ValueError("fixed_width needs a mesh to keep at width")
         self.mesh = mesh
@@ -315,9 +317,11 @@ class MeshHealer:
         changed = False
         if self.mesh is not None:
             t0 = time.perf_counter()
-            changed = self._reshard()
-            if on_heal is not None:
-                on_heal(self)
+            with maybe_span(self.tracer, "heal.round", attempt=attempt):
+                with maybe_span(self.tracer, "heal.probe_reshard"):
+                    changed = self._reshard()
+                if on_heal is not None:
+                    on_heal(self)
             self._c_reshard.inc()
             dt = time.perf_counter() - t0
             self._h_recovery.observe(dt)

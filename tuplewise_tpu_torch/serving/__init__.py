@@ -34,8 +34,13 @@ service.
                              (``make_tenant_stream``) through the fleet
                              engine; every tenant's AUC against its
                              oracle.
+* ``recovery``             — crash safety: a write-ahead log of admitted
+                             batches and asynchronous snapshots
+                             (``RecoveryManager``; the fleet's
+                             ``tenancy.FleetRecoveryManager``), behind
+                             ``ServingConfig.snapshot_dir`` / ``recover``.
 
-Recovery and the control plane are not ported yet.
+The control plane is not ported yet.
 """
 
 from tuplewise_tpu_torch.serving.engine import (

@@ -36,15 +36,23 @@ at the edge. ``mesh_shards`` shards the exact index over a mesh of that
 many workers (with its delta tiers, ``delta_fraction`` and
 ``max_delta_runs``), and a ``chaos`` injector fires the ``batcher``
 point between batches (a crash there exercises the supervisor) and the
-index's points. Crash-safe recovery (``snapshot_dir``/``recover``) and
-span tracing are not ported yet and raise ``NotImplementedError``; the
-``wal_append`` and ``snapshot`` stages stay in the attribution and
-measure no work.
+index's points.
+
+Crash-safe recovery (``snapshot_dir``/``recover``): every admitted
+insert batch is written ahead to a WAL before the index applies it, and
+the estimator state is snapshotted every ``snapshot_every`` events
+(``serving/recovery.py``; the ``wal_append`` and ``snapshot`` stages
+time them). ``recover=True`` restores the snapshot and replays the WAL
+tail before the batcher starts; the flight recorder dumps next to the
+snapshots. A ``tracer=`` (``obs.tracing.Tracer``) gives each request a
+root span, the batcher's apply span its child, and the stage intervals
+child spans that tile the request's latency.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 import queue
 import threading
 import time
@@ -59,6 +67,7 @@ from tuplewise_tpu_torch.obs.ledger import WaveLedger
 from tuplewise_tpu_torch.obs.report import INSERT_STAGES, stage_metric
 from tuplewise_tpu_torch.obs.tracing import check_tracer, maybe_span
 from tuplewise_tpu_torch.serving.index import ExactAucIndex
+from tuplewise_tpu_torch.serving.recovery import RecoveryManager
 from tuplewise_tpu_torch.serving.streaming import StreamingIncompleteU
 from tuplewise_tpu_torch.utils.profiling import MetricsRegistry
 
@@ -92,8 +101,7 @@ class DeadlineExceededError(RuntimeError):
 class ServingConfig:
     """Knobs of the online service: the JAX package's fields of the
     service, with ``engine="torch"`` and a ``device`` (the card unless
-    "cpu"). ``snapshot_dir``/``recover`` are not ported yet and raise
-    when set; the WAL knobs are not ported yet."""
+    "cpu")."""
 
     kernel: str = "auc"
     budget: int = 64               # incomplete-U pairs per arrival
@@ -118,8 +126,13 @@ class ServingConfig:
     queue_size: int = 1024         # bounded request queue
     policy: str = "reject"         # reject | drop_oldest | block
     deadline_s: Optional[float] = None  # fail requests older than this
-    snapshot_dir: Optional[str] = None  # not ported yet
-    recover: bool = False               # not ported yet
+    snapshot_dir: Optional[str] = None  # crash-safe snapshots + event WAL
+    snapshot_every: int = 4096     # events between snapshots
+    recover: bool = False          # restore snapshot_dir state on start
+    # WAL durability: "snapshot" flushes every append past the process
+    # boundary (survives SIGKILL) and fsyncs only when a snapshot lands;
+    # "batch" fsyncs every append (survives power loss)
+    wal_fsync: str = "snapshot"
     flight_recorder_size: int = 4096   # lifecycle-event ring size
     # CI-width tracking of the streaming estimate and a windowed drift
     # check against the exact index (AUC kernel only)
@@ -162,18 +175,30 @@ class ServingConfig:
         if self.max_delta_runs < 1:
             raise ValueError(
                 f"max_delta_runs must be >= 1: {self.max_delta_runs}")
+        if self.snapshot_every < 1:
+            raise ValueError(
+                f"snapshot_every must be >= 1: {self.snapshot_every}")
+        if self.recover and not self.snapshot_dir:
+            raise ValueError("recover=True needs snapshot_dir")
+        if self.wal_fsync not in ("snapshot", "batch"):
+            raise ValueError(
+                f"wal_fsync must be 'snapshot' or 'batch': "
+                f"{self.wal_fsync!r}")
 
 
 class _Request:
     __slots__ = ("kind", "scores", "labels", "future", "t_enqueue",
-                 "tenant")
+                 "span", "tenant")
 
-    def __init__(self, kind: str, scores, labels, tenant=None):
+    def __init__(self, kind: str, scores, labels, span=None,
+                 tenant=None):
         self.kind = kind
         self.scores = scores
         self.labels = labels
         self.future: Future = Future()
         self.t_enqueue = time.perf_counter()
+        # the request's root span; None when tracing is off
+        self.span = span
         # optional tag carried so failure paths can name the owner
         self.tenant = tenant
 
@@ -191,19 +216,20 @@ class MicroBatchEngine:
             config = ServingConfig(**overrides)
         elif overrides:
             config = dataclasses.replace(config, **overrides)
-        if config.snapshot_dir or config.recover:
-            raise NotImplementedError(
-                "crash-safe recovery (snapshot_dir/recover) is not ported "
-                "to tuplewise_tpu_torch yet")
         check_tracer(tracer)
         self.config = config
         self.chaos = chaos
         self.tracer = tracer
         self.metrics = MetricsRegistry()
-        self.flight = FlightRecorder(capacity=config.flight_recorder_size)
+        # with recovery configured, the flight dump lands next to the
+        # snapshots, so forensics after a SIGKILL start from one directory
+        self.flight = FlightRecorder(
+            capacity=config.flight_recorder_size, tracer=tracer,
+            dump_path=(os.path.join(config.snapshot_dir, "flight.jsonl")
+                       if config.snapshot_dir else None))
         if chaos is not None:
-            # every injected fault records a flight event
-            chaos.attach(flight=self.flight)
+            # every injected fault records a correlated flight event
+            chaos.attach(flight=self.flight, tracer=tracer)
         # the index records compactions into the engine's registry, so
         # stats() carries the pause histogram
         self.index = ExactAucIndex(
@@ -213,7 +239,7 @@ class MicroBatchEngine:
             metrics=self.metrics, count_kernel=config.count_kernel,
             flight=self.flight, chaos=chaos,
             delta_fraction=config.delta_fraction,
-            max_delta_runs=config.max_delta_runs,
+            max_delta_runs=config.max_delta_runs, tracer=tracer,
         ) if config.kernel == "auc" else None
         self._est_health = self._drift = None
         if config.health:
@@ -251,6 +277,18 @@ class MicroBatchEngine:
         self._c_exemplars = m.counter("tail_exemplars_total")
         self._g_depth = m.gauge("queue_depth_live")
         self._g_inflight = m.gauge("inflight_requests")
+        # crash-safe recovery: restore before the worker starts, so the
+        # recovered state is in place for the first request
+        self._recovery = None
+        if config.snapshot_dir:
+            self._recovery = RecoveryManager(
+                config.snapshot_dir, snapshot_every=config.snapshot_every,
+                wal_fsync=config.wal_fsync, tracer=tracer,
+                flight=self.flight)
+            if config.recover:
+                self._recovery.recover(self)
+            else:
+                self._recovery.start_fresh()
         self._q: "queue.Queue[Optional[_Request]]" = queue.Queue(
             maxsize=config.queue_size)
         self._lock = threading.Lock()   # guards estimator state
@@ -289,7 +327,16 @@ class MicroBatchEngine:
             scores, labels = self._validate_insert(scores, labels)
         elif kind == "score":
             scores = np.atleast_1d(np.asarray(scores, dtype=np.float64))
-        req = _Request(kind, scores, labels, tenant=tenant)
+        # one root span per request, handed through the queue so the
+        # batcher's apply spans continue this trace on its own thread
+        span = None
+        if self.tracer is not None:
+            span = self.tracer.start(f"request.{kind}", parent=None)
+        req = _Request(kind, scores, labels, span=span, tenant=tenant)
+        if span is not None:
+            # anchored at t_enqueue, where the stage boundaries start, so
+            # the child stage spans tile the root exactly
+            span.t0 = req.t_enqueue
         self._c_req[kind].inc()
         policy = self.config.policy
         if policy == "block":
@@ -425,6 +472,9 @@ class MicroBatchEngine:
                 else:
                     r.future.set_exception(EngineClosedError(
                         "engine closed before the request was applied"))
+                if self.tracer is not None and r.span is not None:
+                    self.tracer.finish(r.span)
+                    r.span = None
             try:
                 r = self._q.get_nowait()
             except queue.Empty:
@@ -456,6 +506,11 @@ class MicroBatchEngine:
             now = time.perf_counter()
             for r in run:
                 self._h_latency.observe(now - r.t_enqueue)
+                # an applied insert's span ended at its stage boundary;
+                # score, query and failed-run spans end here
+                if self.tracer is not None and r.span is not None:
+                    self.tracer.finish(r.span, now)
+                    r.span = None
         self._g_inflight.set(self._q.qsize())
 
     def _expire_request(self, r: _Request, now: float) -> bool:
@@ -469,8 +524,13 @@ class MicroBatchEngine:
         except InvalidStateError:   # already resolved elsewhere
             return False
         self._c_deadline.inc()
-        self.flight.record("deadline_expired", kind_req=r.kind,
-                           waited_s=now - r.t_enqueue)
+        self.flight.record(
+            "deadline_expired", kind_req=r.kind,
+            waited_s=now - r.t_enqueue,
+            trace_id=(r.span.trace_id if r.span is not None else None))
+        if self.tracer is not None and r.span is not None:
+            self.tracer.finish(r.span, now)
+            r.span = None
         return True
 
     def _expire(self, batch: List[_Request]) -> List[_Request]:
@@ -529,22 +589,30 @@ class MicroBatchEngine:
                             wave) -> None:
         scores = np.concatenate([r.scores for r in run])
         labels = np.concatenate([r.labels for r in run]).astype(bool)
-        with maybe_span(self.tracer, "insert.apply"):
+        with maybe_span(self.tracer, "insert.apply",
+                        parent=run[0].span, n_requests=len(run),
+                        n_events=len(scores)):
             t_lock_req = time.perf_counter()     # lock wait begins
             with self._lock:
                 t_lock = time.perf_counter()     # coalesce = concat+lock
-                t_wal = time.perf_counter()      # no write-ahead log yet
+                if self._recovery is not None:
+                    # write-ahead: the WAL holds the batch before the
+                    # index applies it, so a crash mid-apply replays it
+                    self._recovery.record(scores, labels)
+                t_wal = time.perf_counter()
                 if self.index is not None:
                     self.index.insert_batch(scores, labels)
                 t_index = time.perf_counter()
                 spent = self.streaming.extend(scores, labels)
                 t_stream = time.perf_counter()
-                t_snap = time.perf_counter()     # no snapshots yet
+                if self._recovery is not None:
+                    self._recovery.maybe_snapshot(self)
+                t_snap = time.perf_counter()
         self._c_events.inc(len(scores))
         self._c_pairs.inc(spent)
         for r in run:
             # a request the reaper expired mid-flight keeps its typed
-            # failure; the event is applied either way
+            # failure; the event is applied either way (WAL first)
             if not r.future.done():
                 r.future.set_result(len(r.scores))
         t_end = time.perf_counter()              # resolve ends
@@ -575,6 +643,8 @@ class MicroBatchEngine:
                     self._c_exemplars.inc()
                     self.flight.record(
                         "tail_exemplar", kind_req="insert",
+                        trace_id=(r.span.trace_id
+                                  if r.span is not None else None),
                         lat_ms=lat_ms, n_events=len(r.scores),
                         buckets=dict(buckets, queue_wait=qw_r))
         # drift check: live budgeted estimate vs the exact index, once
@@ -584,6 +654,32 @@ class MicroBatchEngine:
             oracle = self.index.auc()
             if live is not None and oracle is not None:
                 self._drift.observe(live, oracle)
+        if self.tracer is not None:
+            self._trace_insert_run(
+                run, (t_start, t_lock, t_wal, t_index, t_stream,
+                      t_snap, t_end))
+
+    def _trace_insert_run(self, run: List[_Request], ts) -> None:
+        """Each insert's trace gets the consecutive stage intervals as
+        children of its root span; they tile [enqueue, resolve], so the
+        children's durations sum to the root's."""
+        t_start, t_lock, t_wal, t_index, t_stream, t_snap, t_end = ts
+        tr = self.tracer
+        bounds = (("coalesce", t_start, t_lock),
+                  ("wal_append", t_lock, t_wal),
+                  ("index_insert", t_wal, t_index),
+                  ("stream_extend", t_index, t_stream),
+                  ("snapshot", t_stream, t_snap),
+                  ("resolve", t_snap, t_end))
+        for r in run:
+            if r.span is None:
+                continue
+            tr.record_span("insert.queue_wait", r.t_enqueue, t_start,
+                           parent=r.span)
+            for name, a, b in bounds:
+                tr.record_span(f"insert.{name}", a, b, parent=r.span)
+            tr.finish(r.span, t_end)
+            r.span = None
 
     def _apply_scores(self, run: List[_Request]) -> None:
         if self.index is None:
@@ -591,7 +687,8 @@ class MicroBatchEngine:
                 "score requests need the exact AUC index "
                 "(kernel='auc')")
         scores = np.concatenate([r.scores for r in run])
-        with maybe_span(self.tracer, "score.apply"):
+        with maybe_span(self.tracer, "score.apply",
+                        parent=run[0].span, n_requests=len(run)):
             with self._lock:
                 ranks = self.index.score_batch(scores)
         off = 0
@@ -630,9 +727,13 @@ class MicroBatchEngine:
             pass
         self._worker.join(timeout=timeout)
         self._fail_queued()
+        if self._recovery is not None:
+            self._recovery.checkpoint_and_close(self)
         if self.index is not None:
             self.index.close(timeout=timeout)
+        # the close dump is the record a recovering engine reads first
         self.flight.record("engine_closed")
+        self.flight.auto_dump()
 
     def __enter__(self) -> "MicroBatchEngine":
         return self

@@ -250,7 +250,8 @@ class ExactAucIndex:
         re-placement.
       max_delta_runs: fold the delta into the base after this many minor
         compactions, whatever its size.
-      tracer: not ported yet; anything but None raises.
+      tracer: an ``obs.tracing.Tracer``: compactions, sharded counts,
+        heals and background builds become spans; None = off.
     """
 
     def __init__(self, window: Optional[int] = None,
@@ -439,7 +440,10 @@ class ExactAucIndex:
                 device=self.device,
                 chaos=self.chaos if self._mesh is not None else None)
 
-        with maybe_span(self.tracer, "index.sharded_count"):
+        if self._healer is None:
+            return attempt()
+        with maybe_span(self.tracer, "index.sharded_count",
+                        n_queries=len(q_a) + len(q_b)):
             return self._healed(attempt)
 
     def _base_counts(self, side: _ClassSide,
@@ -859,11 +863,11 @@ class ExactAucIndex:
         """Synchronous compaction (caller holds the lock), its pause
         billed inline. In the delta tiers that pause is O(buffer): a
         minor compaction, then whatever heavier tier falls due."""
-        if not self._delta:
-            self._full_compact(side)
-            return
         with maybe_span(self.tracer, "compaction.sync",
                         side=self._side_name(side)):
+            if not self._delta:
+                self._full_compact(side)
+                return
             buf_vals, tomb_vals = list(side.buf), list(side.tomb)
             t0 = time.perf_counter()
             new_delta, placed = self._healed(
@@ -874,7 +878,9 @@ class ExactAucIndex:
             todo = self._followup(side)
             if todo == "major":
                 t0 = time.perf_counter()
-                self._commit_major(side, self._major_build(side), t0, t0)
+                with maybe_span(self.tracer, "compaction.major"):
+                    self._commit_major(side, self._major_build(side), t0,
+                                       t0)
             elif todo == "full":
                 self._full_compact(side)
 
@@ -1035,25 +1041,23 @@ class ExactAucIndex:
         run, dropping the tombstones, and re-place it (caller holds the
         lock); the work and its pause run inline."""
         t0 = time.perf_counter()
-        with maybe_span(self.tracer, "compaction.sync",
-                        side=self._side_name(side)):
-            tombs = side.tomb_run.tolist() + side.tomb
-            if len(side.delta_run):
-                merged = _remove_sorted(
-                    _splice_merge(
-                        _splice_merge(side.base, side.delta_run),
-                        np.sort(np.asarray(side.buf, dtype=self.dtype))),
-                    tombs)
-            else:
-                merged = self._merge(side.base, side.buf, tombs,
-                                     on_thread=True)
-            side.base = merged
-            side.buf = []
-            side.tomb = []
-            side.clear_delta()
-            side.tomb_run = np.empty(0, dtype=self.dtype)
-            self._replace_tomb(side)    # clears the device mirror
-            shipped = self._place(side)
+        tombs = side.tomb_run.tolist() + side.tomb
+        if len(side.delta_run):
+            merged = _remove_sorted(
+                _splice_merge(
+                    _splice_merge(side.base, side.delta_run),
+                    np.sort(np.asarray(side.buf, dtype=self.dtype))),
+                tombs)
+        else:
+            merged = self._merge(side.base, side.buf, tombs,
+                                 on_thread=True)
+        side.base = merged
+        side.buf = []
+        side.tomb = []
+        side.clear_delta()
+        side.tomb_run = np.empty(0, dtype=self.dtype)
+        self._replace_tomb(side)    # clears the device mirror
+        shipped = self._place(side)
         if not self._delta:
             # the host-merge mode's compaction: the bytes the delta tiers
             # are judged against
@@ -1101,11 +1105,18 @@ class ExactAucIndex:
     def _build_and_swap(self, side: _ClassSide) -> None:
         if self._bg_test_hook is not None:
             self._bg_test_hook(side)
-        if self.chaos is not None:
-            self.chaos.fire("compactor_build")
-        if self._delta:
-            self._bg_delta_build(side)
-            return
+        with maybe_span(self.tracer, "compactor.build",
+                        side=self._side_name(side)) as bspan:
+            if self.chaos is not None:
+                self.chaos.fire("compactor_build")
+            if self._delta:
+                self._bg_delta_build(side)
+                return
+            self._bg_merge_build(side, bspan)
+
+    def _bg_merge_build(self, side: _ClassSide, bspan) -> None:
+        """The host-merge background job: merge and place with the lock
+        released, then swap (``bspan``: the build's span, None untraced)."""
         with self._cv:
             base = side.base
             prev = (side.placed_base, side.base_dev, side.cap)
@@ -1118,7 +1129,9 @@ class ExactAucIndex:
             merged = self._merge(base, buf_snap, tomb_snap, on_thread=False)
         base_dev, cap, shipped, mesh = None, 0, 0, None
         if self.shards is not None and len(merged):
-            base_dev, cap, shipped, mesh = self._place_healed(merged, prev)
+            with maybe_span(self.tracer, "compactor.place_base"):
+                base_dev, cap, shipped, mesh = self._place_healed(merged,
+                                                                  prev)
         with self._cv:
             t0 = time.perf_counter()
             side.base = merged
@@ -1139,7 +1152,11 @@ class ExactAucIndex:
                                base_events=len(merged),
                                bytes_shipped=shipped)
             # the swap is the only pause the request path can observe
-            self._h_pause.observe(time.perf_counter() - t0)
+            t1 = time.perf_counter()
+            self._h_pause.observe(t1 - t0)
+            if self.tracer is not None:
+                self.tracer.record_span("compactor.swap", t0, t1,
+                                        parent=bspan)
             self._resubmit(side)
 
     def _resubmit(self, side: _ClassSide) -> None:
@@ -1176,7 +1193,8 @@ class ExactAucIndex:
         # the watchdog's synchronous fallback skips a building side
         if todo == "major":
             t0 = time.perf_counter()
-            built = self._major_build(side)
+            with maybe_span(self.tracer, "compactor.major_build"):
+                built = self._major_build(side)
             with self._cv:
                 self._commit_major(side, built, t0, time.perf_counter())
         elif todo == "full":

@@ -9,19 +9,28 @@ single-tenant ``MicroBatchEngine``; ``replay_fleet`` drives the
 ``MultiTenantEngine`` with a tenant-assigned stream
 (``make_tenant_stream``) and checks every tenant's AUC against its own
 oracle. The records carry the JAX records' keys.
+
+Observability options of both: span tracing (``tracer`` / ``trace_out``),
+live metrics export (``metrics_out`` / ``metrics_every_s``), SLO
+verdicts (``slo_spec``), the flight dump (``flight_out``); of ``replay``
+also a ``torch.profiler`` trace (``profile_dir``) and the sampling
+profiler (``prof`` / ``prof_out``). The control plane
+(``controller_spec``) is not ported yet and raises.
 """
 
 from __future__ import annotations
 
 import dataclasses
-import hashlib
-import json
 import time
 from typing import Optional
 
 import numpy as np
 
 from tuplewise_tpu_torch.models.metrics import auc_score
+from tuplewise_tpu_torch.obs.metrics_export import (
+    MetricsFlusher, config_digest,
+)
+from tuplewise_tpu_torch.obs.prof import SamplingProfiler, export_profile
 from tuplewise_tpu_torch.obs.report import (
     recovery_counters, service_report, stage_attribution, stage_p99_ms,
 )
@@ -29,7 +38,9 @@ from tuplewise_tpu_torch.serving.engine import (
     BackpressureError, EngineClosedError, MicroBatchEngine,
     PoisonEventError, ServingConfig,
 )
-from tuplewise_tpu_torch.utils.profiling import parse_labeled_name
+from tuplewise_tpu_torch.obs.slo import SloMonitor
+from tuplewise_tpu_torch.obs.tracing import Tracer
+from tuplewise_tpu_torch.utils.profiling import parse_labeled_name, trace
 
 
 def make_stream(n_events: int, pos_frac: float = 0.5,
@@ -68,12 +79,37 @@ def make_tenant_stream(n_events: int, n_tenants: int, skew: float = 1.0,
     return scores, labels, tenants
 
 
-def config_digest(config) -> str:
-    """Short stable digest of a config: the key that joins records of
-    one configuration across runs."""
-    blob = json.dumps(dataclasses.asdict(config), sort_keys=True,
-                      default=str)
-    return hashlib.sha256(blob.encode("utf-8")).hexdigest()[:12]
+def _controller_unported(controller_spec) -> None:
+    if controller_spec is not None:
+        raise NotImplementedError(
+            "controller_spec: the control plane (serving/control.py) is "
+            "not ported to tuplewise_tpu_torch yet")
+
+
+def _slo_flusher(eng, cfg, slo_spec, metrics_out, metrics_every_s,
+                 stage: str):
+    """(SloMonitor or None, started MetricsFlusher or None) for an
+    engine: the monitor judges each flushed row; with an SLO spec and no
+    ``metrics_out`` the flusher is observer-only, its cadence kept under
+    a quarter of the shortest burn window."""
+    slo_monitor = None
+    if slo_spec is not None:
+        slo_monitor = SloMonitor(slo_spec, registry=eng.metrics,
+                                 flight=eng.flight,
+                                 context=dataclasses.asdict(cfg))
+    if not metrics_out and slo_monitor is None:
+        return None, None
+    every = metrics_every_s
+    if slo_monitor is not None:
+        short = slo_monitor.spec.shortest_window_s
+        if short:
+            every = min(every, max(short / 4.0, 0.05))
+    flusher = MetricsFlusher(
+        eng.metrics, metrics_out or None, every_s=every,
+        meta={"stage": stage}, config=cfg,
+        observers=([slo_monitor.observe_row]
+                   if slo_monitor is not None else ())).start()
+    return slo_monitor, flusher
 
 
 def _injector(chaos):
@@ -95,6 +131,7 @@ def replay(scores, labels, config: Optional[ServingConfig] = None,
            run_id: Optional[str] = None, chaos=None, tracer=None,
            trace_out: Optional[str] = None,
            metrics_out: Optional[str] = None,
+           metrics_every_s: float = 1.0,
            profile_dir: Optional[str] = None, slo_spec=None,
            controller_spec=None, prof=None,
            prof_out: Optional[str] = None, **overrides) -> dict:
@@ -119,20 +156,23 @@ def replay(scores, labels, config: Optional[ServingConfig] = None,
     recovery counters, and the oracle check runs over the admitted events
     only. The warmup run stays chaos-free.
 
-    Span tracing (``tracer``, ``trace_out``), metrics export
-    (``metrics_out``), profiling (``profile_dir``, ``prof``,
-    ``prof_out``), SLOs and the control plane (``slo_spec``,
-    ``controller_spec``) are not ported yet: anything but None raises
-    ``NotImplementedError``.
+    Observability (the warmup pass stays untraced): ``tracer`` (an
+    ``obs.tracing.Tracer``) or ``trace_out`` (a path: a tracer is made;
+    ``*.jsonl`` exports span JSONL, anything else Chrome trace JSON)
+    traces the request path; ``metrics_out`` / ``metrics_every_s``
+    stream registry snapshots through ``obs.MetricsFlusher``;
+    ``profile_dir`` brackets the timed window in a ``torch.profiler``
+    trace (``utils.profiling.trace``). ``prof``: an
+    ``obs.prof.SamplingProfiler`` or truthy to make one, over exactly
+    the timed window; ``prof_out`` writes its folded stacks
+    (``*.collapsed`` / ``*.txt``) or speedscope JSON, and the record
+    carries ``prof_samples`` / ``prof_overhead_fraction``.
+    ``slo_spec``: anything ``obs.slo.SloSpec.from_spec`` takes; an
+    ``SloMonitor`` rides the metrics flusher and the record carries its
+    verdicts as ``slo``. ``controller_spec`` (the control plane) is not
+    ported yet and raises ``NotImplementedError``.
     """
-    unported = dict(tracer=tracer, trace_out=trace_out,
-                    metrics_out=metrics_out, profile_dir=profile_dir,
-                    slo_spec=slo_spec, controller_spec=controller_spec,
-                    prof=prof, prof_out=prof_out)
-    named = sorted(k for k, v in unported.items() if v not in (None, False))
-    if named:
-        raise NotImplementedError(
-            f"replay options not ported to tuplewise_tpu_torch yet: {named}")
+    _controller_unported(controller_spec)
     scores = np.asarray(scores, dtype=np.float64).ravel()
     labels = np.asarray(labels).ravel().astype(bool)
     n = len(scores)
@@ -142,55 +182,72 @@ def replay(scores, labels, config: Optional[ServingConfig] = None,
         replay(scores, labels, config=cfg, score_every=score_every,
                query_every=query_every, chunk=chunk, warmup=False,
                max_inflight=max_inflight)
+    if tracer is None and trace_out:
+        tracer = Tracer()
     rejected = 0
     poison_rejected = 0
     admitted = np.ones(n, dtype=bool)
     futures = []
-    with MicroBatchEngine(cfg, chaos=injector) as eng:
-        t0 = time.perf_counter()
-        for i in range(0, n, chunk):
-            j = min(i + chunk, n)
-            sub = scores[i:j]
-            if injector is not None:
-                sub, _ = injector.poison_batch(i, sub)
-            try:
-                futures.append(eng.insert(sub, labels[i:j]))
-            except PoisonEventError:
-                poison_rejected += j - i
-                admitted[i:j] = False
-            except BackpressureError:
-                rejected += j - i
-                admitted[i:j] = False
-            if max_inflight and len(futures) >= max_inflight:
+    with MicroBatchEngine(cfg, chaos=injector, tracer=tracer) as eng:
+        slo_monitor, flusher = _slo_flusher(
+            eng, cfg, slo_spec, metrics_out, metrics_every_s, "replay")
+        profiler = None
+        if prof is not None and prof is not False or prof_out:
+            profiler = (prof if isinstance(prof, SamplingProfiler)
+                        else SamplingProfiler(metrics=eng.metrics))
+            profiler.start()
+        with trace(profile_dir):
+            t0 = time.perf_counter()
+            for i in range(0, n, chunk):
+                j = min(i + chunk, n)
+                sub = scores[i:j]
+                if injector is not None:
+                    sub, _ = injector.poison_batch(i, sub)
                 try:
-                    futures[len(futures) - max_inflight].result(
-                        timeout=60.0)
+                    futures.append(eng.insert(sub, labels[i:j]))
+                except PoisonEventError:
+                    poison_rejected += j - i
+                    admitted[i:j] = False
                 except BackpressureError:
-                    pass    # counted in the final wait below
-            if score_every and (i // chunk) % score_every \
-                    == score_every - 1:
+                    rejected += j - i
+                    admitted[i:j] = False
+                if max_inflight and len(futures) >= max_inflight:
+                    try:
+                        futures[len(futures) - max_inflight].result(
+                            timeout=60.0)
+                    except BackpressureError:
+                        pass    # counted in the final wait below
+                if score_every and (i // chunk) % score_every \
+                        == score_every - 1:
+                    try:
+                        futures.append(eng.score(scores[i:j]))
+                    except BackpressureError:
+                        pass
+                if query_every and (i // chunk) % query_every \
+                        == query_every - 1:
+                    try:
+                        futures.append(eng.query())
+                    except BackpressureError:
+                        pass
+            # wait for everything admitted (dropped futures raise)
+            dropped = 0
+            for f in futures:
                 try:
-                    futures.append(eng.score(scores[i:j]))
+                    f.result(timeout=60.0)
                 except BackpressureError:
-                    pass
-            if query_every and (i // chunk) % query_every \
-                    == query_every - 1:
-                try:
-                    futures.append(eng.query())
-                except BackpressureError:
-                    pass
-        # wait for everything admitted (dropped futures raise)
-        dropped = 0
-        for f in futures:
-            try:
-                f.result(timeout=60.0)
-            except BackpressureError:
-                dropped += 1
-        wall = time.perf_counter() - t0
+                    dropped += 1
+            wall = time.perf_counter() - t0
+        if profiler is not None:
+            # the profiled window is the timed window, not the close tail
+            profiler.stop()
         if eng.index is not None and cfg.bg_compact:
             # settle in-flight background builds outside the timed window
             eng.index.wait_idle()
+        if flusher is not None:
+            flusher.stop()
         stats = eng.stats()
+    # after close: the dump carries engine_closed and the final
+    # snapshot's lifecycle events too
     flight_counts = eng.flight.counts()
     if flight_out:
         eng.flight.dump_to(flight_out)
@@ -255,8 +312,28 @@ def replay(scores, labels, config: Optional[ServingConfig] = None,
     }
     if run_id is not None:
         rec["run_id"] = run_id
-    rec["report"] = service_report(m)
+    rec["report"] = service_report(m, slo=slo_monitor)
     rec["host_tax"] = rec["report"]["host_tax"]
+    if profiler is not None:
+        written = export_profile(profiler, prof_out)
+        if written:
+            rec["prof_out"] = written
+        rec["prof_samples"] = profiler.samples
+        rec["prof_overhead_fraction"] = profiler.overhead_fraction()
+        rec["prof_throttles"] = profiler.throttles
+    if slo_monitor is not None:
+        rec["slo"] = slo_monitor.report()
+    if trace_out and tracer is not None:
+        if trace_out.endswith(".jsonl"):
+            tracer.export_jsonl(trace_out)
+        else:
+            tracer.export_chrome(trace_out)
+        rec["trace_out"] = trace_out
+        rec["trace_spans"] = len(tracer)
+    if metrics_out:
+        rec["metrics_out"] = metrics_out
+    if profile_dir:
+        rec["profile_dir"] = profile_dir
     if injector is not None:
         rec["faults"] = dict(recovery_counters(m),
                              chaos=injector.snapshot())
@@ -284,6 +361,7 @@ def replay_fleet(scores, labels, tenants,
                  run_id: Optional[str] = None, warmup: bool = False,
                  oracle_check: bool = True, chaos=None, slo_spec=None,
                  controller_spec=None, metrics_out: Optional[str] = None,
+                 metrics_every_s: float = 1.0,
                  flight_out: Optional[str] = None, **overrides) -> dict:
     """Replay a tenant-assigned stream through a ``MultiTenantEngine``
     and return the fleet measurement record.
@@ -299,22 +377,18 @@ def replay_fleet(scores, labels, tenants,
     ``chaos``: as in :func:`replay` (the fleet engine's points, the
     stream's poison schedule, a ``faults`` block in the record).
 
-    SLOs and the control plane (``slo_spec``, ``controller_spec``),
-    metrics export (``metrics_out``) and the flight dump (``flight_out``)
-    are not ported yet: anything but None raises ``NotImplementedError``.
+    ``slo_spec``, ``metrics_out`` / ``metrics_every_s``: as in
+    :func:`replay` (wildcard objectives such as
+    ``insert_latency_s{tenant=*}`` give the ``slo`` block a per-tenant
+    breakdown); ``flight_out`` dumps the engine's flight recorder after
+    the run. ``controller_spec`` is not ported yet and raises.
     """
     from tuplewise_tpu_torch.serving.tenancy import (
         MultiTenantEngine, TenancyConfig, TenantRejectedError,
         TenantThrottledError,
     )
 
-    unported = dict(slo_spec=slo_spec, controller_spec=controller_spec,
-                    metrics_out=metrics_out, flight_out=flight_out)
-    named = sorted(k for k, v in unported.items() if v is not None)
-    if named:
-        raise NotImplementedError(
-            f"replay_fleet options not ported to tuplewise_tpu_torch yet: "
-            f"{named}")
+    _controller_unported(controller_spec)
     scores = np.asarray(scores, dtype=np.float64).ravel()
     labels = np.asarray(labels).ravel().astype(bool)
     tenants = np.asarray(tenants).ravel()
@@ -333,6 +407,9 @@ def replay_fleet(scores, labels, tenants,
     rejected = poison_rejected = tenant_rejected = tenant_throttled = 0
     futures = []
     with MultiTenantEngine(cfg, ten_cfg, chaos=injector) as eng:
+        slo_monitor, flusher = _slo_flusher(
+            eng, cfg, slo_spec, metrics_out, metrics_every_s,
+            "replay_fleet")
         t0 = time.perf_counter()
         i = 0
         while i < n:
@@ -376,9 +453,13 @@ def replay_fleet(scores, labels, tenants,
         if cfg.bg_compact:
             # settle in-flight background builds outside the timed window
             eng.fleet.wait_idle()
+        if flusher is not None:
+            flusher.stop()
         stats = eng.stats()
         tenant_stats = {t: eng.tenant_stats(t) for t in eng.fleet.tenants()}
     flight_counts = eng.flight.counts()
+    if flight_out:
+        eng.flight.dump_to(flight_out)
 
     m = stats["metrics"]
     ins = m.get("insert_latency_s", {})
@@ -453,8 +534,12 @@ def replay_fleet(scores, labels, tenants,
     }
     if run_id is not None:
         rec["run_id"] = run_id
-    rec["report"] = service_report(m)
+    rec["report"] = service_report(m, chaos=injector, slo=slo_monitor)
     rec["host_tax"] = rec["report"]["host_tax"]
+    if slo_monitor is not None:
+        rec["slo"] = slo_monitor.report()
+    if metrics_out:
+        rec["metrics_out"] = metrics_out
     if injector is not None:
         rec["faults"] = dict(recovery_counters(m),
                              chaos=injector.snapshot())

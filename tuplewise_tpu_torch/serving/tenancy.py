@@ -53,8 +53,12 @@ mesh fleet get a sharded index on the fleet's mesh. A ``chaos`` injector
 fires the ``sharded_count``, ``place_base``, ``compactor_build`` and
 (engine) ``batcher`` points.
 
-Not ported yet: span tracing (``tracer``) and crash-safe recovery
-(``snapshot_dir``/``recover``); they raise ``NotImplementedError``.
+Crash safety (``snapshot_dir``/``recover``): the engine writes every
+admitted batch ahead to one WAL, each record tagged with its tenant, and
+``FleetRecoveryManager`` snapshots every tenant's state (promoted whales
+through the single index's capture) into one ``.npz``; a restore
+re-places both packs from the host runs. A ``tracer`` gives requests
+root spans and the fleet's placements, counts and compactions spans.
 """
 
 from __future__ import annotations
@@ -63,6 +67,7 @@ import collections
 import dataclasses
 import hashlib
 import itertools
+import os
 import queue
 import threading
 import time
@@ -87,8 +92,13 @@ from tuplewise_tpu_torch.serving.engine import (
 from tuplewise_tpu_torch.serving.index import (
     ExactAucIndex, _remove_sorted, _splice_merge,
 )
+from tuplewise_tpu_torch.serving.recovery import (
+    RecoveryManager, capture_index_arrays, capture_stream_arrays,
+    restore_index_arrays, restore_stream_arrays,
+)
 from tuplewise_tpu_torch.serving.streaming import StreamingIncompleteU
 from tuplewise_tpu_torch.testing.chaos import InjectedFault
+from tuplewise_tpu_torch.utils.checkpoint import check_config, load_checkpoint
 from tuplewise_tpu_torch.utils.device import resolve_device
 from tuplewise_tpu_torch.utils.profiling import MetricsRegistry
 
@@ -314,7 +324,8 @@ class TenantFleetIndex:
         ``compactor_build``.
       shard_retries / retry_backoff_s / probe_timeout_s: the heal-and-
         retry of a mesh count.
-      tracer: not ported yet; anything but None raises.
+      tracer: an ``obs.tracing.Tracer``: placements, counts and
+        compactions become spans; None = off.
     """
 
     def __init__(self, window: Optional[int] = None,
@@ -1019,7 +1030,7 @@ class TenantFleetIndex:
                   engine="torch", device=self.device, metrics=self.metrics,
                   bg_compact=self.bg_compact, count_kernel=self.count_kernel,
                   flight=self.flight, chaos=self.chaos,
-                  shard_retries=self.shard_retries)
+                  shard_retries=self.shard_retries, tracer=self.tracer)
         if self._mesh is not None:
             kw["mesh"] = self._mesh
         return ExactAucIndex(**kw)
@@ -1215,15 +1226,17 @@ class TenantFleetIndex:
 
 class _FleetRequest:
     __slots__ = ("kind", "tenant", "scores", "labels", "future",
-                 "t_enqueue")
+                 "t_enqueue", "span")
 
-    def __init__(self, kind: str, tenant: str, scores, labels):
+    def __init__(self, kind: str, tenant: str, scores, labels,
+                 span=None):
         self.kind = kind
         self.tenant = tenant
         self.scores = scores
         self.labels = labels
         self.future: Future = Future()
         self.t_enqueue = time.perf_counter()
+        self.span = span
 
 
 class MultiTenantEngine:
@@ -1252,8 +1265,8 @@ class MultiTenantEngine:
     ``EngineClosedError`` naming its tenant. ``config.mesh_shards``
     shards the fleet over a mesh of that many workers; a ``chaos``
     injector fires the ``batcher`` point between batches and the fleet's
-    points. ``snapshot_dir``/``recover`` and ``tracer`` are not ported
-    yet and raise.
+    points. ``snapshot_dir``/``recover``: crash-safe recovery through
+    :class:`FleetRecoveryManager`; ``tracer``: request and wave spans.
     """
 
     _KINDS = ("insert", "score", "query")
@@ -1269,19 +1282,18 @@ class MultiTenantEngine:
             raise ValueError(
                 "MultiTenantEngine serves the exact AUC fleet; "
                 f"kernel={config.kernel!r} is not supported")
-        if config.snapshot_dir or config.recover:
-            raise NotImplementedError(
-                "crash-safe fleet recovery (snapshot_dir/recover) is not "
-                "ported to tuplewise_tpu_torch yet")
         check_tracer(tracer)
         self.config = config
         self.tenancy = tenancy if tenancy is not None else TenancyConfig()
         self.chaos = chaos
         self.tracer = tracer
         self.metrics = MetricsRegistry()
-        self.flight = FlightRecorder(capacity=config.flight_recorder_size)
+        self.flight = FlightRecorder(
+            capacity=config.flight_recorder_size, tracer=tracer,
+            dump_path=(os.path.join(config.snapshot_dir, "flight.jsonl")
+                       if config.snapshot_dir else None))
         if chaos is not None:
-            chaos.attach(flight=self.flight)
+            chaos.attach(flight=self.flight, tracer=tracer)
         self.fleet = TenantFleetIndex(
             window=config.window, compact_every=config.compact_every,
             device=config.device, count_kernel=config.count_kernel,
@@ -1290,7 +1302,7 @@ class MultiTenantEngine:
             bg_compact=config.bg_compact,
             whale_threshold=self.tenancy.whale_threshold,
             whale_demote_fraction=self.tenancy.whale_demote_fraction,
-            metrics=self.metrics, flight=self.flight)
+            metrics=self.metrics, flight=self.flight, tracer=tracer)
         # bounded metric cardinality: tenants past tenant_metric_cap
         # share one {tenant=__other__} series
         self._labeled_tenants: set = set()
@@ -1333,6 +1345,17 @@ class MultiTenantEngine:
         self._throttles: Dict[str, Tuple[float, float]] = {}
         self._tenant_weights: Dict[str, int] = {}
         self._tenant_quotas: Dict[str, int] = {}
+        # crash-safe recovery: restore before the worker starts
+        self._recovery = None
+        if config.snapshot_dir:
+            self._recovery = FleetRecoveryManager(
+                config.snapshot_dir, snapshot_every=config.snapshot_every,
+                wal_fsync=config.wal_fsync, tracer=tracer,
+                flight=self.flight)
+            if config.recover:
+                self._recovery.recover(self)
+            else:
+                self._recovery.start_fresh()
         self._worker = threading.Thread(
             target=self._supervise, name="tuplewise-fleet-batcher",
             daemon=True)
@@ -1550,7 +1573,12 @@ class MultiTenantEngine:
         elif kind == "score":
             scores = np.atleast_1d(np.asarray(scores, dtype=np.float64))
         self._ensure_tenant(tenant)
-        req = _FleetRequest(kind, tenant, scores, labels)
+        span = None
+        if self.tracer is not None:
+            span = self.tracer.start(f"request.{kind}", parent=None)
+        req = _FleetRequest(kind, tenant, scores, labels, span=span)
+        if span is not None:
+            span.t0 = req.t_enqueue
         self._c_req[kind].inc()
         with self._cv:
             dq = self._pending.get(tenant)
@@ -1770,6 +1798,9 @@ class MultiTenantEngine:
                 now: Optional[float] = None) -> None:
         now = now if now is not None else time.perf_counter()
         self._h_latency.observe(now - r.t_enqueue)
+        if self.tracer is not None and r.span is not None:
+            self.tracer.finish(r.span, now)
+            r.span = None
 
     def _fail_group(self, groups, e: Exception) -> None:
         for _, reqs in groups:
@@ -1797,8 +1828,13 @@ class MultiTenantEngine:
             scores = np.concatenate([r.scores for r in reqs])
             labels = np.concatenate([r.labels for r in reqs]).astype(bool)
             items.append((tid, scores, labels))
-        with maybe_span(self.tracer, "fleet.insert_wave"):
+        with maybe_span(self.tracer, "fleet.insert_wave",
+                        n_tenants=len(items)):
             try:
+                if self._recovery is not None:
+                    # write-ahead, one tenant-tagged record a tenant
+                    for tid, scores, labels in items:
+                        self._recovery.record(scores, labels, tenant=tid)
                 self.fleet.apply_inserts(items)
                 for tid, scores, labels in items:
                     stream = self._streams.get(tid)
@@ -1808,6 +1844,8 @@ class MultiTenantEngine:
                         stream = self._streams[tid]
                     self._c_pairs.inc(stream.extend(scores, labels))
                     self._c_events.inc(len(scores))
+                if self._recovery is not None:
+                    self._recovery.maybe_snapshot(self)
             except Exception as e:
                 self._fail_group(groups, e)
                 return
@@ -1840,6 +1878,8 @@ class MultiTenantEngine:
                     self._c_exemplars.inc()
                     self.flight.record(
                         "tail_exemplar", kind_req="insert", tenant=tid,
+                        trace_id=(r.span.trace_id
+                                  if r.span is not None else None),
                         lat_ms=lat * 1e3, n_events=len(r.scores),
                         n_requests=n_reqs,
                         buckets=dict(buckets,
@@ -1905,11 +1945,158 @@ class MultiTenantEngine:
             self._cv.notify_all()
         self._worker.join(timeout=timeout)
         self._fail_pending()
+        if self._recovery is not None:
+            self._recovery.checkpoint_and_close(self)
         self.fleet.close(timeout=timeout)
         self.flight.record("engine_closed")
+        self.flight.auto_dump()
 
     def __enter__(self) -> "MultiTenantEngine":
         return self
 
     def __exit__(self, *exc) -> None:
         self.close()
+
+
+# --------------------------------------------------------------------- #
+# fleet crash safety                                                     #
+# --------------------------------------------------------------------- #
+
+def _fleet_compat_config(config: ServingConfig,
+                         tenancy: TenancyConfig) -> dict:
+    """The config keys a fleet snapshot must agree on to be resumable."""
+    return {
+        "kernel": config.kernel, "budget": config.budget,
+        "reservoir": config.reservoir, "design": config.design,
+        "window": config.window, "seed": config.seed,
+        "max_tenants": tenancy.max_tenants,
+    }
+
+
+def capture_fleet_snapshot_state(engine) -> Tuple[dict, dict]:
+    """Consistent cut of every tenant's state (batcher thread, fleet
+    lock): containers and log as arrays keyed by a dense tenant index
+    (``t{i}_``), wins2 (decimal strings), RNG states and the tenant-id
+    manifest in the JSON config block. A promoted whale snapshots its own
+    index through ``recovery.capture_index_arrays`` under the same
+    prefix; the manifest's ``promoted`` flags and per-whale meta let the
+    restore rebuild the promotions exactly."""
+    fleet = engine.fleet
+    extra: dict = {}
+    cfg = dict(_fleet_compat_config(engine.config, engine.tenancy))
+    tids, wins2, rngs, counters = [], [], [], []
+    promoted, whale_meta = [], []
+    with fleet._lock:
+        for st in fleet._slots:
+            if st is None:
+                continue
+            i = len(tids)
+            tids.append(st.tid)
+            if st.idx is not None:
+                meta = capture_index_arrays(st.idx, extra,
+                                            prefix=f"t{i}_")
+                promoted.append(True)
+                whale_meta.append(meta)
+                wins2.append(meta["wins2"])
+                counters.append([meta["n_evicted"],
+                                 meta["n_compactions"]])
+            else:
+                promoted.append(False)
+                whale_meta.append(None)
+                wins2.append(str(st.wins2))
+                counters.append([st.n_evicted, st.n_compactions])
+                for name, pos in (("pos", True), ("neg", False)):
+                    base, buf, tomb = st.side(pos)
+                    extra[f"t{i}_{name}_base"] = np.asarray(
+                        base, dtype=fleet.dtype)
+                    extra[f"t{i}_{name}_buf"] = np.asarray(
+                        buf, dtype=fleet.dtype)
+                    extra[f"t{i}_{name}_tomb"] = np.asarray(
+                        tomb, dtype=fleet.dtype)
+                extra[f"t{i}_log_scores"] = np.asarray(
+                    [v for v, _ in st.log], dtype=fleet.dtype)
+                extra[f"t{i}_log_labels"] = np.asarray(
+                    [p for _, p in st.log], dtype=bool)
+            rngs.append(capture_stream_arrays(engine._streams[st.tid],
+                                              extra, prefix=f"t{i}_"))
+    cfg["tenants"] = tids
+    cfg["wins2"] = wins2
+    cfg["tenant_counters"] = counters
+    cfg["rng_states"] = rngs
+    cfg["promoted"] = promoted
+    cfg["whale_meta"] = whale_meta
+    return extra, cfg
+
+
+def restore_fleet_snapshot(directory: str, engine) -> Optional[int]:
+    """Restore a fleet snapshot into a fresh engine; returns the
+    snapshot's event seq (None when no snapshot exists). Both packs are
+    marked dirty, so the next count re-places every row (on a mesh
+    fleet, the [S, T, cap] packs of the current mesh)."""
+    ck = load_checkpoint(os.path.join(directory, "snapshot.npz"))
+    if ck is None:
+        return None
+    cfg, extra = ck["config"], ck["extra"]
+    want = _fleet_compat_config(engine.config, engine.tenancy)
+    check_config({k: cfg.get(k) for k in want}, want)
+    fleet = engine.fleet
+    promoted = cfg.get("promoted") or [False] * len(cfg["tenants"])
+    whale_meta = cfg.get("whale_meta") or [None] * len(cfg["tenants"])
+    with fleet._lock:
+        for i, tid in enumerate(cfg["tenants"]):
+            engine.create_tenant(tid)
+            st = fleet._by_tid[tid]
+            if promoted[i]:
+                # the whale's own index, through the single-tenant
+                # engine's restore under the t{i}_ prefix
+                idx = fleet._make_whale_index()
+                restore_index_arrays(idx, extra, whale_meta[i],
+                                     prefix=f"t{i}_")
+                st.idx = idx
+                fleet._g_whales.set(fleet._n_whales())
+            else:
+                for name, pos in (("pos", True), ("neg", False)):
+                    base = extra[f"t{i}_{name}_base"].astype(
+                        fleet.dtype)
+                    buf = extra[f"t{i}_{name}_buf"].astype(
+                        fleet.dtype).tolist()
+                    tomb = extra[f"t{i}_{name}_tomb"].astype(
+                        fleet.dtype).tolist()
+                    if pos:
+                        st.pos_base, st.pos_buf, st.pos_tomb = \
+                            base, buf, tomb
+                    else:
+                        st.neg_base, st.neg_buf, st.neg_tomb = \
+                            base, buf, tomb
+                st.log = collections.deque(zip(
+                    extra[f"t{i}_log_scores"].astype(
+                        fleet.dtype).tolist(),
+                    [bool(b) for b in extra[f"t{i}_log_labels"]]))
+                st.wins2 = int(cfg["wins2"][i])
+                st.n_evicted, st.n_compactions = (
+                    int(x) for x in cfg["tenant_counters"][i])
+            restore_stream_arrays(engine._streams[tid], extra,
+                                  cfg["rng_states"][i], prefix=f"t{i}_")
+        fleet._pos_pack.mark_all()
+        fleet._neg_pack.mark_all()
+    return int(ck["step"])
+
+
+class FleetRecoveryManager(RecoveryManager):
+    """The fleet's recovery manager: the same WAL, segment and async
+    writer protocol, the fleet's capture and restore, and tenant-tagged
+    replay."""
+
+    def _capture(self, engine):
+        return capture_fleet_snapshot_state(engine)
+
+    def _restore(self, engine):
+        return restore_fleet_snapshot(self.directory, engine)
+
+    def _replay_entry(self, engine, rec: dict) -> None:
+        tid = str(rec.get("t", "default"))
+        scores = np.asarray(rec["s"], dtype=np.float64)
+        labels = np.asarray(rec["l"], dtype=bool)
+        engine.create_tenant(tid)
+        engine.fleet.apply_inserts([(tid, scores, labels)])
+        engine._streams[tid].extend(scores, labels)

@@ -131,17 +131,20 @@ class FaultInjector:
         self.poisoned = 0
         # with a flight recorder attached, every fault that actually
         # FIRES logs a lifecycle event, so a post-mortem dump shows which
-        # latency spike was chaos
+        # latency spike was chaos; an attached tracer correlates it with
+        # the trace active at the injection site
         self._flight = None
+        self._tracer = None
 
     def attach(self, flight=None, tracer=None) -> None:
-        """Attach the flight recorder (``obs.flight.FlightRecorder``) that
-        should witness injections (idempotent: the most recent attachment
-        wins). Span tracing is not ported, so ``tracer`` must be None
-        (``obs.tracing.check_tracer``)."""
+        """Attach the flight recorder (``obs.flight.FlightRecorder``) and
+        tracer (``obs.tracing.Tracer``) that should witness injections
+        (idempotent: the most recent attachment wins)."""
         check_tracer(tracer)
         if flight is not None:
             self._flight = flight
+        if tracer is not None:
+            self._tracer = tracer
 
     # ------------------------------------------------------------------ #
     # construction                                                       #
@@ -213,9 +216,16 @@ class FaultInjector:
             errors = [f for f in due if f.action == "error"]
             kills = [f for f in due if f.action == "sigkill"]
         if due and self._flight is not None:
+            # a fault fired outside any span gets a fresh trace id, so
+            # the dump still has a correlation key
+            tid = None
+            if self._tracer is not None:
+                tid = self._tracer.current_trace_id()
+                if tid is None:
+                    tid = self._tracer.new_trace_id()
             for f in due:
                 self._flight.record(
-                    "chaos_inject", point=point,
+                    "chaos_inject", trace_id=tid, point=point,
                     action=f.action, on_call=f.on_call,
                     dropped=list(f.dropped))
         if delay > 0:

@@ -1,20 +1,85 @@
-"""Service metrics of the serving layer: ``Counter``, ``Gauge``,
-``Histogram`` and the ``MetricsRegistry`` that creates them.
+"""Tracing, profiling and service-metrics helpers.
 
-A copy of the metrics half of ``tuplewise_tpu.utils.profiling`` (the
-JAX ``trace``/``annotate``/``device_memory_stats`` helpers have no place
-here). Plain thread-safe host objects: the batcher thread records while
-request threads read snapshots, and ``snapshot()`` renders everything
-into one JSON-able dict for ``replay`` records and reports. Metrics
-take optional ``labels``: a small tag dict rendered into the registry
-key (``name{k=v}``) and carried in the snapshot.
+The counterpart of ``tuplewise_tpu.utils.profiling``:
+
+* ``timer()``        wall-clock context manager (``t["seconds"]``).
+* ``trace(logdir)``  a ``torch.profiler`` scope over the CPU and, when a
+                     card is present, CUDA activities; on exit it writes
+                     a Chrome trace (``trace.json``) into ``logdir``. A
+                     no-op when ``logdir`` is None, so callers can thread
+                     an option straight through.
+* ``annotate(name)`` a named range inside an active trace
+                     (``torch.profiler.record_function``), also an NVTX
+                     range when a card is present.
+* ``Counter`` / ``Gauge`` / ``Histogram`` / ``MetricsRegistry``: the
+                     serving layer's service metrics. Plain thread-safe
+                     host objects: the batcher thread records while
+                     request threads read snapshots, and ``snapshot()``
+                     renders everything into one JSON-able dict. Metrics
+                     take optional ``labels``: a small tag dict rendered
+                     into the registry key (``name{k=v}``) and carried in
+                     the snapshot.
 """
 
 from __future__ import annotations
 
 import bisect
+import contextlib
+import os
 import threading
-from typing import Dict, List, Optional, Sequence
+import time
+from typing import Dict, Iterator, List, Optional, Sequence
+
+TRACE_FILE = "trace.json"
+
+
+@contextlib.contextmanager
+def timer() -> Iterator[dict]:
+    """``with timer() as t: ...`` then ``t["seconds"]``."""
+    out = {"seconds": None}
+    t0 = time.perf_counter()
+    try:
+        yield out
+    finally:
+        out["seconds"] = time.perf_counter() - t0
+
+
+@contextlib.contextmanager
+def trace(logdir: Optional[str]) -> Iterator[None]:
+    """``torch.profiler`` scope; inert when ``logdir`` is None.
+
+    Records the CPU ops and, with a card, the CUDA kernels launched
+    inside the scope, and writes a Chrome trace to
+    ``<logdir>/trace.json`` on exit."""
+    if not logdir:
+        yield
+        return
+    import torch
+
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    os.makedirs(str(logdir), exist_ok=True)
+    with torch.profiler.profile(activities=acts) as prof:
+        yield
+    prof.export_chrome_trace(os.path.join(str(logdir), TRACE_FILE))
+
+
+@contextlib.contextmanager
+def annotate(name: str) -> Iterator[None]:
+    """Named range inside an active trace: a ``record_function`` range,
+    and an NVTX range when a card is present."""
+    import torch
+
+    nvtx = torch.cuda.is_available()
+    if nvtx:
+        torch.cuda.nvtx.range_push(name)
+    try:
+        with torch.profiler.record_function(name):
+            yield
+    finally:
+        if nvtx:
+            torch.cuda.nvtx.range_pop()
 
 
 def labeled_name(name: str, labels: Optional[dict]) -> str:

@@ -98,3 +98,22 @@ def audit_keys():
         yield
     finally:
         _AUDIT.seen = prev
+
+
+# --------------------------------------------------------------------- #
+# mutable host-RNG state capture                                        #
+# --------------------------------------------------------------------- #
+# The serving reservoirs draw from a ``numpy.random.Generator`` that
+# carries state; these two helpers round-trip it exactly (the
+# bit_generator state dict is plain ints and strings, so it survives the
+# JSON config block of a snapshot).
+
+def capture_np_rng(gen) -> dict:
+    """JSON-safe snapshot of a ``numpy.random.Generator``'s full state."""
+    return gen.bit_generator.state
+
+
+def restore_np_rng(gen, state: dict) -> None:
+    """Restore a state captured by :func:`capture_np_rng`: the generator
+    continues the original stream bit for bit."""
+    gen.bit_generator.state = state
