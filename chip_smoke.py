@@ -7,10 +7,11 @@ NVIDIA H100:
     python3 chip_smoke.py
 
 (``python3 chip_smoke.py --phase27`` builds the kernels and runs phase 27
-alone, printing its record as one JSON line.) It builds the CUDA kernels from tuplewise_tpu_torch/csrc with nvcc (one
-nvcc per source, all started together), then runs the phases below. Each
-phase asserts what it checks, and nothing is caught: any failure exits
-nonzero. Each phase prints its seconds.
+alone, printing its record as one JSON line; ``--phase28`` does the same
+for phase 28.) It builds the CUDA kernels from tuplewise_tpu_torch/csrc
+with nvcc (one nvcc per source, all started together), then runs the
+phases below. Each phase asserts what it checks, and nothing is caught:
+any failure exits nonzero. Each phase prints its seconds.
 
 1. Build: compile the kernels and print the build seconds, what ptxas
    reports for the pair-sum, gradient, sort-and-count and count kernels
@@ -375,6 +376,31 @@ nonzero. Each phase prints its seconds.
    fraction, the SLO verdicts); replay with profile_dir over 5000 events,
    and the torch.profiler trace's kernel names holding the count
    kernel's.
+28. The control plane (serving/control.py), the doctor (obs/doctor.py)
+   and the CLI (harness/cli.py). (a) replay_fleet over phase 21's stream
+   cut to 4e4 events (T = 1024, Zipf 1.1), tenant t0's rate x 8 over the
+   middle third, requests of one event, 64 in flight, a queue of 64,
+   whales past 4096 events, under a saturation objective and
+   insert_latency_s{tenant=*} p99 <= 50 ms, once without a controller and
+   once with one (shed, flush, weights, promote): every tenant's AUC equal
+   to the float32 oracle over its admitted events (so its wins2 too),
+   at least one actuation, each carrying its triggering signal, no hard
+   reject, a promotion; events/s of both runs, actuations by knob, typed
+   sheds, hard rejects, the worst and median tenant p99. (b) A fleet
+   engine at S = 2 on the card's worker axis under the mesh knob (up to 4
+   workers) over the same stream's first 5e4 events, its SLO monitor
+   pumped every 8 applies: a mesh_resize to 4 workers, every tenant's
+   wins2 equal to a single-device fleet's over the same stream. (c) The
+   CLI: train of 8 steps SIGKILLed by its chaos spec after its 2nd
+   checkpoint and resumed (two processes), params_sha256 equal to an
+   uninterrupted in-process run's; variance --scheme complete at 2^20 a
+   class and triplet on the config-4 surrogate at n = 4096 (--n-pairs 0:
+   the complete statistic), in-process; replay of 64 tenants with an
+   SLO spec, a controller spec, metrics and flight dumps (a process of
+   its own, started with the killed train at the phase's start), then
+   doctor over its directory: every actuation attributed. The killed
+   train and the replay start after (a), so that their start on the card
+   overlaps (b) and not (a)'s measured replays.
 
 The launch counters are set to 0 before phase 3 and read after phase 4,
 set to 0 again before phase 7 and read after it, before phase 12 and
@@ -384,7 +410,9 @@ after it, before phase 23 and after it, before phase 24 and after
 its estimator calls (before its timing), and before phase 25 and after
 it (less the references' own launches), and before phase 26 and after
 its drives (before its timing), and before phase 27 and after it (the
-recovered engines' own launches, read around their work): every
+recovered engines' own launches, read around their work), and before
+phase 28 and after it (each part's launches read around it; the CLI's
+processes are not counted): every
 kernel must have been launched on
 its path (pair sums on the estimator's, gradient kernels on
 the trainer's, the triplet kernel on the degree-3 estimator's and on the
@@ -401,7 +429,9 @@ and kernel 5's indicator in the mesh triplet trainer's evaluations; on
 the mesh serving path kernels 6 and 7 over the worker axis and, on the
 single-device twins in lockstep, their flat forms; on the recovery path
 kernel 6 flat and over the worker axis and kernel 7, after every
-recovery). The script
+recovery; on the control path kernel 7 under the controller, kernel 6 on
+a promoted whale, kernel 7 over the worker axis under the mesh knob, and
+kernels 1, 5 and 3 through the CLI's variance, triplet and train). The script
 prints one JSON line of kernels,
 the card's name and power limit as nvidia-smi reports them, and, last,
 {"ok": true, "device": {...}}. Without a CUDA device, or without the
@@ -542,6 +572,20 @@ RECOVERY_FLEET_EVENTS, RECOVERY_WHALE = 100_000, 2048
 RECOVERY_KILL_EVENTS, RECOVERY_KILL_AT = 20_000, 12_000
 RECOVERY_TRACED_EVENTS, RECOVERY_TRACED_CHUNK = 100_000, 16
 RECOVERY_PROFILED_EVENTS = 5_000
+# the control plane and the CLI (phase 28, at most 60 s): (a) phase 21's
+# stream (T = 1024, Zipf 1.1) cut to 4e4 events, tenant t0's rate x 8 over
+# the middle third, through replay_fleet with and without the controller
+# (a run of 5e4 ran 2519-2903 events/s on an H100 80GB HBM3 at 700 W, so
+# 2e5 would take 69-79 s a run);
+# (b) its first 5e4 events on a fleet engine at S = 2 under the mesh knob
+# (up to 4 workers); (c) the CLI: variance at 2^20 a class, triplet on the
+# config-4 surrogate at n = 4096 (d = 32), train killed after its 2nd
+# checkpoint and resumed, replay of 64 tenants and the doctor
+CONTROL_EVENTS, CONTROL_FLASH, CONTROL_WHALE = 40_000, 8, 4096
+CONTROL_WARM_EVENTS = 4096
+CONTROL_MESH_EVENTS, CONTROL_MESH_SHARDS, CONTROL_MESH_MAX = 50_000, 2, 4
+CONTROL_VARIANCE_N, CONTROL_TRIPLET_N = 1 << 20, 4096
+CONTROL_REPLAY_EVENTS, CONTROL_REPLAY_TENANTS = 20_000, 64
 
 
 def log(*a):
@@ -4745,19 +4789,19 @@ RECOVERY_SLO = {"objectives": [
      "max_fraction": 0.9}]}
 
 
-def count_launches():
-    """The count kernels' launch counters now."""
+def count_launches(keys=RECOVERY_KEYS):
+    """The launch counters of ``keys`` (the count kernels') now."""
     from tuplewise_tpu_torch.ops import pair_kernels as pk
 
-    return {k: pk.LAUNCHES.get(k, 0) for k in RECOVERY_KEYS}
+    return {k: pk.LAUNCHES.get(k, 0) for k in keys}
 
 
-def launched_since(before, into=None):
-    """The count kernels' launches since ``before`` (a count_launches()),
+def launched_since(before, into=None, keys=RECOVERY_KEYS):
+    """The launches of ``keys`` since ``before`` (a count_launches()),
     added into ``into`` when given; returns them."""
-    now = count_launches()
-    out = into if into is not None else dict.fromkeys(RECOVERY_KEYS, 0)
-    for k in RECOVERY_KEYS:
+    now = count_launches(keys)
+    out = into if into is not None else dict.fromkeys(keys, 0)
+    for k in keys:
         out[k] += now[k] - before[k]
     return out
 
@@ -5345,6 +5389,351 @@ def recovery_traced_replay(tmp, device=None):
     return out
 
 
+# --------------------------------------------------------------------- #
+# slice 17: the control plane and the CLI                                #
+# --------------------------------------------------------------------- #
+
+# the kernels phase 28 must launch: kernel 7 and, after a promotion,
+# kernel 6 under the controller; kernel 7's worker-axis form under the
+# mesh knob; kernels 1, 5 and 3 through the CLI's variance, triplet and
+# train
+CONTROL_KEYS = ("tenant_count", "signed_count[flat]", "tenant_count[mesh]",
+                "pair_sum[auc]", "batched_masked_pair_sum[triplet_indicator]",
+                "pair_loss_grad[hinge]")
+
+# (a)'s SLOs: the queue's saturation and every tenant's insert p99
+CONTROL_SLO = {"objectives": [
+    {"name": "queue_sat", "type": "saturation", "metric": "queue_depth_live",
+     "capacity": "queue_size", "max_fraction": 0.8},
+    {"name": "tenant_insert_p99", "type": "latency",
+     "metric": "insert_latency_s{tenant=*}", "quantile": "p99",
+     "threshold_ms": 50.0}]}
+CONTROL_SPEC = {"knobs": ["shed", "flush", "weights", "promote"],
+                "cooldown_s": 0.25, "up_ticks": 1, "down_ticks": 4,
+                "throttle_s": 0.25, "promote_lookahead_s": 2.0}
+# (b)'s SLO holds the mesh knob under pressure: every insert p99 is over
+MESH_KNOB_SLO = {"objectives": [
+    {"name": "insert_p99", "type": "latency", "metric": "insert_latency_s",
+     "quantile": "p99", "threshold_ms": 0.001}]}
+KILL_AT_2ND_CHECKPOINT = json.dumps({"faults": [
+    {"point": "checkpoint", "on_call": 2, "action": "sigkill"}]})
+
+
+def control_stream(n):
+    """Phase 21's stream (float32, T = 1024, Zipf 1.1) with a flash crowd:
+    over the middle third tenant t0's rate is CONTROL_FLASH times its
+    Zipf rate (the tenants of those events redrawn)."""
+    scores, labels, tids = fleet_stream(n, FLEET_TENANTS)
+    p = np.arange(1, FLEET_TENANTS + 1, dtype=np.float64) ** -FLEET_SKEW
+    p[0] *= CONTROL_FLASH
+    lo, hi = n // 3, 2 * n // 3
+    ks = np.random.default_rng(SEED + 28).choice(
+        FLEET_TENANTS, size=hi - lo, p=p / p.sum())
+    tids = tids.copy()
+    tids[lo:hi] = [f"t{k}" for k in ks]
+    return scores, labels, tids
+
+
+def has_signal(sig):
+    """The doctor's test of an actuation's cause: a non-empty signal
+    with a value."""
+    return isinstance(sig, dict) and any(v is not None for v in sig.values())
+
+
+def control_fleet(tmp, device=None):
+    """Phase 28(a): replay_fleet over the flash-crowd stream without and
+    with the controller (shed, flush, weights, promote) under a
+    saturation and a per-tenant p99 objective."""
+    from tuplewise_tpu_torch.obs.flight import FlightRecorder
+    from tuplewise_tpu_torch.serving import (
+        ServingConfig, TenancyConfig, replay_fleet,
+    )
+
+    n = CONTROL_EVENTS
+    scores, labels, tids = control_stream(n)
+    cfg = ServingConfig(budget=16, max_batch=256, policy="block",
+                        flush_timeout_s=0.0005, compact_every=512,
+                        count_kernel=True, queue_size=64,
+                        flight_recorder_size=1 << 18, device=device)
+    ten = TenancyConfig(whale_threshold=CONTROL_WHALE, tenant_quota=4096)
+    w = CONTROL_WARM_EVENTS
+    replay_fleet(scores[:w], labels[:w], tids[:w], config=cfg, tenancy=ten,
+                 max_inflight=64, oracle_check=False)
+    out = {}
+    for mode, spec in (("uncontrolled", None), ("controlled", CONTROL_SPEC)):
+        flight = os.path.join(tmp, f"{mode}.jsonl")
+        before = count_launches(CONTROL_KEYS)
+        rec = replay_fleet(scores, labels, tids, config=cfg, tenancy=ten,
+                           max_inflight=64, slo_spec=CONTROL_SLO,
+                           controller_spec=spec, metrics_every_s=0.25,
+                           flight_out=flight)
+        launched = launched_since(before, keys=CONTROL_KEYS)
+        acts = [e for e in FlightRecorder.load_dump(flight)["events"]
+                if e["kind"] == "actuation"]
+        by_knob = {}
+        for e in acts:
+            key = f"{e['knob']}:{e['action']}"
+            by_knob[key] = by_knob.get(key, 0) + 1
+        # every admitted tenant's AUC equals its float32 oracle over its
+        # admitted events exactly, so its wins2 (2 n_pos n_neg AUC) does
+        assert rec["tenant_auc_max_abs_err"] == 0.0, rec.get(
+            "tenant_auc_max_abs_err")
+        assert rec["events_applied"] + rec["events_tenant_throttled"] == n
+        # launches count on the card only (the CPU runs plain versions)
+        assert device is not None or launched["tenant_count"] > 0, launched
+        out[mode] = dict(
+            events_per_s=rec["events_per_s"], wall_s=rec["wall_s"],
+            events_applied=rec["events_applied"],
+            typed_sheds=rec["events_tenant_throttled"],
+            hard_rejects=(rec["events_rejected"]
+                          + rec["events_tenant_rejected"]
+                          + rec["requests_dropped"]),
+            tenant_p99_max_ms=rec["tenant_insert_p99_max_ms"],
+            tenant_p99_median_ms=rec["tenant_insert_p99_median_ms"],
+            insert_p99_ms=rec["insert_latency_p99_ms"],
+            whale_promotions=rec["whale_promotions"],
+            slo_healthy=rec["slo"]["healthy"],
+            slo_breaches={k: o["breaches_total"]
+                          for k, o in rec["slo"]["objectives"].items()},
+            actuations=len(acts), actuations_by_knob=by_knob,
+            signals=all(has_signal(e["signal"]) for e in acts),
+            knobs=(rec["controller"]["knobs"] if "controller" in rec
+                   else None),
+            boosted_tenants=len(rec.get("controller", {}).get(
+                "boosted_weights", {})), launches=launched,
+            host_fraction=rec["host_tax"]["host_fraction"])
+        log(f"[control] (a) {mode:12s} n={n} T={FLEET_TENANTS} t0 x"
+            f"{CONTROL_FLASH} over the middle third: "
+            f"{rec['events_per_s']:.0f} events/s, {len(acts)} actuations "
+            f"{json.dumps(by_knob)}, typed sheds "
+            f"{rec['events_tenant_throttled']}, hard rejects "
+            f"{out[mode]['hard_rejects']}, tenant p99 worst "
+            f"{rec['tenant_insert_p99_max_ms']:.3f} ms median "
+            f"{rec['tenant_insert_p99_median_ms']:.3f} ms, "
+            f"{rec['whale_promotions']} promotions, SLO healthy "
+            f"{rec['slo']['healthy']} {json.dumps(out[mode]['slo_breaches'])}"
+            f", launches {json.dumps(launched)}")
+    ctl = out["controlled"]
+    assert ctl["actuations"] >= 1 and ctl["signals"], ctl
+    assert ctl["hard_rejects"] == 0, ctl
+    assert ctl["whale_promotions"] > 0, ctl
+    assert device is not None or ctl["launches"][
+        "signed_count[flat]"] > 0, ctl["launches"]
+    log("[control] (a) every tenant's AUC equal to its float32 oracle over "
+        "its admitted events in both runs; every actuation carries its "
+        "signal")
+    return out
+
+
+def control_mesh(tmp, device=None):
+    """Phase 28(b): a fleet engine at S = 2 on the card's worker axis
+    under the mesh knob (up to CONTROL_MESH_MAX workers), its SLO monitor
+    pumped every 8 chunks; every tenant's wins2 equals the same stream's
+    on one device."""
+    from tuplewise_tpu_torch import TenantFleetIndex
+    from tuplewise_tpu_torch.obs.slo import SloMonitor
+    from tuplewise_tpu_torch.serving import (
+        FleetController, MultiTenantEngine, ServingConfig, TenancyConfig,
+    )
+
+    n = CONTROL_MESH_EVENTS
+    scores, labels, tids = fleet_stream(n, FLEET_TENANTS)
+    chunks = fleet_chunks(scores, labels, tids, FLEET_CHUNK)
+    cfg = ServingConfig(budget=16, max_batch=1024, policy="block",
+                        flush_timeout_s=0.0005, compact_every=FLEET_COMPACT,
+                        count_kernel=True, queue_size=4096,
+                        mesh_shards=CONTROL_MESH_SHARDS, device=device)
+    before = count_launches(CONTROL_KEYS)
+    t0 = time.perf_counter()
+    with MultiTenantEngine(cfg, TenancyConfig(tenant_quota=4096)) as eng:
+        mon = SloMonitor(MESH_KNOB_SLO, registry=eng.metrics,
+                         flight=eng.flight, context=dataclasses.asdict(cfg))
+        ctl = FleetController(eng, {
+            "knobs": ["mesh"], "mesh_max_shards": CONTROL_MESH_MAX,
+            "mesh_up_ticks": 1, "cooldown_s": 0.0}).attach(mon)
+        for c, items in enumerate(chunks):
+            for f in [eng.insert(tid, s, lab) for tid, s, lab in items]:
+                f.result(120)
+            if c % 8 == 7:
+                mon.observe(eng.metrics.snapshot(), time.perf_counter())
+        eng.flush()
+        wall = time.perf_counter() - t0
+        wins = {t: eng.fleet.wins2(t) for t in eng.fleet.tenants()}
+        shards = eng.fleet.shards
+        resizes = [e for e in eng.flight.events()
+                   if e["kind"] == "mesh_resize"]
+        state = ctl.state()
+    launched = launched_since(before, keys=CONTROL_KEYS)
+    one = TenantFleetIndex(compact_every=FLEET_COMPACT, count_kernel=True,
+                           device=device)
+    for items in chunks:
+        one.apply_inserts(items)
+    assert wins == {t: one.wins2(t) for t in one.tenants()}
+    one.close()
+    assert resizes and shards == CONTROL_MESH_MAX, (resizes, shards)
+    assert device is not None or launched["tenant_count[mesh]"] > 0, \
+        launched
+    log(f"[control] (b) mesh knob: fleet engine n={n} T={FLEET_TENANTS} at "
+        f"S={CONTROL_MESH_SHARDS} -> {shards} ({len(resizes)} mesh_resize "
+        f"{json.dumps([(e['from_width'], e['to_width']) for e in resizes])})"
+        f", {n / wall:.0f} events/s, {launched['tenant_count[mesh]']} "
+        f"worker-axis launches of kernel 7; every tenant's wins2 equal to "
+        f"the single-device fleet's")
+    return dict(events_per_s=n / wall, shards=shards,
+                resizes=[(e["from_width"], e["to_width"]) for e in resizes],
+                knob=state["knobs"]["mesh"], launches=launched)
+
+
+def cli_process(args, device=None):
+    """A ``python -m tuplewise_tpu_torch.harness.cli`` process, started
+    (its start on the card overlaps this process's work)."""
+    env = dict(os.environ, PYTHONPATH=ROOT + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    extra = ["--device", device] if device else []
+    return subprocess.Popen(
+        [sys.executable, "-m", "tuplewise_tpu_torch.harness.cli"] + args
+        + extra, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        cwd=ROOT, env=env), time.perf_counter()
+
+
+def cli_finish(proc, timeout=300):
+    """(return code, the last stdout line as JSON or None, seconds from
+    start) of a cli_process."""
+    p, t = proc
+    out, err = p.communicate(timeout=timeout)
+    lines = out.strip().splitlines()
+    last = json.loads(lines[-1]) if lines else None
+    if p.returncode not in (0, -9):
+        log(f"[control] CLI process failed: {err[-2000:]}")
+    return p.returncode, last, time.perf_counter() - t
+
+
+def cli_main(args, device=None):
+    """(return code, last stdout line as JSON) of the CLI in-process."""
+    import contextlib
+    import io
+
+    from tuplewise_tpu_torch.harness.cli import main as cli
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli(args + (["--device", device] if device else []))
+    return rc, json.loads(buf.getvalue().strip().splitlines()[-1])
+
+
+def phase_control(device=None):
+    """Phase 28: the control plane and the CLI. (a) and (b) in this
+    process; (c) the CLI: the killed train and the replay whose artifacts
+    the doctor reads are processes started after (a) (their start on the
+    card overlaps (b), not (a)'s measured replays), the resumed train one
+    started once the killed one is dead, the rest in-process through
+    main([...])."""
+    out = {"part_s": {}}
+    with tempfile.TemporaryDirectory() as tmp:
+        def part(name, fn):
+            t = time.perf_counter()
+            sub = os.path.join(tmp, name)
+            os.makedirs(sub)
+            out[name] = fn(sub, device)
+            out["part_s"][name] = time.perf_counter() - t
+
+        part("a", control_fleet)
+        ck = os.path.join(tmp, "train.npz")
+        train = ["train", "--steps", "8"]
+        killed = cli_process(train + [
+            "--checkpoint", ck, "--checkpoint-every", "2",
+            "--chaos-spec", KILL_AT_2ND_CHECKPOINT], device)
+        rdir = os.path.join(tmp, "replay")
+        os.makedirs(rdir)
+        replayed = cli_process([
+            "replay", "--tenants", str(CONTROL_REPLAY_TENANTS),
+            "--n-events", str(CONTROL_REPLAY_EVENTS), "--count-kernel",
+            "--policy", "block", "--queue-size", "64", "--flush-timeout-ms",
+            "0.5", "--tenant-quota", "4096", "--flight-recorder-size",
+            str(1 << 17), "--slo-spec", json.dumps(CONTROL_SLO),
+            "--controller-spec", json.dumps(CONTROL_SPEC),
+            "--metrics-out", os.path.join(rdir, "metrics.jsonl"),
+            "--metrics-every", "0.25",
+            "--flight-out", os.path.join(rdir, "flight.jsonl")], device)
+        try:
+            part("b", control_mesh)
+            t = time.perf_counter()
+            rc, last, killed_s = cli_finish(killed)
+            assert rc == -9 and last is None and os.path.exists(ck), rc
+            resumed = cli_process(train + [
+                "--checkpoint", ck, "--checkpoint-every", "2", "--resume"],
+                device)
+            cli = {"killed_s": killed_s}
+            before = count_launches(CONTROL_KEYS)
+            n = str(CONTROL_VARIANCE_N)
+            _, var = cli_main(["variance", "--scheme", "complete", "--n-pos",
+                               n, "--n-neg", n, "--n-reps", "4"], device)
+            cli["variance"] = launched_since(before, keys=CONTROL_KEYS)
+            assert device is not None or cli["variance"][
+                "pair_sum[auc]"] > 0, cli
+            before = count_launches(CONTROL_KEYS)
+            _, trip = cli_main(["triplet", "--n", str(CONTROL_TRIPLET_N),
+                                "--n-pairs", "0"], device)
+            cli["triplet"] = launched_since(before, keys=CONTROL_KEYS)
+            key = "batched_masked_pair_sum[triplet_indicator]"
+            assert device is not None or cli["triplet"][key] > 0, cli
+            before = count_launches(CONTROL_KEYS)
+            _, straight = cli_main(list(train), device)
+            cli["train"] = launched_since(before, keys=CONTROL_KEYS)
+            assert device is not None or cli["train"][
+                "pair_loss_grad[hinge]"] > 0, cli
+            rc, res, cli["resumed_s"] = cli_finish(resumed)
+            assert rc == 0 and res["recovery"]["resumed_from"] > 0, res
+            assert res["params_sha256"] == straight["params_sha256"]
+            rc, rec, cli["replay_s"] = cli_finish(replayed)
+            assert rc == 0, rc
+            drc, verdict = cli_main(["doctor", "--dir", rdir, "--quiet"],
+                                    device)
+            assert verdict["actuations_attributed"] == verdict[
+                "actuations"], verdict
+            assert "unattributed_actuation" not in (verdict["detail"] or "")
+            out["part_s"]["c"] = time.perf_counter() - t
+        finally:
+            for p, _ in (killed, replayed):
+                if p.poll() is None:
+                    p.kill()
+                    p.wait(timeout=60)
+    out["c"] = dict(
+        cli, variance_mean=var["mean"], variance_auc_pop=var.get(
+            "population_value"), triplet_mean=trip["mean"],
+        params_sha256=straight["params_sha256"],
+        resumed_from=res["recovery"]["resumed_from"],
+        replay_events_per_s=rec["events_per_s"],
+        replay_actuations=rec["controller"]["actuations_total"],
+        doctor=verdict, doctor_rc=drc)
+    log(f"[control] (c) CLI: variance complete at n={CONTROL_VARIANCE_N} "
+        f"a class mean "
+        f"{var['mean']:.6f}; triplet n={CONTROL_TRIPLET_N} complete mean "
+        f"{trip['mean']:.6f}; train killed after its 2nd checkpoint "
+        f"(reaped {cli['killed_s']:.1f} s after its start), resumed from "
+        f"step "
+        f"{res['recovery']['resumed_from']} ({cli['resumed_s']:.1f} s): "
+        f"params_sha256 equal to the straight run's; replay of "
+        f"{CONTROL_REPLAY_TENANTS} tenants ({cli['replay_s']:.1f} s, "
+        f"{rec['events_per_s']:.0f} events/s, "
+        f"{rec['controller']['actuations_total']} actuations); doctor "
+        f"{json.dumps(verdict)} (exit {drc}); seconds by part "
+        f"{json.dumps({k: round(v, 1) for k, v in out['part_s'].items()})}")
+    return out
+
+
+def check_control_launches():
+    """Phase 28's launches (read after it, the counters set to 0 before
+    it): every kernel of CONTROL_KEYS must have launched."""
+    from tuplewise_tpu_torch.ops import pair_kernels as pk
+
+    launches = dict(pk.LAUNCHES)
+    log(f"[launches] control plane and CLI path {json.dumps(launches)}")
+    for key in CONTROL_KEYS:
+        assert launches.get(key, 0) > 0, f"{key} never launched"
+    return launches
+
+
 def phase_recovery(device=None):
     """Phase 27: crash-safe serving and its observability on the card.
     Returns the record, with the count kernels' launches of the
@@ -5408,9 +5797,24 @@ def main(argv=()):
         log(f"[phase] 27 recovery and tracing: {time.perf_counter() - t:.1f} s")
         print(json.dumps(out), flush=True)
         return 0
+    if list(argv) == ["--phase28"]:
+        # phase 28 alone, after the build: its record as one JSON line
+        from tuplewise_tpu_torch.ops import pair_kernels as pk
+
+        os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+        log(f"[card] {card_line()}")
+        phase_build()
+        pk.reset_launch_counts()
+        t = time.perf_counter()
+        out = phase_control()
+        log(f"[phase] 28 control plane and CLI: "
+            f"{time.perf_counter() - t:.1f} s")
+        out["launches_control"] = check_control_launches()
+        print(json.dumps(out), flush=True)
+        return 0
     if argv:
-        print(f"chip_smoke: unknown arguments {list(argv)} (none, or "
-              "--phase27)", file=sys.stderr)
+        print(f"chip_smoke: unknown arguments {list(argv)} (none, "
+              "--phase27 or --phase28)", file=sys.stderr)
         return 2
     from tuplewise_tpu_torch.ops import pair_kernels as pk
 
@@ -5579,6 +5983,12 @@ def main(argv=()):
         assert rec_launches[key] > 0, f"{key} never launched on recovery"
     for r in rows:
         r["launches_recovery"] = rec_launches.get(r["name"], 0)
+
+    pk.reset_launch_counts()
+    control = timed("28 control plane and CLI", phase_control)
+    control_launches = check_control_launches()
+    for r in rows:
+        r["launches_control"] = control_launches.get(r["name"], 0)
     log(f"[done] {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": rows, "train": train_rows,
                       "sim_learner_cell_s": sim_wall,
@@ -5586,6 +5996,7 @@ def main(argv=()):
                       "triplet_learner": learner, "designs": designs,
                       "mesh": mesh, "elastic": elastic,
                       "mesh_serving": mesh_serving, "recovery": recovery,
+                      "control": control,
                       "serving": {"index": index, "engine": engine,
                                   "streaming_estimator": streaming,
                                   "fleet": fleet,

@@ -367,8 +367,10 @@ class TestReplayFleet:
 
     def test_unported_options_raise(self, tmp_path):
         scores, labels, tenants = make_tenant_stream(10, 2)
-        # only the control plane is still unported
-        with pytest.raises(NotImplementedError, match="controller_spec"):
+        # every option is ported: the control plane rides the SLO
+        # monitor, and without one it raises the reference's error
+        with pytest.raises(ValueError, match="controller_spec needs "
+                                             "slo_spec"):
             replay_fleet(scores, labels, tenants,
                          config=ServingConfig(device="cpu"),
                          controller_spec={})
@@ -378,9 +380,13 @@ class TestReplayFleet:
                                       "metric": "insert_latency_s",
                                       "quantile": "p99",
                                       "threshold_ms": 1e6}]},
+            controller_spec={"knobs": ["shed"]},
             metrics_out=str(tmp_path / "m.jsonl"),
             flight_out=str(tmp_path / "f.jsonl"))
         assert rec["slo"]["healthy"] and rec["report"]["slo"]["healthy"]
+        assert rec["controller"]["knobs"] == {
+            "shed": {"level": 0, "used": 0, "budget": 64}}
+        assert rec["report"]["controller"]["actuations_total"] == 0
         assert rec["metrics_out"] == str(tmp_path / "m.jsonl")
         assert (tmp_path / "m.jsonl").exists()
         assert (tmp_path / "f.jsonl").exists()

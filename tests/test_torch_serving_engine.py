@@ -189,11 +189,20 @@ class TestRequestPath:
         with pytest.raises(TypeError, match="Tracer"):
             MicroBatchEngine(_cfg(), tracer=object())
         # slo_spec is ported (a malformed spec is refused by the spec
-        # parser); the control plane is not
+        # parser), and so is the control plane: it needs an SLO spec and
+        # refuses a malformed controller spec
         with pytest.raises(ValueError, match="objectives"):
             replay([0.0], [1], config=_cfg(), slo_spec={"x": 1})
-        with pytest.raises(NotImplementedError, match="controller_spec"):
+        with pytest.raises(ValueError, match="controller_spec needs"):
             replay([0.0], [1], config=_cfg(), controller_spec={})
+        slo = {"objectives": [{"name": "c", "type": "counter_max",
+                               "metric": "rejected_total", "max": 0}]}
+        with pytest.raises(ValueError, match="unknown controller spec"):
+            replay([0.0], [1], config=_cfg(), slo_spec=slo,
+                   controller_spec={"turbo": 1})
+        rec = replay([0.0, 1.0], [1, 0], config=_cfg(), slo_spec=slo,
+                     controller_spec={"knobs": ["flush"]})
+        assert rec["controller"]["enabled"]
         with pytest.raises(ValueError, match="engine"):
             ServingConfig(engine="jax")
 

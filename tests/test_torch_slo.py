@@ -1,5 +1,5 @@
-"""The port's SLO engine on the JAX package's cases (``tests/test_slo.py``,
-all but the doctor's default spec, whose doctor is not ported yet): spec
+"""The port's SLO engine on the JAX package's cases (``tests/test_slo.py``;
+the doctor's default spec is held in test_torch_doctor.py): spec
 parsing, objective evaluation, multi-window burn rates, breach
 transitions (flight events and gauges), label wildcards, reports."""
 
@@ -305,8 +305,8 @@ SAT_SPEC = {"objectives": [{"name": "queue_sat", "type": "saturation",
 
 class TestActuatorHook:
     """The actuator hook a control plane rides (the mirror of
-    ``tests/test_control.py::TestActuatorHook``; the controller itself is
-    not ported yet)."""
+    ``tests/test_control.py::TestActuatorHook``; the controller on it is
+    held in test_torch_control.py)."""
 
     def test_actuator_receives_objective_state(self):
         seen = []

@@ -7,6 +7,9 @@ estimator semantics live above it. The port's backends:
 * ``torch`` — single device, PyTorch with hand-written CUDA pair kernels.
 * ``mesh`` — a mesh of workers: the worker axis of one device, or one
   worker per ``torch.distributed`` rank (``parallel.mesh``).
+* ``numpy`` — the host oracle: serial, blockwise, float64 numpy.
+* ``cpp`` — the same oracle with its innermost pair reduction in the
+  compiled host C++ of ``native/pair_sum.cpp``.
 """
 
 from __future__ import annotations
@@ -26,6 +29,8 @@ def register_backend(name: str):
 _LAZY = {
     "torch": "tuplewise_tpu_torch.backends.torch_backend",
     "mesh": "tuplewise_tpu_torch.backends.mesh_backend",
+    "numpy": "tuplewise_tpu_torch.backends.numpy_backend",
+    "cpp": "tuplewise_tpu_torch.backends.cpp_backend",
 }
 
 

@@ -7,12 +7,16 @@ convention. Score-difference kernels ("auc", "hinge", "logistic") take
 do the triplet kernels ("triplet_indicator", "triplet_hinge"): A holds
 the anchors and positives (one class), B the negatives. Inputs may be
 numpy arrays, lists or tensors; they are moved to the backend's device
-as float32.
+as float32 (the host oracles take float64 numpy copies).
 
 It runs on the card unless ``device="cpu"`` is passed; with no card and
 no device it raises. ``backend="mesh"`` runs the schemes over a mesh of
 workers (``backends.mesh_backend``): ``n_workers`` sizes the worker
 axis when no ``mesh`` is given, and ``est.n_workers`` is the mesh size.
+``backend="numpy"`` and ``backend="cpp"`` are the host oracles (the
+serial blockwise numpy backend and its C++ pair loop); they ignore
+``device``. The default backend is ``"torch"``, where the JAX package's
+is ``"numpy"``.
 
 ``heal_retries`` > 0 runs every scheme call under the elastic
 heal-and-retry protocol (``parallel.self_heal.MeshHealer``): on the mesh
@@ -39,7 +43,8 @@ class Estimator:
 
     Args:
       kernel: kernel name or Kernel instance.
-      backend: "torch" (single device) or "mesh" (a mesh of workers).
+      backend: "torch" (single device), "mesh" (a mesh of workers),
+        "numpy" or "cpp" (the host oracles).
       device: None (the card) or an explicit torch device such as "cpu".
       n_workers: default number of simulated workers N; with "mesh", the
         mesh size (a conflicting mesh raises ValueError).
@@ -49,7 +54,8 @@ class Estimator:
       chaos: a ``testing.chaos.FaultInjector`` fired at the
         ``"estimator"`` hook before each scheme call (and consulted for
         the declared dead-worker topology during a heal).
-      **backend_opts: forwarded to the backend (impl, auc_fast; mesh).
+      **backend_opts: forwarded to the backend (impl, auc_fast; mesh;
+        block_size for the host oracles).
     """
 
     def __init__(self, kernel="auc", backend: str = "torch", device=None,
@@ -125,17 +131,17 @@ class Estimator:
         A = self.backend.to_device(A)
         B = None if B is None else self.backend.to_device(B)
         if k.kind == "diff":
-            if A.dim() == 2 and A.shape[1] == 1:
-                A = A[:, 0].contiguous()
-            if B is not None and B.dim() == 2 and B.shape[1] == 1:
-                B = B[:, 0].contiguous()
-            if A.dim() != 1 or (B is not None and B.dim() != 1):
+            if A.ndim == 2 and A.shape[1] == 1:
+                A = self.backend.to_device(A[:, 0])
+            if B is not None and B.ndim == 2 and B.shape[1] == 1:
+                B = self.backend.to_device(B[:, 0])
+            if A.ndim != 1 or (B is not None and B.ndim != 1):
                 shapes = [tuple(A.shape)] + ([] if B is None else [tuple(B.shape)])
                 raise ValueError(
                     f"kernel {k.name!r} operates on scalar scores; got "
                     f"shapes {shapes}. Apply a scorer first."
                 )
-        elif A.dim() != 2 or (B is not None and B.dim() != 2):
+        elif A.ndim != 2 or (B is not None and B.ndim != 2):
             what = (" (A: anchors and positives, B: negatives)"
                     if k.kind == "triplet" else "")
             raise ValueError(f"kernel {k.name!r} expects [n, d] features"

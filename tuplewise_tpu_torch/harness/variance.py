@@ -29,7 +29,9 @@ over [M * N, m] blocks (a complete statistic is one launch over [M, n]),
 and each draw (data, blocks, designs) is one batched call a block of 64
 reps. The other degree-3 schemes and the pair-feature kernels
 (``scatter``, every scheme) loop the public Estimator over numpy
-Gaussian clouds, rep by rep in rep order, as the JAX harness does.
+Gaussian clouds, rep by rep in rep order, as the JAX harness does; so
+do the host oracles (``backend="numpy"`` or ``"cpp"``) for every kernel
+and scheme, whose rows then equal the JAX harness's on the same backend.
 
 ``backend="mesh"`` runs every kernel kind and scheme on a mesh of
 ``n_workers`` workers through ``harness.mesh_mc.make_mesh_mc_runner``
@@ -78,7 +80,9 @@ from tuplewise_tpu_torch.utils.profiling import annotate, trace
 from tuplewise_tpu_torch.utils.rng import generator
 
 SCHEMES = ("complete", "local", "repartitioned", "incomplete")
-BACKENDS = ("torch", "mesh")
+BACKENDS = ("torch", "mesh", "numpy", "cpp")
+# the host oracles: the looped Estimator on the JAX harness's numpy clouds
+HOST_BACKENDS = ("numpy", "cpp")
 # reps a generator draws for at once (see the module docstring): a
 # constant, so that the reps' values do not depend on the run's size
 REP_BLOCK = 64
@@ -93,7 +97,7 @@ class VarianceConfig:
 
     kernel: str = "auc"
     scheme: str = "complete"          # complete | local | repartitioned | incomplete
-    backend: str = "torch"            # torch | mesh
+    backend: str = "torch"            # torch | mesh | numpy | cpp
     n_pos: int = 10_000
     n_neg: int = 10_000
     dim: int = 1                      # feature width of the triplet clouds
@@ -133,12 +137,14 @@ def _validate(cfg: VarianceConfig) -> None:
 
 
 def _looped(cfg: VarianceConfig) -> bool:
-    """Single-device pair-feature kernels (every scheme) and degree-3
-    schemes other than incomplete loop the Estimator."""
+    """The host oracles (every kernel and scheme), and on the single
+    device the pair-feature kernels (every scheme) and the degree-3
+    schemes other than incomplete, loop the Estimator."""
     kind = get_kernel(cfg.kernel).kind
-    return (cfg.backend == "torch"
-            and (kind == "pair"
-                 or (kind == "triplet" and cfg.scheme != "incomplete")))
+    return cfg.backend in HOST_BACKENDS or (
+        cfg.backend == "torch"
+        and (kind == "pair"
+             or (kind == "triplet" and cfg.scheme != "incomplete")))
 
 
 def _draw_data(cfg: VarianceConfig, g: torch.Generator, batch=()):
@@ -158,8 +164,15 @@ def fixed_dataset(cfg: VarianceConfig, device=None):
     runner's workers' rows for a mesh config), so a results audit
     computes exact conditional closed forms on the very dataset. torch's
     generators differ between the CPU and the card, so the device is part
-    of the dataset's identity."""
+    of the dataset's identity. The host oracles' dataset is the looped
+    Estimator's numpy clouds of rep 0 (``_estimate_once``)."""
     dev = resolve_device(device)
+    if cfg.backend in HOST_BACKENDS:
+        X, Y = make_gaussians(cfg.n_pos, cfg.n_neg, cfg.dim, cfg.separation,
+                              seed=cfg.seed * 1_000_003)
+        if get_kernel(cfg.kernel).kind == "diff":
+            return X[:, 0], Y[:, 0]
+        return X, Y
     if cfg.backend == "mesh":
         # the workers' shards laid end to end are the global rows
         rows = mesh_mc.worker_draws(cfg, make_mesh(cfg.n_workers, dev),
@@ -363,7 +376,8 @@ def run_variance_experiment(
             state["run"] = mesh_mc.make_mesh_mc_runner(cfg, mesh=m,
                                                        chaos=chaos)
         elif looped:
-            est = Estimator(cfg.kernel, device=dev, n_workers=cfg.n_workers)
+            est = Estimator(cfg.kernel, backend=cfg.backend, device=dev,
+                            n_workers=cfg.n_workers)
             state["run"] = lambda reps: np.asarray(
                 [_estimate_once(est, cfg, r) for r in reps])
         else:

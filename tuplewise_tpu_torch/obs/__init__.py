@@ -30,17 +30,31 @@
                               index.
 * ``report``                — the functions that build ``replay``'s
                               report.
+* ``doctor``                — post-hoc diagnosis of a run's artifacts
+                              (metrics, flight dump, spans): SLO, health,
+                              host-tax and kernel verdicts, fault and
+                              actuation attribution, one machine verdict
+                              line.
 """
 
 from tuplewise_tpu_torch.obs.flight import FlightRecorder
+from tuplewise_tpu_torch.obs.health import (
+    DriftDetector, EstimateHealth, shard_balance,
+)
+from tuplewise_tpu_torch.obs.ledger import WaveLedger, device_section
 from tuplewise_tpu_torch.obs.metrics_export import (
     MetricsFlusher, config_digest,
 )
 from tuplewise_tpu_torch.obs.prof import SamplingProfiler
+from tuplewise_tpu_torch.obs.report import (
+    host_tax_block, recovery_counters, service_report,
+)
 from tuplewise_tpu_torch.obs.slo import SloMonitor, SloSpec, evaluate_history
 from tuplewise_tpu_torch.obs.tracing import Span, Tracer
 
 __all__ = [
+    "DriftDetector",
+    "EstimateHealth",
     "FlightRecorder",
     "MetricsFlusher",
     "SamplingProfiler",
@@ -48,6 +62,12 @@ __all__ = [
     "SloSpec",
     "Span",
     "Tracer",
+    "WaveLedger",
     "config_digest",
+    "device_section",
     "evaluate_history",
+    "host_tax_block",
+    "recovery_counters",
+    "service_report",
+    "shard_balance",
 ]

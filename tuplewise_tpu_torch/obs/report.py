@@ -1,9 +1,9 @@
 """The functions that build the report of ``replay`` records.
 
-A copy of ``tuplewise_tpu.obs.report`` without the control-plane block
-(the controller is not ported yet): every input is the plain-dict
+A copy of ``tuplewise_tpu.obs.report``: every input is the plain-dict
 output of ``MetricsRegistry.snapshot()``, so the functions also work on
-a saved snapshot. A fleet's metrics add the ``tenancy`` block.
+a saved snapshot. A fleet's metrics add the ``tenancy`` block, a run
+with a ``serving.control.FleetController`` the ``controller`` block.
 """
 
 from __future__ import annotations
@@ -169,6 +169,18 @@ def service_report(metrics: dict, chaos=None, flight=None,
             "pack_stale_rows": _v(metrics, "pack_stale_rows"),
             "tenant_metric_collapsed": _v(metrics,
                                           "tenant_metric_collapsed"),
+        }
+    # the control-plane block, only when a FleetController ran (reports
+    # of runs without one keep their key set)
+    if "controller_actuations_total" in metrics:
+        report["controller"] = {
+            "actuations_total": _v(metrics, "controller_actuations_total"),
+            "reverts_total": _v(metrics, "controller_reverts_total"),
+            "tenant_throttled_total": _v(metrics, "tenant_throttled_total"),
+            "throttled_now": _v(metrics, "controller_throttled_tenants"),
+            "flush_scale": _v(metrics, "controller_flush_scale"),
+            "max_batch": _v(metrics, "controller_max_batch"),
+            "mesh_level": _v(metrics, "controller_mesh_level"),
         }
     if chaos is not None:
         report["chaos"] = chaos.snapshot()

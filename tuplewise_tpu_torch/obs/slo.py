@@ -517,3 +517,18 @@ def evaluate_history(spec, rows: List[dict], registry=None,
             mon.observe_row(row)
     return mon.report()
 
+
+# the spec applied when a doctor run is given no SLO spec: the invariants
+# every serving config shares. Terminal failures must not happen, and the
+# process must not be shedding load wholesale. Latency is
+# config-dependent, so the default judges none.
+DEFAULT_DOCTOR_SPEC = {"objectives": [
+    {"name": "no_heal_exhaustion", "type": "counter_max",
+     "metric": "heal_exhausted_total", "max": 0},
+    {"name": "availability", "type": "error_rate",
+     "errors": ["rejected_total", "dropped_total",
+                "deadline_expired_total"],
+     "total": "requests_insert_total", "objective": 0.99,
+     "windows": [{"window_s": 1.0, "burn": 10.0},
+                 {"window_s": 10.0, "burn": 5.0}]},
+]}

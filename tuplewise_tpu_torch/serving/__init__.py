@@ -39,10 +39,20 @@ service.
                              (``RecoveryManager``; the fleet's
                              ``tenancy.FleetRecoveryManager``), behind
                              ``ServingConfig.snapshot_dir`` / ``recover``.
-
-The control plane is not ported yet.
+* ``control.FleetController`` — the control plane: rides the SLO
+                             monitor's signals and actuates the engines'
+                             existing knobs (typed per-tenant throttles,
+                             the flush window and micro-batch cap, DRR
+                             weights, the mesh width, slope-based whale
+                             promotion), each actuation flight-evented
+                             with its triggering signal.
 """
 
+from tuplewise_tpu_torch.serving.control import (
+    ControllerConfig,
+    ControllerSpecError,
+    FleetController,
+)
 from tuplewise_tpu_torch.serving.engine import (
     BackpressureError,
     DeadlineExceededError,
@@ -67,9 +77,12 @@ from tuplewise_tpu_torch.serving.tenancy import (
 
 __all__ = [
     "BackpressureError",
+    "ControllerConfig",
+    "ControllerSpecError",
     "DeadlineExceededError",
     "EngineClosedError",
     "ExactAucIndex",
+    "FleetController",
     "MicroBatchEngine",
     "MultiTenantEngine",
     "PoisonEventError",

@@ -15,7 +15,8 @@ live metrics export (``metrics_out`` / ``metrics_every_s``), SLO
 verdicts (``slo_spec``), the flight dump (``flight_out``); of ``replay``
 also a ``torch.profiler`` trace (``profile_dir``) and the sampling
 profiler (``prof`` / ``prof_out``). The control plane
-(``controller_spec``) is not ported yet and raises.
+(``controller_spec``: a ``serving.control.FleetController`` on the SLO
+monitor's actuator hook) needs ``slo_spec``.
 """
 
 from __future__ import annotations
@@ -34,6 +35,7 @@ from tuplewise_tpu_torch.obs.prof import SamplingProfiler, export_profile
 from tuplewise_tpu_torch.obs.report import (
     recovery_counters, service_report, stage_attribution, stage_p99_ms,
 )
+from tuplewise_tpu_torch.serving.control import FleetController
 from tuplewise_tpu_torch.serving.engine import (
     BackpressureError, EngineClosedError, MicroBatchEngine,
     PoisonEventError, ServingConfig,
@@ -79,26 +81,29 @@ def make_tenant_stream(n_events: int, n_tenants: int, skew: float = 1.0,
     return scores, labels, tenants
 
 
-def _controller_unported(controller_spec) -> None:
-    if controller_spec is not None:
-        raise NotImplementedError(
-            "controller_spec: the control plane (serving/control.py) is "
-            "not ported to tuplewise_tpu_torch yet")
-
-
-def _slo_flusher(eng, cfg, slo_spec, metrics_out, metrics_every_s,
-                 stage: str):
-    """(SloMonitor or None, started MetricsFlusher or None) for an
-    engine: the monitor judges each flushed row; with an SLO spec and no
-    ``metrics_out`` the flusher is observer-only, its cadence kept under
-    a quarter of the shortest burn window."""
-    slo_monitor = None
+def _slo_flusher(eng, cfg, slo_spec, controller_spec, metrics_out,
+                 metrics_every_s, stage: str):
+    """(SloMonitor or None, FleetController or None, started
+    MetricsFlusher or None) for an engine: the monitor judges each
+    flushed row and the controller acts on its signals; with an SLO spec
+    and no ``metrics_out`` the flusher is observer-only, its cadence kept
+    under a quarter of the shortest burn window."""
+    slo_monitor = controller = None
     if slo_spec is not None:
         slo_monitor = SloMonitor(slo_spec, registry=eng.metrics,
                                  flight=eng.flight,
                                  context=dataclasses.asdict(cfg))
+    if controller_spec is not None:
+        # the single-tenant engine gets the flush knob; the tenant and
+        # mesh knobs need the fleet
+        if slo_monitor is None:
+            raise ValueError(
+                "controller_spec needs slo_spec: the controller rides the "
+                "SLO monitor's signals")
+        controller = FleetController(eng, controller_spec).attach(
+            slo_monitor)
     if not metrics_out and slo_monitor is None:
-        return None, None
+        return None, None, None
     every = metrics_every_s
     if slo_monitor is not None:
         short = slo_monitor.spec.shortest_window_s
@@ -109,7 +114,7 @@ def _slo_flusher(eng, cfg, slo_spec, metrics_out, metrics_every_s,
         meta={"stage": stage}, config=cfg,
         observers=([slo_monitor.observe_row]
                    if slo_monitor is not None else ())).start()
-    return slo_monitor, flusher
+    return slo_monitor, controller, flusher
 
 
 def _injector(chaos):
@@ -169,10 +174,12 @@ def replay(scores, labels, config: Optional[ServingConfig] = None,
     carries ``prof_samples`` / ``prof_overhead_fraction``.
     ``slo_spec``: anything ``obs.slo.SloSpec.from_spec`` takes; an
     ``SloMonitor`` rides the metrics flusher and the record carries its
-    verdicts as ``slo``. ``controller_spec`` (the control plane) is not
-    ported yet and raises ``NotImplementedError``.
+    verdicts as ``slo``. ``controller_spec``: anything
+    ``serving.control.ControllerConfig.from_spec`` takes; a
+    ``FleetController`` rides the SLO monitor (``slo_spec`` is required,
+    ValueError without it) and the record carries its ``controller``
+    state.
     """
-    _controller_unported(controller_spec)
     scores = np.asarray(scores, dtype=np.float64).ravel()
     labels = np.asarray(labels).ravel().astype(bool)
     n = len(scores)
@@ -189,8 +196,9 @@ def replay(scores, labels, config: Optional[ServingConfig] = None,
     admitted = np.ones(n, dtype=bool)
     futures = []
     with MicroBatchEngine(cfg, chaos=injector, tracer=tracer) as eng:
-        slo_monitor, flusher = _slo_flusher(
-            eng, cfg, slo_spec, metrics_out, metrics_every_s, "replay")
+        slo_monitor, controller, flusher = _slo_flusher(
+            eng, cfg, slo_spec, controller_spec, metrics_out,
+            metrics_every_s, "replay")
         profiler = None
         if prof is not None and prof is not False or prof_out:
             profiler = (prof if isinstance(prof, SamplingProfiler)
@@ -323,6 +331,8 @@ def replay(scores, labels, config: Optional[ServingConfig] = None,
         rec["prof_throttles"] = profiler.throttles
     if slo_monitor is not None:
         rec["slo"] = slo_monitor.report()
+    if controller is not None:
+        rec["controller"] = controller.state()
     if trace_out and tracer is not None:
         if trace_out.endswith(".jsonl"):
             tracer.export_jsonl(trace_out)
@@ -381,14 +391,15 @@ def replay_fleet(scores, labels, tenants,
     :func:`replay` (wildcard objectives such as
     ``insert_latency_s{tenant=*}`` give the ``slo`` block a per-tenant
     breakdown); ``flight_out`` dumps the engine's flight recorder after
-    the run. ``controller_spec`` is not ported yet and raises.
+    the run. ``controller_spec``: as in :func:`replay`; its throttles
+    (``events_tenant_throttled``) are left out of the oracle like any
+    other shed.
     """
     from tuplewise_tpu_torch.serving.tenancy import (
         MultiTenantEngine, TenancyConfig, TenantRejectedError,
         TenantThrottledError,
     )
 
-    _controller_unported(controller_spec)
     scores = np.asarray(scores, dtype=np.float64).ravel()
     labels = np.asarray(labels).ravel().astype(bool)
     tenants = np.asarray(tenants).ravel()
@@ -407,9 +418,9 @@ def replay_fleet(scores, labels, tenants,
     rejected = poison_rejected = tenant_rejected = tenant_throttled = 0
     futures = []
     with MultiTenantEngine(cfg, ten_cfg, chaos=injector) as eng:
-        slo_monitor, flusher = _slo_flusher(
-            eng, cfg, slo_spec, metrics_out, metrics_every_s,
-            "replay_fleet")
+        slo_monitor, controller, flusher = _slo_flusher(
+            eng, cfg, slo_spec, controller_spec, metrics_out,
+            metrics_every_s, "replay_fleet")
         t0 = time.perf_counter()
         i = 0
         while i < n:
@@ -538,6 +549,8 @@ def replay_fleet(scores, labels, tenants,
     rec["host_tax"] = rec["report"]["host_tax"]
     if slo_monitor is not None:
         rec["slo"] = slo_monitor.report()
+    if controller is not None:
+        rec["controller"] = controller.state()
     if metrics_out:
         rec["metrics_out"] = metrics_out
     if injector is not None:

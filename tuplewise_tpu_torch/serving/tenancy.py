@@ -1605,6 +1605,10 @@ class MultiTenantEngine:
                     raise EngineClosedError(
                         "engine closed while blocked on queue capacity "
                         f"(tenant={tenant})", tenant=tenant)
+                # the batcher may have drained and retired the tenant's
+                # queue while we waited: a request appended to that
+                # retired deque would never be dispatched
+                dq = self._pending.get(tenant)
             if dq is None:
                 dq = self._pending[tenant] = collections.deque()
                 self._rotation.append(tenant)

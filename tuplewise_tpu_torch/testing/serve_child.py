@@ -1,10 +1,12 @@
 """A line-protocol serving child process for the port's crash tests.
 
-The port has no CLI yet, so the SIGKILL tests and ``chip_smoke.py``
-start this program in a subprocess (``python -c "from
-tuplewise_tpu_torch.testing.serve_child import main; main(spec)"``): it
-builds the port's engine from a JSON spec and reads JSON lines from
-stdin, one reply line each, in order:
+The serving SIGKILL tests and ``chip_smoke.py`` start this program in a
+subprocess (``python -c "from tuplewise_tpu_torch.testing.serve_child
+import main; main(spec)"``) rather than ``tuplewise-torch serve``: it
+takes every ``ServingConfig`` field from one JSON spec, replies with the
+count applied and never writes an exit summary. It builds the port's
+engine from the spec and reads JSON lines from stdin, one reply line
+each, in order:
 
 * ``{"op": "insert", "score": s, "label": b[, "tenant": t]}`` (a score
   and a label, or lists of them) -> ``{"ok": true, "n": events}`` once

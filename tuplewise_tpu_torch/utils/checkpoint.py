@@ -138,6 +138,17 @@ def iter_chunks(start: int, total: int, every: Optional[int]):
         m += c
 
 
+def prepare_resume(path: Optional[str], resume: bool) -> None:
+    """The CLI's ``--resume`` discipline: without ``--resume`` an existing
+    checkpoint file is removed (a fresh run), so a stale file from an
+    earlier experiment never turns a new run into a continuation. With
+    ``--resume`` the file is left for :func:`resume_progress` (which
+    still validates the stored config). Library callers keep
+    auto-resume by not calling this."""
+    if path and not resume and os.path.exists(path):
+        os.unlink(path)
+
+
 def params_digest(params: Dict[str, Any]) -> str:
     """Order-independent SHA-256 of a params dict — the cheap
     bit-identity witness the preemption smoke and resume tests compare
