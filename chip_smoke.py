@@ -7,8 +7,8 @@ NVIDIA H100:
     python3 chip_smoke.py
 
 (``python3 chip_smoke.py --phase27`` builds the kernels and runs phase 27
-alone, printing its record as one JSON line; ``--phase28`` does the same
-for phase 28.) It builds the CUDA kernels from tuplewise_tpu_torch/csrc
+alone, printing its record as one JSON line; ``--phase28`` and
+``--phase29`` do the same for phases 28 and 29.) It builds the CUDA kernels from tuplewise_tpu_torch/csrc
 with nvcc (one nvcc per source, all started together), then runs the
 phases below. Each phase asserts what it checks, and nothing is caught:
 any failure exits nonzero. Each phase prints its seconds.
@@ -27,6 +27,8 @@ any failure exits nonzero. Each phase prints its seconds.
    of csrc/rank_count.cu; the masked one sums {0, 1} weights and halves
    exactly in float64, csrc/rank_count.cu too). hinge and logistic must agree
    within rel 1e-5: both sum float32 values, in different orders. Then
+   W = 100000 problems of 40 x 40, past the grid's 65535: two launches a
+   call (each counted), masked and not, every body as plain. Then
    every body on edge-case scores (+-inf, NaN of both signs, +-0.0,
    subnormals, heavy ties) from 1 x 1 to W = 3 x 9000 x 70000: auc
    kernel equal to plain; hinge and logistic NaN where plain is NaN, inf
@@ -401,6 +403,21 @@ any failure exits nonzero. Each phase prints its seconds.
    doctor over its directory: every actuation attributed. The killed
    train and the replay start after (a), so that their start on the card
    overlaps (b) and not (a)'s measured replays.
+29. The experiment drivers (scripts_torch/), run in this process into a
+   temporary directory, right after phase 2 (torch.profiler has missed
+   the ctypes kernels late in the script, and (d) must see them): (a)
+   northstar --stages 1e6 at full size (n = 5e5 a class, M = 200: the
+   complete, local, repartitioned T in 1..16 and incomplete B in
+   1e3..1e7 rows); (b) stat_check over (a)'s rows: PASS (quick rows are
+   left out of the audit); (c) config_suite --quick with every config,
+   no error row, config 1's estimates equal across numpy, torch and cpp;
+   (d) learning_suite --quick --stages chip,trace, whose digest
+   (trace_summary.py) must name the hinge gradient's kernel. The launch
+   counters are set to 0 before each part and read after it: kernel 1's
+   auc in (a), kernel 3 or 4's
+   hinge in (c) and (d), kernel 5's indicator in (c); the kernels line's
+   rows gain launches_suites, and a suites block holds each part's
+   seconds and rows.
 
 The launch counters are set to 0 before phase 3 and read after phase 4,
 set to 0 again before phase 7 and read after it, before phase 12 and
@@ -412,7 +429,8 @@ it (less the references' own launches), and before phase 26 and after
 its drives (before its timing), and before phase 27 and after it (the
 recovered engines' own launches, read around their work), and before
 phase 28 and after it (each part's launches read around it; the CLI's
-processes are not counted): every
+processes are not counted), and before each of phase 29's parts and
+after it: every
 kernel must have been launched on
 its path (pair sums on the estimator's, gradient kernels on
 the trainer's, the triplet kernel on the degree-3 estimator's and on the
@@ -431,7 +449,10 @@ single-device twins in lockstep, their flat forms; on the recovery path
 kernel 6 flat and over the worker axis and kernel 7, after every
 recovery; on the control path kernel 7 under the controller, kernel 6 on
 a promoted whale, kernel 7 over the worker axis under the mesh knob, and
-kernels 1, 5 and 3 through the CLI's variance, triplet and train). The script
+kernels 1, 5 and 3 through the CLI's variance, triplet and train; on
+the drivers' path kernel 1's auc in northstar, kernel 3 or 4's hinge in
+config_suite and learning_suite and kernel 5's indicator in
+config_suite). The script
 prints one JSON line of kernels,
 the card's name and power limit as nvidia-smi reports them, and, last,
 {"ok": true, "device": {...}}. Without a CUDA device, or without the
@@ -663,11 +684,9 @@ def device_ms_by_kernel(fn, reps):
 
 
 def card_line():
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60)
-    return out.stdout.strip().splitlines()[0]
+    from tuplewise_tpu_torch.harness.drivers import card_of
+
+    return card_of(torch.device("cuda"))
 
 
 def phase_build():
@@ -900,6 +919,39 @@ def phase_kernel_vs_plain(errs):
                 errs[key] = max(errs.get(key, 0.0), err)
         log(f"[kernel vs plain] W={W} {n1}x{n2}: auc exact, hinge/logistic "
             f"within rel 1e-5")
+    # more problems than the grid's problem axis holds (northstar's local
+    # rounds at N = 12500 workers, 8 reps a chunk: W = 100000 of 40 x 40):
+    # the wrapper launches runs of at most 65535 problems, each counted
+    W, n = 100_000, 40
+    runs = -(-W // pk._MAX_GRID_YZ)
+    assert runs == 2, runs
+    a = torch.randn(W, n, generator=g, device="cuda") + 1.0
+    b = torch.randn(W, n, generator=g, device="cuda")
+    a[:, :7] = b[:, :7]                            # exact ties
+    ma = (torch.rand(W, n, generator=g, device="cuda") > 0.3).float()
+    mb = (torch.rand(W, n, generator=g, device="cuda") > 0.3).float()
+    for name in NAMES:
+        k = get_kernel(name)
+        for wrapper, call, count in [
+                ("pair_sum",
+                 lambda impl=None: pk.pair_sum(a, b, k, impl=impl),
+                 float(n * n)),
+                ("masked_pair_sum",
+                 lambda impl=None: pk.masked_pair_sum(a, b, ma, mb, k,
+                                                      impl=impl),
+                 ma.sum(1, dtype=torch.float64)
+                 * mb.sum(1, dtype=torch.float64))]:
+            key = f"{wrapper}[{name}]"
+            before = pk.LAUNCHES[key]
+            got = call()
+            assert pk.LAUNCHES[key] - before == runs, (
+                key, pk.LAUNCHES[key] - before)
+            err = check_against_plain(name, got, call("plain"), count,
+                                      (wrapper, "split", W, n, n))
+            errs[key] = max(errs.get(key, 0.0), err)
+    log(f"[kernel vs plain] W={W} {n}x{n} (past the grid's "
+        f"{pk._MAX_GRID_YZ} problems): {runs} launches a call, pair_sum "
+        f"and masked_pair_sum as plain for {', '.join(NAMES)}")
     # the auc body's edge cases: equal infinities score 0 (their
     # difference is NaN), NaN scores 0 against anything, -0.0 ties +0.0
     auc = get_kernel("auc")
@@ -5777,6 +5829,124 @@ def phase_recovery(device=None):
     return out
 
 
+# --------------------------------------------------------------------- #
+# the experiment drivers (scripts_torch/)                                #
+# --------------------------------------------------------------------- #
+
+# the launches phase 29 asserts, by part: kernel 1's auc in northstar's
+# rows, kernel 3 or 4's hinge in config_suite (configs 2 and 2b) and in
+# learning_suite (chip, trace), kernel 5's indicator in config 4's grid
+DRIVER_KEYS = {"a": (("pair_sum[auc]",),),
+               "c": (("pair_grad_sums[hinge]", "pair_loss_grad[hinge]"),
+                     ("batched_masked_pair_sum[triplet_indicator]",)),
+               "d": (("pair_grad_sums[hinge]", "pair_loss_grad[hinge]"),)}
+
+
+def load_driver(name):
+    """scripts_torch/<name>.py as a module (the drivers are scripts, not
+    a package)."""
+    import importlib.util
+
+    path = os.path.join(ROOT, "scripts_torch", f"{name}.py")
+    spec = importlib.util.spec_from_file_location(f"_driver_{name}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def driver_main(name, argv, results):
+    """A driver's main(argv, results=...) in this process, its report on
+    stdout kept out of this script's output; its return code."""
+    import contextlib
+    import io
+
+    with contextlib.redirect_stdout(io.StringIO()):
+        return load_driver(name).main(argv, results=results)
+
+
+def rows_of(path):
+    with open(path) as f:
+        return [json.loads(x) for x in f if x.strip()]
+
+
+def phase_drivers(device=None):
+    """Phase 29: the experiment drivers into a temporary directory. The
+    launch counters are set to 0 before each part and read after it,
+    and checked against DRIVER_KEYS (on the card)."""
+    from tuplewise_tpu_torch.ops import pair_kernels as pk
+
+    dev = ["--device", device] if device else []
+    out = {"part_s": {}, "launches": {}}
+    with tempfile.TemporaryDirectory() as tmp:
+        def part(name, driver, argv):
+            pk.reset_launch_counts()
+            t = time.perf_counter()
+            rc = driver_main(driver, argv + dev, tmp)
+            out["part_s"][name] = time.perf_counter() - t
+            launched = {k: v for k, v in pk.LAUNCHES.items() if v}
+            out["launches"][name] = launched
+            assert rc == 0, f"{driver} {argv} returned {rc}"
+            for keys in DRIVER_KEYS.get(name, ()) if device is None else ():
+                assert any(launched.get(k, 0) > 0 for k in keys), (
+                    f"({name}) {driver}: none of {keys} launched")
+
+        part("a", "northstar", ["--stages", "1e6"])
+        a_rows = [r for f in ("variance_n1e6", "rounds_n1e6", "pairs_n1e6")
+                  for r in rows_of(os.path.join(tmp, f + ".jsonl"))]
+        assert len(a_rows) == 12, len(a_rows)
+        for r in a_rows:
+            assert r["config"]["backend"] == "torch" and r["n_reps"] == 200
+            assert r["config"]["n_pos"] == 500_000, r["config"]
+            assert abs(r["mean"] - r["population_value"]) < 5 * r[
+                "std_error"], r
+        part("b", "stat_check", [])
+        with open(os.path.join(tmp, "stat_check.txt")) as f:
+            report = f.read()
+        header = report.splitlines()[0]
+        assert header.endswith("PASS") and "(12 rows)" in header, header
+        part("c", "config_suite", ["--quick"])
+        c_rows = rows_of(os.path.join(tmp, "configs_quick.jsonl"))
+        assert sorted(str(r["config"]) for r in c_rows) == [
+            "1", "2", "2b", "3", "4", "5"], c_rows
+        assert not [r for r in c_rows if "error" in r], c_rows
+        est = next(r for r in c_rows if r["config"] == 1)["estimates"]
+        assert est["torch"] == est["numpy"] and len(est) >= 2, est
+        part("d", "learning_suite", ["--quick", "--stages", "chip,trace"])
+        d_rows = rows_of(os.path.join(
+            tmp, "learning_throughput_chip_quick.jsonl"))
+        assert len(d_rows) == 6, d_rows
+        with open(os.path.join(
+                tmp, "trace_train_chip_summary_quick.txt")) as f:
+            digest = f.read()
+    out["a"] = [dict(scheme=r["config"]["scheme"],
+                     T=r["config"]["n_rounds"], B=r["config"]["n_pairs"],
+                     mean=r["mean"], variance=r["variance"],
+                     wallclock_s=r["wallclock_s"]) for r in a_rows]
+    out["b"] = header
+    out["c"] = {str(r["config"]): {k: r[k] for k in (
+        "pairs_per_s", "steps_per_s", "grad_pairs_per_s",
+        "seconds_per_estimate", "complete_triplets_per_s",
+        "pairs_per_s_per_chip", "estimates") if k in r} for r in c_rows}
+    out["d"] = {"steps_per_s": {r["label"]: r["steps_per_s"]
+                                for r in d_rows},
+                "digest": digest.splitlines()[1:6]}
+    total = {}
+    for launched in out["launches"].values():
+        for k, v in launched.items():
+            total[k] = total.get(k, 0) + v
+    out["launches_total"] = total
+    log(f"[drivers] (a) northstar 1e6 at full size: "
+        f"{len(a_rows)} rows, wall-clock by row "
+        f"{[round(r['wallclock_s'], 3) for r in a_rows]} s; (b) {header}; "
+        f"(c) config_suite --quick {json.dumps(out['c'])}; (d) "
+        f"learning_suite chip,trace steps/s "
+        f"{json.dumps(out['d']['steps_per_s'])}, digest "
+        f"{json.dumps(out['d']['digest'])}; seconds by part "
+        f"{json.dumps({k: round(v, 1) for k, v in out['part_s'].items()})}; "
+        f"launches by part {json.dumps(out['launches'])}")
+    return out
+
+
 def main(argv=()):
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -5812,9 +5982,20 @@ def main(argv=()):
         out["launches_control"] = check_control_launches()
         print(json.dumps(out), flush=True)
         return 0
+    if list(argv) == ["--phase29"]:
+        # phase 29 alone, after the build: its record as one JSON line
+        os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+        log(f"[card] {card_line()}")
+        phase_build()
+        t = time.perf_counter()
+        out = phase_drivers()
+        log(f"[phase] 29 experiment drivers: "
+            f"{time.perf_counter() - t:.1f} s")
+        print(json.dumps(out), flush=True)
+        return 0
     if argv:
         print(f"chip_smoke: unknown arguments {list(argv)} (none, "
-              "--phase27 or --phase28)", file=sys.stderr)
+              "--phase27, --phase28 or --phase29)", file=sys.stderr)
         return 2
     from tuplewise_tpu_torch.ops import pair_kernels as pk
 
@@ -5838,6 +6019,9 @@ def main(argv=()):
     sass = timed("1 build", phase_build)
     errs = {}
     timed("2 kernel vs plain", phase_kernel_vs_plain, errs)
+    # phase 29 early: torch.profiler has missed the ctypes kernels late in
+    # the script, and its trace stage must see them
+    drivers = timed("29 experiment drivers", phase_drivers)
 
     pk.reset_launch_counts()
     by_phase = {}
@@ -5989,6 +6173,7 @@ def main(argv=()):
     control_launches = check_control_launches()
     for r in rows:
         r["launches_control"] = control_launches.get(r["name"], 0)
+        r["launches_suites"] = drivers["launches_total"].get(r["name"], 0)
     log(f"[done] {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": rows, "train": train_rows,
                       "sim_learner_cell_s": sim_wall,
@@ -5996,7 +6181,7 @@ def main(argv=()):
                       "triplet_learner": learner, "designs": designs,
                       "mesh": mesh, "elastic": elastic,
                       "mesh_serving": mesh_serving, "recovery": recovery,
-                      "control": control,
+                      "control": control, "suites": drivers,
                       "serving": {"index": index, "engine": engine,
                                   "streaming_estimator": streaming,
                                   "fleet": fleet,

@@ -146,15 +146,14 @@ def test_swr_matches_legacy_sampler():
 
 @pytest.mark.parametrize("design", ["swr", "swor", "bernoulli"])
 def test_per_row_generators_repeat_each_row(design):
-    """The harness draws its reps' designs in blocks of 64 rows, one
-    generator a block: a rep's estimate is the same bit for bit whatever
-    chunk asks for it (across a block boundary, inside a block, alone),
-    pair and triplet grids."""
+    """The harness draws each rep's design from the rep's own generator:
+    a rep's estimate is the same bit for bit whatever chunk asks for it
+    (with its neighbours, in the middle of the run, alone), pair and
+    triplet grids."""
     from tuplewise_tpu_torch.harness.variance import (
-        REP_BLOCK, VarianceConfig, batched_estimates,
+        VarianceConfig, batched_estimates,
     )
 
-    assert REP_BLOCK == 64
     for kernel, n1, n2 in (("auc", 30, 40), ("triplet_indicator", 12, 9)):
         cfg = VarianceConfig(kernel=kernel, scheme="incomplete", n_pos=n1,
                              n_neg=n2, dim=2, n_pairs=300, design=design,
@@ -163,6 +162,41 @@ def test_per_row_generators_repeat_each_row(design):
         for lo, hi in ((60, 70), (3, 4), (64, 66)):
             part = batched_estimates(cfg, "cpu", range(lo, hi))
             assert torch.equal(part, full[lo:hi]), (kernel, lo, hi)
+
+
+@pytest.mark.parametrize("scheme", ["complete", "repartitioned",
+                                    "incomplete"])
+def test_a_chunk_draws_only_its_own_reps(monkeypatch, scheme):
+    """A chunk of reps derives the generators of its reps and of no
+    other rep, and draws from each only one rep's rows (so the chunk
+    size bounds the draws' memory and time)."""
+    from tuplewise_tpu_torch.harness import variance
+
+    seen, real = [], variance.generator
+
+    def spy(seed, purpose, *idx, **kw):
+        seen.append((purpose, *idx))
+        return real(seed, purpose, *idx, **kw)
+
+    real_draw = variance._draw_data
+    sizes = []
+
+    def draw_spy(cfg, g, batch=()):
+        sizes.append(batch)
+        return real_draw(cfg, g, batch)
+
+    monkeypatch.setattr(variance, "generator", spy)
+    monkeypatch.setattr(variance, "_draw_data", draw_spy)
+    cfg = variance.VarianceConfig(scheme=scheme, n_pos=40, n_neg=30,
+                                  n_workers=4, n_rounds=3, n_pairs=50,
+                                  n_reps=200, seed=5)
+    part = variance.batched_estimates(cfg, "cpu", range(70, 73))
+    assert seen == [("mc_rep", r) for r in (70, 71, 72)]
+    assert sizes == [(1,)] * 3
+    monkeypatch.setattr(variance, "generator", real)
+    for r in (70, 71, 72):
+        alone = variance.batched_estimates(cfg, "cpu", range(r, r + 1))
+        assert torch.equal(alone, part[r - 70:r - 69])
 
 
 def test_rejects_unknown_and_oversized():

@@ -1,6 +1,7 @@
-"""The port stands alone: no module of tuplewise_tpu_torch and nothing in
-chip_smoke.py imports jax or the JAX package, and the entry points do
-not fall back to the CPU where there is no card."""
+"""The port stands alone: no module of tuplewise_tpu_torch, no driver in
+scripts_torch/ and nothing in chip_smoke.py imports jax or the JAX
+package, and the entry points do not fall back to the CPU where there is
+no card."""
 
 import ast
 import pathlib
@@ -14,7 +15,8 @@ FORBIDDEN = ("jax", "jaxlib", "tuplewise_tpu")
 
 def _sources():
     files = sorted((ROOT / "tuplewise_tpu_torch").rglob("*.py"))
-    return files + [ROOT / "chip_smoke.py"]
+    drivers = sorted((ROOT / "scripts_torch").glob("*.py"))
+    return files + drivers + [ROOT / "chip_smoke.py"]
 
 
 def _imports(path):

@@ -46,14 +46,7 @@ from tuplewise_tpu_torch.harness.variance import (
     tradeoff_vs_workers,
     write_jsonl,
 )
-from tuplewise_tpu_torch.utils.device import resolve_device
-
-
-def _add_device_flag(p: argparse.ArgumentParser) -> None:
-    p.add_argument("--device", type=str, default=None,
-                   help="torch device to run on (default: the CUDA card; "
-                        "without one, pass --device cpu to run the plain "
-                        "versions on the CPU)")
+from tuplewise_tpu_torch.utils.device import add_device_flag, resolve_device
 
 
 def _add_robustness_flags(p: argparse.ArgumentParser) -> None:
@@ -621,7 +614,7 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument("--out", type=str, default=None)
 
     for p in sub.choices.values():
-        _add_device_flag(p)
+        add_device_flag(p)
     return ap
 
 

@@ -9,9 +9,10 @@ by the mesh backend's own shard-level code.
   cap), its padding rows zeroed and masked, which is
   ``parallel.device_partition.pack_layout``'s layout. On a distributed
   mesh each rank makes only its own workers' rows: no data crosses the
-  host. Reps are drawn in blocks of ``REP_BLOCK`` = 64, as the
-  single-device harness draws them: rep r is row r % 64 of block r // 64,
-  so a retried or checkpointed chunk regenerates the same data. A block
+  host. Reps are drawn in blocks of ``REP_BLOCK`` = 64: rep r is
+  row r % 64 of block r // 64, so a retried or checkpointed chunk
+  regenerates the same data (and a chunk draws every block it touches
+  whole). A block
   holds 2 x 64 x N x cap float32 values on the mesh: 5.12 GB at config 5
   (n = 10^7 a class, N = 8).
 * **complete** runs the ring (``MeshBackend.complete_stats``): kernel 1
@@ -48,7 +49,7 @@ from tuplewise_tpu_torch.parallel.device_partition import pack_layout
 from tuplewise_tpu_torch.parallel.mesh import make_mesh
 from tuplewise_tpu_torch.utils.rng import generator
 
-# reps a generator draws for at once: harness.variance.REP_BLOCK
+# reps a worker's generator draws for at once
 REP_BLOCK = 64
 
 

@@ -7,15 +7,13 @@ beside the closed form — the measurement behind the paper's
 variance-vs-communication curves (``tradeoff_vs_rounds``,
 ``tradeoff_vs_pairs``, ``tradeoff_vs_workers``).
 
-Reps are drawn in blocks of ``REP_BLOCK`` (64): every draw of block k
-(its reps' data, then their tuples or the partitions of rounds 0, 1,
-...) is one batched call on the generator of (seed, "mc_rep", k), and
-rep r is row r % 64 of its block. A chunk of reps draws the blocks it
-touches whole and keeps its rows, so estimates depend only on the
-absolute rep index, and a run cut into chunks, with a checkpoint between
-them, repeats the straight run (bit for bit wherever the batched sums are
-exact, as the AUC's are). A run of a multiple of 64 reps draws exactly
-what it uses; any other draws up to 63 rows of randomness it discards.
+Rep r draws from its own generator, (seed, "mc_rep", r): its data, then
+its tuples or the partitions of rounds 0, 1, ..., each one call. A chunk
+of reps draws its own reps and nothing else, so ``checkpoint_every``
+bounds both the draws' memory and their time, estimates depend only on
+the absolute rep index, and a run cut into chunks, with a checkpoint
+between them, repeats the straight run (bit for bit wherever the batched
+sums are exact, as the AUC's are).
 ``fix_data=True`` freezes ONE dataset, drawn from (seed, "data_fixed"),
 and Monte-Carlos over the sampling randomness only: the CONDITIONAL
 variance Var(U~ | data), where the swor/bernoulli finite-population
@@ -25,9 +23,8 @@ of the tuple grid).
 The M reps are a batch axis, not a loop, for the score-difference
 kernels (all four schemes) and the degree-3 incomplete estimator: each
 local round of all reps and all workers is ONE batched pair-kernel launch
-over [M * N, m] blocks (a complete statistic is one launch over [M, n]),
-and each draw (data, blocks, designs) is one batched call a block of 64
-reps. The other degree-3 schemes and the pair-feature kernels
+over [M * N, m] blocks (a complete statistic is one launch over [M, n]);
+the draws (data, blocks, designs) are one call a rep. The other degree-3 schemes and the pair-feature kernels
 (``scatter``, every scheme) loop the public Estimator over numpy
 Gaussian clouds, rep by rep in rep order, as the JAX harness does; so
 do the host oracles (``backend="numpy"`` or ``"cpp"``) for every kernel
@@ -83,9 +80,6 @@ SCHEMES = ("complete", "local", "repartitioned", "incomplete")
 BACKENDS = ("torch", "mesh", "numpy", "cpp")
 # the host oracles: the looped Estimator on the JAX harness's numpy clouds
 HOST_BACKENDS = ("numpy", "cpp")
-# reps a generator draws for at once (see the module docstring): a
-# constant, so that the reps' values do not depend on the run's size
-REP_BLOCK = 64
 # the closed form's plug-in zetas come from one Gaussian sample of at most
 # this many rows a class (the float64 moments cost n1 * n2 on the CPU)
 _ZETA_N = 10_000
@@ -201,27 +195,24 @@ def batched_estimates(cfg: VarianceConfig, device=None,
     kernel = get_kernel(cfg.kernel)
     reps = range(cfg.n_reps) if reps is None else reps
     M, n1, n2, N = len(reps), cfg.n_pos, cfg.n_neg, cfg.n_workers
-    B, first = REP_BLOCK, reps.start // REP_BLOCK
-    # every chunk that touches block k draws it whole: the chain is
-    # shared by design, so the key audit does not record it
-    gens = [generator(cfg.seed, "mc_rep", k, device=dev, record=False)
-            for k in range(first, -(-reps.stop // B))]
-    rows = slice(reps.start - first * B, reps.stop - first * B)
+    # a retried chunk derives its reps' chains again, so the key audit
+    # does not record them
+    gens = [generator(cfg.seed, "mc_rep", r, device=dev, record=False)
+            for r in reps]
 
     def draw(fn):
-        """fn(g) -> a tensor or tuple of tensors [B, ...] for each block's
-        generator; the chunk's rows of the blocks' draws."""
+        """fn(g) -> a tensor or tuple of tensors [1, ...] for each rep's
+        generator; the reps' draws stacked [M, ...]."""
         outs = [fn(g) for g in gens]
         if not isinstance(outs[0], tuple):
             outs = [(o,) for o in outs]
-        cat = [x[0] if len(gens) == 1 else torch.cat(x) for x in zip(*outs)]
-        return tuple(x[rows] for x in cat)
+        return tuple(x[0] if M == 1 else torch.cat(x) for x in zip(*outs))
 
     if cfg.fix_data:
         X, Y = _draw_data(cfg, generator(cfg.seed, "data_fixed", device=dev))
         s1, s2 = X.expand(M, *X.shape), Y.expand(M, *Y.shape)
     else:
-        s1, s2 = draw(lambda g: _draw_data(cfg, g, (B,)))
+        s1, s2 = draw(lambda g: _draw_data(cfg, g, (1,)))
 
     if cfg.scheme == "incomplete":
         # floor_one: estimation semantics (bernoulli's size is >= 1)
@@ -229,20 +220,20 @@ def batched_estimates(cfg: VarianceConfig, device=None,
             i, j, k, w = draw(
                 lambda g: device_design.draw_triplet_design_device(
                     g, n1, n2, cfg.n_pairs, cfg.design, floor_one=True,
-                    batch=(B,)))
+                    batch=(1,)))
             vals = kernel.triplet_values(_rows(s1, i), _rows(s1, j),
                                          _rows(s2, k))
         else:
             i, j, w = draw(lambda g: device_design.draw_pair_design_device(
                 g, n1, n2, cfg.n_pairs, cfg.design, floor_one=True,
-                batch=(B,)))
+                batch=(1,)))
             vals = kernel.diff(s1.gather(1, i) - s2.gather(1, j))
         return device_design.weighted_mean(vals, w)
 
     def local_round():
         i1, i2 = draw(lambda g: (
-            draw_blocks(g, n1, N, cfg.partition_scheme, batch=(B,)),
-            draw_blocks(g, n2, N, cfg.partition_scheme, batch=(B,))))
+            draw_blocks(g, n1, N, cfg.partition_scheme, batch=(1,)),
+            draw_blocks(g, n2, N, cfg.partition_scheme, batch=(1,))))
         m1, m2 = i1.shape[-1], i2.shape[-1]
         b1 = torch.gather(s1, 1, i1.reshape(M, N * m1)).reshape(M * N, m1)
         b2 = torch.gather(s2, 1, i2.reshape(M, N * m2)).reshape(M * N, m2)

@@ -202,6 +202,14 @@ def _launch(name, a, b, ma, mb, kernel: Kernel,
     if n1 == 0 or n2 == 0 or W == 0:
         out = torch.zeros(W, dtype=torch.float64, device=a.device)
         return out[0] if squeeze else out
+    if W > _MAX_GRID_YZ:
+        # more problems than the grid's problem axis holds (a local round
+        # of many small blocks): launches of at most _MAX_GRID_YZ
+        # problems, each counted
+        return torch.cat([
+            _launch(name, *(None if t is None else t[i:i + _MAX_GRID_YZ]
+                            for t in (a, b, ma, mb)), kernel, branches)
+            for i in range(0, W, _MAX_GRID_YZ)])
     if kernel.cuda_body in (AUC_BODY, HINGE_BODY):
         # sort-and-count: an exact int64 2 * wins + ties a problem (auc),
         # sort-and-search with float64 suffix sums (hinge); masked, the

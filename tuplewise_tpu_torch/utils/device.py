@@ -7,6 +7,8 @@ on the CPU.
 
 from __future__ import annotations
 
+import argparse
+
 import torch
 
 
@@ -19,3 +21,12 @@ def resolve_device(device=None) -> torch.device:
             )
         return torch.device("cuda")
     return torch.device(device)
+
+
+def add_device_flag(p: argparse.ArgumentParser) -> None:
+    """The ``--device`` option of the port's command lines (the CLI's
+    subcommands, the experiment drivers)."""
+    p.add_argument("--device", type=str, default=None,
+                   help="torch device to run on (default: the CUDA card; "
+                        "without one, pass --device cpu to run the plain "
+                        "versions on the CPU)")

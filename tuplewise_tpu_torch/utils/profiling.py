@@ -19,6 +19,7 @@ The counterpart of ``tuplewise_tpu.utils.profiling``:
                      take optional ``labels``: a small tag dict rendered
                      into the registry key (``name{k=v}``) and carried in
                      the snapshot.
+* ``device_memory_stats()`` the cards' allocator statistics.
 """
 
 from __future__ import annotations
@@ -361,3 +362,19 @@ class MetricsRegistry:
         with self._lock:
             items = list(self._metrics.items())
         return {name: m.snapshot() for name, m in items}
+
+
+def device_memory_stats() -> dict:
+    """{device_str: memory_stats dict} for each visible card that reports
+    its allocator's statistics (``torch.cuda.memory_stats``); {} where no
+    card does."""
+    import torch
+
+    out = {}
+    if not torch.cuda.is_available():
+        return out
+    for i in range(torch.cuda.device_count()):
+        stats = torch.cuda.memory_stats(i)
+        if stats:
+            out[str(torch.device("cuda", i))] = dict(stats)
+    return out

@@ -39,8 +39,8 @@ PURPOSES = (
     "pair_sample",
     "triplet_sample",
     # the incomplete estimator's distinct designs ("design"); the harness
-    # draws rep block k from (seed, "mc_rep", k) and a fix_data run its
-    # one frozen dataset from (seed, "data_fixed")
+    # draws rep r from (seed, "mc_rep", r) and a fix_data run its one
+    # frozen dataset from (seed, "data_fixed")
     "design",
     "data_fixed",
     # the mesh's within-shard incomplete draws: the random packing and
@@ -58,8 +58,8 @@ def derive_seed(seed: int, purpose: str, *indices,
     w)).
 
     ``record=False`` leaves the chain out of an ``audit_keys`` scope: for
-    a chain that several consumers share by design, each taking rows of
-    its draws that no other takes (the harness's rep blocks, which every
+    a chain that is derived again by design (the harness's reps, which a
+    retried chunk draws again; the mesh runner's rep blocks, which every
     chunk of a run cut mid-block draws whole)."""
     if purpose not in PURPOSES:
         raise ValueError(f"unknown purpose {purpose!r}; known: {PURPOSES}")
