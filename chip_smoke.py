@@ -7,8 +7,8 @@ NVIDIA H100:
     python3 chip_smoke.py
 
 (``python3 chip_smoke.py --phase27`` builds the kernels and runs phase 27
-alone, printing its record as one JSON line; ``--phase28`` and
-``--phase29`` do the same for phases 28 and 29.) It builds the CUDA kernels from tuplewise_tpu_torch/csrc
+alone, printing its record as one JSON line; ``--phase28``, ``--phase29``
+and ``--phase30`` do the same for phases 28, 29 and 30.) It builds the CUDA kernels from tuplewise_tpu_torch/csrc
 with nvcc (one nvcc per source, all started together), then runs the
 phases below. Each phase asserts what it checks, and nothing is caught:
 any failure exits nonzero. Each phase prints its seconds.
@@ -214,7 +214,8 @@ any failure exits nonzero. Each phase prints its seconds.
    reference's jnp.searchsorted route does; the kernel and the JAX
    Pallas kernel count 0 there).
 21. Fleet index main path at the headline: TenantFleetIndex fed
-   make_tenant_stream(10^6, 1024, skew 1.1, seed 0) in float32,
+   make_tenant_stream(2.5e5, 1024, skew 1.1, seed 0) in float32 (a
+   quarter of phase 20's 10^6-event stream, to leave phase 30 room),
    compact_every 128, chunks of 256 events coalesced per tenant (as
    bench.py's fleet leg), count_kernel on and off driven in lockstep,
    each warmed once on a 65536-event prefix: the touched tenants' wins2
@@ -232,7 +233,7 @@ any failure exits nonzero. Each phase prints its seconds.
 22. Fleet engine through replay_fleet (bench.py _multi_tenant_cell's
    knobs: budget 16, max_batch 256, policy block, flush 0.5 ms,
    compact_every 512, max_inflight 64, warmup) with count_kernel on at
-   T = 1024, skew 1.1, 300000 events: tenant_auc_max_abs_err 0, every
+   T = 1024, skew 1.1, 75000 events: tenant_auc_max_abs_err 0, every
    event applied, kernel 7 launched. Events/s, latency p50/p99, the
    worst and median tenant p99, and the host-tax split.
 23. The distinct sampling designs (ops.device_design) on their paths at
@@ -418,6 +419,24 @@ any failure exits nonzero. Each phase prints its seconds.
    hinge in (c) and (d), kernel 5's indicator in (c); the kernels line's
    rows gain launches_suites, and a suites block holds each part's
    seconds and rows.
+30. The acceptance smokes (scripts_torch/), run in this process into a
+   temporary directory, at the JAX package's own sizes and with the
+   arguments its scripts/ci.sh gives them: streaming_smoke (plain, then
+   --mesh-shards 2 --delta-fraction 0.25 --n-events 6000 --count-kernel:
+   kernel 6 over the worker axis, wins2 equal at every step),
+   multitenant_smoke --count-kernel (kernel 7 over the worker axis),
+   chaos_smoke (the shard death always scheduled: reshard_events > 0),
+   obs_smoke, controller_smoke (the controlled fleet healthy, its twin
+   breached), preemption_smoke (its CLI children on the card, uncounted;
+   the resumed runs equal the straight ones bit for bit), mesh8_cpu (the
+   13 configs on the card's worker axis: kernels 1, 2 and 5), then the
+   doctor (harness/cli.py doctor) over obs_smoke's metrics, flight and
+   span files (healthy, faults == faults_resolved >= 4), then
+   perf_gate --mode fail over results/torch/serving.jsonl (no gateable
+   rows there yet: its verdict logged as it is). The launch counters are
+   set to 0 before each part and read after it (SMOKE_KEYS); the kernels
+   line's rows gain launches_smokes, and a smokes block holds each part's
+   seconds and record.
 
 The launch counters are set to 0 before phase 3 and read after phase 4,
 set to 0 again before phase 7 and read after it, before phase 12 and
@@ -429,8 +448,8 @@ it (less the references' own launches), and before phase 26 and after
 its drives (before its timing), and before phase 27 and after it (the
 recovered engines' own launches, read around their work), and before
 phase 28 and after it (each part's launches read around it; the CLI's
-processes are not counted), and before each of phase 29's parts and
-after it: every
+processes are not counted), and before each of phase 29's and phase
+30's parts and after it: every
 kernel must have been launched on
 its path (pair sums on the estimator's, gradient kernels on
 the trainer's, the triplet kernel on the degree-3 estimator's and on the
@@ -452,7 +471,9 @@ a promoted whale, kernel 7 over the worker axis under the mesh knob, and
 kernels 1, 5 and 3 through the CLI's variance, triplet and train; on
 the drivers' path kernel 1's auc in northstar, kernel 3 or 4's hinge in
 config_suite and learning_suite and kernel 5's indicator in
-config_suite). The script
+config_suite; on the smokes' path kernel 6 over the worker axis in the
+sharded streaming smoke, kernel 7 over it in the multi-tenant smoke and
+kernels 1, 2 and 5 in mesh8_cpu). The script
 prints one JSON line of kernels,
 the card's name and power limit as nvidia-smi reports them, and, last,
 {"ok": true, "device": {...}}. Without a CUDA device, or without the
@@ -564,7 +585,12 @@ COUNT_BASE, COUNT_Q = 500_000, 512
 FLEET_EVENTS, FLEET_TENANTS, FLEET_SKEW = 1_000_000, 1024, 1.1
 FLEET_CHUNK, FLEET_COMPACT, FLEET_WARM_EVENTS = 256, 128, 1 << 16
 INCR_EVENTS, INCR_TENANTS, INCR_WHALE, INCR_WINDOW = 40_000, 256, 1500, 2048
-FLEET_ENGINE_EVENTS = 300_000
+# the depth of phases 21 and 22, a quarter of their 10^6 and 300000
+# events, to leave phase 30 room in the time limit (a full run took 1103 s
+# on an H100 80GB HBM3 at 700 W with them halved); phase 20's packs keep
+# the 10^6-event stream
+FLEET_INDEX_EVENTS = 250_000
+FLEET_ENGINE_EVENTS = 75_000
 # config 5 (BASELINE.json): cross-shard all-pairs on 8 shards at n = 10^7;
 # the ragged shape pads every shard
 MESH_WORKERS, MESH_N = 8, 10 ** 7
@@ -3273,7 +3299,7 @@ def phase_fleet():
     from tuplewise_tpu_torch.ops import pair_kernels as pk
     from tuplewise_tpu_torch.parallel import sharded_counts as sc
 
-    n = FLEET_EVENTS
+    n = FLEET_INDEX_EVENTS
     scores, labels, tids = fleet_stream(n, FLEET_TENANTS)
     chunks = fleet_chunks(scores, labels, tids, FLEET_CHUNK)
     warm = FLEET_WARM_EVENTS // FLEET_CHUNK
@@ -5947,6 +5973,189 @@ def phase_drivers(device=None):
     return out
 
 
+# --------------------------------------------------------------------- #
+# the acceptance smokes (scripts_torch/)                                 #
+# --------------------------------------------------------------------- #
+
+# the launches phase 30 asserts on the card, by part: kernel 6 over the
+# worker axis in the sharded streaming smoke's count-kernel index, kernel
+# 7 over it in the multi-tenant smoke's count-kernel leg, and in mesh8_cpu
+# kernel 1 (the even 1-D and 2-D rings), kernel 2 (the ragged 2-D row)
+# and kernel 5 (the triplet double ring)
+SMOKE_KEYS = {"streaming_sharded": ("signed_count[mesh]",),
+              "multitenant": ("tenant_count[mesh]",),
+              "mesh8": ("pair_sum[auc]", "masked_pair_sum[auc]",
+                        "batched_masked_pair_sum[triplet_indicator]")}
+# the parts in order, each with the arguments the JAX package's
+# scripts/ci.sh gives its script
+SMOKE_PARTS = (
+    ("streaming", "streaming_smoke", []),
+    ("streaming_sharded", "streaming_smoke",
+     ["--mesh-shards", "2", "--delta-fraction", "0.25", "--n-events",
+      "6000", "--count-kernel"]),
+    ("multitenant", "multitenant_smoke", ["--count-kernel"]),
+    ("chaos", "chaos_smoke", []),
+    ("obs", "obs_smoke", []),
+    ("controller", "controller_smoke", []),
+    ("preemption", "preemption_smoke", []),
+    ("mesh8", "mesh8_cpu", []),
+)
+
+
+def quietly(fn, *args, **kw):
+    """fn(*args, **kw) with its stdout and stderr captured: (its return
+    value, stdout, stderr). On an exception the captured stderr is
+    printed before it propagates."""
+    import contextlib
+    import io
+
+    out, err = io.StringIO(), io.StringIO()
+    try:
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            ret = fn(*args, **kw)
+    except BaseException:
+        print(err.getvalue()[-6000:], file=sys.stderr, flush=True)
+        raise
+    return ret, out.getvalue(), err.getvalue()
+
+
+def smoke_record(name, tmp):
+    """A part's record from the rows its script wrote into tmp, with the
+    checks phase 30 adds to the script's own."""
+    if name == "streaming":
+        (r,) = rows_of(os.path.join(tmp, "serving_smoke.jsonl"))
+        return {k: r[k] for k in (
+            "events_per_s", "insert_latency_p50_ms", "insert_latency_p99_ms",
+            "compactions", "auc_abs_err", "card")}
+    if name == "streaming_sharded":
+        (r,) = rows_of(os.path.join(tmp, "serving_smoke_sharded.jsonl"))
+        assert r["count_kernel"]["calls"] >= 1, r["count_kernel"]
+        return {k: r[k] for k in (
+            "events_per_s", "insert_latency_p50_ms", "insert_latency_p99_ms",
+            "compactions", "major_merges", "bytes_per_compaction",
+            "auc_abs_err", "count_kernel")}
+    if name == "multitenant":
+        (r,) = rows_of(os.path.join(tmp, "multitenant_smoke.jsonl"))
+        assert r["count_kernel"]["kernel_calls"] >= 1, r["count_kernel"]
+        e = r["engine"]
+        return {"events_per_s": e["events_per_s"],
+                "insert_p99_ms": e["insert_p99_ms"],
+                "tenant_insert_p99_max_ms": e["tenant_insert_p99_max_ms"],
+                "fleet_count_calls": e["fleet_count_calls"],
+                "batches": e["batches"],
+                "count_kernel": r["count_kernel"],
+                "whale": {k: r["whale"][k] for k in (
+                    "promotions", "shipped_fraction_of_full")}}
+    if name == "chaos":
+        (r,) = rows_of(os.path.join(tmp, "chaos_smoke.jsonl"))
+        f = r["faults"]
+        assert f["reshard_events"] > 0, f
+        assert r["auc_exact"] == r["auc_fault_free"], r
+        return {"events_per_s": r["events_per_s"],
+                "insert_latency_p99_ms": r["insert_latency_p99_ms"],
+                "faults": {k: f[k] for k in (
+                    "reshard_events", "bg_compactor_restarts",
+                    "batcher_restarts", "poison_rejects")},
+                "auc_exact": r["auc_exact"]}
+    if name == "obs":
+        (r,) = rows_of(os.path.join(tmp, "obs_smoke.jsonl"))
+        assert r["slo_healthy"] and r["tail_exemplars"] >= 1, r
+        return {k: r[k] for k in (
+            "events_per_s", "insert_stage_p99_ms", "stage_coverage",
+            "trace_spans", "host_tax_coverage", "host_fraction",
+            "tail_exemplars", "prof_samples", "prof_overhead_fraction")}
+    if name == "controller":
+        (r,) = rows_of(os.path.join(tmp, "controller_smoke.jsonl"))
+        c, u = r["controlled"], r["uncontrolled"]
+        assert c["slo_healthy"] and not u["slo_healthy"], r
+        return {"controlled": {k: c[k] for k in (
+                    "slo_healthy", "tenant_throttled_total",
+                    "rejected_total", "actuations", "parity")},
+                "uncontrolled": {k: u[k] for k in (
+                    "slo_healthy", "rejected_total", "parity")},
+                "doctor": r["doctor"]}
+    if name == "preemption":
+        (r,) = rows_of(os.path.join(tmp, "preemption_smoke.jsonl"))
+        assert r["ok"] and r["pairwise_sgd"]["resumed_from"] > 0, r
+        return {k: r[k] for k in ("pairwise_sgd", "mesh_mc")}
+    if name == "mesh8":
+        one = rows_of(os.path.join(tmp, "mesh8_cpu.jsonl"))
+        two = rows_of(os.path.join(tmp, "mesh8_2d_cpu.jsonl"))
+        assert len(one) == 7 and len(two) == 6, (len(one), len(two))
+        for x in one:
+            assert abs(x["mean"] - x["population_value"]) < 5 * x[
+                "std_error"], x
+        return [dict(mesh=x.get("mesh", "w8"), kernel=x["config"]["kernel"],
+                     scheme=x["config"]["scheme"],
+                     T=x["config"]["n_rounds"], B=x["config"]["n_pairs"],
+                     n=[x["config"]["n_pos"], x["config"]["n_neg"]],
+                     mean=x["mean"], variance=x["variance"],
+                     wallclock_s=x["wallclock_s"]) for x in one + two]
+    raise KeyError(name)
+
+
+def phase_smokes(device=None):
+    """Phase 30: the acceptance smokes into a temporary directory, then
+    the doctor over obs_smoke's files, then perf_gate. The launch
+    counters are set to 0 before each part and read after it, and
+    checked against SMOKE_KEYS (on the card)."""
+    from tuplewise_tpu_torch.harness import cli
+    from tuplewise_tpu_torch.ops import pair_kernels as pk
+
+    dev = ["--device", device] if device else []
+    out = {"part_s": {}, "launches": {}, "records": {}}
+    with tempfile.TemporaryDirectory() as tmp:
+        def part(name, fn, *args, **kw):
+            pk.reset_launch_counts()
+            t = time.perf_counter()
+            rc, stdout, stderr = quietly(fn, *args, **kw)
+            out["part_s"][name] = time.perf_counter() - t
+            launched = {k: v for k, v in pk.LAUNCHES.items() if v}
+            out["launches"][name] = launched
+            if rc != 0:
+                print(stderr[-6000:], file=sys.stderr, flush=True)
+            assert rc == 0, f"({name}) returned {rc}"
+            for key in SMOKE_KEYS.get(name, ()) if device is None else ():
+                assert launched.get(key, 0) > 0, (
+                    f"({name}) {key} never launched: {launched}")
+            return stdout, stderr
+
+        for name, script, argv in SMOKE_PARTS:
+            _, stderr = part(name, load_driver(script).main, argv + dev,
+                             results=tmp)
+            out["records"][name] = smoke_record(name, tmp)
+            log(f"[smokes] {name}: {out['part_s'][name]:.1f} s, "
+                f"{stderr.strip().splitlines()[-1][:300]}")
+        stdout, _ = part("doctor", cli.main, [
+            "doctor", "--metrics", os.path.join(tmp, "metrics.jsonl"),
+            "--flight", os.path.join(tmp, "obs_flight.jsonl"),
+            "--spans", os.path.join(tmp, "obs_spans.jsonl"), "--quiet",
+            "--out", os.path.join(tmp, "doctor_report.json")] + dev)
+        verdict = json.loads(stdout.strip().splitlines()[-1])
+        assert verdict["healthy"], verdict
+        assert verdict["faults"] == verdict["faults_resolved"] >= 4, verdict
+        out["records"]["doctor"] = verdict
+        history = os.path.join(ROOT, "results", "torch", "serving.jsonl")
+        stdout, stderr = part("perf_gate", load_driver("perf_gate").main, [
+            "--mode", "fail", "--history", history,
+            "--out", os.path.join(tmp, "perf_gate.jsonl")])
+        out["records"]["perf_gate"] = (stdout.strip().splitlines()[-1]
+                                       if stdout.strip() else
+                                       stderr.strip().splitlines()[-1])
+    total = {}
+    for launched in out["launches"].values():
+        for k, v in launched.items():
+            total[k] = total.get(k, 0) + v
+    out["launches_total"] = total
+    log(f"[smokes] doctor {json.dumps(out['records']['doctor'])}; perf_gate "
+        f"{out['records']['perf_gate']}; records "
+        f"{json.dumps({k: v for k, v in out['records'].items() if k not in ('doctor', 'perf_gate')})}; "
+        f"seconds by part "
+        f"{json.dumps({k: round(v, 1) for k, v in out['part_s'].items()})}; "
+        f"launches by part {json.dumps(out['launches'])}")
+    return out
+
+
 def main(argv=()):
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -5993,9 +6202,21 @@ def main(argv=()):
             f"{time.perf_counter() - t:.1f} s")
         print(json.dumps(out), flush=True)
         return 0
+    if list(argv) == ["--phase30"]:
+        # phase 30 alone, after the build: its record as one JSON line
+        os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+        log(f"[card] {card_line()}")
+        phase_build()
+        t = time.perf_counter()
+        out = phase_smokes()
+        log(f"[phase] 30 acceptance smokes: "
+            f"{time.perf_counter() - t:.1f} s")
+        print(json.dumps(out), flush=True)
+        return 0
     if argv:
         print(f"chip_smoke: unknown arguments {list(argv)} (none, "
-              "--phase27, --phase28 or --phase29)", file=sys.stderr)
+              "--phase27, --phase28, --phase29 or --phase30)",
+              file=sys.stderr)
         return 2
     from tuplewise_tpu_torch.ops import pair_kernels as pk
 
@@ -6174,6 +6395,10 @@ def main(argv=()):
     for r in rows:
         r["launches_control"] = control_launches.get(r["name"], 0)
         r["launches_suites"] = drivers["launches_total"].get(r["name"], 0)
+
+    smokes = timed("30 acceptance smokes", phase_smokes)
+    for r in rows:
+        r["launches_smokes"] = smokes["launches_total"].get(r["name"], 0)
     log(f"[done] {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": rows, "train": train_rows,
                       "sim_learner_cell_s": sim_wall,
@@ -6182,6 +6407,7 @@ def main(argv=()):
                       "mesh": mesh, "elastic": elastic,
                       "mesh_serving": mesh_serving, "recovery": recovery,
                       "control": control, "suites": drivers,
+                      "smokes": smokes,
                       "serving": {"index": index, "engine": engine,
                                   "streaming_estimator": streaming,
                                   "fleet": fleet,

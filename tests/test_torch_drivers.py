@@ -16,6 +16,10 @@ from tuplewise_tpu.analysis.core import DEFAULT_GLOBS, ModuleSet
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 DRIVERS = ("config_suite", "learning_suite", "northstar", "stat_check")
+# the acceptance smokes and mesh8_cpu follow the drivers' rules; perf_gate
+# touches no device, so it only shares the default results directory
+SMOKES = ("chaos_smoke", "controller_smoke", "mesh8_cpu", "multitenant_smoke",
+          "obs_smoke", "preemption_smoke", "streaming_smoke")
 
 
 def _load(name):
@@ -37,7 +41,7 @@ def test_reference_gate_never_scans_the_drivers():
                    for g in DEFAULT_GLOBS)
 
 
-@pytest.mark.parametrize("name", DRIVERS)
+@pytest.mark.parametrize("name", DRIVERS + SMOKES)
 def test_without_a_card_each_driver_exits_2(name, tmp_path, monkeypatch):
     mod = _load(name)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -49,7 +53,7 @@ def test_without_a_card_each_driver_exits_2(name, tmp_path, monkeypatch):
     assert not os.listdir(tmp_path)
 
 
-@pytest.mark.parametrize("name", DRIVERS)
+@pytest.mark.parametrize("name", DRIVERS + SMOKES + ("perf_gate",))
 def test_default_results_directory_is_results_torch(name):
     assert _load(name).RESULTS == os.path.join(ROOT, "results", "torch")
 
