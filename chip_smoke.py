@@ -421,7 +421,13 @@ any failure exits nonzero. Each phase prints its seconds.
    seconds and rows.
 30. The acceptance smokes (scripts_torch/), run in this process into a
    temporary directory, at the JAX package's own sizes and with the
-   arguments its scripts/ci.sh gives them: streaming_smoke (plain, then
+   arguments its scripts/ci.sh gives them, in scripts_torch/ci.sh's
+   order: first the port's static-analysis gate (analysis_gate --no-cache
+   --jobs 1, its report, SARIF and hotpath certificate into the
+   directory; the phase fails on an unwaived finding, a stale waiver or a
+   certificate diff, and its verdict line is the part's record: the
+   certificates run under this machine's Python), then streaming_smoke
+   (plain, then
    --mesh-shards 2 --delta-fraction 0.25 --n-events 6000 --count-kernel:
    kernel 6 over the worker axis, wins2 equal at every step),
    multitenant_smoke --count-kernel (kernel 7 over the worker axis),
@@ -6095,10 +6101,11 @@ def smoke_record(name, tmp):
 
 
 def phase_smokes(device=None):
-    """Phase 30: the acceptance smokes into a temporary directory, then
-    the doctor over obs_smoke's files, then perf_gate. The launch
-    counters are set to 0 before each part and read after it, and
-    checked against SMOKE_KEYS (on the card)."""
+    """Phase 30: the port's static-analysis gate, then the acceptance
+    smokes into a temporary directory, then the doctor over obs_smoke's
+    files, then perf_gate. The launch counters are set to 0 before each
+    part and read after it, and checked against SMOKE_KEYS (on the
+    card)."""
     from tuplewise_tpu_torch.harness import cli
     from tuplewise_tpu_torch.ops import pair_kernels as pk
 
@@ -6120,6 +6127,22 @@ def phase_smokes(device=None):
                     f"({name}) {key} never launched: {launched}")
             return stdout, stderr
 
+        # the gate first, as in scripts_torch/ci.sh: host-only, serial
+        # (no fork of this process, which holds the card and threads)
+        stdout, stderr = part("analysis_gate", load_driver(
+            "analysis_gate").main, [
+                "--no-cache", "--jobs", "1",
+                "--out", os.path.join(tmp, "analysis_report.json"),
+                "--sarif", os.path.join(tmp, "analysis_report.sarif"),
+                "--hotpath-out", os.path.join(tmp,
+                                              "hotpath_certificate.json")])
+        gate = json.loads(stdout.strip().splitlines()[-1])
+        assert gate["ok"] and gate["unwaived"] == 0, gate
+        assert gate["unused_waivers"] == 0, gate
+        assert gate["certificate_ok"] and gate["hotpath_budget_ok"], gate
+        out["records"]["analysis_gate"] = gate
+        log(f"[smokes] analysis_gate: {out['part_s']['analysis_gate']:.1f} "
+            f"s, {stderr.strip().splitlines()[0][:300]}")
         for name, script, argv in SMOKE_PARTS:
             _, stderr = part(name, load_driver(script).main, argv + dev,
                              results=tmp)

@@ -16,17 +16,19 @@ tuplewise_tpu_torch.harness.cli``::
     tuplewise-torch replay --n-events 20000 --budget 64
     echo '{"op":"insert","score":1.2,"label":1}' | tuplewise-torch serve
     tuplewise-torch doctor --dir run/
+    tuplewise-torch check --strict
 
-Every subcommand runs on the card unless ``--device cpu`` (or another
-torch device) is given; with no card and no ``--device`` it exits with
-status 2 and says so, and never carries on on the CPU. ``--backend``
+Every subcommand but ``check`` runs on the card unless ``--device cpu``
+(or another torch device) is given; with no card and no ``--device`` it
+exits with status 2 and says so, and never carries on on the CPU. ``--backend``
 defaults to ``torch``. Each command prints JSON to stdout, its last line
 the JSON the reference's command prints, and can append JSONL via
 ``--out``. ``serve`` is the online service loop (JSONL request/response
 over stdin/stdout); ``replay`` is its benchmark twin
 (``serving/replay.py``); ``doctor`` diagnoses a run's artifacts
-(``obs/doctor.py``). The reference's ``check`` (the static analysis) has
-no counterpart yet.
+(``obs/doctor.py``); ``check`` runs the port's static analysis
+(``analysis/``, ``tuplewise-torch check --strict``) on the host, card or
+no card, and takes no ``--device``.
 """
 
 from __future__ import annotations
@@ -615,11 +617,57 @@ def _parser() -> argparse.ArgumentParser:
 
     for p in sub.choices.values():
         add_device_flag(p)
+
+    # host-only: the static analysis reads sources, so no --device
+    p = sub.add_parser(
+        "check",
+        help="static invariant checks of the port (analysis/): lock-order "
+             "and thread discipline, device-body purity, telemetry "
+             "cross-reference, compile-ladder discipline, config/CLI/doc "
+             "drift, import cycles, guard-inference race detection, "
+             "integer-exactness and the int32 overflow certificate, the "
+             "request path's host-cost certificate and the lifecycle "
+             "checks; findings suppressible only via the committed "
+             "tuplewise_tpu_torch/analysis/waivers.toml (DESIGN §17); "
+             "exit 0 = clean modulo waivers, 1 = unwaived findings",
+    )
+    p.add_argument("--root", type=str, default=None,
+                   help="repo root to analyze (default: the checkout this "
+                        "package was imported from)")
+    p.add_argument("--waivers", type=str, default=None,
+                   help="waiver file (default: tuplewise_tpu_torch/"
+                        "analysis/waivers.toml under the root)")
+    p.add_argument("--json", action="store_true",
+                   help="print the full JSON report instead of the human "
+                        "summary")
+    p.add_argument("--out", type=str, default=None,
+                   help="also write the JSON report here (the CI "
+                        "artifact)")
+    p.add_argument("--strict", action="store_true",
+                   help="stale waivers (matching nothing) fail the run "
+                        "instead of warning")
+    p.add_argument("--no-cache", action="store_true",
+                   help="disable the content-sha parse cache "
+                        "(.tuplewise_torch_check_cache/) and reparse every "
+                        "module")
+    p.add_argument("--diff", type=str, default=None, metavar="REF",
+                   help="restrict findings to files changed vs this git "
+                        "ref plus their reverse-dependency closure: the "
+                        "fast pre-commit loop (scripts_torch/pre-commit.sh)")
+    p.add_argument("--jobs", type=int, default=None,
+                   help="run the independent passes in N worker processes "
+                        "(default: auto, the cpu count, serial on <= 2 "
+                        "cores)")
     return ap
 
 
 def main(argv=None) -> int:
     args = _parser().parse_args(argv)
+    if args.cmd == "check":
+        # host-only: runs the same with or without a card
+        from tuplewise_tpu_torch.analysis.runner import main as check_main
+
+        return check_main(args)
     try:
         device = resolve_device(args.device)
     except RuntimeError:

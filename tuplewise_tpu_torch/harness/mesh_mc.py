@@ -64,7 +64,9 @@ def worker_draws(cfg, mesh, chain, batch: int):
     sizes = (cfg.n_pos,) if not kernel.two_sample else (cfg.n_pos,
                                                          cfg.n_neg)
     masks = [pack_layout(n, mesh)[0] for n in sizes]
-    workers = mesh.comm.worker_ids(mesh.device).tolist()
+    # the ids on the host: reading them back from the card would sync
+    # inside the body once a call
+    workers = mesh.comm.worker_ids("cpu").tolist()
     outs = [torch.empty((batch,) + m.shape + feat, device=mesh.device)
             for m in masks]
     for i, w in enumerate(workers):

@@ -1132,32 +1132,41 @@ class ExactAucIndex:
             with maybe_span(self.tracer, "compactor.place_base"):
                 base_dev, cap, shipped, mesh = self._place_healed(merged,
                                                                   prev)
-        with self._cv:
-            t0 = time.perf_counter()
-            side.base = merged
-            if self.shards is not None:
-                side.base_dev, side.cap = self._current(base_dev, cap, mesh,
-                                                        merged)
-                side.placed_base = merged if base_dev is not None else None
-                self._h_compaction_bytes.observe(shipped)
-            del side.buf[: side.snap_buf]
-            del side.tomb[: side.snap_tomb]
-            side.snap_buf = side.snap_tomb = 0
-            side.building = False
-            self.n_compactions += 1
-            self._c_compactions.inc()
-            self._update_gauges()
-            self._flight_event("compaction", tier="bg_merge",
-                               side=self._side_name(side),
-                               base_events=len(merged),
-                               bytes_shipped=shipped)
-            # the swap is the only pause the request path can observe
-            t1 = time.perf_counter()
-            self._h_pause.observe(t1 - t0)
-            if self.tracer is not None:
-                self.tracer.record_span("compactor.swap", t0, t1,
-                                        parent=bspan)
-            self._resubmit(side)
+        # a heal may replace the mesh while the placement runs (lock
+        # released): then place again, also with the lock released, until
+        # the placement is on the current mesh; the swap holds the lock
+        # and places nothing
+        while True:
+            with self._cv:
+                if base_dev is None or mesh is self._mesh:
+                    t0 = time.perf_counter()
+                    side.base = merged
+                    if self.shards is not None:
+                        side.base_dev, side.cap = base_dev, cap
+                        side.placed_base = (merged if base_dev is not None
+                                            else None)
+                        self._h_compaction_bytes.observe(shipped)
+                    del side.buf[: side.snap_buf]
+                    del side.tomb[: side.snap_tomb]
+                    side.snap_buf = side.snap_tomb = 0
+                    side.building = False
+                    self.n_compactions += 1
+                    self._c_compactions.inc()
+                    self._update_gauges()
+                    self._flight_event("compaction", tier="bg_merge",
+                                       side=self._side_name(side),
+                                       base_events=len(merged),
+                                       bytes_shipped=shipped)
+                    # the swap is the only pause the request path can
+                    # observe
+                    t1 = time.perf_counter()
+                    self._h_pause.observe(t1 - t0)
+                    if self.tracer is not None:
+                        self.tracer.record_span("compactor.swap", t0, t1,
+                                                parent=bspan)
+                    self._resubmit(side)
+                    return
+            base_dev, cap, _, mesh = self._place_healed(merged)
 
     def _resubmit(self, side: _ClassSide) -> None:
         """Keep draining if the buffer outgrew the threshold while a
@@ -1194,9 +1203,14 @@ class ExactAucIndex:
         if todo == "major":
             t0 = time.perf_counter()
             with maybe_span(self.tracer, "compactor.major_build"):
-                built = self._major_build(side)
-            with self._cv:
-                self._commit_major(side, built, t0, time.perf_counter())
+                merged, dev, cap, mesh = self._major_build(side)
+            while True:     # as in _bg_merge_build: no placement locked
+                with self._cv:
+                    if dev is None or mesh is self._mesh:
+                        self._commit_major(side, (merged, dev, cap, mesh),
+                                           t0, time.perf_counter())
+                        break
+                dev, cap, _, mesh = self._place_healed(merged)
         elif todo == "full":
             # tombstone overflow: base + delta minus the tombstone
             # multiset on the host, leaving the (unclaimed) buffer and
@@ -1207,22 +1221,26 @@ class ExactAucIndex:
             dev, cap, mesh = None, 0, None
             if len(merged):
                 dev, cap, _, mesh = self._place_healed(merged)
-            with self._cv:
-                t0 = time.perf_counter()
-                side.base = merged
-                side.base_dev, side.cap = self._current(dev, cap, mesh,
-                                                        merged)
-                side.placed_base = merged if dev is not None else None
-                side.clear_delta()
-                side.tomb_run = np.empty(0, dtype=self.dtype)
-                self._replace_tomb(side)    # clears the device mirror
-                self.n_compactions += 1
-                self._c_compactions.inc()
-                self._update_gauges()
-                self._flight_event("compaction", tier="full",
-                                   side=self._side_name(side),
-                                   base_events=len(merged))
-                self._h_pause.observe(time.perf_counter() - t0)
+            while True:     # as in _bg_merge_build: no placement locked
+                with self._cv:
+                    if dev is None or mesh is self._mesh:
+                        t0 = time.perf_counter()
+                        side.base = merged
+                        side.base_dev, side.cap = dev, cap
+                        side.placed_base = (merged if dev is not None
+                                            else None)
+                        side.clear_delta()
+                        side.tomb_run = np.empty(0, dtype=self.dtype)
+                        self._replace_tomb(side)    # clears the mirror
+                        self.n_compactions += 1
+                        self._c_compactions.inc()
+                        self._update_gauges()
+                        self._flight_event("compaction", tier="full",
+                                           side=self._side_name(side),
+                                           base_events=len(merged))
+                        self._h_pause.observe(time.perf_counter() - t0)
+                        break
+                dev, cap, _, mesh = self._place_healed(merged)
         with self._cv:
             side.building = False
             self._resubmit(side)
