@@ -303,9 +303,14 @@ any failure exits nonzero. Each phase prints its seconds.
    recovery_time_s. (c) The mesh triplet trainer at phase 14's
    gauss-overlap cell (seed 0, 300 steps, 10 evaluations through kernel
    5). (d) The harness on backend="mesh": config 1's four schemes (n =
-   10^4, M = 64) in CHI2_BAND; config 5's complete auc at n = 10^7 a
-   class, full and ragged, 4 reps (ms a rep, the 64-rep block's draw
-   timed apart; rep 0 equal to the mesh Estimator on its rows). (e)
+   10^4, M = 64) in CHI2_BAND; config 5's Monte-Carlo at n = 10^7 a
+   class, M = 64: complete full and ragged (10^7 + 3, 10^7 - 5), local,
+   repartitioned (T = 4) and swr incomplete (B = 10^4), each variance in
+   CHI2_BAND, each mean within 5 standard errors of the population value
+   (ms a rep, launches of kernels 1 and 2); rep 0 of the complete rows
+   equal to the mesh Estimator on its rows (a rep's draw timed); the full
+   row in chunks of 8 with a checkpoint equal to the straight run bit for
+   bit, its peak allocation above its start below 1.28 GB. (e)
    Config 5 through Estimator(heal_retries=2, chaos=...) on make_mesh(8,
    pool=12), a fault dropping worker 3 and one dropping nobody, each
    equal to the fault-free value with one retry; on make_mesh(8), with
@@ -4088,9 +4093,12 @@ def phase_elastic(data):
     with checkpoint_every=5, equal bit for bit to the fault-free run; (c)
     the mesh triplet trainer at phase 14's gauss-overlap cell (seed 0,
     300 steps, evaluations through kernel 5); (d) the harness on
-    backend="mesh": config 1's four schemes in CHI2_BAND, config 5's
-    complete auc at n = 10^7, full and ragged, 4 reps (a rep's value
-    equal to the mesh Estimator's on its rows); (e) config 5 through
+    backend="mesh": config 1's four schemes in CHI2_BAND; config 5 at n =
+    10^7 a class, M = 64: complete full and ragged, local, repartitioned
+    (T = 4) and swr incomplete (B = 10^4), each in CHI2_BAND and unbiased,
+    rep 0 of the complete rows equal to the mesh Estimator on its rows,
+    the full row in chunks of 8 equal to the straight run with its peak
+    memory below 1.28 GB; (e) config 5 through
     Estimator(heal_retries=2, chaos=...) on make_mesh(8, pool=12): a
     fault dropping worker 3 and one dropping nobody, each equal to the
     fault-free value, then HealExhaustedError on make_mesh(8); (f) a
@@ -4257,17 +4265,45 @@ def phase_elastic(data):
         log(f"[elastic] harness mesh {scheme:13s} M=64 n=10^4 N={N}: mean "
             f"{r['mean']:.6f} var/closed form {ratio:.3f} "
             f"({r['wallclock_s'] * 1e3:.1f} ms)")
-    for label, (n1, n2) in (("full", (MESH_N, MESH_N)),
-                            ("ragged", MESH_RAGGED)):
-        vcfg = VarianceConfig(kernel="auc", scheme="complete", backend="mesh",
-                              n_pos=n1, n_neg=n2, n_workers=N, n_reps=4,
-                              seed=SEED)
+    # config 5's Monte-Carlo at M = 64: the full ring (kernel 1), the
+    # ragged ring (kernel 2), the rounds' batched means (kernel 1) and
+    # the sampled pairs (no kernel)
+    c5 = {}
+    for label, scheme, (n1, n2), kw in (
+            ("complete_full", "complete", (MESH_N, MESH_N), {}),
+            ("complete_ragged", "complete", MESH_RAGGED, {}),
+            ("local", "local", (MESH_N, MESH_N), {}),
+            ("repartitioned", "repartitioned", (MESH_N, MESH_N),
+             {"n_rounds": 4}),
+            ("incomplete", "incomplete", (MESH_N, MESH_N),
+             {"design": "swr", "n_pairs": 10_000})):
+        vcfg = VarianceConfig(kernel="auc", scheme=scheme, backend="mesh",
+                              n_pos=n1, n_neg=n2, n_workers=N, n_reps=64,
+                              seed=SEED, **kw)
+        before = dict(pk.LAUNCHES)
         r = run_variance_experiment(vcfg)
-        assert r["recovery"]["retries_total"] == 0
+        launched = {k: pk.LAUNCHES.get(k, 0) - before.get(k, 0)
+                    for k in ("pair_sum[auc]", "masked_pair_sum[auc]")}
+        ratio = r["variance"] / r["closed_form_variance"]
+        assert CHI2_BAND[0] < ratio < CHI2_BAND[1], (label, ratio)
+        assert abs(r["mean"] - r["population_value"]) < 5 * r["std_error"], (
+            label, r["mean"], r["std_error"])
+        assert r["recovery"]["retries_total"] == 0, (label, r["recovery"])
+        c5[label] = (vcfg, r)
+        out[f"config5_{label}"] = dict(
+            mean=r["mean"], variance=r["variance"], ratio=ratio,
+            ms_per_rep=r["wallclock_s"] * 1e3 / 64, launches=launched)
+        log(f"[elastic] harness mesh config 5 {label} auc {n1} x {n2} N={N} "
+            f"M=64: {r['wallclock_s'] * 1e3 / 64:.2f} ms a rep; mean "
+            f"{r['mean']:.8f} var/closed form {ratio:.3f}; launches "
+            f"{json.dumps(launched)}")
+    for label in ("complete_full", "complete_ragged"):
+        vcfg = c5[label][0]
+        n1, n2 = vcfg.n_pos, vcfg.n_neg
+        # rep 0's rows, drawn as the runner draws them
         draw_ms, rows = cuda_ms(lambda: mesh_mc.worker_draws(
-            vcfg, make_mesh(N), ("mc_rep", 0), mesh_mc.REP_BLOCK))
-        # rep 0's value: the mesh Estimator on the same rows
-        A, B = (x[0].reshape(-1)[:n] for x, n in zip(rows, (n1, n2)))
+            vcfg, make_mesh(N), ("mc_rep", 0)))
+        A, B = (x.reshape(-1)[:n] for x, n in zip(rows, (n1, n2)))
         del rows
         want = reference(lambda: Estimator(
             "auc", backend="mesh", n_workers=N).complete(A, B))
@@ -4275,13 +4311,30 @@ def phase_elastic(data):
         assert got[0] == want, (label, got, want)
         del A, B
         torch.cuda.empty_cache()
-        out[f"config5_{label}"] = dict(
-            ms_per_rep=r["wallclock_s"] * 1e3 / 4, block_draw_ms=draw_ms,
-            mean=r["mean"], rep0=want)
-        log(f"[elastic] harness mesh config 5 complete auc {label} {n1} x "
-            f"{n2}, 4 reps: {r['wallclock_s'] * 1e3 / 4:.2f} ms a rep (the "
-            f"64-rep block's draw, {draw_ms:.2f} ms, included once); rep 0 "
-            f"equal to the mesh Estimator on its rows ({want!r})")
+        out[f"config5_{label}"].update(rep_draw_ms=draw_ms, rep0=want)
+        log(f"[elastic] config 5 {label}: rep 0 equal to the mesh Estimator "
+            f"on its rows ({want!r}); a rep's draw {draw_ms:.3f} ms")
+    # the chunked run: equal to the straight one, its memory one rep's
+    vcfg, straight = c5["complete_full"]
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        rc = run_variance_experiment(
+            vcfg, checkpoint_path=os.path.join(tmp, "c5.npz"),
+            checkpoint_every=8)
+        peak = torch.cuda.max_memory_allocated() - base
+    assert (rc["mean"], rc["variance"]) == (straight["mean"],
+                                            straight["variance"]), (
+        rc["mean"], rc["variance"], straight["mean"], straight["variance"])
+    assert rc["recovery"]["retries_total"] == 0, rc["recovery"]
+    assert peak < 1.28e9, peak
+    out["config5_chunked"] = dict(ms_per_rep=rc["wallclock_s"] * 1e3 / 64,
+                                  peak_bytes=peak)
+    log(f"[elastic] config 5 complete_full M=64 in chunks of 8 with a "
+        f"checkpoint: mean and variance equal the straight run's bit for "
+        f"bit; {rc['wallclock_s'] * 1e3 / 64:.2f} ms a rep; peak "
+        f"{peak} bytes above the run's start (< 1.28e9)")
 
     # (e) config 5 through the healed Estimator
     g = torch.Generator(device="cuda").manual_seed(SEED + 25)

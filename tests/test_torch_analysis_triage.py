@@ -40,7 +40,7 @@ def test_worker_draws_reads_worker_ids_on_the_host(monkeypatch):
     mesh = make_mesh(4, device="cpu")
     cfg = VarianceConfig(scheme="local", backend="mesh", n_pos=64,
                          n_neg=64, n_workers=4, n_reps=2)
-    ref = worker_draws(cfg, mesh, ("mc_rep", 0), 2)
+    ref = worker_draws(cfg, mesh, ("mc_rep", 0))
     asked = []
     real = mesh.comm.worker_ids
 
@@ -49,7 +49,7 @@ def test_worker_draws_reads_worker_ids_on_the_host(monkeypatch):
         return real(device)
 
     monkeypatch.setattr(mesh.comm, "worker_ids", spy)
-    got = worker_draws(cfg, mesh, ("mc_rep", 0), 2)
+    got = worker_draws(cfg, mesh, ("mc_rep", 0))
     assert asked == ["cpu"]
     for a, b in zip(ref, got):
         assert torch.equal(a, b)

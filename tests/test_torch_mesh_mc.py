@@ -14,7 +14,10 @@ tests/test_harness.py:320-540.
   quantiles (scipy), the harness's chi2 band applied to a ratio.
 * The complete value of a rep equals ``Estimator(backend="mesh")
   .complete`` on the same rows bit for bit; a chunked run equals a
-  straight one bit for bit (reps drawn in blocks of 64).
+  straight one bit for bit.
+* A chunk of k reps draws k reps' rows, each rep alone, and nothing
+  else; the ``"mesh_mc"`` chaos point fires once a runner call, so one
+  fault spec lands on the same chunk in both packages.
 """
 
 import dataclasses
@@ -150,8 +153,8 @@ def test_distribution_matches_the_jax_mesh_runner(scheme):
 
 def _rep_rows(cfg, mesh, rep):
     """Rep ``rep``'s global rows, read back from the runner's shards."""
-    a, *b = mesh_mc.worker_draws(cfg, mesh, ("mc_rep", rep // 64), 64)
-    rows = [x[rep % 64].reshape((-1,) + x.shape[3:]) for x in [a] + b]
+    a, *b = mesh_mc.worker_draws(cfg, mesh, ("mc_rep", rep))
+    rows = [x.reshape((-1,) + x.shape[2:]) for x in [a] + b]
     sizes = (cfg.n_pos, cfg.n_neg)
     return [r[:n] for r, n in zip(rows, sizes)]
 
@@ -218,8 +221,101 @@ def test_runner_checks_its_mesh_and_fires_chaos():
         mesh_mc.make_mesh_mc_runner(cfg, mesh=make_mesh(2, device="cpu"))
     inj = FaultInjector()
     run = mesh_mc.make_mesh_mc_runner(cfg, chaos=inj, device="cpu")
-    out = run(range(60, 130))             # blocks 0, 1 and 2
-    assert out.shape == (70,) and inj.snapshot()["calls"]["mesh_mc"] == 3
+    out = run(range(60, 130))             # one call: one fire
+    assert out.shape == (70,) and inj.snapshot()["calls"]["mesh_mc"] == 1
     with pytest.raises(ValueError, match="unknown backend"):
         run_variance_experiment(dataclasses.replace(cfg, backend="jax"),
                                 device="cpu")
+
+
+def _spy_draws(monkeypatch):
+    seen, real = [], mesh_mc.worker_draws
+
+    def spy(cfg, mesh, chain):
+        seen.append(chain)
+        return real(cfg, mesh, chain)
+
+    monkeypatch.setattr(mesh_mc, "worker_draws", spy)
+    return seen
+
+
+@pytest.mark.parametrize("scheme", SCHEMES)
+def test_a_chunk_draws_only_its_own_reps(monkeypatch, scheme):
+    """A chunk of reps draws the rows of its reps, one draw a rep, and of
+    no other rep; each rep run alone equals its value inside the chunk,
+    bit for bit."""
+    seen = _spy_draws(monkeypatch)
+    cfg = VarianceConfig(backend="mesh", scheme=scheme, n_pos=203,
+                         n_neg=157, n_workers=4, n_rounds=2, n_pairs=500,
+                         n_reps=70, seed=5)
+    run = mesh_mc.make_mesh_mc_runner(cfg, device="cpu")
+    part = run(range(60, 64))
+    assert seen == [("mc_rep", r) for r in range(60, 64)]
+    for r in range(60, 64):
+        assert run(range(r, r + 1))[0] == part[r - 60], (scheme, r)
+    seen.clear()
+    run(range(0, 4))
+    run(range(4, 8))
+    assert seen == [("mc_rep", r) for r in range(8)]
+
+
+def test_fix_data_draws_its_dataset_once_a_call(monkeypatch):
+    seen = _spy_draws(monkeypatch)
+    cfg = VarianceConfig(backend="mesh", scheme="incomplete", fix_data=True,
+                         n_pos=60, n_neg=50, n_pairs=300, n_workers=4,
+                         n_reps=8)
+    run = mesh_mc.make_mesh_mc_runner(cfg, device="cpu")
+    run(range(0, 5))
+    run(range(5, 8))
+    assert seen == [("data_fixed",)] * 2
+
+
+def _chunks_timed(monkeypatch, module):
+    """The rep ranges of the timed attempts, in order (each attempt opens
+    one named range ``mc_reps[m:m+chunk]``, a failed one too)."""
+    seen, real = [], module.annotate
+
+    def spy(name):
+        seen.append(name)
+        return real(name)
+
+    monkeypatch.setattr(module, "annotate", spy)
+    return seen
+
+
+@pytest.mark.parametrize("every", [4, 5])
+def test_chaos_lands_on_the_reference_s_chunk(monkeypatch, tmp_path, every):
+    """One ``mesh_mc`` fault spec through both packages' harness on an
+    8-worker mesh: the same mesh_mc and mc_chunk call counts, the same
+    fires and retries, and the same chunk retried (each package runs one
+    dispatch of each new chunk size before the timed one)."""
+    from tuplewise_tpu.testing import FaultInjector as JFaultInjector
+    from tuplewise_tpu.utils import profiling as jprofiling
+    from tuplewise_tpu_torch.harness import variance as TH
+    from tuplewise_tpu_torch.testing import FaultInjector
+
+    spec = {"faults": [{"point": "mesh_mc", "on_call": 2,
+                        "action": "error"}]}
+    kw = dict(scheme="complete", backend="mesh", n_pos=128, n_neg=128,
+              n_workers=8, n_reps=16, seed=1)
+    got_chunks = _chunks_timed(monkeypatch, TH)
+    want_chunks = _chunks_timed(monkeypatch, jprofiling)
+    inj, jinj = FaultInjector.from_spec(spec), JFaultInjector.from_spec(
+        spec)
+    got = run_variance_experiment(
+        VarianceConfig(**kw), checkpoint_path=str(tmp_path / "t.npz"),
+        checkpoint_every=every, chaos=inj, device="cpu")
+    want = JH.run_variance_experiment(
+        JH.VarianceConfig(**kw), checkpoint_path=str(tmp_path / "j.npz"),
+        checkpoint_every=every, chaos=jinj)
+    snap, jsnap = inj.snapshot(), jinj.snapshot()
+    for point in ("mesh_mc", "mc_chunk", "checkpoint"):
+        assert snap["calls"][point] == jsnap["calls"][point], point
+    assert snap["fired"] == jsnap["fired"] == {"mesh_mc": 1}
+    assert got["recovery"]["retries_total"] == want["recovery"][
+        "retries_total"] == 1
+    assert got_chunks == want_chunks
+    assert len(got_chunks) == len(set(got_chunks)) + 1
+    # the fault-free sweep's values, bit for bit
+    ref = run_variance_experiment(VarianceConfig(**kw), device="cpu")
+    assert (got["mean"], got["variance"]) == (ref["mean"], ref["variance"])

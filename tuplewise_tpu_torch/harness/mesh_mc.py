@@ -2,18 +2,18 @@
 ``tuplewise_tpu.harness.mesh_mc``): data made on each worker, estimates
 by the mesh backend's own shard-level code.
 
-* **Data is made on each worker.** Worker w draws its own Gaussian
-  ``[cap]`` block (``[cap, dim]`` for feature kernels, the class shift on
-  the first feature, as the JAX runner's) from the generator of (seed,
-  "mc_rep", block, "shard", w): shard w holds global rows [w cap, (w + 1)
-  cap), its padding rows zeroed and masked, which is
+* **Data is made on each worker, one rep at a time.** Worker w draws
+  its own Gaussian ``[cap]`` block (``[cap, dim]`` for feature kernels,
+  the class shift on the first feature, as the JAX runner's) from the
+  generator of (seed, "mc_rep", rep, "shard", w): shard w holds global
+  rows [w cap, (w + 1) cap), its padding rows zeroed and masked, which is
   ``parallel.device_partition.pack_layout``'s layout. On a distributed
   mesh each rank makes only its own workers' rows: no data crosses the
-  host. Reps are drawn in blocks of ``REP_BLOCK`` = 64: rep r is
-  row r % 64 of block r // 64, so a retried or checkpointed chunk
-  regenerates the same data (and a chunk draws every block it touches
-  whole). A block
-  holds 2 x 64 x N x cap float32 values on the mesh: 5.12 GB at config 5
+  host. A rep's rows are drawn just before it is estimated and freed
+  before the next rep is drawn, so a chunk of k reps draws those k reps
+  and no others, a retried or checkpointed chunk regenerates the same
+  data, and live memory is one rep's working set (the reference's
+  ``lax.map`` over reps): 2 x N x cap float32 values, 80 MB at config 5
   (n = 10^7 a class, N = 8).
 * **complete** runs the ring (``MeshBackend.complete_stats``): kernel 1
   at each stop on full shards, kernel 2 on ragged ones, kernel 5 for
@@ -32,10 +32,11 @@ by the mesh backend's own shard-level code.
 
 Statistical contract, as the JAX runner's: the estimates have the
 distribution of the mesh Estimator looped over fresh data. ``chaos`` (a
-``testing.chaos.FaultInjector``) fires at ``"mesh_mc"`` before each block
-of reps runs. The runner keys every draw by the absolute rep index and
-the logical worker, never by a slot, so a runner rebuilt on a healed mesh
-of the same width gives the same values.
+``testing.chaos.FaultInjector``) fires at ``"mesh_mc"`` once a ``run``
+call, before any draw: the reference's point before each dispatch of its
+compiled program. The runner keys every draw by the absolute rep index
+and the logical worker, never by a slot, so a runner rebuilt on a healed
+mesh of the same width gives the same values.
 """
 
 from __future__ import annotations
@@ -49,13 +50,10 @@ from tuplewise_tpu_torch.parallel.device_partition import pack_layout
 from tuplewise_tpu_torch.parallel.mesh import make_mesh
 from tuplewise_tpu_torch.utils.rng import generator
 
-# reps a worker's generator draws for at once
-REP_BLOCK = 64
 
-
-def worker_draws(cfg, mesh, chain, batch: int):
-    """The workers' rows of each class: a tuple of one or two [batch,
-    n_local, cap(, dim)] float32 tensors (one for a one-sample kernel),
+def worker_draws(cfg, mesh, chain):
+    """The workers' rows of each class: a tuple of one or two [n_local,
+    cap(, dim)] float32 tensors (one for a one-sample kernel),
     worker w's drawn from the generator of (*chain, "shard", w), the
     first class shifted by cfg.separation (on the first feature for
     feature kernels), padding rows zeroed."""
@@ -67,23 +65,23 @@ def worker_draws(cfg, mesh, chain, batch: int):
     # the ids on the host: reading them back from the card would sync
     # inside the body once a call
     workers = mesh.comm.worker_ids("cpu").tolist()
-    outs = [torch.empty((batch,) + m.shape + feat, device=mesh.device)
+    outs = [torch.empty(m.shape + feat, device=mesh.device)
             for m in masks]
     for i, w in enumerate(workers):
-        # every chunk that touches a block draws it whole: the chain is
-        # shared by design (a retried chunk draws it again), so the key
-        # audit does not record it
+        # a retried chunk, or the harness's warm-up, draws a rep again:
+        # the chain is shared by design, so the key audit does not record
+        # it
         g = generator(cfg.seed, *chain, "shard", w, device=mesh.device,
                       record=False)
         for out in outs:
-            out[:, i] = torch.randn((batch,) + out.shape[2:], generator=g,
-                                    device=mesh.device)
+            out[i] = torch.randn(out.shape[1:], generator=g,
+                                 device=mesh.device)
     if feat:
         outs[0][..., 0] += cfg.separation
     else:
         outs[0] += cfg.separation
     for out, mask in zip(outs, masks):
-        pad = mask.reshape(mask.shape + (1,) * (out.dim() - 3)) == 0
+        pad = mask.reshape(mask.shape + (1,) * len(feat)) == 0
         out.masked_fill_(pad, 0.0)
     return tuple(outs)
 
@@ -138,25 +136,21 @@ def make_mesh_mc_runner(cfg, mesh=None, chaos=None, device=None):
         return float(backend.incomplete_designed(a, b, n1, n2, cfg.n_pairs,
                                                  g, cfg.design))
 
+    def rep_data(chain):
+        data = worker_draws(cfg, mesh, chain)
+        return data[0], data[-1]
+
     def run(reps) -> np.ndarray:
+        if chaos is not None:
+            chaos.fire("mesh_mc")
+        fixed = (rep_data(("data_fixed",))
+                 if getattr(cfg, "fix_data", False) else None)
         out = []
-        first = reps.start // REP_BLOCK
-        for k in range(first, -(-reps.stop // REP_BLOCK)):
-            if chaos is not None:
-                chaos.fire("mesh_mc")
-            if getattr(cfg, "fix_data", False):
-                data = worker_draws(cfg, mesh, ("data_fixed",), 1)
-                rows = [0] * REP_BLOCK
-            else:
-                data = worker_draws(cfg, mesh, ("mc_rep", k), REP_BLOCK)
-                rows = range(REP_BLOCK)
-            a = data[0]
-            b = a if one_sample else data[1]
-            lo, hi = max(reps.start, k * REP_BLOCK), min(
-                reps.stop, (k + 1) * REP_BLOCK)
-            for r in range(lo, hi):
-                row = rows[r - k * REP_BLOCK]
-                out.append(estimate(r, a[row], b[row]))
+        for r in reps:
+            a, b = fixed or rep_data(("mc_rep", r))
+            out.append(estimate(r, a, b))
+            # one rep's rows live at a time
+            del a, b
         return np.asarray(out, dtype=np.float64)
 
     return run

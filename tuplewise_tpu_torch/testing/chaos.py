@@ -12,8 +12,9 @@ Batch-path points (fired by this package today):
                           / ``triplet_sgd.py``;
     ``mc_chunk``        — one Monte-Carlo chunk in
                           ``harness/variance.run_variance_experiment``;
-    ``mesh_mc``         — one block of reps of the mesh Monte-Carlo
-                          runner (``harness/mesh_mc.py``);
+    ``mesh_mc``         — one call of the mesh Monte-Carlo runner
+                          (``harness/mesh_mc.py``), the reference's
+                          one dispatch;
     ``estimator``       — one Estimator scheme call
                           (``estimators/estimator.py``);
     ``checkpoint``      — fired right AFTER a checkpoint lands (the
