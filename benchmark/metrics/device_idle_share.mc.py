@@ -1,0 +1,8 @@
+"""Percent of the traced window with no operation on the device, in the
+Monte-Carlo cells."""
+
+from benchmark import readlib
+
+
+def read(ctx):
+    return readlib.idle_share(ctx, "reps")

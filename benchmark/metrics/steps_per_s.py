@@ -1,0 +1,7 @@
+"""SGD steps completed over the whole window, a second."""
+
+from benchmark import readlib
+
+
+def read(ctx):
+    return readlib.rate(ctx, "steps")
