@@ -8,7 +8,8 @@ sees nothing. This pass closes the namespace:
 * **producers** — every ``registry.counter/gauge/histogram("name")``
   (f-strings become glob patterns), every ``flight.record("kind")`` /
   ``_flight_event("kind")``, every span name
-  (``tracer.start`` / ``maybe_span`` / ``record_span``), and every
+  (``tracer.start`` / ``maybe_span`` / ``record_span``, and the hot
+  paths' ``annotate`` of ``utils.profiling``), and every
   string dict key written into bench/replay result rows.
 * **consumers** — string literals in the consumer modules
   (obs/doctor, obs/slo, obs/report, scripts_torch/perf_gate, serving/control)
@@ -60,6 +61,9 @@ _SPEC_LIST_KEYS = {"errors"}
 _SPEC_LITERAL_FILES = ("tuplewise_tpu_torch/obs/slo.py",
                        "tuplewise_tpu_torch/obs/doctor.py")
 _CONSUMER_SEQUENCES = {"_RECOVERY_COUNTERS"}
+# the hot paths' span call (``utils.profiling.annotate``), by the names
+# it is called under; a plotting axis's ``ax.annotate`` is no span
+_ANNOTATE_CALLS = {"annotate", "profiling.annotate"}
 
 _DEFAULT_CONSUMERS = (
     "tuplewise_tpu_torch/obs/doctor.py",
@@ -137,8 +141,10 @@ def collect_producers(ms: ModuleSet
                 k = name_or_glob(node.args[0])
                 if k is not None:
                     flights.add(k)
-            elif leaf in ("record_span", "start", "maybe_span"):
-                # tracer.start("name") / maybe_span(tracer, "name")
+            elif (leaf in ("record_span", "start", "maybe_span")
+                  or cn in _ANNOTATE_CALLS):
+                # tracer.start("name") / maybe_span(tracer, "name") /
+                # annotate("name")
                 idx = 1 if leaf == "maybe_span" else 0
                 if len(node.args) > idx:
                     s = name_or_glob(node.args[idx])

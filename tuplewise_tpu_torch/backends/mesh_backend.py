@@ -57,6 +57,7 @@ from tuplewise_tpu_torch.parallel.device_partition import (
 )
 from tuplewise_tpu_torch.parallel.faults import alive_mask
 from tuplewise_tpu_torch.parallel.mesh import make_mesh
+from tuplewise_tpu_torch.utils.profiling import annotate
 from tuplewise_tpu_torch.utils.rng import generator
 
 F64 = torch.float64
@@ -149,19 +150,29 @@ class MeshBackend:
         rank), regathered from the workers' shards As, Bs (``pad_blocks``;
         Bs is As for a one-sample kernel) of the n1 and n2 real rows, and
         the survivors' mean of the per-worker means (float64 0-d);
-        ``alive`` is this process's rows of the alive mask."""
+        ``alive`` is this process's rows of the alive mask. Spans: a
+        ``mesh.round`` over ``mesh.partition`` (the draws),
+        ``mesh.regather`` and ``mesh.block_means``."""
         k = self.kernel
         comm = self.comm
-        i1 = comm.local_rows(draw_blocks(gen, n1, self.n_shards, scheme))
-        a = comm.regather(As, i1)
-        if k.two_sample:
-            i2 = comm.local_rows(draw_blocks(gen, n2, self.n_shards, scheme))
-            b = comm.regather(Bs, i2)
-        else:
+        with annotate("mesh.round"):
+            with annotate("mesh.partition"):
+                i1 = comm.local_rows(draw_blocks(gen, n1, self.n_shards,
+                                                 scheme))
+            with annotate("mesh.regather"):
+                a = comm.regather(As, i1)
             i2 = b = None
-        vals = self._local.block_means(a, b, i1, i2, padded=False)
-        tot = comm.all_reduce_sum(torch.stack([vals * alive, alive], dim=1))
-        return tot[0] / tot[1]
+            if k.two_sample:
+                with annotate("mesh.partition"):
+                    i2 = comm.local_rows(draw_blocks(gen, n2, self.n_shards,
+                                                     scheme))
+                with annotate("mesh.regather"):
+                    b = comm.regather(Bs, i2)
+            with annotate("mesh.block_means"):
+                vals = self._local.block_means(a, b, i1, i2, padded=False)
+            tot = comm.all_reduce_sum(torch.stack([vals * alive, alive],
+                                                  dim=1))
+            return tot[0] / tot[1]
 
     def _schemes_setup(self, A, B, n_workers, dropped_workers):
         self._check_workers(n_workers)

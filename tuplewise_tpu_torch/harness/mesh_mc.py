@@ -37,6 +37,12 @@ call, before any draw: the reference's point before each dispatch of its
 compiled program. The runner keys every draw by the absolute rep index
 and the logical worker, never by a slot, so a runner rebuilt on a healed
 mesh of the same width gives the same values.
+
+Spans (``utils.profiling.annotate``, recorded while a profiler runs):
+``mc.run`` a call, ``mc.rep`` a rep, ``mc.draw`` a rep's draw, ``mc.read``
+the host's reads of the estimate, each counted under
+``obs.tracing.COUNTS["host_read[mc.read]"]`` (two a complete rep, one a
+round or an incomplete rep).
 """
 
 from __future__ import annotations
@@ -45,10 +51,14 @@ import numpy as np
 import torch
 
 from tuplewise_tpu_torch.backends.mesh_backend import MeshBackend
+from tuplewise_tpu_torch.obs.tracing import COUNTS
 from tuplewise_tpu_torch.ops.kernels import get_kernel
 from tuplewise_tpu_torch.parallel.device_partition import pack_layout
 from tuplewise_tpu_torch.parallel.mesh import make_mesh
+from tuplewise_tpu_torch.utils.profiling import annotate
 from tuplewise_tpu_torch.utils.rng import generator
+
+READ = "host_read[mc.read]"
 
 
 def worker_draws(cfg, mesh, chain):
@@ -111,12 +121,20 @@ def make_mesh_mc_runner(cfg, mesh=None, chaos=None, device=None):
     alive = mesh.comm.local_rows(torch.ones(N, dtype=torch.float64,
                                             device=dev))
 
+    def read(*values):
+        # the host reads device values: a float each
+        with annotate("mc.read"):
+            out = tuple(map(float, values))
+        COUNTS[READ] += len(out)
+        return out
+
     def estimate(rep: int, a, b) -> float:
         if cfg.scheme == "complete":
-            s, c = backend.complete_stats(a, ma, ia, b, mb, ib, no_masks)
+            s, c = read(*backend.complete_stats(a, ma, ia, b, mb, ib,
+                                                 no_masks))
             # on the host: the correctly rounded quotient, as
             # MeshBackend.complete
-            return float(s) / float(c)
+            return s / c
         if cfg.scheme in ("local", "repartitioned"):
             chains = ([(rep,)] if cfg.scheme == "local"
                       else [(rep, t) for t in range(cfg.n_rounds)])
@@ -124,33 +142,37 @@ def make_mesh_mc_runner(cfg, mesh=None, chaos=None, device=None):
             for chain in chains:
                 g = generator(cfg.seed, "partition", *chain, device=dev,
                               record=False)
-                total += float(backend.round_mean(
-                    a, b, n1, n2, g, cfg.partition_scheme, alive))
+                total += read(backend.round_mean(
+                    a, b, n1, n2, g, cfg.partition_scheme, alive))[0]
             return total / len(chains)
         if cfg.design == "swr":
             g = generator(cfg.seed, "incomplete_shard", rep, device=dev,
                           record=False)
-            return float(backend.incomplete_swr(a, b, n1, n2, cfg.n_pairs,
-                                                g))
-        g = generator(cfg.seed, "design", rep, device=dev, record=False)
-        return float(backend.incomplete_designed(a, b, n1, n2, cfg.n_pairs,
-                                                 g, cfg.design))
+            m = backend.incomplete_swr(a, b, n1, n2, cfg.n_pairs, g)
+        else:
+            g = generator(cfg.seed, "design", rep, device=dev, record=False)
+            m = backend.incomplete_designed(a, b, n1, n2, cfg.n_pairs, g,
+                                            cfg.design)
+        return read(m)[0]
 
     def rep_data(chain):
-        data = worker_draws(cfg, mesh, chain)
+        with annotate("mc.draw"):
+            data = worker_draws(cfg, mesh, chain)
         return data[0], data[-1]
 
     def run(reps) -> np.ndarray:
-        if chaos is not None:
-            chaos.fire("mesh_mc")
-        fixed = (rep_data(("data_fixed",))
-                 if getattr(cfg, "fix_data", False) else None)
-        out = []
-        for r in reps:
-            a, b = fixed or rep_data(("mc_rep", r))
-            out.append(estimate(r, a, b))
-            # one rep's rows live at a time
-            del a, b
-        return np.asarray(out, dtype=np.float64)
+        with annotate("mc.run"):
+            if chaos is not None:
+                chaos.fire("mesh_mc")
+            fixed = (rep_data(("data_fixed",))
+                     if getattr(cfg, "fix_data", False) else None)
+            out = []
+            for r in reps:
+                with annotate("mc.rep"):
+                    a, b = fixed or rep_data(("mc_rep", r))
+                    out.append(estimate(r, a, b))
+                    # one rep's rows live at a time
+                    del a, b
+            return np.asarray(out, dtype=np.float64)
 
     return run

@@ -70,6 +70,7 @@ from tuplewise_tpu_torch.utils.checkpoint import (
     iter_chunks, resume_progress, save_checkpoint,
 )
 from tuplewise_tpu_torch.utils.device import resolve_device
+from tuplewise_tpu_torch.utils.profiling import annotate
 from tuplewise_tpu_torch.utils.rng import derive_seed, generator
 from tuplewise_tpu_torch.utils.state import params_to_state, state_to_params
 
@@ -136,15 +137,16 @@ def _blocks(cfg, seeds, Xp, Xn, t):
     """[S, N, m1, d] and [S, N, m2, d] worker blocks of every replica as
     of repartition boundary t (generator (seed, "repartition", t)). Xp,
     Xn: [n, d] tensors, or ``ShardedRows`` (S = 1; N is then this
-    process's workers)."""
+    process's workers). A ``train.regather`` span."""
     N = cfg.n_workers
     n1, n2 = Xp.shape[0], Xn.shape[0]
     i1, i2 = [], []
-    for seed in seeds:
-        gen = generator(seed, "repartition", t, device=Xp.device)
-        i1.append(draw_blocks(gen, n1, N, cfg.scheme, m=n1 // N))
-        i2.append(draw_blocks(gen, n2, N, cfg.scheme, m=n2 // N))
-    return Xp[torch.stack(i1)], Xn[torch.stack(i2)]
+    with annotate("train.regather"):
+        for seed in seeds:
+            gen = generator(seed, "repartition", t, device=Xp.device)
+            i1.append(draw_blocks(gen, n1, N, cfg.scheme, m=n1 // N))
+            i2.append(draw_blocks(gen, n2, N, cfg.scheme, m=n2 // N))
+        return Xp[torch.stack(i1)], Xn[torch.stack(i2)]
 
 
 def _sampled_pairs(cfg, seeds, t, m1, m2, device):
@@ -231,8 +233,9 @@ def run_chunk(scorer, kernel, cfg, params, Xp, Xn, seeds: Sequence[int],
         t = t0 + c
         if t % cfg.repartition_every == 0 and t > t0:
             Ab, Bb = _blocks(cfg, seeds, Xp, Xn, t)
-        params, losses[:, c] = sgd_step(scorer, kernel, cfg, params, Ab, Bb,
-                                        seeds, t, impl, comm)
+        with annotate("train.step"):
+            params, losses[:, c] = sgd_step(scorer, kernel, cfg, params, Ab,
+                                            Bb, seeds, t, impl, comm)
     return params, losses
 
 
@@ -332,6 +335,10 @@ def train_pairwise(
     save. ``tracer`` (an ``obs.tracing.Tracer``): the run is a
     ``train.run`` span with a ``train.chunk`` child a chunk and a
     ``train.checkpoint`` child a save; the healer's rounds are spans too.
+    While a profiler records, ``train.place`` spans the rows' and the
+    parameters' placing, ``train.regather`` each repartition boundary's
+    blocks, ``train.step`` each step and ``train.read`` each chunk's read
+    of its losses.
     ``metrics``: a ``utils.profiling.MetricsRegistry`` that receives the
     gauges ``train_step``, ``train_loss_last`` and ``mesh_width``, the
     ``train_chunk_s`` histogram and the healer's counters.
@@ -343,11 +350,12 @@ def train_pairwise(
     n1, n2 = len(X_pos), len(X_neg)
     if min(n1 // N, n2 // N) < 1:
         raise ValueError(f"n=({n1},{n2}) too small for {N} workers")
-    Xp, Xn = to_device_rows(X_pos, device), to_device_rows(X_neg, device)
-    rows = (ShardedRows(Xp, mesh), ShardedRows(Xn, mesh))
-    if params is None:
-        params = scorer.state_dict()
-    params = replicate(params, 1, device)
+    with annotate("train.place"):
+        Xp = to_device_rows(X_pos, device)
+        Xn = to_device_rows(X_neg, device)
+        rows = (ShardedRows(Xp, mesh), ShardedRows(Xn, mesh))
+        params = replicate(scorer.state_dict() if params is None else params,
+                           1, device)
 
     start, ck = resume_progress(
         checkpoint_path, dataclasses.asdict(cfg),
@@ -394,7 +402,8 @@ def train_pairwise(
                                             on_heal=on_heal)
             else:
                 params, losses = attempt()
-        loss_parts.append(losses[0].cpu().numpy())
+        with annotate("train.read"):
+            loss_parts.append(losses[0].cpu().numpy())
         if metrics is not None:
             h_chunk.observe(time.perf_counter() - t_chunk0)
             g_step.set(t + chunk)

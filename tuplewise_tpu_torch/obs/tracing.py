@@ -22,6 +22,11 @@ Exports: ``export_jsonl(path)`` (one span per line: trace_id / span_id
 or ``chrome://tracing``). ``check_tracer`` is the constructors' guard:
 None or a ``Tracer``, anything else raises ``TypeError``.
 
+The hot paths (the Monte-Carlo runner, the mesh backend, the ring, the
+trainer) take no tracer: their spans are ``utils.profiling.annotate``
+ranges on the profiler's own clock, beside the kernels they launch, and
+``COUNTS`` counts at the same boundaries.
+
 Usage::
 
     tr = Tracer()
@@ -35,6 +40,7 @@ Usage::
 
 from __future__ import annotations
 
+import collections
 import itertools
 import json
 import threading
@@ -54,6 +60,14 @@ class _NullSpan:
 
 
 _NULL_SPAN = _NullSpan()
+
+#: process-wide counts at the hot paths' layer boundaries, always on (as
+#: ``ops.pair_kernels.LAUNCHES`` counts the kernel launches): each read
+#: of the estimate by the Monte-Carlo runner's host adds one under
+#: ``host_read[mc.read]``. The one home of always-on boundary counts:
+#: a new one is a key here, not another counter (the serving layer's
+#: ``utils.profiling.MetricsRegistry`` is per engine, not process-wide)
+COUNTS: collections.Counter = collections.Counter()
 
 
 def check_tracer(tracer) -> None:

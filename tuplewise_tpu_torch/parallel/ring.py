@@ -38,6 +38,7 @@ from typing import Optional, Tuple
 import torch
 
 from tuplewise_tpu_torch.ops import pair_kernels, pair_tiles, triplet_kernels
+from tuplewise_tpu_torch.utils.profiling import annotate
 
 F64 = torch.float64
 
@@ -87,11 +88,14 @@ def _ring_accumulate(stats_fn, a, visiting, *, comm, axis: int, acc):
     """One full rotation of the visiting state around mesh axis
     ``axis``, adding the stats of every stop to ``acc``. Returns (acc,
     visiting) with the visiting state back at its start (a full cycle is
-    the identity), so callers can nest rotations."""
+    the identity), so callers can nest rotations. Spans: ``ring.rotate``
+    the rotation's start, ``ring.stop`` the stop's stats."""
     vis = list(visiting)
     for _ in range(comm.shape[axis]):
-        nxt = comm.start_rotate(vis, axis)      # in flight during the stop
-        ds, dc = stats_fn(a, *vis)
+        with annotate("ring.rotate"):
+            nxt = comm.start_rotate(vis, axis)  # in flight during the stop
+        with annotate("ring.stop"):
+            ds, dc = stats_fn(a, *vis)
         acc = (acc[0] + ds, acc[1] + dc)
         vis = nxt.wait()
     return acc, vis

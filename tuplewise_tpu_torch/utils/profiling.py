@@ -8,9 +8,11 @@ The counterpart of ``tuplewise_tpu.utils.profiling``:
                      a Chrome trace (``trace.json``) into ``logdir``. A
                      no-op when ``logdir`` is None, so callers can thread
                      an option straight through.
-* ``annotate(name)`` a named range inside an active trace
-                     (``torch.profiler.record_function``), also an NVTX
-                     range when a card is present.
+* ``annotate(name)`` a named range inside an active ``torch.profiler``
+                     trace, the shared no-op of ``obs.tracing`` when no
+                     profiler records: the one span call of the hot
+                     paths (the Monte-Carlo runner, the mesh backend,
+                     the ring, the trainer).
 * ``Counter`` / ``Gauge`` / ``Histogram`` / ``MetricsRegistry``: the
                      serving layer's service metrics. Plain thread-safe
                      host objects: the batcher thread records while
@@ -30,6 +32,10 @@ import os
 import threading
 import time
 from typing import Dict, Iterator, List, Optional, Sequence
+
+import torch
+
+from tuplewise_tpu_torch.obs.tracing import _NULL_SPAN
 
 TRACE_FILE = "trace.json"
 
@@ -55,8 +61,6 @@ def trace(logdir: Optional[str]) -> Iterator[None]:
     if not logdir:
         yield
         return
-    import torch
-
     acts = [torch.profiler.ProfilerActivity.CPU]
     if torch.cuda.is_available():
         acts.append(torch.profiler.ProfilerActivity.CUDA)
@@ -66,21 +70,31 @@ def trace(logdir: Optional[str]) -> Iterator[None]:
     prof.export_chrome_trace(os.path.join(str(logdir), TRACE_FILE))
 
 
-@contextlib.contextmanager
-def annotate(name: str) -> Iterator[None]:
-    """Named range inside an active trace: a ``record_function`` range,
-    and an NVTX range when a card is present."""
-    import torch
+_profiler_enabled = torch.autograd._profiler_enabled
 
-    nvtx = torch.cuda.is_available()
-    if nvtx:
-        torch.cuda.nvtx.range_push(name)
-    try:
-        with torch.profiler.record_function(name):
-            yield
-    finally:
-        if nvtx:
-            torch.cuda.nvtx.range_pop()
+#: the range class of :func:`annotate`, resolved on the first range
+#: recorded (a private name of torch: importing the port never needs it)
+_range = None
+
+
+def annotate(name: str):
+    """A named range inside an active ``torch.profiler`` trace, else the
+    shared no-op span: with no profiler recording, a call site pays one
+    check of the profiler's state and allocates nothing.
+
+    The range is torch's ``_RecordFunctionFast``, not
+    ``torch.profiler.record_function``: a ``record_function`` range is a
+    user annotation, which the profiler copies onto the device timeline,
+    where a reader of the trace counts the copy as device work. This one
+    is recorded as an operation of the host timeline: it leaves no copy,
+    and the kernels launched inside it link to it by correlation id, as
+    to any operation."""
+    if not _profiler_enabled():
+        return _NULL_SPAN
+    global _range
+    if _range is None:
+        from torch._C._profiler import _RecordFunctionFast as _range
+    return _range(name)
 
 
 def labeled_name(name: str, labels: Optional[dict]) -> str:
@@ -368,8 +382,6 @@ def device_memory_stats() -> dict:
     """{device_str: memory_stats dict} for each visible card that reports
     its allocator's statistics (``torch.cuda.memory_stats``); {} where no
     card does."""
-    import torch
-
     out = {}
     if not torch.cuda.is_available():
         return out
