@@ -10,6 +10,7 @@ Run from the root of a checkout, on a machine with one CUDA card:
     python3 bench_torch_variants.py [OTHER_CHECKOUT]
     python3 bench_torch_variants.py --masked
     python3 bench_torch_variants.py --flat [OTHER_CHECKOUT]
+    python3 bench_torch_variants.py --auc
 
 Each variant is this checkout's source with some of its compile-time
 constants replaced (``VARIANTS``: the halvings a block takes from shared
@@ -54,6 +55,21 @@ for those queries, from the CPU emulation of
 chip_smoke.searched). Beside them, the floor of a launch: the
 device time of zeroing the [4, 512] int32 block (one PyTorch fill
 kernel), timed the same way.
+
+With ``--auc`` it first builds variants of the merge route's constants
+(``AUC_VARIANTS``: the tile sort's threads, keys a thread and radix bits,
+a merge block's threads, keys a thread and shared-memory padding) and
+times each at config 5's
+stop (W = 8, 1.25e6 x 1.25e6, N(0, 1) scores) split by kernel
+(torch.profiler's device time over 20 calls), held equal to the search
+route, in two turns. Then it times kernel 1's two auc routes as built
+from this checkout (``ops/rank_count.py`` ``auc_route``), the search (b's
+tiles sorted, every a searching every tile) and the merge (both sides
+sorted whole, counted by merge), on a grid of shapes (``AUC_SHAPES``: W
+of 1 and 8, b of 1.5 to 77 tiles of 16384, a from a 64th of b to 4
+times b), the two held equal, by CUDA events a call (launches included)
+over 5 calls, in two turns. The crossover of ``auc_route`` is set from
+these numbers.
 """
 
 import concurrent.futures
@@ -87,6 +103,29 @@ MASKED_VARIANTS = {
     "2 sweeps": {"kSumSweeps": 2},
     "8 sweeps": {"kSumSweeps": 8},
     "16 sweeps": {"kSumSweeps": 16},
+}
+
+
+# kernel 1's auc routes: (W, n1, n2) with b of 1.5 to 77 tiles of 16384
+# and a from a 64th of b to 4 times b
+AUC_SHAPES = [(W, max(1, int(n2 * f)), n2)
+              for W in (1, 8)
+              for n2 in (24576, 32768, 65536, 140000, 262144, 540000,
+                         1250000)
+              for f in (1 / 64, 1 / 16, 1 / 4, 1, 4)]
+
+
+# kernel 1's auc merge route: its constants replaced
+AUC_VARIANTS = {
+    "committed": {},
+    "merge blocks unpadded": {"kMergePadStride": 0},
+    "merge 256 x 32 keys": {"kMergeItems": 32},
+    "merge 128 x 32 keys": {"kMergeThreads": 128, "kMergeItems": 32},
+    "merge 128 x 16 keys": {"kMergeThreads": 128},
+    "merge 256 x 8 keys": {"kMergeItems": 8},
+    "tile sort 1024 x 16": {"kMergeTileThreads": 1024,
+                            "kMergeTileItems": 16},
+    "tile sort 5 bits a pass": {"kMergeTileBits": 5},
 }
 
 
@@ -208,6 +247,68 @@ def masked_main(card):
                       f"{json.dumps(split)}", flush=True)
     _build._LIBS.pop("rank_count.cu", None)
     print(json.dumps({"ms": times, "card": card}), flush=True)
+    print(card, flush=True)
+    return 0
+
+
+def auc_main(card):
+    """The --auc run (see the module note)."""
+    import torch
+
+    import chip_smoke as cs
+    from tuplewise_tpu_torch.ops import _build, rank_count
+
+    tmp = tempfile.mkdtemp()
+    source = os.path.join(CSRC, "rank_count.cu")
+    sources = {name: variant_source(tmp, name, subs, source)
+               for name, subs in AUC_VARIANTS.items()}
+    with concurrent.futures.ThreadPoolExecutor(len(sources)) as ex:
+        built = dict(zip(sources, ex.map(build, sources.values())))
+    for name, (_, ptxas) in built.items():
+        print(f"[ptxas] {name}: {ptxas}", flush=True)
+    g = torch.Generator(device="cuda").manual_seed(cs.SEED)
+    a = torch.randn(8, 1250000, generator=g, device="cuda") + 1.0
+    b = torch.randn(8, 1250000, generator=g, device="cuda")
+    want = rank_count._auc_search(a, b)
+    committed_block = rank_count.MERGE_BLOCK
+    variants = {}
+    for turn in (1, 2):
+        for vname, (lib_path, _) in built.items():
+            # the variant's library in place of the built one
+            lib = ctypes.CDLL(lib_path)
+            lib.tw_rank_merge_block.restype = ctypes.c_int
+            rank_count.MERGE_BLOCK = lib.tw_rank_merge_block()
+            _build._LIBS["rank_count.cu"] = lib
+            assert torch.equal(rank_count._auc_merge(a, b), want), vname
+            split = cs.device_ms_by_kernel(
+                lambda: rank_count._auc_merge(a, b), 20)
+            variants.setdefault(vname, []).append(split)
+            print(f"[turn {turn}] {vname}: {sum(split.values()):.4f} ms of "
+                  f"device time a call; by kernel {json.dumps(split)}",
+                  flush=True)
+    _build._LIBS.pop("rank_count.cu", None)
+    rank_count.MERGE_BLOCK = committed_block
+    routes = {"search": rank_count._auc_search,
+              "merge": rank_count._auc_merge}
+    rows = {}
+    for turn in (1, 2):
+        for W, n1, n2 in AUC_SHAPES:
+            del a, b
+            a = torch.randn(W, n1, generator=g, device="cuda") + 1.0
+            b = torch.randn(W, n2, generator=g, device="cuda")
+            got = {r: fn(a, b) for r, fn in routes.items()}
+            assert torch.equal(got["search"], got["merge"]), (W, n1, n2)
+            ms = {r: cs.cuda_ms(lambda: fn(a, b), 5)[0]
+                  for r, fn in routes.items()}
+            key = f"W={W} {n1}x{n2}"
+            rows.setdefault(key, []).append(ms)
+            print(f"[turn {turn}] {key} ({-(-n2 // rank_count.MAX_TILE)} "
+                  f"tiles): search {ms['search']:.4f} ms, merge "
+                  f"{ms['merge']:.4f} ms, search / merge "
+                  f"{ms['search'] / ms['merge']:.3f}; auc_route "
+                  f"{rank_count.auc_route(n1, n2)}", flush=True)
+    print(json.dumps({"ms": rows, "variants": variants, "card": card}),
+          flush=True)
     print(card, flush=True)
     return 0
 
@@ -347,6 +448,8 @@ def main():
         return masked_main(card)
     if sys.argv[1:2] == ["--flat"]:
         return flat_main(card, sys.argv[2:])
+    if sys.argv[1:2] == ["--auc"]:
+        return auc_main(card)
     tmp = tempfile.mkdtemp()
     sources = {name: variant_source(tmp, name, subs)
                for name, subs in VARIANTS.items()}

@@ -1484,9 +1484,13 @@ def phase_timing(errs, launches, i1, i2, sass):
             cuda_ms(lambda: rank_auc(a, b))
             library_ms, _ = cuda_ms(lambda: rank_auc(a, b), reps=reps)
             # sort-and-count: the scores read once, the int64 partials
-            # (one a tile of b and chunk of a) written once
-            T = rank_count.tile_size(n)
-            partials = -(-n // T) * -(-n // rank_count.COUNT_CHUNK)
+            # (one a tile of b and chunk of a; the merge route's one a
+            # part of the merge of a and b) written once
+            if rank_count.auc_route(n, n) == "merge":
+                partials = -(-2 * n // rank_count.MERGE_BLOCK)
+            else:
+                T = rank_count.tile_size(n)
+                partials = -(-n // T) * -(-n // rank_count.COUNT_CHUNK)
             bms, by = bytes_bound_ms(4 * 2 * n + 8 * partials), "bytes"
         elif name == "hinge":
             cuda_ms(lambda: hinge_sum_library(a[None], b[None]))

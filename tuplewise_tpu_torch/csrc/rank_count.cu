@@ -5,6 +5,7 @@
 // Replaces, for these bodies, the Pallas TPU kernels of
 //   * tuplewise_tpu/ops/pallas_pairs.py:134 pallas_pair_sum (auc and hinge
 //     bodies, also reached through pallas_pair_sum_any) -> tw_rank_auc,
+//                                                         tw_rank_auc_merge,
 //                                                         tw_rank_hinge_sum
 //   * tuplewise_tpu/ops/pallas_pairs.py:300 pallas_masked_pair_sum (auc and
 //     hinge bodies)                                     -> tw_rank_masked_sum
@@ -18,7 +19,8 @@
 // csrc/pair_grad.cu.
 //
 // What they compute, for each of W independent problems w:
-//   tw_rank_auc:       2 * #{(i,j): fl(a_i - b_j) > 0} + #{(i,j): fl(a_i - b_j) == 0}
+//   tw_rank_auc, tw_rank_auc_merge (two routes):
+//                      2 * #{(i,j): fl(a_i - b_j) > 0} + #{(i,j): fl(a_i - b_j) == 0}
 //                      as int64 partials; the wrapper halves the sum in
 //                      float64, which is the auc body's pair sum exactly.
 //   tw_rank_indicator: S_w = sum_{j,k} 1{fl(A[w,j] - B[w,k]) < -margin}
@@ -52,6 +54,42 @@
 //     chunk of kCountChunk values of a against it (a lower search, and an
 //     upper one only where the value ties the tile). One int64 partial a
 //     block, summed by the wrapper; no atomics on the result.
+//   * auc, merge route (the wrapper's auc_route takes it where b spans
+//     several tiles and a is long enough to pay for its sort): the search
+//     above costs ceil(n2 / T) (log2(T) + 1) probes a value of a, quadratic
+//     in the block size (config 5: 77 tiles, about 1200 probes a score).
+//     This route sorts both operands whole and counts by merge, O(n1 + n2)
+//     after the sort, in three stages, a's and b's keys of every problem in
+//     one launch each:
+//       1. sort_tiles_kernel<..., LINEAR> sorts tiles of kMergeTile keys
+//          (float_key, rule 2) and writes them ascending in plain order;
+//       2. merge_runs_kernel doubles the sorted runs, ceil(log2(tiles))
+//          passes between two key buffers: a block owns kMergeBlock keys of
+//          a merged run, finds where they start and end in the two input
+//          runs (a merge-path split, searched by a warp with 32 probes a
+//          round: one thread's binary search over global memory left the
+//          pass waiting on 21 dependent loads a block), loads them into
+//          shared memory coalesced, each thread merges kMergeItems of them
+//          there, and the block writes them out coalesced;
+//       3. auc_merge_count_kernel walks the merge path of each problem's
+//          sorted a against its sorted b the same way, a's keys first
+//          among equal keys, so the merge's count of b keys before a key v
+//          of a is lo = #{b keys < v}; hi = #{b keys <= v} is lo unless the
+//          next b key is v (then a gallop over b's run of v, once for a
+//          run of equal keys of a). It adds lo + hi for every a_i that is
+//          not NaN; a problem's first block takes away (#a = +inf)(#b =
+//          +inf) + (#a = -inf)(#b = -inf), counted from the ends of the
+//          sorted keys. One int64 partial a block, as auc_count_kernel
+//          writes them.
+//     The wrapper allocates both key buffers (W (n1 + n2) uint32 each).
+//     Its constants are bench_torch_variants.py --auc's best (device ms at
+//     config 5's stop, W = 8, 1.25e6 x 1.25e6, on an H100 80GB HBM3 at 700
+//     W): tiles of 512 x 32 keys at 5 radix bits a pass (sort 0.39; 1024 x
+//     16 at 4 bits 0.42, spilling), merge blocks of 256 x 16 keys padded a
+//     word every 32 (7 passes 0.68; unpadded 0.84, 8 keys a thread 0.78),
+//     count 0.11: 1.19 ms a call against the search route's 4.05. The
+//     passes still move their keys at about half the card's bandwidth.
+//     ops/rank_count.py holds the routes' crossover and its A/B numbers.
 //   * indicator: a tile of B[w] is searched by the positives of problem w
 //     alone, so indicator_kernel sorts the tile together with its weights
 //     mk, forms their float64 suffix sums, and searches every A[w,j] in the
@@ -218,6 +256,20 @@
 //      whose float32 predicate and exact sign disagree is at most an ulp.
 // Built without fast-math (ops/_build.py): fl(x - s) == 0 iff x == s for
 // finite floats only with gradual underflow.
+// The merge route counts by key order, not by the predicate; its rules:
+//   1. For finite x and s, fl(x - s) > 0 iff key(x) > key(s), and fl(x -
+//      s) == 0 iff key(x) == key(s): x - s is a multiple of 2^-149, so with
+//      gradual underflow it rounds to 0 only when it is 0, and rounding to
+//      nearest keeps its sign (an overflow rounds to an infinity of that
+//      sign); -0.0 and +0.0 share a key. Against an infinite s, or for an
+//      infinite x, the key order gives the body's answer too (+inf beats
+//      every finite and -inf value, -inf beats none) except for equal
+//      infinities, whose NaN difference scores 0 and whose keys tie: hi
+//      counts each such pair once, lo never, so the count takes away
+//      (#a = +inf)(#b = +inf) + (#a = -inf)(#b = -inf).
+//   2. Keys as rule 2 above: NaN b (of either sign) hold kNanKey, above
+//      every key of a value that is not NaN, so no lo or hi counts them.
+//   3. NaN a hold kNanKey, sort last, and the count stops at them.
 //
 // Bound. Bytes: each operand (and weight) is read once and each partial
 // written once (the count and search kernels re-read a sorted tile from L2
@@ -225,7 +277,12 @@
 // work is log2(T) + 1 shared-memory probes a value and tile plus a radix
 // sort of each tile, far below the all-pairs operation count of the TPU
 // kernels; what sets the time is the instruction issue of the probes and
-// the shared-memory traffic of the sort.
+// the shared-memory traffic of the sort. The merge route moves 4 (n1 + n2)
+// bytes a problem in each of its stages: the tile sort reads the scores
+// and writes keys, each merge pass reads and writes them again, and the
+// count reads them once; 2 + 2 ceil(log2(tiles)) + 1 times the keys' bytes
+// in all (config 5: 17 x 80 MB). Its time is those passes at memory speed
+// and the block radix sort of each tile.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -243,6 +300,25 @@ constexpr int kCountThreads = 512;
 constexpr int kCountChunk = 8192;     // values of a counted by one block
 constexpr int kIlp = 4;               // searches a thread keeps in flight
 constexpr unsigned kNanKey = 0xFFFFFFFFu;
+constexpr unsigned kPosInfKey = 0xFF800000u;  // float_key(+inf)
+constexpr unsigned kNegInfKey = 0x007FFFFFu;  // float_key(-inf), the least key
+// the merge route: its tile sort (threads, keys a thread, radix bits a
+// pass of CUB's block radix sort), and the keys of a merge block and of a
+// count block (both parts of a merge path), kMergeItems a thread
+constexpr int kMergeTileThreads = 512;
+constexpr int kMergeTileItems = 32;
+constexpr int kMergeTileBits = 5;
+constexpr int kMergeTile = kMergeTileThreads * kMergeTileItems;
+constexpr int kMergeThreads = 256;
+constexpr int kMergeItems = 16;
+constexpr int kMergeBlock = kMergeThreads * kMergeItems;
+// one word of padding after every kMergePadStride keys of a merge block in
+// shared memory (0: none): a thread's keys begin about kMergeItems / 2
+// words after its neighbour's in each input, so without it a warp's loads
+// of its merge fall into few banks
+constexpr int kMergePadStride = 32;
+static_assert(kMergeTile % kMergeBlock == 0,
+              "a merge block must lie in one merged run");
 
 __host__ __device__ constexpr int log2_of(int t) {
   return t > 1 ? 1 + log2_of(t >> 1) : 0;
@@ -372,32 +448,54 @@ __device__ __forceinline__ S later_threads_sum(S tot, S* swarp) {
 
 // grid (tiles, W), THREADS threads, the sort's temporary storage as dynamic
 // shared memory. Writes the tile of b sorted ascending (canonical values,
-// NaN and padding last) in Eytzinger order to sorted[w, tile, 0:T].
-template <int THREADS, int ITEMS>
+// NaN and padding last) in Eytzinger order to sorted[w, tile, 0:T] (float).
+// LINEAR (the merge route): grid (tiles of the longer side, W, 2), the z
+// index 0 for a's tiles and 1 for b's; writes the tile's keys ascending in
+// plain order, its len values and no padding, to the uint32 keys [W, n1]
+// (a) then [W, n2] (b) at the tile's own columns.
+template <int THREADS, int ITEMS, bool LINEAR, int RADIX_BITS = 4>
 __global__ void __launch_bounds__(THREADS)
-sort_tiles_kernel(const float* __restrict__ b, float* __restrict__ sorted,
-                  int64_t n2) {
+sort_tiles_kernel(const float* __restrict__ a, const float* __restrict__ b,
+                  void* __restrict__ sorted, int64_t n1, int64_t n2) {
   constexpr int T = THREADS * ITEMS;
-  using Sort = cub::BlockRadixSort<unsigned, THREADS, ITEMS>;
+  using Sort =
+      cub::BlockRadixSort<unsigned, THREADS, ITEMS, cub::NullType, RADIX_BITS>;
   extern __shared__ __align__(16) unsigned char smem[];
+  const bool side_b = !LINEAR || blockIdx.z == 1;
+  const int64_t n = side_b ? n2 : n1;
   const int64_t w = blockIdx.y;
   const int64_t col0 = (int64_t)blockIdx.x * T;
-  const int64_t rem = n2 - col0;
+  if (col0 >= n) return;  // LINEAR: a tile past the shorter side's end
+  const int64_t rem = n - col0;
   const int len = rem < T ? (int)rem : T;
-  const float* bw = b + w * n2 + col0;
+  const float* src = (side_b ? b : a) + w * n + col0;
   unsigned keys[ITEMS];
 #pragma unroll
   for (int r = 0; r < ITEMS; ++r) {
     const int i = r * THREADS + threadIdx.x;
-    keys[r] = i < len ? float_key(bw[i]) : kNanKey;
+    keys[r] = i < len ? float_key(src[i]) : kNanKey;
   }
   // striped result: this thread holds sorted positions r THREADS + t
   Sort(*reinterpret_cast<typename Sort::TempStorage*>(smem))
       .SortBlockedToStriped(keys);
-  float* out = sorted + (w * gridDim.x + blockIdx.x) * T;
+  if (LINEAR) {
+    // the padding's kNanKey sorts last, so the first len keys are the
+    // tile's own (a NaN value's key is the same kNanKey)
+    unsigned* out = static_cast<unsigned*>(sorted) +
+                    (side_b ? (int64_t)gridDim.y * n1 + w * n2 : w * n1) +
+                    col0;
 #pragma unroll
-  for (int r = 0; r < ITEMS; ++r)
-    out[eyt_slot<log2_of(T)>(r * THREADS + threadIdx.x)] = key_float(keys[r]);
+    for (int r = 0; r < ITEMS; ++r) {
+      const int p = r * THREADS + threadIdx.x;
+      if (p < len) out[p] = keys[r];
+    }
+  } else {
+    float* out = static_cast<float*>(sorted) + (w * gridDim.x + blockIdx.x) * T;
+#pragma unroll
+    for (int r = 0; r < ITEMS; ++r)
+      out[eyt_slot<log2_of(T)>(r * THREADS + threadIdx.x)] =
+          key_float(keys[r]);
+  }
 }
 
 // the length of the prefix of e on which pred(x, .) holds (one search)
@@ -464,6 +562,239 @@ auc_count_kernel(const float* __restrict__ a, const float* __restrict__ sorted,
   }
   acc = block_sum(acc, swarp);
   if (threadIdx.x == 0) partials[tile * gridDim.x + blockIdx.x] = acc;
+}
+
+// ------------------------------------------------------------------------ //
+// auc, merge route: both operands sorted whole, counted by merge           //
+// ------------------------------------------------------------------------ //
+
+// the first p in [lo, hi] with p == hi or !pred(p), for pred true and then
+// false on [lo, hi), found by one warp (every lane calls it with the same
+// arguments): 32 probes side by side a round, so a range of r keys shrinks
+// to r / 33 and 2^21 keys take 5 dependent rounds of loads, not 21
+template <class P>
+__device__ __forceinline__ int64_t warp_search(int64_t lo, int64_t hi,
+                                               P pred) {
+  const int lane = threadIdx.x & 31;
+  while (lo < hi) {
+    const int64_t at = lo + (hi - lo) * (lane + 1) / 33;  // in [lo, hi)
+    const int t = __popc(__ballot_sync(0xffffffffu, pred(at)));
+    const int64_t below = __shfl_sync(0xffffffffu, at, t > 0 ? t - 1 : 0);
+    const int64_t above = __shfl_sync(0xffffffffu, at, t < 32 ? t : 31);
+    if (t > 0) lo = below + 1;
+    if (t < 32) hi = above;
+  }
+  return lo;
+}
+
+// key k of a merge block in shared memory, past its padding
+__device__ __forceinline__ int padded(int k) {
+  return kMergePadStride ? k + k / (kMergePadStride ? kMergePadStride : 1)
+                         : k;
+}
+constexpr int kMergeSmem =
+    kMergeBlock + (kMergePadStride ? kMergeBlock / kMergePadStride : 0);
+
+// the merge path's split at diagonal d of a merge block in shared memory,
+// its first na keys A and the next nb keys B: how many of A are among the
+// first d keys of their merge, A's first where keys are equal (one thread)
+__device__ __forceinline__ int merge_split(const unsigned* s, int na, int nb,
+                                           int d) {
+  int lo = d > nb ? d - nb : 0, hi = d < na ? d : na;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (s[padded(mid)] <= s[padded(na + d - 1 - mid)]) lo = mid + 1;
+    else hi = mid;
+  }
+  return lo;
+}
+
+// the same split over global memory, by one warp
+__device__ __forceinline__ int64_t warp_merge_split(const unsigned* A,
+                                                    int64_t la,
+                                                    const unsigned* B,
+                                                    int64_t lb, int64_t d) {
+  return warp_search(d > lb ? d - lb : 0, d < la ? d : la,
+                     [&](int64_t k) { return A[k] <= B[d - 1 - k]; });
+}
+
+// A block's part of the merge of A [la] and B [lb] (A's first among equal
+// keys): the diagonals [d0, d1), at most kMergeBlock of them. Warps 0 and 1
+// find the splits at d0 and d1; the block loads A's keys of the part, then
+// B's, into s. On return (after a barrier) keys [0, na) of s (padded) hold
+// A[i0, i0 + na) and keys [na, m) hold B[d0 - i0, ...).
+struct MergePart {
+  int64_t i0, j0;
+  int m, na, nb;
+};
+
+__device__ __forceinline__ MergePart load_merge_part(
+    const unsigned* A, int64_t la, const unsigned* B, int64_t lb, int64_t d0,
+    int64_t d1, unsigned* s, int64_t* split) {
+  if (threadIdx.x < 64) {
+    const int64_t at = warp_merge_split(A, la, B, lb,
+                                        threadIdx.x < 32 ? d0 : d1);
+    if ((threadIdx.x & 31) == 0) split[threadIdx.x >> 5] = at;
+  }
+  __syncthreads();
+  MergePart p;
+  p.i0 = split[0];
+  p.j0 = d0 - p.i0;
+  p.m = (int)(d1 - d0);
+  p.na = (int)(split[1] - p.i0);
+  p.nb = p.m - p.na;
+  for (int k = threadIdx.x; k < p.m; k += blockDim.x)
+    s[padded(k)] = k < p.na ? A[p.i0 + k] : B[p.j0 + k - p.na];
+  __syncthreads();
+  return p;
+}
+
+// grid (blocks of kMergeBlock keys over the longer side, W, 2: z 0 a's
+// keys [W, n1], 1 b's [W, n2]), kMergeThreads threads. Each sequence
+// holds sorted runs of `run` keys (the last one shorter); merges runs 2k
+// and 2k + 1 into src's runs of 2 run keys in dst. A block owns kMergeBlock
+// keys of one merged run (load_merge_part), each thread merges its
+// kMergeItems of them in shared memory, and the block writes them out in
+// order.
+__global__ void __launch_bounds__(kMergeThreads)
+merge_runs_kernel(const unsigned* __restrict__ src, unsigned* __restrict__ dst,
+                  int64_t n1, int64_t n2, int64_t run) {
+  __shared__ unsigned s[kMergeSmem];
+  __shared__ int64_t split[2];
+  const bool side_b = blockIdx.z == 1;
+  const int64_t n = side_b ? n2 : n1;
+  const int64_t p0 = (int64_t)blockIdx.x * kMergeBlock;
+  if (p0 >= n) return;
+  const int64_t off = side_b ? (int64_t)gridDim.y * n1 + blockIdx.y * n2
+                             : blockIdx.y * n1;
+  // 2 run is a multiple of kMergeBlock: a block lies in one merged run
+  const int64_t base = p0 / (2 * run) * (2 * run);
+  const unsigned* A = src + off + base;
+  const int64_t la = n - base < run ? n - base : run;
+  const int64_t lb = n - base - la < run ? n - base - la : run;
+  const int64_t d0 = p0 - base;
+  const int64_t d1 = la + lb - d0 > kMergeBlock ? d0 + kMergeBlock : la + lb;
+  const MergePart p = load_merge_part(A, la, A + la, lb, d0, d1, s, split);
+
+  const int t0 = threadIdx.x * kMergeItems;
+  unsigned out[kMergeItems];
+  if (t0 < p.m) {
+    int i = merge_split(s, p.na, p.nb, t0);
+    int j = t0 - i;
+#pragma unroll
+    for (int k = 0; k < kMergeItems; ++k) {
+      if (t0 + k < p.m) {
+        // i + j < m: if B's part is spent, A's is not
+        const unsigned x = i < p.na ? s[padded(i)] : 0u;
+        const unsigned y = j < p.nb ? s[padded(p.na + j)] : 0u;
+        const bool take_a = j >= p.nb || (i < p.na && x <= y);
+        out[k] = take_a ? x : y;
+        if (take_a) ++i;
+        else ++j;
+      }
+    }
+  }
+  __syncthreads();  // every thread has read its keys: s takes the output
+  if (t0 < p.m) {
+#pragma unroll
+    for (int k = 0; k < kMergeItems; ++k)
+      if (t0 + k < p.m) s[padded(t0 + k)] = out[k];
+  }
+  __syncthreads();
+  unsigned* o = dst + off + p0;
+  for (int k = threadIdx.x; k < p.m; k += kMergeThreads) o[k] = s[padded(k)];
+}
+
+// the first p in [j, end] with p == end or B[p] > v, where every key before
+// j is at most v: gallops from j (1, 2, 4, ... keys), then halves, so a
+// run of g keys equal to v costs about 2 log2(g) + 1 loads
+__device__ __forceinline__ int64_t gallop_upper(const unsigned* B, int64_t j,
+                                                int64_t end, unsigned v) {
+  int64_t step = 1, hi = j;
+  while (hi < end && B[hi] <= v) {
+    j = hi + 1;
+    hi = end - j > step ? j + step : end;
+    step <<= 1;
+  }
+  while (j < hi) {
+    const int64_t mid = (j + hi) >> 1;
+    if (B[mid] <= v) j = mid + 1;
+    else hi = mid;
+  }
+  return j;
+}
+
+// grid (blocks of kMergeBlock diagonals of the merge of a's and b's sorted
+// keys, W), kMergeThreads threads, over keys = [W, n1] sorted a then [W,
+// n2] sorted b. The merge takes a's key first among equal keys, so the b
+// keys before a key v of a are those below v: lo = #{b keys < v} is the
+// merge's count of b keys so far, and hi = #{b keys <= v} is lo where the
+// next key of b is not v (else a gallop over b's run of v, once for a run
+// of equal keys of a). partials[w, block] = the sum over the block's keys
+// of a that are not NaN of lo + hi; block 0 of each problem also takes away
+// the pairs of equal infinities, (#a = +inf)(#b = +inf) + (#a = -inf)(#b =
+// -inf), which the body scores 0 and the keys would call tied (rule 1 of
+// the merge route), from six warp searches of the keys' ends.
+__global__ void __launch_bounds__(kMergeThreads)
+auc_merge_count_kernel(const unsigned* __restrict__ keys,
+                       long long* __restrict__ partials, int64_t n1,
+                       int64_t n2) {
+  __shared__ unsigned s[kMergeSmem];
+  __shared__ int64_t split[2];
+  __shared__ int64_t ends[6];  // block 0: bounds of NaN, +inf, -inf keys
+  __shared__ long long swarp[kMergeThreads / 32];
+  const int64_t w = blockIdx.y;
+  const unsigned* A = keys + w * n1;
+  const unsigned* B = keys + (int64_t)gridDim.y * n1 + w * n2;
+  const int64_t d0 = (int64_t)blockIdx.x * kMergeBlock;
+  const int64_t d1 = n1 + n2 - d0 > kMergeBlock ? d0 + kMergeBlock : n1 + n2;
+  const MergePart p = load_merge_part(A, n1, B, n2, d0, d1, s, split);
+
+  long long acc = 0;
+  const int t0 = threadIdx.x * kMergeItems;
+  if (t0 < p.m) {
+    int i = merge_split(s, p.na, p.nb, t0);
+    int j = t0 - i;
+    unsigned last = kNanKey;  // the last key of a counted, and its hi
+    int64_t last_hi = 0;
+    for (int k = 0; k < kMergeItems && t0 + k < p.m; ++k) {
+      const unsigned x = i < p.na ? s[padded(i)] : 0u;
+      const unsigned y = j < p.nb ? s[padded(p.na + j)] : 0u;
+      if (!(j >= p.nb || (i < p.na && x <= y))) {
+        ++j;
+        continue;
+      }
+      const unsigned v = x;
+      ++i;
+      if (v == kNanKey) continue;  // NaN a counts 0 (rule 3)
+      const int64_t lo = p.j0 + j;
+      if (v != last) {
+        const unsigned next = j < p.nb ? y : (lo < n2 ? B[lo] : kNanKey);
+        last_hi = next == v ? gallop_upper(B, lo, n2, v) : lo;
+        last = v;
+      }
+      acc += lo + last_hi;
+    }
+  }
+  if (blockIdx.x == 0) {
+    // infinities sit at the ends of the sorted keys, NaN keys after +inf
+    for (int q = threadIdx.x >> 5; q < 6; q += kMergeThreads / 32) {
+      const unsigned* K = q < 3 ? A : B;
+      const int64_t n = q < 3 ? n1 : n2;
+      const unsigned v = q % 3 == 0 ? kNanKey
+                         : q % 3 == 1 ? kPosInfKey : kNegInfKey;
+      const bool upper = q % 3 == 2;
+      const int64_t at = warp_search(0, n, [&](int64_t k) {
+        return upper ? K[k] <= v : K[k] < v;
+      });
+      if ((threadIdx.x & 31) == 0) ends[q] = at;
+    }
+    __syncthreads();
+    if (threadIdx.x == 0)
+      acc -= (ends[0] - ends[1]) * (ends[3] - ends[4]) + ends[2] * ends[5];
+  }
+  acc = block_sum(acc, swarp);
+  if (threadIdx.x == 0) partials[w * gridDim.x + blockIdx.x] = acc;
 }
 
 // ------------------------------------------------------------------------ //
@@ -1222,7 +1553,7 @@ int launch_auc(const float* a, const float* b, float* sorted,
   const int sort_smem = (int)sizeof(typename Sort::TempStorage);
   const int count_smem = 4 * T;
   cudaError_t err = cudaFuncSetAttribute(
-      sort_tiles_kernel<THREADS, ITEMS>,
+      sort_tiles_kernel<THREADS, ITEMS, false>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, sort_smem);
   if (err == cudaSuccess)
     err = cudaFuncSetAttribute(auc_count_kernel<log2_of(T)>,
@@ -1231,13 +1562,55 @@ int launch_auc(const float* a, const float* b, float* sorted,
   if (err != cudaSuccess) return (int)err;
   const unsigned tiles = (unsigned)((n2 + T - 1) / T);
   const unsigned chunks = (unsigned)((n1 + kCountChunk - 1) / kCountChunk);
-  sort_tiles_kernel<THREADS, ITEMS>
-      <<<dim3(tiles, (unsigned)w), THREADS, sort_smem, s>>>(b, sorted, n2);
+  sort_tiles_kernel<THREADS, ITEMS, false>
+      <<<dim3(tiles, (unsigned)w), THREADS, sort_smem, s>>>(nullptr, b, sorted,
+                                                             0, n2);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   auc_count_kernel<log2_of(T)>
       <<<dim3(chunks, tiles, (unsigned)w), kCountThreads, count_smem, s>>>(
           a, sorted, partials, n1);
+  return (int)cudaGetLastError();
+}
+
+// the merge route: sorts the tiles of a and of b (kMergeTile keys each) in
+// one launch, merges runs until each problem's a and b are sorted whole
+// (ceil(log2(tiles)) launches, ping-ponging between keys0 and keys1), then
+// counts: 2 + ceil(log2(tiles)) launches
+int launch_auc_merge(const float* a, const float* b, unsigned* keys0,
+                     unsigned* keys1, long long* partials, long long n1,
+                     long long n2, int w, cudaStream_t s) {
+  auto sort = sort_tiles_kernel<kMergeTileThreads, kMergeTileItems, true,
+                                kMergeTileBits>;
+  using Sort = cub::BlockRadixSort<unsigned, kMergeTileThreads,
+                                   kMergeTileItems, cub::NullType,
+                                   kMergeTileBits>;
+  const int sort_smem = (int)sizeof(typename Sort::TempStorage);
+  cudaError_t err = cudaFuncSetAttribute(
+      sort, cudaFuncAttributeMaxDynamicSharedMemorySize, sort_smem);
+  if (err != cudaSuccess) return (int)err;
+  const long long nmax = n1 > n2 ? n1 : n2;
+  const unsigned tiles = (unsigned)((nmax + kMergeTile - 1) / kMergeTile);
+  sort<<<dim3(tiles, (unsigned)w, 2), kMergeTileThreads, sort_smem, s>>>(
+      a, b, keys0, n1, n2);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const unsigned blocks = (unsigned)((nmax + kMergeBlock - 1) / kMergeBlock);
+  unsigned* src = keys0;
+  unsigned* dst = keys1;
+  for (long long run = kMergeTile; run < nmax; run *= 2) {
+    merge_runs_kernel<<<dim3(blocks, (unsigned)w, 2), kMergeThreads, 0, s>>>(
+        src, dst, n1, n2, run);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    unsigned* t = src;
+    src = dst;
+    dst = t;
+  }
+  const unsigned parts =
+      (unsigned)((n1 + n2 + kMergeBlock - 1) / kMergeBlock);
+  auc_merge_count_kernel<<<dim3(parts, (unsigned)w), kMergeThreads, 0, s>>>(
+      src, partials, n1, n2);
   return (int)cudaGetLastError();
 }
 
@@ -1440,6 +1813,28 @@ int tw_rank_auc(const void* a, const void* b, void* sorted, void* partials,
     case 16384: return launch_auc<1024, 16>(fa, fb, fs, out, n1, n2, w, s);
     default: return (int)cudaErrorInvalidValue;
   }
+}
+
+// the diagonals of the merge of a's and b's keys one merge-route count
+// block takes
+int tw_rank_merge_block() { return kMergeBlock; }
+
+// auc, merge route: launches sort_tiles_kernel (a's and b's tiles of
+// kMergeTile keys), merge_runs_kernel until each side's keys are sorted whole,
+// then auc_merge_count_kernel, on `stream`, and returns the first nonzero
+// cuda error. a [W, n1] and b [W, n2] are contiguous float32 on the device;
+// keys0 and keys1 hold W * (n1 + n2) uint32 each (scratch) and partials W *
+// ceil((n1 + n2) / kMergeBlock) int64; the wrapper checks every argument
+// and the grid limits.
+int tw_rank_auc_merge(const void* a, const void* b, void* keys0, void* keys1,
+                      void* partials, long long n1, long long n2, int w,
+                      void* stream) {
+  return launch_auc_merge(static_cast<const float*>(a),
+                          static_cast<const float*>(b),
+                          static_cast<unsigned*>(keys0),
+                          static_cast<unsigned*>(keys1),
+                          static_cast<long long*>(partials), n1, n2, w,
+                          static_cast<cudaStream_t>(stream));
 }
 
 // indicator: launches indicator_kernel on `stream` and returns

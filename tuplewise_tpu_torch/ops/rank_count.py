@@ -5,7 +5,14 @@ behind the wrappers' usual checks and launch counts:
 
 * ``pair_kernels.pair_sum`` with the auc body (kernel 1, unmasked):
   :func:`auc_twice_counts` returns the int64 ``2 * wins + ties`` of each
-  problem, which the wrapper halves in float64.
+  problem, which the wrapper halves in float64, by one of two routes that
+  :func:`auc_route` picks from the shape: "search" (below) where b fits
+  one tile or a is too short to pay for its sort, else "merge": a's and
+  b's keys sorted whole (tiles of 16384 sorted, then merged in
+  ceil(log2(tiles)) passes) and counted by a merge of the two, each a_i
+  adding #{b < a_i} + #{b <= a_i} by key, less the pairs of equal
+  infinities. Each call adds one to
+  ``obs.tracing.COUNTS["auc_route[<route>]"]``.
 * ``pair_kernels.pair_sum`` with the hinge body (kernel 1, unmasked):
   :func:`hinge_pair_sums` returns the float64 pair sum of each problem,
   the hinge gradient route's loss alone (b's tiles sorted once with their
@@ -45,10 +52,28 @@ import ctypes
 
 import torch
 
+from tuplewise_tpu_torch.obs.tracing import COUNTS
+
 _SOURCE = "rank_count.cu"
 # the compile-time constants of csrc/rank_count.cu (checked against the
 # built library in load_library)
 MAX_TILE, MIN_TILE, COUNT_CHUNK, HINGE_MAX_TILE = 16384, 2048, 8192, 8192
+# the keys one merge block of the auc's merge route takes (a part of a
+# merge path, in each merge pass and in the count)
+MERGE_BLOCK = 4096
+# the auc's routes: the search costs about n1 tiles(n2) tile searches, the
+# merge about n1 + n2 keys sorted, merged and counted, so auc_route compares
+# tile searches a key of a and b, n1 tiles(n2) / (n1 + n2), with this
+# crossover. Measured (bench_torch_variants.py --auc, ms a call by CUDA
+# events with the launches, the lesser of two turns, N(0, 1) scores, on an
+# NVIDIA H100 80GB HBM3 at 700 W), search / merge at that many searches a
+# key: W = 8: 6.6 (135000 x 540000) 0.315 / 0.353, 7.2 (560000 x 140000)
+# 0.274 / 0.352, 8.0 (262144^2) 0.243 / 0.217, 12.8 (1048576 x 262144)
+# 0.745 / 0.664, 15.4 (312500 x 1250000) 1.246 / 0.822, 38.5 (config 5's
+# stop, 1250000^2) 4.046 / 1.278; W = 1 (launch-bound, noisier): 7.2 0.109
+# / 0.139, 8.0 0.117 / 0.131, 12.8 0.153 / 0.151, 15.4 0.196 / 0.163, 38.5
+# 0.548 / 0.250
+MERGE_MIN_SEARCHES = 10
 # the hinge gradient's tiles (csrc/rank_count.cu grad_sort_kernel): the
 # smallest that holds a side, or the largest
 GRAD_TILES = (256, 2048, 8192, 16384)
@@ -86,6 +111,8 @@ def load_library():
         p, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
         lib.tw_rank_auc.argtypes = [p, p, p, p, ll, ll, i, i, p]
         lib.tw_rank_auc.restype = i
+        lib.tw_rank_auc_merge.argtypes = [p, p, p, p, p, ll, ll, i, p]
+        lib.tw_rank_auc_merge.restype = i
         lib.tw_rank_indicator.argtypes = [p, p, p, p, p, p, p, ll, ll, ll, ll,
                                           ctypes.c_float, i, p]
         lib.tw_rank_indicator.restype = i
@@ -102,8 +129,10 @@ def load_library():
         lib.tw_rank_masked_sum.argtypes = [p] * 9 + [ll, ll, i, i, i, p]
         lib.tw_rank_masked_sum.restype = i
         built = (lib.tw_rank_max_tile(), lib.tw_rank_min_tile(),
-                 lib.tw_rank_count_chunk(), lib.tw_rank_hinge_max_tile())
-        want = (MAX_TILE, MIN_TILE, COUNT_CHUNK, HINGE_MAX_TILE)
+                 lib.tw_rank_count_chunk(), lib.tw_rank_hinge_max_tile(),
+                 lib.tw_rank_merge_block())
+        want = (MAX_TILE, MIN_TILE, COUNT_CHUNK, HINGE_MAX_TILE,
+                MERGE_BLOCK)
         if built != want or not all(map(lib.tw_rank_grad_chunk,
                                         GRAD_TILES)):
             raise RuntimeError(f"{_SOURCE} was built with tiles {built}, "
@@ -129,10 +158,54 @@ def _raise_on(err: int, what: str) -> None:
         raise RuntimeError(f"{what} CUDA launch failed: cudaError {err}")
 
 
+def auc_route(n1: int, n2: int) -> str:
+    """The route of :func:`auc_twice_counts` for problems of n1 x n2:
+    "merge" where the search route's tile searches, n1 ceil(n2 /
+    MAX_TILE), number at least ``MERGE_MIN_SEARCHES`` a key of a and b,
+    else "search": so b of one tile (n1 (log2(T) + 1) probes already), or
+    an a too short to pay for its sort, keeps the search."""
+    tiles = -(-n2 // MAX_TILE)
+    if n1 * tiles >= MERGE_MIN_SEARCHES * (n1 + n2):
+        return "merge"
+    return "search"
+
+
 def auc_twice_counts(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """[W] int64: 2 * #{fl(a_i - b_j) > 0} + #{fl(a_i - b_j) == 0} per
     problem, for checked contiguous float32 CUDA tensors a [W, n1] and
-    b [W, n2] (n1, n2, W > 0): one sort launch and one count launch."""
+    b [W, n2] (n1, n2, W > 0), by the route :func:`auc_route` picks."""
+    route = auc_route(a.shape[1], b.shape[1])
+    COUNTS[f"auc_route[{route}]"] += 1
+    return (_auc_merge if route == "merge" else _auc_search)(a, b)
+
+
+def _auc_merge(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The merge route: one sort launch (a's and b's tiles), ceil(log2(
+    tiles)) merge launches and one count launch; two key buffers of W (n1
+    + n2) uint32."""
+    W, n1 = a.shape
+    n2 = b.shape[1]
+    parts = -(-(n1 + n2) // MERGE_BLOCK)
+    if W > _MAX_GRID_YZ:
+        raise ValueError(f"W={W}, n1={n1}, n2={n2} is beyond the CUDA grid "
+                         f"of the auc merge route")
+    lib = load_library()
+    keys = torch.empty((2, W * (n1 + n2)), dtype=torch.int32,
+                       device=a.device)
+    partials = torch.empty((W, parts), dtype=torch.int64, device=a.device)
+    with torch.cuda.device(a.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.tw_rank_auc_merge(a.data_ptr(), b.data_ptr(),
+                                    keys[0].data_ptr(), keys[1].data_ptr(),
+                                    partials.data_ptr(), n1, n2, W, stream)
+    _raise_on(err, f"pair_sum[auc] sort-and-merge (W={W}, n1={n1}, "
+                   f"n2={n2})")
+    return partials.sum(dim=1)
+
+
+def _auc_search(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The search route: one sort launch (b's tiles) and one count
+    launch."""
     W, n1 = a.shape
     n2 = b.shape[1]
     T = tile_size(n2)
